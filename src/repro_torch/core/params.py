@@ -1,0 +1,308 @@
+"""PasmParams — the one weight-shared parameter container, conv to dense.
+
+Port of ``repro.core.params``.  A tagged weight: ``dense`` (a plain
+``(…, K, N)`` matrix), weight-``shared`` (uint8 bin indices + a ``(…, G, B)``
+codebook) or int4-``packed`` (two 4-bit indices per byte along K, with the
+§3 K-pad applied at :meth:`PasmParams.pack` so odd reductions pack).
+:func:`matmul` is the dispatch every quantized dense layer routes through.
+
+:class:`repro_torch.core.pasm.PASMTensor` is the physical GEMM operand the
+kernels take (pad-inclusive shapes); :meth:`PasmParams.gemm_tensor` bridges
+the two.  :class:`repro_torch.core.conv.ConvParams` is the conv-geometry
+face of this container.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import pasm as _pasm
+from repro_torch.core._f32 import matmul_f32
+
+__all__ = [
+    "PasmParams",
+    "KINDS",
+    "MATMUL_IMPLS",
+    "as_params",
+    "is_quantized",
+    "matmul",
+    "NOT_PORTED_MESH",
+]
+
+KINDS = ("dense", "shared", "packed")
+# matmul impl names: plain tensors / dense params take the dense product
+# under every impl — quantized params dispatch on it.
+MATMUL_IMPLS = ("dense", "dequant", "kernel", "pas_kernel")
+
+# the ROADMAP items that own what this slice refuses
+NOT_PORTED_MESH = (
+    "mesh= (sharded execution) is not ported yet: ROADMAP Queue 1 item 10 "
+    "(Distribution)"
+)
+NOT_PORTED_PAS = (
+    "the paper-faithful PAS engines (pas_kernel, pas_kernel_implicit, "
+    "pas_einsum) are not ported yet: ROADMAP Queue 1 item 6 (Paper-faithful "
+    "PAS) and Queue 2 kernels K3/K4"
+)
+
+Weight = Union[torch.Tensor, "PasmParams", _pasm.PASMTensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class PasmParams:
+    """Tagged matmul weights: ``dense`` | weight-``shared`` | int4-``packed``.
+
+    ``dense``   ``w (…, K, N)``; ``idx``/``codebook`` None.
+    ``shared``  ``idx (…, K, N) uint8`` + ``codebook (…, G, B)`` f32.
+    ``packed``  ``idx (…, (K+pad_k)//2, N) uint8`` — two 4-bit indices per
+                byte along K; ``pad_k`` records the §3 K-pad row appended so
+                an odd reduction packs (callers pad the matching activation
+                column with zeros, which :func:`matmul` does).
+    ``bias``    ``(…, N)`` or None on every kind — never shared (paper §4).
+    ``shape``   the logical ``(K, N)``.
+    """
+
+    w: Optional[torch.Tensor] = None
+    idx: Optional[torch.Tensor] = None
+    codebook: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+    kind: str = "dense"
+    shape: tuple = ()
+    bins: Optional[int] = None
+    pad_k: int = 0
+
+    # -- constructors -------------------------------------------------------
+
+    @classmethod
+    def dense(cls, w: torch.Tensor, *, bias: Optional[torch.Tensor] = None):
+        """Non-weight-shared params from a plain ``(…, K, N)`` matrix."""
+        if w.ndim < 2:
+            raise ValueError(f"dense params need a (…, K, N) matrix, got {tuple(w.shape)}")
+        return cls(w=w, bias=bias, kind="dense", shape=tuple(w.shape[-2:]))
+
+    @classmethod
+    def shared(cls, idx: torch.Tensor, codebook: torch.Tensor, *,
+               bias: Optional[torch.Tensor] = None):
+        """Weight-shared params from existing bin indices + dictionary.
+
+        ``idx (…, K, N)`` uint8; ``codebook (B,)`` (the single-dictionary
+        paper rule) or ``(…, G, B)``.  Leading dims must agree.
+        """
+        if idx.ndim < 2:
+            raise ValueError(f"idx must be (…, K, N), got {tuple(idx.shape)}")
+        if codebook.ndim == 1:
+            codebook = codebook[None]  # (B,) ≡ the single-dictionary rule
+        if codebook.ndim != idx.ndim:
+            raise ValueError(
+                f"codebook rank {tuple(codebook.shape)} does not match idx "
+                f"{tuple(idx.shape)}: leading stack dims must agree"
+            )
+        K = int(idx.shape[-2])
+        G = int(codebook.shape[-2])
+        if K % G:
+            raise ValueError(f"K={K} not divisible by codebook groups={G}")
+        return cls(idx=idx.to(torch.uint8), codebook=codebook, bias=bias,
+                   kind="shared", shape=tuple(idx.shape[-2:]),
+                   bins=int(codebook.shape[-1]))
+
+    @classmethod
+    def quantize(cls, w: torch.Tensor, bins: int = 16, *, groups: int = 1,
+                 bias: Optional[torch.Tensor] = None, iters: int = 16):
+        """K-means weight-share a dense ``(…, K, N)`` matrix (per leading
+        slice).  Does not pack — call :meth:`pack` for the int4 payload."""
+        if w.ndim < 2:
+            raise ValueError(f"quantize needs a (…, K, N) matrix, got {tuple(w.shape)}")
+        K, N = w.shape[-2:]
+        lead = tuple(w.shape[:-2])
+        cbs, idxs = zip(*(
+            _pasm.kmeans_codebook(m, bins, groups=groups, iters=iters)
+            for m in w.reshape(-1, K, N)
+        ))
+        return cls.shared(torch.stack(idxs).reshape(lead + (K, N)),
+                          torch.stack(cbs).reshape(lead + (groups, bins)),
+                          bias=bias)
+
+    def pack(self) -> "PasmParams":
+        """int4-pack the dictionary indices (two 4-bit indices per byte).
+
+        An odd ``K`` gets the §3 K-pad first: one pad row is appended, mapped
+        to a reserved all-zero codebook bin when representable
+        (``bins < 16``) or to bin 0 otherwise — exact either way, because
+        the paired activation column is zero.
+        """
+        if self.kind != "shared":
+            raise ValueError(
+                f"pack() needs shared params (got {self.kind!r}); "
+                "quantize() dense weights first"
+            )
+        if self.bins > 16:
+            raise ValueError(f"int4 packing needs bins <= 16, got {self.bins}")
+        K, N = self.shape
+        G = self.groups
+        if G > 1 and (K // G) % 2:
+            raise ValueError(
+                "packed int4 needs an even per-group reduction length, got "
+                f"K={K} over {G} groups"
+            )
+        idx, codebook, bins, pad_k = self.idx, self.codebook, self.bins, 0
+        if K % 2:
+            pad_k = 1
+            if bins < 16:
+                codebook = F.pad(codebook, (0, 1))  # reserved 0-bin
+                pad_bin, bins = bins, bins + 1
+            else:
+                pad_bin = 0  # inert anyway: the paired x column is zero
+            idx = F.pad(idx, (0, 0, 0, 1), value=pad_bin)
+        lead = tuple(idx.shape[:-2])
+        flat = idx.reshape((-1,) + tuple(idx.shape[-2:]))
+        packed = torch.stack([_pasm.pack_int4(m) for m in flat])
+        return PasmParams(idx=packed.reshape(lead + ((K + pad_k) // 2, N)),
+                          codebook=codebook, bias=self.bias, kind="packed",
+                          shape=self.shape, bins=bins, pad_k=pad_k)
+
+    # -- views --------------------------------------------------------------
+
+    @property
+    def groups(self) -> int:
+        """Codebook groups along the reduction axis (1 = paper rule)."""
+        return 1 if self.codebook is None else int(self.codebook.shape[-2])
+
+    @property
+    def packed(self) -> bool:
+        return self.kind == "packed"
+
+    @property
+    def bits(self) -> Optional[int]:
+        """Index bit-width (None for dense params)."""
+        if self.kind == "dense":
+            return None
+        return 4 if self.packed else _pasm.bits_for_bins(self.bins)
+
+    def gemm_tensor(self) -> _pasm.PASMTensor:
+        """The dictionary as the physical GEMM operand, shape
+        ``(K + pad_k, N)`` — callers pad the activation by ``pad_k``."""
+        if self.kind == "dense":
+            raise ValueError(
+                "dense params have no dictionary; use the dense matmul path"
+            )
+        K, N = self.shape
+        return _pasm.PASMTensor(
+            idx=self.idx, codebook=self.codebook.to(torch.float32),
+            shape=(K + self.pad_k, N), bins=self.bins,
+            bits=4 if self.packed else _pasm.bits_for_bins(self.bins),
+            packed=self.packed,
+        )
+
+    def dense_matrix(self, dtype=None) -> torch.Tensor:
+        """The logical dense ``(…, K, N)`` weight (§3 pad rows removed)."""
+        if self.kind == "dense":
+            return self.w if dtype is None else self.w.to(dtype)
+        K, N = self.shape
+
+        def one(ix, cb):
+            if self.packed:
+                ix = _pasm.unpack_int4(ix)
+            return _pasm.codebook_lookup(cb, ix)[:K]
+
+        lead = tuple(self.idx.shape[:-2])
+        if lead:
+            out = torch.stack([
+                one(ix, cb) for ix, cb in zip(
+                    self.idx.reshape((-1,) + tuple(self.idx.shape[-2:])),
+                    self.codebook.reshape((-1,) + tuple(self.codebook.shape[-2:])),
+                )
+            ]).reshape(lead + (K, N))
+        else:
+            out = one(self.idx, self.codebook)
+        return out.to(torch.float32 if dtype is None else dtype)
+
+    # -- byte accounting ----------------------------------------------------
+
+    @property
+    def _lead(self) -> tuple:
+        a = self.w if self.kind == "dense" else self.idx
+        return tuple(a.shape[:-2])
+
+    @property
+    def nbytes_weights(self) -> int:
+        """Device-memory bytes of the weight payload."""
+        if self.kind == "dense":
+            return int(self.w.numel()) * self.w.element_size()
+        return int(self.idx.numel()) + int(self.codebook.numel()) * 4
+
+    @property
+    def nbytes_dense_bf16(self) -> int:
+        lead = 1
+        for d in self._lead:
+            lead *= int(d)
+        K, N = self.shape
+        return lead * K * N * 2
+
+    @property
+    def compression_ratio(self) -> float:
+        """Dense-bf16 bytes over stored bytes — the bins-vs-bytes trade-off."""
+        return self.nbytes_dense_bf16 / self.nbytes_weights
+
+
+# ---------------------------------------------------------------------------
+# the dispatch surface
+# ---------------------------------------------------------------------------
+
+
+def as_params(w: Weight) -> PasmParams:
+    """Coerce any weight leaf into the container (a raw PASMTensor wraps with
+    its physical shape as the logical one, ``pad_k = 0``)."""
+    if isinstance(w, PasmParams):
+        return w
+    if isinstance(w, _pasm.PASMTensor):
+        return PasmParams(idx=w.idx, codebook=w.codebook,
+                          kind="packed" if w.packed else "shared",
+                          shape=tuple(w.shape), bins=w.bins)
+    if w.ndim >= 2:
+        return PasmParams.dense(w)
+    return PasmParams(w=w, kind="dense", shape=tuple(w.shape))
+
+
+def is_quantized(w) -> bool:
+    """Whether a weight leaf carries a dictionary (vs a plain dense matrix)."""
+    if isinstance(w, PasmParams):
+        return w.kind != "dense"
+    return isinstance(w, _pasm.PASMTensor)
+
+
+def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
+           bias: Optional[torch.Tensor] = None, relu: bool = False,
+           mesh=None) -> torch.Tensor:
+    """``x @ w`` for any weight leaf — the dense-layer dispatch.
+
+    Plain tensors and ``dense`` params always take the dense product.
+    Quantized params dispatch on ``impl``: ``dequant`` (dictionary gather +
+    dense product, the oracle) or ``kernel`` (the fused-dequant GEMM, K1,
+    with bias/ReLU fused).  ``pas_kernel`` and ``mesh=`` belong to later
+    slices and raise ``NotImplementedError``.  Packed params with a §3 K-pad
+    get their zero activation column appended here.  Output dtype follows
+    ``x``.
+    """
+    if impl not in MATMUL_IMPLS:
+        raise ValueError(f"impl must be one of {MATMUL_IMPLS}, got {impl!r}")
+    if mesh is not None:
+        raise NotImplementedError(NOT_PORTED_MESH)
+    p = as_params(w)
+    if bias is None:
+        bias = p.bias
+    if p.kind == "dense" or impl in ("dense", "dequant"):
+        from repro_torch.kernels.ref import apply_epilogue
+
+        y = matmul_f32(x, p.dense_matrix(x.dtype))
+        return apply_epilogue(y, bias, relu).to(x.dtype)
+    if impl == "pas_kernel":
+        raise NotImplementedError(NOT_PORTED_PAS)
+    from repro_torch.kernels import ops as _kops
+
+    t = p.gemm_tensor()
+    if p.pad_k:
+        x = F.pad(x, (0, p.pad_k))
+    return _kops.pasm_matmul(x, t, bias=bias, relu=relu).to(x.dtype)

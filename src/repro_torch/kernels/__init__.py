@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels, their plain versions and the op wrappers.
+
+* :mod:`~repro_torch.kernels.pasm_matmul` — ``ConvGeom``, the plain
+  ``patch_tile`` gather and the two launch wrappers (K1
+  ``pasm_matmul_kernel_call``, K2 ``pasm_conv_kernel_call``) with their
+  launch counters;
+* :mod:`~repro_torch.kernels.ops` — shape plumbing and the Hopper tile plan;
+* :mod:`~repro_torch.kernels.ref` — the plain versions;
+* :mod:`~repro_torch.kernels._build` — ``nvcc`` + ``ctypes`` loading of
+  ``csrc/*.cu`` at first use.
+"""

@@ -1,0 +1,109 @@
+"""Op wrappers around the Hopper kernels: shapes, layouts and the tile plan.
+
+Port of the forward halves of ``repro.kernels.ops``: :func:`pasm_matmul`
+(K1) and :func:`pasm_conv2d` (K2), each with the fused ``bias`` / ``relu``
+epilogue and the window-major ``pool``.  Forward only: the custom VJPs come
+with the QAT/training slice (ROADMAP Queue 1 item 7), and the wrappers raise
+on tensors that require grad.
+
+The TPU tile plan (``_pick_blocks``: 128/512 tiles, K padded to 128
+multiples through a reserved zero-codebook bin) is replaced by the Hopper
+plan the kernel wrappers derive from ``pool`` alone
+(``pasm_matmul._pool_bm``): a block computes a ``bm``-row tile (64, or 256
+for pool windows of more than 64 rows) by 64 columns and owns the whole pool
+windows that fit it; the kernels mask the ragged M, N and K edges
+themselves, so no operand is padded in memory.  The §3 pack-time ``pad_k``
+row is data format, not tile plan, and stays.
+
+``SlabPlan`` / ``conv_slab_plan`` described a TPU VMEM schedule and are not
+ported: K2 gathers from global memory, so any image size runs.  ``mesh=``
+belongs to the distribution slice (ROADMAP Queue 1 item 10) and raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import pasm as _pasm
+from repro_torch.core.params import NOT_PORTED_MESH
+from repro_torch.kernels.pasm_matmul import (
+    ConvGeom,
+    pasm_conv_kernel_call,
+    pasm_matmul_kernel_call,
+    pool_plan_exists,
+)
+
+__all__ = ["pasm_matmul", "pasm_conv2d", "ConvGeom", "pool_plan_exists"]
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(NOT_PORTED_MESH)
+
+
+def pasm_matmul(
+    x: torch.Tensor,
+    t: _pasm.PASMTensor,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    relu: bool = False,
+    gather: str = "take",
+    mesh=None,
+    pool: int = 1,
+) -> torch.Tensor:
+    """``x @ t`` on the fused-dequant kernel K1.  x ``(..., K)`` → ``(..., N)`` f32.
+
+    ``bias (N,)`` / ``relu`` fuse into the kernel epilogue.  ``pool > 1``
+    needs a 2-D ``x`` with **window-major** rows (each consecutive ``pool²``
+    rows one window — the explicit conv path's ``_pool_order_patches``
+    ordering) and returns the pooled ``(M/pool², N)``.
+    """
+    _no_mesh(mesh)
+    K, N = t.shape
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+    if pool > 1:
+        if x.ndim != 2 or x.shape[0] % (pool * pool):
+            raise ValueError(
+                "pool= needs a 2-D window-major x (pool² consecutive rows "
+                f"per window), got shape {tuple(x.shape)} with pool={pool}"
+            )
+        return pasm_matmul_kernel_call(
+            x.contiguous(), t.idx.contiguous(), t.codebook.contiguous(), bias,
+            packed=t.packed, relu=relu, pool=pool, gather=gather)
+    lead = x.shape[:-1]
+    y = pasm_matmul_kernel_call(
+        x.reshape(-1, K).contiguous(), t.idx.contiguous(),
+        t.codebook.contiguous(), bias,
+        packed=t.packed, relu=relu, gather=gather)
+    return y.reshape(*lead, N)
+
+
+def pasm_conv2d(
+    x: torch.Tensor,
+    t: _pasm.PASMTensor,
+    geom: ConvGeom,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    relu: bool = False,
+    gather: str = "take",
+    mesh=None,
+    vmem_budget: Optional[int] = None,
+) -> torch.Tensor:
+    """Implicit-GEMM conv on K2: unpadded ``(B, img) → (B, P_out, N)``.
+
+    One launch over the image batch; the patch tiles are gathered inside the
+    kernel, so no ``(B·P, K)`` patch matrix exists.  ``bias (N,)`` /
+    ``relu`` and ``geom.pool > 1`` fuse into the epilogue, so a whole
+    conv/ReLU/pool stage is one launch storing only the pooled map.
+    ``vmem_budget`` is kept for signature parity with the JAX package and is
+    unused: K2 has no VMEM schedule to size.
+    """
+    del vmem_budget
+    _no_mesh(mesh)
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+    return pasm_conv_kernel_call(
+        x.contiguous(), t.idx.contiguous(), t.codebook.contiguous(), bias,
+        geom=geom, packed=t.packed, relu=relu, gather=gather)

@@ -1,0 +1,128 @@
+"""AlexNet-style CNN on the weight-shared conv accelerator.
+
+Port of ``repro.models.cnn`` (inference: QAT comes with the training slice).
+Conv/ReLU/pool stages, each conv carrying its own dictionary (the paper's
+one-dictionary-per-layer rule), then a dense classifier head.  Every stage is
+one :class:`~repro_torch.core.conv.ConvParams` +
+:class:`~repro_torch.core.conv.Conv2D` pair through
+:func:`repro_torch.core.conv.conv2d`; on the kernel engines bias, ReLU and
+the stage's max-pool fuse into one launch.  Params are a plain dict, as in
+the JAX package::
+
+    cfg = alexnet_conv.smoke_config()
+    params = cnn.init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
+    qparams = cnn.quantize(params, cfg)          # per-layer k-means codebooks
+    logits = cnn.forward(qparams, images, cfg)   # (B, classes) via K1 / K2
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.alexnet_conv import CNNConfig
+from repro_torch.core import conv as _conv
+from repro_torch.core._f32 import matmul_f32
+from repro_torch.core.params import NOT_PORTED_MESH, NOT_PORTED_PAS
+from repro_torch.models.common import Initializer
+
+__all__ = ["stages", "feature_shape", "init_params", "quantize", "forward",
+           "forward_dense"]
+
+# CNNConfig.impl == conv2d engine; pas_kernel belongs to a later slice
+_IMPLS = ("auto", "einsum", "kernel", "kernel_implicit", "pas_kernel")
+
+
+def stages(cfg: CNNConfig) -> list:
+    """Per-stage ``(Conv2D, pool)`` with the stack-wide padding/layout applied."""
+    return [
+        (dataclasses.replace(c, padding=cfg.padding, layout=cfg.layout), p)
+        for c, p in zip(cfg.layers, cfg.pools)
+    ]
+
+
+def feature_shape(cfg: CNNConfig) -> tuple:
+    """(C, H, W) entering the classifier head."""
+    C, H, W = cfg.in_chw
+    for conv, pool in stages(cfg):
+        H, W = _conv.conv_out_hw(H, W, conv)
+        if pool > 1:
+            H, W = H // pool, W // pool
+        C = conv.c_out
+    return C, H, W
+
+
+def init_params(cfg: CNNConfig, gen: torch.Generator, *, device=None) -> dict:
+    """Dense master weights drawn from ``gen`` (on its own device), placed on
+    ``device`` (default the card): per-layer ConvParams + head matrix."""
+    dev = resolve_device(device)
+    ini = Initializer(gen)
+    convs = []
+    for conv, _pool in stages(cfg):
+        fan_in = conv.c_in * conv.ky * conv.kx
+        kernel = ini.dense((conv.c_out, conv.c_in, conv.ky, conv.kx), fan_in=fan_in)
+        convs.append(_conv.ConvParams.dense(
+            kernel.to(dev), bias=torch.zeros(conv.c_out, device=dev)))
+    C, H, W = feature_shape(cfg)
+    return {
+        "conv": convs,
+        "head": {"w": ini.dense((C * H * W, cfg.classes)).to(dev),
+                 "b": torch.zeros(cfg.classes, device=dev)},
+    }
+
+
+def quantize(params: dict, cfg: CNNConfig, *, iters: int = 16, mesh=None) -> dict:
+    """K-means weight-share every conv layer (on the weights' device): one
+    dictionary per layer, ``cfg.groups`` reduction-axis dictionaries when
+    > 1, int4-packed into the stack layout's GEMM order when ``cfg.packed``."""
+    if mesh is not None:
+        raise NotImplementedError(NOT_PORTED_MESH)
+    convs = []
+    for p in params["conv"]:
+        q = _conv.ConvParams.quantize(p.kernel, cfg.bins, bias=p.bias,
+                                      iters=iters, groups=cfg.groups,
+                                      layout=cfg.layout)
+        if cfg.packed:
+            q = q.pack(layout=cfg.layout)
+        convs.append(q)
+    return {"conv": convs, "head": params["head"]}
+
+
+def _head(x: torch.Tensor, head: dict) -> torch.Tensor:
+    """Dense classifier (full f32 product)."""
+    return matmul_f32(x.reshape(x.shape[0], -1), head["w"]) + head["b"]
+
+
+def forward(params: dict, images: torch.Tensor, cfg: CNNConfig, *,
+            mesh=None) -> torch.Tensor:
+    """Quantized forward: images (in ``cfg.layout`` order) → logits.
+
+    ``cfg.impl`` picks the conv engine: ``kernel`` runs K1 over an explicit
+    im2col patch matrix, ``kernel_implicit`` K2 on the raw image, ``einsum``
+    the plain reference, ``auto`` K2 for batches.  Each stage's pool rides
+    ``conv2d(pool=)`` (fused into the kernel epilogue where possible).
+    """
+    if cfg.impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {'|'.join(_IMPLS)}, got {cfg.impl!r}")
+    if cfg.impl == "pas_kernel":
+        raise NotImplementedError(NOT_PORTED_PAS)
+    if mesh is not None:
+        raise NotImplementedError(NOT_PORTED_MESH)
+    x = images
+    for p, (conv, pool) in zip(params["conv"], stages(cfg)):
+        x = _conv.conv2d(x, p, conv, engine=cfg.impl, vmem_budget=cfg.vmem_budget,
+                         pool=pool, pool_impl=cfg.pool_impl)
+    return _head(x, params["head"])
+
+
+def forward_dense(params: dict, images: torch.Tensor, cfg: CNNConfig, *,
+                  mesh=None) -> torch.Tensor:
+    """Reference forward on the dense master weights (no weight sharing)."""
+    if mesh is not None:
+        raise NotImplementedError(NOT_PORTED_MESH)
+    x = images
+    for p, (conv, pool) in zip(params["conv"], stages(cfg)):
+        x = _conv.conv2d(x, p, conv, engine="einsum", pool=pool)
+    return _head(x, params["head"])
