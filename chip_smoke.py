@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and hold each
+"""Drive the PyTorch port's main paths on one NVIDIA card and hold each
 hand-written kernel against its plain PyTorch version.
 
 Run from the repository root with no arguments::
@@ -10,19 +10,25 @@ Phases (every one unguarded: any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (``nvcc``);
-3. K1 (fused-dequant GEMM) and K2 (implicit-GEMM conv) against their plain
-   versions at the five full-width AlexNet conv stages, shared and packed
-   dictionaries, plus a ``groups=2`` case, an NHWC SAME conv1 case and the
-   3×512×512 ``bigimg_conv1`` shape on K2; K1 ≡ K2 bitwise on each stage;
+3. K1 (fused-dequant GEMM), K2 (implicit-GEMM conv), K3 (two-phase PAS
+   GEMM) and K4 (implicit-GEMM PAS conv) against their plain versions at the
+   five full-width AlexNet conv stages, shared and packed dictionaries, plus
+   a ``groups=2`` case (K1/K2), 4- and 256-bin dictionaries and indices past
+   the dictionary (K3/K4) on conv3, an NHWC SAME conv1 case and the
+   3×512×512 ``bigimg_conv1`` shape on K2/K4; K1 ≡ K2 and K3 ≡ K4 bitwise on
+   each stage, and on integer-valued images and dictionaries K3 == K1
+   bitwise (paper §5.3);
 4. the full-width AlexNet (3×224×224, 1000 classes, 16 bins, seeded weights,
    k-means on the card) serving mixed-size requests through ``CnnBatcher``
-   with ``impl="kernel"`` and ``impl="kernel_implicit"``; launch counts are
-   read around each run and the served logits are held against the
-   ``einsum`` engine on the card;
+   with ``impl="kernel"``, ``"kernel_implicit"`` and ``"pas_kernel"``, then
+   one batch through the five stages on ``conv2d(engine=
+   "pas_kernel_implicit")``; launch counts are read around each run and the
+   logits are held against the ``einsum`` engine on the card;
 5. CUDA-event timings at batch 32 per stage: kernel, plain version, a
    library yardstick (timed only: ``torch.matmul`` on the dequantized weight
-   for K1, ``F.conv2d`` with TF32 off for K2) and the bound
-   ``max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)``;
+   for K1/K3, ``F.conv2d`` with TF32 off for K2/K4) and the bound
+   ``max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)`` of the function (K3's is
+   K1's, K4's is K2's);
 6. one ``{"kernels": [...]}`` JSON line;
 7. last line: ``{"ok": true, "device": {...}}``.
 
@@ -47,6 +53,10 @@ LOGIT_TOL = 1e-3  # served logits vs the einsum engine (five layers + head)
 F32_TFLOPS = 67.0  # H100 SXM f32 (non-tensor-core) peak
 HBM_TBPS = 3.35  # H100 SXM HBM3
 TIME_BATCH = 32
+KERNELS = ("pasm_matmul", "pasm_conv", "pas_matmul", "pas_conv")
+# the kernel each served engine launches (five per batch, and no other)
+SERVED_KERNEL = {"kernel": "pasm_matmul", "kernel_implicit": "pasm_conv",
+                 "pas_kernel": "pas_matmul"}
 
 
 def log(*a) -> None:
@@ -133,24 +143,52 @@ class Case:
         return p.contiguous()
 
 
-def check_case(case: Case, errs: dict, *, k1: bool = True) -> None:
-    """K1 and K2 against their plain versions (and K1 ≡ K2 bitwise)."""
+def check_case(case: Case, errs: dict, *, k1: bool = True, pasm: bool = True,
+               pas: bool = True) -> None:
+    """K1 and K2 (``pasm``) and K3 and K4 (``pas``, one dictionary) against
+    their plain versions, K1 ≡ K2 and K3 ≡ K4 bitwise; ``k1=False`` skips
+    the explicit kernels."""
     import torch
 
-    from repro_torch.kernels import ops, pasm_matmul as pm
+    from repro_torch.core import pasm as _pasm
+    from repro_torch.kernels import ops, pas_histogram as ph, pasm_matmul as pm
 
     t = case.params.gemm_tensor(case.conv.layout)
     bias = case.params.bias
     g = case.geom()
+    x = case.patches() if k1 else None
+    line = f"  {case.name:<30}"
+    if pas and case.params.groups == 1:
+        li = _pasm.logical_idx(t)
+        y4 = ops.pas_conv2d(case.img, t, g, bias=bias, relu=True)
+        p4 = ph.pas_conv_plain(case.img.contiguous(), li, t.codebook, bias,
+                               geom=g, relu=True)
+        torch.cuda.synchronize()
+        e4 = max_err(y4, p4)
+        errs["pas_conv"] = max(errs["pas_conv"], e4)
+        line += f" K4 {e4:.2e}"
+        if k1:
+            y3 = ops.pas_matmul(x, t, bias=bias, relu=True, pool=case.pool)
+            p3 = ph.pas_matmul_plain(x, li, t.codebook, bias, relu=True,
+                                     pool=case.pool)
+            torch.cuda.synchronize()
+            e3 = max_err(y3, p3)
+            errs["pas_matmul"] = max(errs["pas_matmul"], e3)
+            same = torch.equal(y3.reshape(y4.shape), y4)
+            line += f" K3 {e3:.2e} K3≡K4 {same}"
+            if not same:
+                raise AssertionError(f"{case.name}: K3 and K4 differ bitwise")
+    if not pasm:
+        log(line)
+        return
     y2 = ops.pasm_conv2d(case.img, t, g, bias=bias, relu=True)
     p2 = pm.pasm_conv_plain(case.img.contiguous(), t.idx, t.codebook, bias,
                             geom=g, packed=t.packed, relu=True)
     torch.cuda.synchronize()
     e2 = max_err(y2, p2)
     errs["pasm_conv"] = max(errs["pasm_conv"], e2)
-    line = f"  {case.name:<28} K2 max|Δ| {e2:.3e}"
+    line += f" K2 {e2:.2e}"
     if k1:
-        x = case.patches()
         y1 = ops.pasm_matmul(x, t, bias=bias, relu=True, pool=case.pool)
         p1 = pm.pasm_matmul_plain(x, t.idx, t.codebook, bias, packed=t.packed,
                                   relu=True, pool=case.pool)
@@ -158,10 +196,41 @@ def check_case(case: Case, errs: dict, *, k1: bool = True) -> None:
         e1 = max_err(y1, p1)
         errs["pasm_matmul"] = max(errs["pasm_matmul"], e1)
         same = torch.equal(y1.reshape(y2.shape), y2)
-        line += f"  K1 max|Δ| {e1:.3e}  K1≡K2 bitwise {same}"
+        line += f" K1 {e1:.2e} K1≡K2 {same}"
         if not same:
             raise AssertionError(f"{case.name}: K1 and K2 differ bitwise")
     log(line)
+
+
+def check_integer(case: Case, gen) -> None:
+    """Paper §5.3: on integer-valued images, dictionaries and biases PASM is
+    bit-exact against the weight-shared MAC.  |x|, |cb| <= 8 keeps every
+    sum below 2^24 (K <= 3456), so f32 holds it exactly: K3 == K1 and
+    K4 == K2 bitwise, whatever order each adds in."""
+    import torch
+
+    from repro_torch.core import conv as cv
+    from repro_torch.kernels import ops
+
+    p = case.params
+    cb = torch.randint(-8, 9, (p.bins,), generator=gen, device="cuda").float()
+    bias = torch.randint(-99, 100, (p.c_out,), generator=gen, device="cuda").float()
+    ip = cv.ConvParams.shared(p.idx, cb, bias=bias)
+    img = torch.randint(-8, 9, tuple(case.img.shape), generator=gen,
+                        device="cuda").float()
+    c = dataclasses.replace(case, params=ip, img=img)
+    t, g, x = ip.gemm_tensor(c.conv.layout), c.geom(), c.patches()
+    y1 = ops.pasm_matmul(x, t, bias=bias, relu=True, pool=c.pool)
+    y3 = ops.pas_matmul(x, t, bias=bias, relu=True, pool=c.pool)
+    y2 = ops.pasm_conv2d(img, t, g, bias=bias, relu=True)
+    y4 = ops.pas_conv2d(img, t, g, bias=bias, relu=True)
+    torch.cuda.synchronize()
+    ok = (torch.equal(y3, y1) and torch.equal(y4, y2)
+          and torch.equal(y1.reshape(y2.shape), y2))
+    log(f"  {case.name:<30} integer-valued: K3 == K1, K4 == K2 bitwise {ok} "
+        f"(|y| max {float(y1.abs().max()):.0f})")
+    if not ok:
+        raise AssertionError(f"{case.name}: integer PAS differs from the MAC")
 
 
 def stage_cases(cfg, qparams, batch: int, gen) -> list:
@@ -209,7 +278,9 @@ def main() -> int:
 
     from repro_torch.configs import alexnet_conv
     from repro_torch.core import conv as cv
-    from repro_torch.kernels import _build, ops, pasm_matmul as pm
+    from repro_torch.core import pasm as _pasm
+    from repro_torch.kernels import _build, ops, pas_histogram as ph
+    from repro_torch.kernels import pasm_matmul as pm
     from repro_torch.models import cnn
     from repro_torch.serve.batcher import CnnBatcher
 
@@ -243,12 +314,26 @@ def main() -> int:
     packed = [p.pack(layout=cfg.layout) for p in qparams["conv"]]
 
     # 3. kernels vs plain versions -----------------------------------------
-    errs = {"pasm_matmul": 0.0, "pasm_conv": 0.0}
+    errs = dict.fromkeys(KERNELS, 0.0)
     log(f"phase 3: kernels vs plain versions (tolerance |Δ| <= {TOL} + {TOL}·|plain|)")
     for kind, plist in (("shared", qparams["conv"]), ("packed", packed)):
         for case in stage_cases(cfg, {"conv": plist}, 4, gen):
             case.name = f"{case.name} {kind}"
             check_case(case, errs)
+    for case in stage_cases(cfg, qparams, 4, gen):
+        check_integer(case, gen)
+    third = stage_cases(cfg, qparams, 4, gen)[2]
+    kshape = third.params.kshape
+    scale = third.params.codebook.std()  # random dictionaries at the served scale
+    for bins, top in ((4, 4), (256, 256), (16, 20)):  # 20: indices past 16 bins
+        rp = cv.ConvParams.shared(
+            torch.randint(0, top, kshape, generator=gen, device="cuda",
+                          dtype=torch.uint8),
+            torch.randn(bins, generator=gen, device="cuda") * scale,
+            bias=third.params.bias)
+        check_case(dataclasses.replace(
+            third, name=f"{third.name} B={bins} idx<{top}", params=rp), errs,
+            pasm=top == bins)  # K1/K2 clamp an index past B: another function
     first, second = stage_cases(cfg, qparams, 4, gen)[:2]
     g2 = cv.ConvParams.quantize(params["conv"][1].kernel, cfg.bins,
                                 bias=params["conv"][1].bias, groups=2)
@@ -278,7 +363,7 @@ def main() -> int:
     log(f"phase 4: serving {len(images)} requests of {len(set(sizes))} sizes "
         "through CnnBatcher(device='cuda')")
     served, counts = {}, {}
-    for impl in ("kernel", "kernel_implicit", "einsum"):
+    for impl in ("kernel", "kernel_implicit", "pas_kernel", "einsum"):
         b = CnnBatcher(dataclasses.replace(cfg, impl=impl), qparams, max_batch=8,
                        device="cuda")
         reqs = [b.submit(im) for im in images]
@@ -292,35 +377,58 @@ def main() -> int:
         log(f"  {impl:<16} {b.n_batches} batches, launches {counts[impl]}, "
             f"{roll['img_s']:.1f} img/s host clock incl. first-call overheads "
             f"({card})")
-        if impl != "einsum":
-            key = "pasm_matmul" if impl == "kernel" else "pasm_conv"
-            other = "pasm_conv" if impl == "kernel" else "pasm_matmul"
-            if counts[impl][key] != n_stages * b.n_batches or counts[impl][other]:
-                raise AssertionError(
-                    f"{impl}: expected {n_stages} {key} launches per batch over "
-                    f"{b.n_batches} batches, got {counts[impl]}")
-        else:
-            if any(counts[impl].values()):
-                raise AssertionError(f"einsum launched kernels: {counts[impl]}")
+        key = SERVED_KERNEL.get(impl)
+        want_counts = {k: n_stages * b.n_batches if k == key else 0
+                       for k in KERNELS}
+        if counts[impl] != want_counts:
+            raise AssertionError(
+                f"{impl}: expected launches {want_counts} ({n_stages} per batch "
+                f"over {b.n_batches} batches), got {counts[impl]}")
         if not all(r.done and r.logits.shape == (cfg.classes,)
                    and np.isfinite(r.logits).all() for r in reqs):
             raise AssertionError(f"{impl}: a request was not served finite logits")
         served[impl] = np.stack([r.logits for r in reqs])
     want = served["einsum"]
-    for impl in ("kernel", "kernel_implicit"):
+    for impl in SERVED_KERNEL:
         d = np.abs(served[impl] - want)
         agree = float((served[impl].argmax(-1) == want.argmax(-1)).mean())
         log(f"  {impl} logits vs einsum: max|Δ| {d.max():.3e} "
             f"(|logit| max {np.abs(want).max():.3f}), class agreement {agree:.3f}")
         if not np.all(d <= LOGIT_TOL + LOGIT_TOL * np.abs(want)):
             raise AssertionError(f"{impl} logits off the einsum engine")
+        if impl == "pas_kernel" and agree != 1.0:
+            raise AssertionError(f"{impl} classes differ from the einsum engine")
     log(f"  kernel ≡ kernel_implicit logits bitwise: "
         f"{np.array_equal(served['kernel'], served['kernel_implicit'])}")
+
+    # the five full-width stages through conv2d(engine="pas_kernel_implicit")
+    stage_imgs = torch.from_numpy(np.stack(images[:6])).cuda()
+    outs = {}
+    for engine in ("pas_kernel_implicit", "einsum"):
+        torch.cuda.synchronize()
+        pm.reset_launches()
+        h = stage_imgs
+        for p, (conv, pool) in zip(qparams["conv"], cnn.stages(cfg)):
+            h = cv.conv2d(h, p, conv, engine=engine, pool=pool)
+        outs[engine] = cnn._head(h, qparams["head"])
+        torch.cuda.synchronize()
+        counts[engine + " stages"] = dict(pm.launches)
+    k4_counts = counts["pas_kernel_implicit stages"]
+    if k4_counts != {k: n_stages if k == "pas_conv" else 0 for k in KERNELS}:
+        raise AssertionError(f"pas_kernel_implicit stages: launches {k4_counts}")
+    got, want4 = outs["pas_kernel_implicit"].cpu().numpy(), outs["einsum"].cpu().numpy()
+    d = np.abs(got - want4)
+    agree = float((got.argmax(-1) == want4.argmax(-1)).mean())
+    log(f"  pas_kernel_implicit stages ({len(stage_imgs)} images): launches "
+        f"{k4_counts}, logits vs einsum max|Δ| {d.max():.3e}, class agreement "
+        f"{agree:.3f}")
+    if not (np.all(d <= LOGIT_TOL + LOGIT_TOL * np.abs(want4)) and agree == 1.0):
+        raise AssertionError("pas_kernel_implicit stage logits off the einsum engine")
 
     # 5. timings at batch 32 -------------------------------------------------
     log(f"phase 5: CUDA-event timings at batch {TIME_BATCH} ({card})")
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-               "ops_ms": 0.0, "bytes_ms": 0.0} for k in ("pasm_matmul", "pasm_conv")}
+               "ops_ms": 0.0, "bytes_ms": 0.0} for k in KERNELS}
     for case in stage_cases(cfg, qparams, TIME_BATCH, gen):
         t = case.params.gemm_tensor(case.conv.layout)
         bias, g = case.params.bias, case.geom()
@@ -328,9 +436,19 @@ def main() -> int:
         w = cv.ConvParams.dense_operand(case.params, case.conv.layout)
         kern4 = cv._unflatten_kernel(w[: case.conv.K], "ckk", case.params.kshape)
         kern4 = kern4.contiguous()
-        rows = []
-        for key, explicit in (("pasm_matmul", True), ("pasm_conv", False)):
-            if explicit:
+        li = _pasm.logical_idx(t)
+        rows, lib = [], {}
+        for key in KERNELS:
+            explicit = key in ("pasm_matmul", "pas_matmul")
+            if key == "pas_matmul":
+                k_fn = lambda: ops.pas_matmul(x, t, bias=bias, relu=True, pool=case.pool)
+                p_fn = lambda: ph.pas_matmul_plain(x, li, t.codebook, bias, relu=True,
+                                                   pool=case.pool)
+            elif key == "pas_conv":
+                k_fn = lambda: ops.pas_conv2d(case.img, t, g, bias=bias, relu=True)
+                p_fn = lambda: ph.pas_conv_plain(case.img, li, t.codebook, bias,
+                                                 geom=g, relu=True)
+            elif explicit:
                 k_fn = lambda: ops.pasm_matmul(x, t, bias=bias, relu=True, pool=case.pool)
                 p_fn = lambda: pm.pasm_matmul_plain(x, t.idx, t.codebook, bias,
                                                     packed=t.packed, relu=True,
@@ -342,7 +460,10 @@ def main() -> int:
                                                   geom=g, packed=t.packed, relu=True)
                 l_fn = lambda: F.conv2d(case.img, kern4, bias, stride=case.conv.stride)
             errs[key] = max(errs[key], max_err(k_fn(), p_fn()))
-            ms, plain_ms, lib_ms = time_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
+            ms, plain_ms = time_ms(k_fn), time_ms(p_fn)
+            if explicit not in lib:  # one library call per function (K1/K3, K2/K4)
+                lib[explicit] = time_ms(l_fn)
+            lib_ms = lib[explicit]
             ops_ms, bytes_ms, flops = bound(case, explicit)
             b_ms = max(ops_ms, bytes_ms)
             b_by = "operations" if ops_ms >= bytes_ms else "bytes"
@@ -353,17 +474,23 @@ def main() -> int:
             rows.append(f"{key} {ms:.4f} ms (plain {plain_ms:.4f}, library "
                         f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by}, "
                         f"{flops / ms / 1e9:.1f} TFLOP/s)")
-        log(f"  {case.name:<18} " + " | ".join(rows) + f" [{card}]")
+        log(f"  {case.name:<18} " + "\n    ".join(rows) + f" [{card}]")
 
     # 6. the kernels line ------------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
+        "pas_matmul": "src/repro/kernels/pas_histogram.py:101",
+        "pas_conv": "src/repro/kernels/pas_histogram.py:184",
     }
     launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"],
-                "pasm_conv": counts["kernel_implicit"]["pasm_conv"]}
+                "pasm_conv": counts["kernel_implicit"]["pasm_conv"],
+                "pas_matmul": counts["pas_kernel"]["pas_matmul"],
+                "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"]}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     kernels = []
-    for key in ("pasm_matmul", "pasm_conv"):
+    for key in KERNELS:
         r = tot[key]
         kernels.append({
             "name": key,
@@ -379,7 +506,8 @@ def main() -> int:
             "library_ms": r["library_ms"],
         })
     log(f"times are sums over the five AlexNet stages at batch {TIME_BATCH}; "
-        f"launches are from the serving run [{card}]")
+        f"launches are from the serving runs (K1-K3) and the stage run (K4) "
+        f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

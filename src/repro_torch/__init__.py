@@ -4,13 +4,18 @@ Mirrors the module paths of the JAX package ``repro`` so each counterpart is
 easy to find, but imports nothing of it (nor ``jax``): the two packages only
 meet in the tests, which feed both the same numpy inputs.
 
-This slice ports the quantized AlexNet serving path:
+Ported so far: the quantized AlexNet serving path and the paper-faithful
+two-phase PAS path:
 
 * :mod:`repro_torch.core.pasm` — k-means weight sharing and int4 packing;
+* :mod:`repro_torch.core.pas` — the PASM identity (PAS phase, post-pass);
+* :mod:`repro_torch.core.hwmodel` — the paper's gate, power, FPGA and
+  latency model;
 * :mod:`repro_torch.core.params` — the ``PasmParams`` container;
 * :mod:`repro_torch.core.conv` — ``ConvParams`` / ``Conv2D`` / ``conv2d``;
-* :mod:`repro_torch.kernels` — the two hand-written Hopper kernels (K1 the
-  fused-dequant GEMM, K2 the implicit-GEMM conv) and their plain versions;
+* :mod:`repro_torch.kernels` — four hand-written Hopper kernels (K1 the
+  fused-dequant GEMM, K2 the implicit-GEMM conv, K3/K4 their two-phase PAS
+  counterparts) and their plain versions;
 * :mod:`repro_torch.models.cnn` + :mod:`repro_torch.configs.alexnet_conv`;
 * :mod:`repro_torch.serve.batcher` — ``CnnBatcher``;
 * :mod:`repro_torch.interop` — carries the JAX package's weights across as

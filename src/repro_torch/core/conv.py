@@ -20,11 +20,16 @@ Port of ``repro.core.conv``.  Two types and one entry point:
                        an explicit im2col patch matrix
   ``kernel_implicit``  K2 (:func:`repro_torch.kernels.ops.pasm_conv2d`):
                        patch tiles gathered inside the kernel
+  ``pas_kernel``       K3 (:func:`repro_torch.kernels.ops.pas_matmul`): the
+                       paper-faithful two-phase PAS GEMM over the patches
+  ``pas_kernel_``      K4 (:func:`repro_torch.kernels.ops.pas_conv2d`): K3's
+  ``implicit``         PAS phase on in-kernel patch tiles
+  ``pas_einsum``       plain two-phase reference: one-hot histogram, then
+                       the post-pass multiply
   ===================  =======================================================
 
-  ``pas_kernel``, ``pas_kernel_implicit`` and ``pas_einsum`` belong to the
-  paper-faithful PAS slice and raise ``NotImplementedError``; so does
-  ``mesh=``.
+  The three PAS engines take one dictionary per layer.  ``mesh=`` belongs
+  to a later slice and raises ``NotImplementedError``.
 
 Convolution lowers onto the GEMM via im2col in the layout's column order —
 NCHW in the paper's ``(c, ky, kx)`` order, NHWC channels-minor
@@ -41,7 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import pasm as _pasm
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.core.params import NOT_PORTED_MESH, NOT_PORTED_PAS, PasmParams
+from repro_torch.core.params import NOT_PORTED_MESH, PasmParams
 
 __all__ = [
     "Conv2D",
@@ -436,8 +441,11 @@ def _resolve_engine(engine: str, params: ConvParams, squeeze: bool,
             return "einsum"
         raise ValueError(f"dense params have no dictionary; engine {engine!r} "
                          "needs shared/packed params")
-    if engine in _PAS_ENGINES:
-        raise NotImplementedError(NOT_PORTED_PAS)
+    if params.groups > 1 and engine in _PAS_ENGINES:
+        raise ValueError(
+            "the PAS formulation is paper-faithful single-dictionary; grouped "
+            "codebooks need engine='kernel'/'kernel_implicit'/'einsum'"
+        )
     if engine == "auto":
         # batched inputs ride the implicit-GEMM kernel; single images keep the
         # einsum reference; degenerate geometry (no output pixels) keeps the
@@ -452,7 +460,7 @@ def _resolve_engine(engine: str, params: ConvParams, squeeze: bool,
 def _pool_fusible(eng: str, conv: Conv2D, ih: int, iw: int, pool: int) -> bool:
     """``conv2d(pool=)``'s ``auto`` fuse predicate: a kernel engine, at least
     one whole window per axis, and a pool-aligned tile plan."""
-    if pool == 1 or eng == "einsum":
+    if pool == 1 or eng in ("einsum", "pas_einsum"):
         return False
     oh, ow = conv_out_hw(ih, iw, conv)
     if oh < pool or ow < pool:
@@ -545,12 +553,13 @@ def conv2d(
         )
     batch = xb.shape[0]
 
-    if eng == "kernel_implicit":
+    if eng in ("kernel_implicit", "pas_kernel_implicit"):
         from repro_torch.kernels import ops as _kops
 
         geom = conv_geom(conv, ih, iw, pool=pool if fuse_pool else 1)
-        y = _kops.pasm_conv2d(xb, params.gemm_tensor(conv.layout), geom,
-                              bias=bias, relu=conv.relu)
+        f = _kops.pasm_conv2d if eng == "kernel_implicit" else _kops.pas_conv2d
+        y = f(xb, params.gemm_tensor(conv.layout), geom, bias=bias,
+              relu=conv.relu)
         y = y.reshape(-1, conv.c_out)  # (B, P, M) → (B·P, M)
         if fuse_pool:
             return _col2im(y, conv, batch, geom.ohp, geom.owp, squeeze)
@@ -567,16 +576,39 @@ def conv2d(
 
         w = params.dense_operand(conv.layout)
         y = apply_epilogue(matmul_f32(patches, w.to(patches.dtype)), bias, conv.relu)
+    elif eng == "pas_einsum":
+        from repro_torch.kernels.ref import apply_epilogue
+
+        y = apply_epilogue(_pas_einsum(patches, params, conv.layout), bias,
+                           conv.relu)
     else:
         from repro_torch.kernels import ops as _kops
 
-        y = _kops.pasm_matmul(patches, params.gemm_tensor(conv.layout),
-                              bias=bias, relu=conv.relu,
-                              pool=pool if fuse_pool else 1)
+        f = _kops.pasm_matmul if eng == "kernel" else _kops.pas_matmul
+        y = f(patches, params.gemm_tensor(conv.layout), bias=bias,
+              relu=conv.relu, pool=pool if fuse_pool else 1)
     if fuse_pool:
         return _col2im(y, conv, batch, oh // pool, ow // pool, squeeze)
     out = _col2im(y, conv, batch, oh, ow, squeeze)
     return max_pool2d(out, pool, conv.layout)
+
+
+def _pas_einsum(patches: torch.Tensor, params: ConvParams,
+                layout: str) -> torch.Tensor:
+    """The two-phase PASM formulation in plain torch (Fig 13).
+
+    ``patches`` already carry the §3 ``pad_k`` zero columns.  Per output
+    pixel and channel: PAS bins from a one-hot histogram over the patch
+    axis, then one multiply per bin (:func:`~repro_torch.kernels.ref.
+    pas_matmul_ref`) — bit-exact on integer inputs.
+    """
+    from repro_torch.kernels.ref import pas_matmul_ref
+
+    if params.kind == "packed":
+        idx = _pasm.logical_idx(params.gemm_tensor(layout))  # (K+pad, M)
+    else:
+        idx = _flatten_kernel(params.idx, _ORDER[layout])  # (K, M)
+    return pas_matmul_ref(patches, idx, params.codebook.reshape(1, -1))
 
 
 # ---------------------------------------------------------------------------

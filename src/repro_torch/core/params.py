@@ -42,11 +42,6 @@ NOT_PORTED_MESH = (
     "mesh= (sharded execution) is not ported yet: ROADMAP Queue 1 item 10 "
     "(Distribution)"
 )
-NOT_PORTED_PAS = (
-    "the paper-faithful PAS engines (pas_kernel, pas_kernel_implicit, "
-    "pas_einsum) are not ported yet: ROADMAP Queue 1 item 6 (Paper-faithful "
-    "PAS) and Queue 2 kernels K3/K4"
-)
 
 Weight = Union[torch.Tensor, "PasmParams", _pasm.PASMTensor]
 
@@ -280,11 +275,11 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
 
     Plain tensors and ``dense`` params always take the dense product.
     Quantized params dispatch on ``impl``: ``dequant`` (dictionary gather +
-    dense product, the oracle) or ``kernel`` (the fused-dequant GEMM, K1,
-    with bias/ReLU fused).  ``pas_kernel`` and ``mesh=`` belong to later
-    slices and raise ``NotImplementedError``.  Packed params with a §3 K-pad
-    get their zero activation column appended here.  Output dtype follows
-    ``x``.
+    dense product, the oracle), ``kernel`` (the fused-dequant GEMM, K1, with
+    bias/ReLU fused) or ``pas_kernel`` (the paper-faithful two-phase PAS
+    GEMM, K3; single-dictionary only).  ``mesh=`` belongs to a later slice
+    and raises ``NotImplementedError``.  Packed params with a §3 K-pad get
+    their zero activation column appended here.  Output dtype follows ``x``.
     """
     if impl not in MATMUL_IMPLS:
         raise ValueError(f"impl must be one of {MATMUL_IMPLS}, got {impl!r}")
@@ -298,11 +293,16 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
 
         y = matmul_f32(x, p.dense_matrix(x.dtype))
         return apply_epilogue(y, bias, relu).to(x.dtype)
-    if impl == "pas_kernel":
-        raise NotImplementedError(NOT_PORTED_PAS)
     from repro_torch.kernels import ops as _kops
 
     t = p.gemm_tensor()
     if p.pad_k:
         x = F.pad(x, (0, p.pad_k))
+    if impl == "pas_kernel":
+        if p.groups > 1:
+            raise ValueError(
+                "the PAS formulation is paper-faithful single-dictionary; "
+                "grouped codebooks need impl='kernel' or 'dequant'"
+            )
+        return _kops.pas_matmul(x, t, bias=bias, relu=relu).to(x.dtype)
     return _kops.pasm_matmul(x, t, bias=bias, relu=relu).to(x.dtype)

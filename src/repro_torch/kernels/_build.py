@@ -30,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # one shared library per source; the names are the .cu stems
-SOURCES = ("pasm_matmul", "pasm_conv")
+SOURCES = ("pasm_matmul", "pasm_conv", "pas_matmul", "pas_conv")
 
 _loaded: dict = {}  # name → ctypes.CDLL, loaded once per process
 _log: dict = {}  # name → nvcc's stderr (ptxas register / spill report)

@@ -15,13 +15,9 @@
 // (the pack-time K pad) read 0.  There is no whole-image residency and no
 // slab schedule, so images of any size run.  Then the same dequant stage and
 // epilogue as K1 (pasm_common.cuh).
-#include <climits>
-
 #include "pasm_common.cuh"
 
 namespace pasm {
-
-constexpr int OFF_IMAGE = INT_MIN / 4;  // a coordinate that is out of every image
 
 template <int BM>
 __global__ void __launch_bounds__(THREADS)
@@ -42,26 +38,13 @@ __global__ void __launch_bounds__(THREADS)
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int pw = pool * pool;
-  const int owp = ow / pool;
-  const int P_rows = P_out * pw;
   const int m0 = blockIdx.x * rows;
   const int n0 = blockIdx.y * BN;
   const float* img = x + (size_t)blockIdx.z * C * H * W;
   const int gs = Kp / G;
   load_codebook(cb_s, cb, G * B);
-  for (int r = threadIdx.x; r < BM; r += THREADS) {
-    int m = m0 + r;
-    if (r < rows && m < P_rows) {
-      int pp = m / pw, s = m % pw;
-      int oy = (pp / owp) * pool + s / pool;
-      int ox = (pp % owp) * pool + s % pool;
-      row_iy[r] = oy * stride - pad_h;
-      row_ix[r] = ox * stride - pad_w;
-    } else {
-      row_iy[r] = OFF_IMAGE;
-      row_ix[r] = OFF_IMAGE;
-    }
-  }
+  conv_row_origins<BM>(row_iy, row_ix, m0, rows, P_out * pw, pool, ow, stride,
+                       pad_h, pad_w);
 
   float acc[TM][TN];
 #pragma unroll
@@ -69,38 +52,18 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  const int kk = threadIdx.x % BK;  // this thread's column in every stage
   for (int k0 = 0; k0 < Kp; k0 += BK) {
     __syncthreads();  // previous stage consumed; codebook and rows visible
-    // decode this thread's reduction column once per stage
-    const int q = k0 + kk;
-    int c = 0, dy = OFF_IMAGE, dx = 0;
-    if (q < conv_k) {
-      if (nhwc) {
-        dy = q / (kx * C);
-        dx = (q / C) % kx;
-        c = q % C;
-      } else {
-        c = q / (ky * kx);
-        dy = (q / kx) % ky;
-        dx = q % kx;
-      }
-    }
-    for (int r = threadIdx.x / BK; r < BM; r += THREADS / BK) {
-      int iy = row_iy[r] + dy, ix = row_ix[r] + dx;
-      float v = 0.f;
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-        v = nhwc ? img[((size_t)iy * W + ix) * C + c]
-                 : img[((size_t)c * H + iy) * W + ix];
-      st.xs[kk][r] = v;
-    }
+    gather_patch_stage<BM>(&st.xs[0][0], BM + 1, img, row_iy, row_ix, k0,
+                           conv_k, nhwc, C, H, W, ky, kx);
     load_weight_tile<BM>(st, idx, cb_s, k0, n0, Kp, N, gs, B, packed);
     __syncthreads();
     stage_product<BM>(st, acc, ty, tx);
   }
 
-  epilogue<BM>(acc, pool_s, bias, out + (size_t)blockIdx.z * P_out * N, n0,
-               N, rows, m0 / pw, P_out, relu, pool, ty, tx);
+  epilogue<GemmLayout<BM>>(acc, pool_s, bias,
+                           out + (size_t)blockIdx.z * P_out * N, n0, N, rows,
+                           m0 / pw, P_out, relu, pool, ty, tx);
 }
 
 template <int BM>

@@ -56,8 +56,8 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   const int pw = pool * pool;
-  epilogue<BM>(acc, pool_s, bias, out, n0, N, rows, m0 / pw, M / pw, relu,
-               pool, ty, tx);
+  epilogue<GemmLayout<BM>>(acc, pool_s, bias, out, n0, N, rows, m0 / pw,
+                           M / pw, relu, pool, ty, tx);
 }
 
 template <int BM>

@@ -1,10 +1,12 @@
 """Op wrappers around the Hopper kernels: shapes, layouts and the tile plan.
 
 Port of the forward halves of ``repro.kernels.ops``: :func:`pasm_matmul`
-(K1) and :func:`pasm_conv2d` (K2), each with the fused ``bias`` / ``relu``
-epilogue and the window-major ``pool``.  Forward only: the custom VJPs come
-with the QAT/training slice (ROADMAP Queue 1 item 7), and the wrappers raise
-on tensors that require grad.
+(K1) and :func:`pasm_conv2d` (K2), and the paper-faithful two-phase
+:func:`pas_matmul` (K3) and :func:`pas_conv2d` (K4), each with the fused
+``bias`` / ``relu`` epilogue and the window-major ``pool``.  Forward only:
+the PASM pair's custom VJPs come with the QAT/training slice (ROADMAP Queue
+1 item 7), the PAS pair is forward-only in the JAX package too, and the
+wrappers raise on tensors that require grad.
 
 The TPU tile plan (``_pick_blocks``: 128/512 tiles, K padded to 128
 multiples through a reserved zero-codebook bin) is replaced by the Hopper
@@ -27,6 +29,10 @@ import torch
 
 from repro_torch.core import pasm as _pasm
 from repro_torch.core.params import NOT_PORTED_MESH
+from repro_torch.kernels.pas_histogram import (
+    pas_conv_kernel_call,
+    pas_matmul_kernel_call,
+)
 from repro_torch.kernels.pasm_matmul import (
     ConvGeom,
     pasm_conv_kernel_call,
@@ -34,12 +40,21 @@ from repro_torch.kernels.pasm_matmul import (
     pool_plan_exists,
 )
 
-__all__ = ["pasm_matmul", "pasm_conv2d", "ConvGeom", "pool_plan_exists"]
+__all__ = ["pasm_matmul", "pas_matmul", "pasm_conv2d", "pas_conv2d", "ConvGeom",
+           "pool_plan_exists"]
 
 
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(NOT_PORTED_MESH)
+
+
+def _pool_rows(x: torch.Tensor, pool: int) -> None:
+    if x.ndim != 2 or x.shape[0] % (pool * pool):
+        raise ValueError(
+            "pool= needs a 2-D window-major x (pool² consecutive rows "
+            f"per window), got shape {tuple(x.shape)} with pool={pool}"
+        )
 
 
 def pasm_matmul(
@@ -64,11 +79,7 @@ def pasm_matmul(
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     if pool > 1:
-        if x.ndim != 2 or x.shape[0] % (pool * pool):
-            raise ValueError(
-                "pool= needs a 2-D window-major x (pool² consecutive rows "
-                f"per window), got shape {tuple(x.shape)} with pool={pool}"
-            )
+        _pool_rows(x, pool)
         return pasm_matmul_kernel_call(
             x.contiguous(), t.idx.contiguous(), t.codebook.contiguous(), bias,
             packed=t.packed, relu=relu, pool=pool, gather=gather)
@@ -77,6 +88,39 @@ def pasm_matmul(
         x.reshape(-1, K).contiguous(), t.idx.contiguous(),
         t.codebook.contiguous(), bias,
         packed=t.packed, relu=relu, gather=gather)
+    return y.reshape(*lead, N)
+
+
+def pas_matmul(
+    x: torch.Tensor,
+    t: _pasm.PASMTensor,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    relu: bool = False,
+    mesh=None,
+    pool: int = 1,
+) -> torch.Tensor:
+    """Paper-faithful PASM two-phase matmul on K3 (single dictionary).
+
+    x ``(..., K)`` → ``(..., N)`` f32.  Packed indices are unpacked first
+    (:func:`~repro_torch.core.pasm.logical_idx`): K3 takes one uint8 index
+    per weight.  ``bias (N,)`` / ``relu`` ride the post-pass, and
+    ``pool > 1`` max-reduces window-major row groups there too (2-D ``x``
+    only — the same contract as :func:`pasm_matmul`).
+    """
+    _no_mesh(mesh)
+    K, N = t.shape
+    idx = _pasm.logical_idx(t).contiguous()
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+    if pool > 1:
+        _pool_rows(x, pool)
+        return pas_matmul_kernel_call(x.contiguous(), idx,
+                                      t.codebook.contiguous(), bias,
+                                      relu=relu, pool=pool)
+    lead = x.shape[:-1]
+    y = pas_matmul_kernel_call(x.reshape(-1, K).contiguous(), idx,
+                               t.codebook.contiguous(), bias, relu=relu)
     return y.reshape(*lead, N)
 
 
@@ -107,3 +151,31 @@ def pasm_conv2d(
     return pasm_conv_kernel_call(
         x.contiguous(), t.idx.contiguous(), t.codebook.contiguous(), bias,
         geom=geom, packed=t.packed, relu=relu, gather=gather)
+
+
+def pas_conv2d(
+    x: torch.Tensor,
+    t: _pasm.PASMTensor,
+    geom: ConvGeom,
+    *,
+    bias: Optional[torch.Tensor] = None,
+    relu: bool = False,
+    mesh=None,
+    vmem_budget: Optional[int] = None,
+    gather_output: bool = True,
+) -> torch.Tensor:
+    """Implicit-GEMM conv on the paper-faithful PAS formulation, K4.
+
+    Unpadded ``(B, img) → (B, P_out, N)``, single dictionary, forward only;
+    packed indices are unpacked first.  ``bias``/``relu``/``geom.pool`` fuse
+    as in :func:`pasm_conv2d`.  ``vmem_budget`` and ``gather_output`` are
+    kept for signature parity with the JAX package and are unused (no VMEM
+    schedule; ``gather_output`` only shapes a sharded call).
+    """
+    del vmem_budget, gather_output
+    _no_mesh(mesh)
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+    return pas_conv_kernel_call(
+        x.contiguous(), _pasm.logical_idx(t).contiguous(),
+        t.codebook.contiguous(), bias, geom=geom, relu=relu)

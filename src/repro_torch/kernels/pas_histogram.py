@@ -1,0 +1,225 @@
+"""Launch wrappers for the two paper-faithful PAS kernels, and their plain versions.
+
+The paper's two-phase PASM (§2.2): a PAS phase that only adds,
+``S[m, n, b] = Σ_{k : idx[k, n] = b} x[m, k]`` (the weighted histogram of the
+dictionary indices), then one post-pass multiply per bin,
+``y[m, n] = Σ_b S[m, n, b]·cb[b]``, with the bias/ReLU/window-max epilogue
+riding the post-pass.  One dictionary per layer (``G == 1``) and unpacked
+uint8 indices, as on the TPU.
+
+* **K3** :func:`pas_matmul_kernel_call` — ``csrc/pas_matmul.cu``.  Replaces
+  ``repro/kernels/pas_histogram.py::pas_matmul_kernel_call`` (``_kernel`` →
+  ``_pas_step``).  ``x`` is an explicit ``(M, K)`` operand: the conv path's
+  im2col patch matrix, or a dense layer's activations.
+* **K4** :func:`pas_conv_kernel_call` — ``csrc/pas_conv.cu``.  Replaces
+  ``repro/kernels/pas_histogram.py::pas_conv_kernel_call`` (``_conv_kernel``):
+  K3's PAS phase and post-pass on K2's in-kernel patch gather.
+
+**What bounds them on the H100.**  A faithful PAS phase is a runtime-chosen
+add per ``(m, k, n)``: SIMT has no multiply to save, and the bins must live
+in shared memory (a register array indexed at run time spills), so each add
+is a shared-memory read-modify-write.  The kernels keep the bins laid out
+``[bin][row][thread]`` — conflict-free whatever bins a warp's lanes pick —
+decode each index once for a thread's four rows, and run the post-pass
+(``M·N·B`` FMAs) once at the end.  They are bound by shared-memory
+accesses, several times slower than K1/K2's register-tile FMA on the same
+function; ``csrc/pas_common.cuh`` gives the tiles per ``B``.
+
+An index ``>= B`` adds nothing in the kernels and in the plain versions, as
+the JAX reference's one-hot does (K1/K2 clamp it instead: a different
+function).  Both kernels walk ``K`` in the same stages and add into each bin
+in the same order, so K3 over the window-major patches equals K4 bitwise.
+
+On a CPU tensor each wrapper runs its plain version (:func:`pas_matmul_plain`,
+:func:`pas_conv_plain`); on a CUDA tensor it launches the kernel or raises.
+Each launch adds one to ``repro_torch.kernels.pasm_matmul.launches``
+(keys ``"pas_matmul"``, ``"pas_conv"``), the one counter dict of all four
+kernels.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.pasm_matmul import (
+    _I,
+    _P,
+    ConvGeom,
+    _check_image,
+    _check_operands,
+    _pad_image,
+    _ptr,
+    _raise_on,
+    _stream,
+    launches,
+    patch_tile,
+    pool_plan_exists,
+)
+
+__all__ = [
+    "pas_matmul_kernel_call",
+    "pas_conv_kernel_call",
+    "pas_matmul_plain",
+    "pas_conv_plain",
+    "PAS_BM_TILES",
+]
+
+# the row tiles the PAS kernels are compiled for (csrc/pas_common.cuh):
+# 32 x 32 outputs, or 256 x 4 when a pool window holds more than 32 rows
+PAS_BM_TILES = (32, 256)
+
+_NO_GRAD = (
+    "the PAS kernels are forward-only, as the TPU kernels they replace are: "
+    "call under torch.no_grad() or detach the inputs"
+)
+
+
+def _pas_bm(pool: int) -> int:
+    """The PAS kernels' row tile for a ``pool`` window (whole windows per
+    block, as for K1/K2)."""
+    if not pool_plan_exists(pool):
+        raise ValueError(
+            f"no pool-aligned tile plan for pool={pool}: use the unfused "
+            "max_pool2d fallback (conv2d pool dispatch does this automatically)"
+        )
+    pw = pool * pool
+    return next(bm for bm in PAS_BM_TILES if pw <= bm)
+
+
+def _check_pas(x, idx, codebook, bias, k_rows: int) -> None:
+    """K3/K4 operand checks: forward only, one dictionary of at most 256
+    bins, unpacked indices, then K1/K2's device/dtype/shape checks."""
+    ts = [t for t in (x, idx, codebook, bias) if t is not None]
+    if any(t.requires_grad for t in ts) and torch.is_grad_enabled():
+        raise RuntimeError(_NO_GRAD)
+    if codebook.ndim != 2 or codebook.shape[0] != 1:
+        raise ValueError(
+            "the PAS kernels are paper-faithful: one dictionary, codebook "
+            f"(1, B); got {tuple(codebook.shape)}")
+    if not 1 <= codebook.shape[1] <= 256:
+        raise ValueError(f"uint8 indices address 1..256 bins, got {codebook.shape[1]}")
+    _check_operands(x, idx, codebook, bias, packed=False, gather="take",
+                    k_rows=k_rows)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path and the card oracle)
+# ---------------------------------------------------------------------------
+
+
+def pas_matmul_plain(x, idx, codebook, bias=None, *, relu: bool = False,
+                     pool: int = 1) -> torch.Tensor:
+    """K3's plain version: one-hot PAS bins, post-pass, epilogue, row pool."""
+    y = _ref.pas_matmul_ref(x, idx, codebook)
+    return _ref.max_pool_rows(_ref.apply_epilogue(y, bias, relu), pool)
+
+
+def pas_conv_plain(x, idx, codebook, bias=None, *, geom: ConvGeom,
+                   relu: bool = False) -> torch.Tensor:
+    """K4's plain version: pad, gather every patch row with
+    :func:`~repro_torch.kernels.pasm_matmul.patch_tile`, then K3's plain
+    version.  ``(B, P_out, N)``."""
+    Kp = idx.shape[0]
+    batch = x.shape[0]
+    patches = patch_tile(_pad_image(x, geom), 0, 0, geom=geom,
+                         bm=geom.P_rows, bk=Kp)
+    y = pas_matmul_plain(patches.reshape(batch * geom.P_rows, Kp), idx,
+                         codebook, bias, relu=relu, pool=geom.pool)
+    return y.reshape(batch, geom.P_out, -1)
+
+
+# ---------------------------------------------------------------------------
+# launch wrappers
+# ---------------------------------------------------------------------------
+
+
+def pas_matmul_kernel_call(
+    x: torch.Tensor,
+    idx: torch.Tensor,
+    codebook: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    relu: bool = False,
+    pool: int = 1,
+) -> torch.Tensor:
+    """K3: ``x (M, K) · idx (K, N) · codebook (1, B) → (M/pool², N)`` f32.
+
+    ``bias (N,)`` and ``relu`` ride the post-pass; ``pool > 1`` expects
+    window-major rows (``M % pool² == 0``) and stores the pooled map.  The
+    row tile follows from ``pool``.
+    """
+    if x.ndim != 2:
+        raise ValueError(f"x must be 2-D (M, K), got {tuple(x.shape)}")
+    _check_pas(x, idx, codebook, bias, k_rows=x.shape[1])
+    M, K = x.shape
+    N = idx.shape[1]
+    pw = pool * pool
+    if M % pw:
+        raise ValueError(f"pool={pool} needs window-major rows, M={M} % {pw}")
+    bm = _pas_bm(pool)
+    if x.device.type == "cpu":
+        return pas_matmul_plain(x, idx, codebook, bias, relu=relu, pool=pool)
+    if x.device.type != "cuda":
+        raise ValueError(f"no PAS kernel for device {x.device}")
+    out = torch.empty((M // pw, N), dtype=torch.float32, device=x.device)
+    if M == 0 or N == 0:
+        return out
+    from repro_torch.kernels import _build
+
+    fn = _build.entry_point("pas_matmul", "pas_matmul_launch",
+                            [_P] * 5 + [_I] * 7 + [_P])
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
+                 M, K, N, codebook.shape[1], int(relu), pool, bm,
+                 _stream(x.device))
+    _raise_on(err, "pas_matmul")
+    launches["pas_matmul"] += 1
+    return out
+
+
+def pas_conv_kernel_call(
+    x: torch.Tensor,
+    idx: torch.Tensor,
+    codebook: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    geom: ConvGeom,
+    relu: bool = False,
+) -> torch.Tensor:
+    """K4: implicit-GEMM PAS conv, ``x (B, C, H, W)`` or ``(B, H, W, C)`` →
+    ``(B, P_out, N)`` f32.  The row tile follows from ``geom.pool``.
+
+    ``x`` is the UNPADDED image batch (``geom.pad`` is a masked read, as in
+    K2).  ``idx (Kp, N)`` holds ``Kp >= geom.conv_k`` unpacked reduction
+    rows; positions past ``conv_k`` (the §3 pack-time pad) pair with zero
+    activations.
+    """
+    Kp = idx.shape[0] if idx.ndim == 2 else -1
+    _check_pas(x, idx, codebook, bias, k_rows=Kp)
+    batch = x.shape[0]
+    C, H, W = _check_image(x, geom, Kp)
+    bm = _pas_bm(geom.pool)
+    if x.device.type == "cpu":
+        return pas_conv_plain(x, idx, codebook, bias, geom=geom, relu=relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"no PAS kernel for device {x.device}")
+    N = idx.shape[1]
+    out = torch.empty((batch, geom.P_out, N), dtype=torch.float32,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    from repro_torch.kernels import _build
+
+    fn = _build.entry_point("pas_conv", "pas_conv_launch",
+                            [_P] * 5 + [_I] * 19 + [_P])
+    (plh, _), (plw, _) = geom.pad
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
+                 batch, C, H, W, int(geom.nhwc), geom.ky, geom.kx, geom.stride,
+                 plh, plw, geom.ow, geom.pool, geom.P_out, geom.conv_k, Kp,
+                 N, codebook.shape[1], int(relu), bm, _stream(x.device))
+    _raise_on(err, "pas_conv")
+    launches["pas_conv"] += 1
+    return out

@@ -103,9 +103,10 @@ def _pool_bm(pool: int) -> int:
     pw = pool * pool
     return next(bm for bm in BM_TILES if pw <= bm)
 
-# launches of each kernel in this process: the wrappers add one per launch,
+# launches of each kernel in this process, K1 and K2 here and K3 and K4 of
+# repro_torch.kernels.pas_histogram too: each wrapper adds one per launch,
 # and nowhere else (chip_smoke.py resets them around the main path)
-launches = {"pasm_matmul": 0, "pasm_conv": 0}
+launches = {"pasm_matmul": 0, "pasm_conv": 0, "pas_matmul": 0, "pas_conv": 0}
 
 _NO_GRAD = (
     "the CUDA PASM kernels are forward-only in this slice; autograd "
@@ -275,6 +276,24 @@ def _check_operands(x, idx, codebook, bias, *, packed: bool, gather: str,
         raise ValueError("the CUDA kernels take contiguous tensors")
 
 
+def _check_image(x: torch.Tensor, geom: ConvGeom, Kp: int) -> tuple:
+    """The implicit-GEMM kernels' image checks (K2, K4); returns ``(C, H, W)``."""
+    if x.ndim != 4:
+        raise ValueError(f"x must be a 4-D image batch, got {tuple(x.shape)}")
+    if x.shape[0] > 65535:  # the launch grid's z extent
+        raise ValueError(f"the conv kernels take at most 65535 images per "
+                         f"call, got {x.shape[0]}")
+    C, H, W = (x.shape[3], x.shape[1], x.shape[2]) if geom.nhwc \
+        else (x.shape[1], x.shape[2], x.shape[3])
+    (plh, phh), (plw, phw) = geom.pad
+    if C != geom.c_in or Kp - geom.conv_k not in (0, 1):
+        raise ValueError(f"image {tuple(x.shape)} / K={Kp} do not match {geom}")
+    if (geom.oh - 1) * geom.stride + geom.ky > H + plh + phh or \
+            (geom.ow - 1) * geom.stride + geom.kx > W + plw + phw:
+        raise ValueError(f"image {tuple(x.shape)} too small for {geom}")
+    return C, H, W
+
+
 def _stream(dev: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
@@ -365,19 +384,8 @@ def pasm_conv_kernel_call(
     Kp = idx.shape[0] * (2 if packed else 1) if idx.ndim == 2 else -1
     _check_operands(x, idx, codebook, bias, packed=packed, gather=gather,
                     k_rows=Kp)
-    if x.ndim != 4:
-        raise ValueError(f"x must be a 4-D image batch, got {tuple(x.shape)}")
     batch = x.shape[0]
-    if batch > 65535:  # the launch grid's z extent
-        raise ValueError(f"K2 takes at most 65535 images per call, got {batch}")
-    C, H, W = (x.shape[3], x.shape[1], x.shape[2]) if geom.nhwc \
-        else (x.shape[1], x.shape[2], x.shape[3])
-    (plh, phh), (plw, phw) = geom.pad
-    if C != geom.c_in or Kp - geom.conv_k not in (0, 1):
-        raise ValueError(f"image {tuple(x.shape)} / K={Kp} do not match {geom}")
-    if (geom.oh - 1) * geom.stride + geom.ky > H + plh + phh or \
-            (geom.ow - 1) * geom.stride + geom.kx > W + plw + phw:
-        raise ValueError(f"image {tuple(x.shape)} too small for {geom}")
+    C, H, W = _check_image(x, geom, Kp)
     bm = _pool_bm(geom.pool)
     if x.device.type == "cpu":
         return pasm_conv_plain(x, idx, codebook, bias, geom=geom,
@@ -394,6 +402,7 @@ def pasm_conv_kernel_call(
     fn = _build.entry_point("pasm_conv", "pasm_conv_launch",
                             [_P] * 5 + [_I] * 21 + [_P])
     G, B = codebook.shape
+    (plh, _), (plw, _) = geom.pad
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
                  batch, C, H, W, int(geom.nhwc), geom.ky, geom.kx, geom.stride,

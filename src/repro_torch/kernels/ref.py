@@ -13,7 +13,7 @@ import torch.nn.functional as F
 from repro_torch.core import pasm as _pasm
 from repro_torch.core._f32 import matmul_f32
 
-__all__ = ["pasm_matmul_ref", "dequant_ref", "apply_epilogue",
+__all__ = ["pasm_matmul_ref", "pas_matmul_ref", "dequant_ref", "apply_epilogue",
            "im2col_patches", "max_pool_rows"]
 
 
@@ -86,3 +86,20 @@ def pasm_matmul_ref(x: torch.Tensor, idx: torch.Tensor, codebook: torch.Tensor,
     """The dequant-fused GEMM's plain version: dequantize, then f32 GEMM."""
     w = dequant_ref(idx, codebook, packed=packed).to(x.dtype)
     return matmul_f32(x, w).to(torch.float32)
+
+
+def pas_matmul_ref(x: torch.Tensor, idx: torch.Tensor,
+                   codebook: torch.Tensor) -> torch.Tensor:
+    """The two-phase PAS GEMM's plain version: histogram bins, then post-pass.
+
+    ``x (M, K) · idx (K, N) · codebook (1, B) → (M, N)`` f32.  The PAS phase
+    is one f32 product with the ``(K, N·B)`` one-hot of ``idx``; an index
+    ``>= B`` has an all-zero one-hot row and adds nothing, as
+    ``jax.nn.one_hot`` does in the JAX reference (``F.one_hot`` would raise).
+    """
+    K, N = idx.shape
+    B = codebook.shape[-1]
+    bins = torch.arange(B, device=idx.device)
+    onehot = (idx[..., None].long() == bins).to(x.dtype).reshape(K, N * B)
+    s = matmul_f32(x, onehot).reshape(x.shape[0], N, B).to(torch.float32)
+    return matmul_f32(s, codebook.reshape(-1).to(torch.float32))

@@ -25,13 +25,14 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.alexnet_conv import CNNConfig
 from repro_torch.core import conv as _conv
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.core.params import NOT_PORTED_MESH, NOT_PORTED_PAS
+from repro_torch.core.params import NOT_PORTED_MESH
 from repro_torch.models.common import Initializer
 
 __all__ = ["stages", "feature_shape", "init_params", "quantize", "forward",
            "forward_dense"]
 
-# CNNConfig.impl == conv2d engine; pas_kernel belongs to a later slice
+# CNNConfig.impl == conv2d engine (pas_kernel_implicit is reached through
+# conv2d only, as in the JAX package)
 _IMPLS = ("auto", "einsum", "kernel", "kernel_implicit", "pas_kernel")
 
 
@@ -100,14 +101,14 @@ def forward(params: dict, images: torch.Tensor, cfg: CNNConfig, *,
     """Quantized forward: images (in ``cfg.layout`` order) → logits.
 
     ``cfg.impl`` picks the conv engine: ``kernel`` runs K1 over an explicit
-    im2col patch matrix, ``kernel_implicit`` K2 on the raw image, ``einsum``
-    the plain reference, ``auto`` K2 for batches.  Each stage's pool rides
+    im2col patch matrix, ``kernel_implicit`` K2 on the raw image,
+    ``pas_kernel`` the paper-faithful two-phase K3 over the patches (one
+    dictionary per layer), ``einsum`` the plain reference, ``auto`` K2 for
+    batches.  Each stage's pool rides
     ``conv2d(pool=)`` (fused into the kernel epilogue where possible).
     """
     if cfg.impl not in _IMPLS:
         raise ValueError(f"impl must be one of {'|'.join(_IMPLS)}, got {cfg.impl!r}")
-    if cfg.impl == "pas_kernel":
-        raise NotImplementedError(NOT_PORTED_PAS)
     if mesh is not None:
         raise NotImplementedError(NOT_PORTED_MESH)
     x = images

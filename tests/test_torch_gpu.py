@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain versions (``-m gpu``).
+"""K1–K4 on the card against their plain versions (``-m gpu``).
 
 Every test here takes the ``cuda`` fixture, which skips when no card is
 present; the decision is made when the test runs, never at import, so every
@@ -14,7 +14,9 @@ import torch
 
 from repro_torch.configs import alexnet_conv
 from repro_torch.core import conv as cv
+from repro_torch.core import pasm as _pasm
 from repro_torch.kernels import ops
+from repro_torch.kernels import pas_histogram as ph
 from repro_torch.kernels import pasm_matmul as pm
 from repro_torch.models import cnn
 
@@ -102,11 +104,13 @@ def test_smoke_forward_on_the_card(cuda):
     q = cnn.quantize(cnn.init_params(cfg, gen, device=cuda), cfg)
     x = torch.randn((4, 3, 32, 32), generator=gen, device=cuda)
     want = cnn.forward(q, x, dataclasses.replace(cfg, impl="einsum"))
-    for impl in ("kernel", "kernel_implicit"):
+    keys = {"kernel": "pasm_matmul", "kernel_implicit": "pasm_conv",
+            "pas_kernel": "pas_matmul"}
+    for impl, key in keys.items():
         pm.reset_launches()
         got = cnn.forward(q, x, dataclasses.replace(cfg, impl=impl))
-        key = "pasm_matmul" if impl == "kernel" else "pasm_conv"
-        assert pm.launches[key] == len(cfg.layers)
+        assert pm.launches == {k: len(cfg.layers) if k == key else 0
+                               for k in pm.launches}
         torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
     assert np.isfinite(got.cpu().numpy()).all()
 
@@ -117,3 +121,107 @@ def test_kernels_raise_on_grad(cuda):
     cb = torch.zeros((1, 4), device=cuda)
     with pytest.raises(RuntimeError, match="QAT/training slice"):
         pm.pasm_matmul_kernel_call(x, idx, cb, packed=False)
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: the paper-faithful two-phase PAS kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N,bins,packed,pool", [
+    (64, 364, 96, 16, True, 2),     # conv1's K with its pad row, packed
+    (100, 200, 70, 4, False, 1),    # ragged M and N, one 4-bin pass
+    (36, 2400, 40, 16, False, 3),
+    (64, 96, 33, 256, False, 2),    # 16 passes of 16 bins
+    (144, 40, 10, 16, True, 6),     # a 144-row window: the 256-row tile
+])
+def test_k3_matches_plain(cuda, M, K, N, bins, packed, pool):
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    idx = torch.randint(0, bins, (K, N), generator=g, device=cuda, dtype=torch.uint8)
+    cb = torch.randn((1, bins), generator=g, device=cuda)
+    bias = torch.randn(N, generator=g, device=cuda)
+    t = _pasm.PASMTensor(idx=_pasm.pack_int4(idx) if packed else idx, codebook=cb,
+                         shape=(K, N), bins=bins, bits=4 if packed else 8,
+                         packed=packed)
+    before = pm.launches["pas_matmul"]
+    y = ops.pas_matmul(x, t, bias=bias, relu=True, pool=pool)
+    assert pm.launches["pas_matmul"] == before + 1
+    want = ph.pas_matmul_plain(x, idx, cb, bias, relu=True, pool=pool)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, **TOL)
+
+
+@pytest.mark.parametrize("layout,padding,pool,packed,bins", [
+    ("NCHW", "valid_centred", 2, False, 16),
+    ("NHWC", "same", 2, True, 16),
+    ("NCHW", "same", 1, True, 4),
+    ("NHWC", "valid", 3, False, 256),
+])
+def test_k4_matches_plain_and_k3_bitwise(cuda, layout, padding, pool, packed, bins):
+    conv = cv.Conv2D(k=5, c_in=6, c_out=70, stride=2, padding=padding,
+                     layout=layout, relu=True)
+    p = _params((70, 6, 5, 5), bins, 1, packed, layout, cuda)
+    shape = (3, 37, 33, 6) if layout == "NHWC" else (3, 6, 37, 33)
+    x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    g = cv.conv_geom(conv, 37, 33, pool=pool)
+    t = p.gemm_tensor(layout)
+    before = pm.launches["pas_conv"]
+    y4 = ops.pas_conv2d(x, t, g, bias=p.bias, relu=True)
+    assert pm.launches["pas_conv"] == before + 1
+    want = ph.pas_conv_plain(x, _pasm.logical_idx(t), t.codebook, p.bias, geom=g,
+                             relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y4, want, **TOL)
+    # K3 over the window-major patches adds into the same bins in the same
+    # order; the fused pool equals the kernel without pool + max_pool2d
+    y3 = cv.conv2d(x, p, conv, engine="pas_kernel", pool=pool)
+    assert torch.equal(cv.conv2d(x, p, conv, engine="pas_kernel_implicit", pool=pool), y3)
+    for engine in ("pas_kernel", "pas_kernel_implicit"):
+        unfused = cv.conv2d(x, p, conv, engine=engine, pool=pool, pool_impl="unfused")
+        assert torch.equal(unfused, y3)
+
+
+def test_k3_equals_k1_on_integers(cuda):
+    """Paper §5.3: in integer arithmetic PASM is bit-exact vs the
+    weight-shared MAC.  |sums| < 2^24, so f32 holds them exactly."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    M, K, N = 256, 2400, 96
+    x = torch.randint(-8, 9, (M, K), generator=g, device=cuda).float()
+    idx = torch.randint(0, 16, (K, N), generator=g, device=cuda, dtype=torch.uint8)
+    cb = torch.randint(-8, 9, (1, 16), generator=g, device=cuda).float()
+    bias = torch.randint(-99, 99, (N,), generator=g, device=cuda).float()
+    y3 = ph.pas_matmul_kernel_call(x, idx, cb, bias, relu=True, pool=2)
+    y1 = pm.pasm_matmul_kernel_call(x, idx, cb, bias, packed=False, relu=True, pool=2)
+    assert torch.equal(y3, y1)
+
+
+def test_pas_kernels_drop_out_of_range_indices(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((64, 80), generator=g, device=cuda)
+    idx = torch.randint(0, 24, (80, 40), generator=g, device=cuda, dtype=torch.uint8)
+    cb = torch.randn((1, 16), generator=g, device=cuda)
+    y = ph.pas_matmul_kernel_call(x, idx, cb)
+    w = torch.where(idx < 16, cb[0][idx.long().clamp(max=15)], 0.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, x @ w, **TOL)
+    torch.testing.assert_close(y, ph.pas_matmul_plain(x, idx, cb), **TOL)
+    conv = cv.Conv2D(k=1, c_in=80, c_out=40)
+    geom = cv.conv_geom(conv, 8, 8)
+    img = x.reshape(1, 8, 8, 80).permute(0, 3, 1, 2).contiguous()
+    y4 = ph.pas_conv_kernel_call(img, idx, cb, geom=geom)
+    torch.cuda.synchronize()
+    assert torch.equal(y4.reshape(64, 40), y)
+
+
+def test_pas_kernels_raise_on_grad(cuda):
+    x = torch.randn((8, 16), device=cuda, requires_grad=True)
+    idx = torch.zeros((16, 4), dtype=torch.uint8, device=cuda)
+    cb = torch.zeros((1, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ph.pas_matmul_kernel_call(x, idx, cb)
+    conv = cv.Conv2D(k=1, c_in=16, c_out=4)
+    img = torch.randn((1, 16, 2, 4), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ph.pas_conv_kernel_call(img, idx, cb, geom=cv.conv_geom(conv, 2, 4))

@@ -220,14 +220,17 @@ def test_feature_shape_matches(padding):
 
 
 def test_port_refuses_engines_of_later_slices():
+    """mesh= (the distribution slice) raises; the PAS engines run now
+    (tests/test_torch_pas.py holds them against the JAX package)."""
     idx = torch.zeros((2, 1, 3, 3), dtype=torch.uint8)
     p = tcv.ConvParams.shared(idx, torch.arange(4, dtype=torch.float32))
     conv = tcv.Conv2D(k=3, c_in=1, c_out=2)
     x = torch.zeros((1, 1, 5, 5))
-    for engine in ("pas_kernel", "pas_kernel_implicit", "pas_einsum"):
+    for engine in ("kernel", "pas_kernel", "pas_kernel_implicit"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcv.conv2d(x, p, conv, engine=engine)
+            tcv.conv2d(x, p, conv, engine=engine, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcv.conv2d(x, p, conv, engine="kernel", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpar.matmul(torch.zeros(2, 9), p._as_pasm("ckk"), impl="pas_kernel")
+        tpar.matmul(torch.zeros(2, 9), p._as_pasm("ckk"), impl="pas_kernel",
+                    mesh=object())
+    for engine in ("pas_kernel", "pas_kernel_implicit", "pas_einsum"):
+        assert tuple(tcv.conv2d(x, p, conv, engine=engine).shape) == (1, 2, 3, 3)
