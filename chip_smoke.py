@@ -29,8 +29,31 @@ Phases (every one unguarded: any failure exits non-zero):
    for K1/K3, ``F.conv2d`` with TF32 off for K2/K4) and the bound
    ``max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)`` of the function (K3's is
    K1's, K4's is K2's);
-6. one ``{"kernels": [...]}`` JSON line;
-7. last line: ``{"ok": true, "device": {...}}``.
+6. K5 (flash attention) against its plain version, f32 and bf16, causal and
+   not, at the ``tests/test_kernels.py`` shapes (GQA, MHA with a ragged S,
+   MQA), stablelm-3b's hd 80 over 32 heads and qwen3-32b's prefill shape
+   (64 heads over 8 KV heads, hd 128) at S = 512 and 1000, and against the
+   port's ``gqa_attention`` with ``chunk < S`` (the online-softmax loop);
+7. LM serving: qwen3-32b at full width (d_model 5120, 64/8 heads, hd 128,
+   qk-norm, SwiGLU d_ff 25600, vocab 151936) cut to 4 of its 64 layers,
+   seeded weights drawn on the card and quantized there (16 bins, int4
+   packed), 8 requests (prompts of 8–384 tokens, 16 new tokens each,
+   staggered submits) through ``Engine(batch_slots=4, max_seq=512)`` on
+   ``impl="kernel"`` (K1 on every linear: 7 per layer + the head per model
+   call, counted) and on ``impl="dequant"``, the oracle; the per-step logits
+   of both, teacher-forced on the kernel run's tokens, within
+   ``LM_LOGIT_TOL``; then K5 through ``ops.flash_attention`` on the served
+   model's own attention operands (what each layer handed ``gqa_attention``
+   at that prefill), counted, and held against ``gqa_attention`` and K5's
+   plain version;
+8. CUDA-event timings at the LM's shapes: K5 at the qwen3 prefill shape
+   (B 1, S 4096, causal) in bf16 and f32 against its plain version, the
+   library yardstick ``F.scaled_dot_product_attention`` (timed only) and the
+   bound; K1 at the decode (M = 4) and prefill (M = 384) rows of ``wq``,
+   ``w1``, ``w2`` and ``lm_head`` with bf16 activations against
+   ``torch.matmul`` on the dequantized bf16 weight and the bound;
+9. one ``{"kernels": [...]}`` JSON line;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -39,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,11 +73,30 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 TOL = 1e-4  # kernel vs plain: |Δ| <= TOL + TOL·|plain| (f32 summation order)
+# K5 vs plain: f32 sums in another order; bf16 outputs one bf16 ulp apart
+K5_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}  # |Δ| <= t·|plain| + 1e-5
+# K5 vs gqa_attention: gqa rounds the softmax weights to v's dtype before the
+# value product (2**-9 each in bf16), then both round the output:
+# |Δ| <= t·(|gqa| + max|v|)
+K5_GQA_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# served LM logits, kernel vs dequant: the same products summed in another
+# order in f32, then rounded to bf16 after every linear; a one-ulp flip
+# moves through 4 layers and the head: |Δ| <= LM_LOGIT_TOL · max|logit|
+LM_LOGIT_TOL = 0.025
+BF16_TFLOPS = 989.0  # H100 SXM dense bf16 tensor-core peak
+# the LM cell: qwen3-32b at full width, its depth cut to 4 of 64 layers
+LM_LAYERS = 4
+LM_SLOTS = 4
+LM_MAX_SEQ = 512
+LM_NEW = 16
+LM_PROMPTS = (8, 384, 37, 200, 100, 17, 300, 64)
+K5_TIME_S = 4096
 LOGIT_TOL = 1e-3  # served logits vs the einsum engine (five layers + head)
 F32_TFLOPS = 67.0  # H100 SXM f32 (non-tensor-core) peak
 HBM_TBPS = 3.35  # H100 SXM HBM3
 TIME_BATCH = 32
 KERNELS = ("pasm_matmul", "pasm_conv", "pas_matmul", "pas_conv")
+ALL_KERNELS = KERNELS + ("flash_attention",)
 # the kernel each served engine launches (five per batch, and no other)
 SERVED_KERNEL = {"kernel": "pasm_matmul", "kernel_implicit": "pasm_conv",
                  "pas_kernel": "pas_matmul"}
@@ -266,6 +309,329 @@ def bound(case: Case, explicit: bool) -> tuple:
             flops)
 
 
+
+# ---------------------------------------------------------------------------
+# K5 and the LM (phases 6-8)
+# ---------------------------------------------------------------------------
+
+
+def check_close(got, want, rtol: float, atol_scale: float = 0.0,
+                what: str = "") -> float:
+    """Max |Δ| in f32; raises when an element is over
+    ``rtol·|want| + 1e-5 + atol_scale``."""
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    d = (g - w).abs()
+    bad = d > rtol * w.abs() + 1e-5 + atol_scale
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} elements over tolerance, "
+                             f"max |Δ| {float(d.max()):.3e}")
+    return float(d.max())
+
+
+def regroup(q, k, v):
+    """ops.flash_attention's layout: (B,S,H,hd) → (B·KV, G, S, hd) and
+    (B·KV, S, hd), for calling K5 and its plain version directly."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4).reshape(B * KV, H // KV, S, hd)
+    kg = k.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    vg = v.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    return qg.contiguous(), kg.contiguous(), vg.contiguous()
+
+
+def check_k5(q, k, v, causal: bool, name: str, errs: dict) -> str:
+    """K5 vs its plain version (regrouped operands) and ops.flash_attention
+    vs the port's gqa_attention with chunk < S."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.nn import attention as A
+
+    dt = str(q.dtype).split(".")[-1]
+    qg, kg, vg = regroup(q, k, v)
+    y = fa.flash_attention_kernel_call(qg, kg, vg, causal=causal)
+    want = fa.flash_attention_plain(qg, kg, vg, causal=causal)
+    torch.cuda.synchronize()
+    e = check_close(y, want, K5_TOL[dt], what=f"K5 {name}")
+    errs["flash_attention"] = max(errs["flash_attention"], e)
+    S = q.shape[1]
+    o = ops.flash_attention(q, k, v, causal=causal)
+    g = A.gqa_attention(q, k, v, causal=causal, chunk=max(4, S // 3))
+    torch.cuda.synchronize()
+    if not torch.equal(o, y.reshape(q.shape[0], k.shape[2], -1, S, q.shape[3])
+                       .permute(0, 3, 1, 2, 4).reshape(q.shape)):
+        raise AssertionError(f"K5 {name}: ops.flash_attention differs from the kernel call")
+    t = K5_GQA_TOL[dt]
+    eg = check_close(o, g, t, t * float(v.float().abs().max()), what=f"K5 vs gqa {name}")
+    return f"vs plain {e:.2e}, vs gqa_attention {eg:.2e}"
+
+
+def k5_phase(gen, errs: dict) -> None:
+    import torch
+
+    shapes = [  # (name, B, S, H, KV, hd)
+        ("GQA", 2, 64, 4, 2, 16), ("MHA ragged S", 1, 56, 4, 4, 16),
+        ("MQA", 1, 128, 8, 1, 32), ("stablelm-3b hd80 MHA", 1, 333, 32, 32, 80),
+        ("qwen3-32b prefill", 1, 512, 64, 8, 128),
+        ("qwen3-32b prefill ragged", 1, 1000, 64, 8, 128),
+    ]
+    log(f"phase 6: K5 vs plain (|Δ| <= t·|plain| + 1e-5, t = {K5_TOL}) and vs "
+        f"gqa_attention (chunk < S; |Δ| <= t·(|gqa| + max|v|) + 1e-5, t = {K5_GQA_TOL})")
+    for name, B, S, H, KV, hd in shapes:
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda")
+        k = torch.randn((B, S, KV, hd), generator=gen, device="cuda")
+        v = torch.randn((B, S, KV, hd), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                res = check_k5(q.to(dtype), k.to(dtype), v.to(dtype), causal,
+                               f"{name} {dtype} causal={causal}", errs)
+                log(f"  {name:<26} B{B} S{S} H{H}/{KV} hd{hd} "
+                    f"{str(dtype).split('.')[-1]:<8} causal={causal!s:<5} {res}")
+
+
+def lm_config():
+    """qwen3-32b at full width, 4 of its 64 layers, 16-bin int4 PASM on K1."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-32b")
+    return dataclasses.replace(cfg, n_layers=LM_LAYERS).with_quant(
+        enabled=True, bins=16, impl="kernel")
+
+
+def serve_lm(cfg, params, prompts, impl: str):
+    """Serve ``prompts`` through the Engine on ``impl`` with staggered
+    submits: two at tick 0, then one more every second tick.  Returns the
+    engine, the requests and the launch counts of the run."""
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.serve.engine import Engine
+
+    eng = Engine(cfg.with_quant(impl=impl), params, batch_slots=LM_SLOTS,
+                 max_seq=LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    pm.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new=LM_NEW) for p in prompts[:2]]
+    live_submits = 0
+    for p in prompts[2:]:
+        eng.step()
+        eng.step()
+        live_submits += bool(eng.live)  # admission lands while slots decode
+        reqs.append(eng.submit(p, max_new=LM_NEW))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, reqs, dict(pm.launches), wall, live_submits
+
+
+def teacher_forced_logits(cfg, params, prompts, tokens, impl: str) -> list:
+    """Per-step logits of all prompts as one right-padded batch: prefill,
+    then decode steps fed the given tokens (the kernel run's)."""
+    import torch
+
+    from repro_torch.models import transformer as TT
+
+    c = cfg.with_quant(impl=impl)
+    B, S = len(prompts), max(len(p) for p in prompts)
+    toks = np.zeros((B, S), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, : len(p)] = p
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
+    caches = TT.init_caches(c, B, LM_MAX_SEQ, device="cuda")
+    logits, caches = TT.prefill(params, torch.from_numpy(toks).cuda(), caches, c,
+                                lengths=lengths)
+    out = [logits.float()]
+    for j in range(LM_NEW - 1):
+        nxt = torch.tensor([[t[j]] for t in tokens], dtype=torch.int32, device="cuda")
+        logits, caches = TT.decode_step(params, nxt, caches, c)
+        out.append(logits.float())
+    torch.cuda.synchronize()
+    return out
+
+
+def lm_phase(gen, errs: dict, card: str) -> dict:
+    """Phase 7; returns the launch counts of the kernel run and the K5 run."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import param_count, quantize_params, weight_bytes
+    from repro_torch.nn import attention as A
+
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    dense = TT.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = quantize_params(dense, cfg)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    wb = weight_bytes(params)
+    log(f"phase 7: {cfg.name} full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+        f"{cfg.n_layers} of 64 layers, {param_count(params) / 1e9:.3f} B params; "
+        f"weights drawn in {t_init:.2f} s, quantized on the card in {t_quant:.2f} s "
+        f"({cfg.quant.bins} bins, int4 packed); weight bytes dense bf16 "
+        f"{wb['dense']} -> stored {wb['stored']} ({wb['ratio']:.2f}x)")
+    del dense
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in LM_PROMPTS]
+    per_call = 7 * cfg.n_layers + 1
+    runs = {}
+    for impl in ("kernel", "dequant"):
+        eng, reqs, counts, wall, live_submits = serve_lm(cfg, params, prompts, impl)
+        roll = eng.metrics.rollup()
+        calls = eng.calls["prefill"] + eng.calls["decode"]
+        want = {k: per_call * calls if (impl == "kernel" and k == "pasm_matmul") else 0
+                for k in ALL_KERNELS}
+        log(f"  {impl:<8} {len(reqs)} requests, {eng.tick} ticks, model calls "
+            f"{eng.calls}, launches {counts}, submits while slots were live "
+            f"{live_submits}, n_degraded "
+            f"{roll.get('n_degraded', 0)}, {wall:.2f} s host clock incl. first "
+            f"calls, {roll['tok_s']:.1f} tok/s ({card})")
+        if counts != want:
+            raise AssertionError(f"LM {impl}: expected launches {want} "
+                                 f"({per_call} per model call), got {counts}")
+        if roll.get("n_degraded", 0) or not live_submits:
+            raise AssertionError(f"LM {impl}: degraded or no continuous admission: {roll}")
+        if not all(r.done and len(r.out) == LM_NEW for r in reqs):
+            raise AssertionError(f"LM {impl}: a request was not served {LM_NEW} tokens")
+        runs[impl] = (counts, [r.out for r in reqs])
+    ko, do = runs["kernel"][1], runs["dequant"][1]
+    agree = float(np.mean([a == b for x, y in zip(ko, do) for a, b in zip(x, y)]))
+    log(f"  greedy tokens agreeing, kernel vs dequant: {agree:.4f} of "
+        f"{len(ko) * LM_NEW} (streams: {sum(x == y for x, y in zip(ko, do))}/{len(ko)} equal)")
+    # the kernel run also records what the transformer hands gqa_attention
+    # at prefill: the served model's own attention operands, every layer
+    captured, gqa = [], A.gqa_attention
+
+    def spy(q, k, v, **kw):
+        captured.append((q, k, v))
+        return gqa(q, k, v, **kw)
+
+    A.gqa_attention = spy
+    try:
+        lk = teacher_forced_logits(cfg, params, prompts, ko, "kernel")
+    finally:
+        A.gqa_attention = gqa
+    ld = teacher_forced_logits(cfg, params, prompts, ko, "dequant")
+    worst, top = 0.0, 0.0
+    for j, (a, b) in enumerate(zip(lk, ld)):
+        top = max(top, float(b.abs().max()))
+        worst = max(worst, check_close(a, b, 0.0, LM_LOGIT_TOL * float(b.abs().max()),
+                                       what=f"LM logits step {j}"))
+    same = float(np.mean([bool((a.argmax(-1) == b.argmax(-1)).all())
+                          for a, b in zip(lk, ld)]))
+    log(f"  teacher-forced logits, kernel vs dequant, {len(lk)} steps x "
+        f"{len(prompts)} prompts: max |Δ| {worst:.4e} (|logit| max {top:.3f}, "
+        f"tolerance {LM_LOGIT_TOL} of it); steps with every argmax equal {same:.3f}")
+
+    # K5 on the served model's attention operands
+    torch.cuda.synchronize()
+    pm.reset_launches()
+    for q, k, v in captured:
+        ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    k5_counts = dict(pm.launches)
+    if k5_counts != {k: len(captured) if k == "flash_attention" else 0 for k in ALL_KERNELS} \
+            or len(captured) != cfg.n_layers:
+        raise AssertionError(f"K5 on the served attention: launches {k5_counts}, "
+                             f"{len(captured)} prefill attention calls recorded")
+    q = captured[0][0]
+    log(f"  K5 through ops.flash_attention on the served prefill's attention "
+        f"operands ({len(captured)} layers, B{q.shape[0]} S{q.shape[1]} "
+        f"H{q.shape[2]}/{captured[0][1].shape[2]} hd{q.shape[3]} {q.dtype}): "
+        f"launches {k5_counts}")
+    for i, (q, k, v) in enumerate(captured):
+        log(f"    layer {i}: " + check_k5(q, k, v, True, f"served layer {i}", errs))
+    return {"lm": runs["kernel"][0], "k5": k5_counts, "cfg": cfg, "params": params}
+
+
+def k5_bound(B, S, H, KV, hd, nbytes: int, tflops: float) -> tuple:
+    """(ops_ms, bytes_ms) of causal attention: 2·B·H·S²·hd flops (half of
+    QKᵀ and PV each), q, k, v read once and the output written once."""
+    flops = 2 * B * H * S * S * hd
+    moved = B * S * (2 * H + 2 * KV) * hd * nbytes
+    return flops / (tflops * 1e12) * 1e3, moved / (HBM_TBPS * 1e12) * 1e3
+
+
+def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
+    """Phase 8: K5 at the qwen3 prefill shape and K1 at the LM's shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pasm_matmul as pm
+
+    cfg, params = lm["cfg"], lm["params"]
+    B, S, H, KV, hd = 1, K5_TIME_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    log(f"phase 8: CUDA-event timings at the LM shapes ({card})")
+    rows = {}
+    for dtype, tflops in ((torch.bfloat16, BF16_TFLOPS), (torch.float32, F32_TFLOPS)):
+        q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
+        qg, kg, vg = regroup(q, k, v)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        k_fn = lambda: fa.flash_attention_kernel_call(qg, kg, vg, causal=True)
+        p_fn = lambda: fa.flash_attention_plain(qg, kg, vg, causal=True)
+        l_fn = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                                      enable_gqa=True)
+        e = check_close(k_fn(), p_fn(), K5_TOL[str(dtype).split(".")[-1]], what="K5 timing")
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        ms, plain_ms, lib_ms = time_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
+        ops_ms, bytes_ms = k5_bound(B, S, H, KV, hd, q.element_size(), tflops)
+        dt = str(dtype).split(".")[-1]
+        rows[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=max(ops_ms, bytes_ms),
+                        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                        max_abs_err=e)
+        log(f"  K5 B{B} S{S} H{H}/{KV} hd{hd} causal {dt:<8}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f}, library (SDPA) {lib_ms:.4f}, bound "
+            f"{max(ops_ms, bytes_ms):.4f} by {rows[dt]['bound_by']} ({tflops:.0f} "
+            f"TFLOP/s, {HBM_TBPS} TB/s), {2 * B * H * S * S * hd / ms / 1e9:.1f} "
+            f"TFLOP/s [{card}]")
+        del q, k, v, qg, kg, vg, qh, kh, vh
+    lp = params["layers"][0]
+    mats = {"wq": lp["attn"]["wq"], "w1": lp["mlp"]["w1"], "w2": lp["mlp"]["w2"],
+            "lm_head": params["lm_head"]}
+    for M in (4, 384):
+        for name, p in mats.items():
+            t = p.gemm_tensor()
+            K, N = t.shape
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            w = p.dense_matrix(torch.bfloat16)
+            k_fn = lambda: ops.pasm_matmul(x, t)
+            p_fn = lambda: pm.pasm_matmul_plain(x, t.idx, t.codebook, packed=t.packed)
+            l_fn = lambda: torch.matmul(x, w)
+            e = max_err(k_fn(), p_fn())
+            errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
+            ms, plain_ms, lib_ms = time_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
+            flops = 2 * M * K * N
+            moved = M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4
+            ops_ms = flops / (BF16_TFLOPS * 1e12) * 1e3
+            bytes_ms = moved / (HBM_TBPS * 1e12) * 1e3
+            log(f"  K1 M{M:<4} {name:<8} K{K} N{N} bf16 x: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f}, library (bf16 matmul) {lib_ms:.4f}, bound "
+                f"{max(ops_ms, bytes_ms):.4f} by "
+                f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, "
+                f"{flops / ms / 1e9:.2f} TFLOP/s, {moved / ms / 1e6:.1f} GB/s, "
+                f"max |Δ| vs plain {e:.2e} [{card}]")
+            del w
+    return rows
+
 def main() -> int:
     import torch
 
@@ -298,9 +664,14 @@ def main() -> int:
     t_build = _build.build()
     log(f"build: {t_build:.2f} s (nvcc, {len(_build.SOURCES)} sources in parallel)")
     for name in _build.SOURCES:
+        entry = ""
         for ln in _build.build_log(name).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:  # the template instance: its integer arguments, bf16 or not
+                entry = ",".join(re.findall(r"ILi(\d+)E", m.group(1)))
+                entry += " bf16" if "bfloat16" in m.group(1) else ""
             if "registers" in ln or "spill" in ln:
-                log(f"  ptxas {name}: {ln.strip()}")
+                log(f"  ptxas {name}[{entry}]: {ln.strip()}")
 
     # the full-width model: seeded weights, k-means on the card
     cfg = alexnet_conv.config()
@@ -314,7 +685,7 @@ def main() -> int:
     packed = [p.pack(layout=cfg.layout) for p in qparams["conv"]]
 
     # 3. kernels vs plain versions -----------------------------------------
-    errs = dict.fromkeys(KERNELS, 0.0)
+    errs = dict.fromkeys(ALL_KERNELS, 0.0)
     log(f"phase 3: kernels vs plain versions (tolerance |Δ| <= {TOL} + {TOL}·|plain|)")
     for kind, plist in (("shared", qparams["conv"]), ("packed", packed)):
         for case in stage_cases(cfg, {"conv": plist}, 4, gen):
@@ -379,7 +750,7 @@ def main() -> int:
             f"({card})")
         key = SERVED_KERNEL.get(impl)
         want_counts = {k: n_stages * b.n_batches if k == key else 0
-                       for k in KERNELS}
+                       for k in ALL_KERNELS}
         if counts[impl] != want_counts:
             raise AssertionError(
                 f"{impl}: expected launches {want_counts} ({n_stages} per batch "
@@ -414,7 +785,7 @@ def main() -> int:
         torch.cuda.synchronize()
         counts[engine + " stages"] = dict(pm.launches)
     k4_counts = counts["pas_kernel_implicit stages"]
-    if k4_counts != {k: n_stages if k == "pas_conv" else 0 for k in KERNELS}:
+    if k4_counts != {k: n_stages if k == "pas_conv" else 0 for k in ALL_KERNELS}:
         raise AssertionError(f"pas_kernel_implicit stages: launches {k4_counts}")
     got, want4 = outs["pas_kernel_implicit"].cpu().numpy(), outs["einsum"].cpu().numpy()
     d = np.abs(got - want4)
@@ -476,37 +847,52 @@ def main() -> int:
                         f"{flops / ms / 1e9:.1f} TFLOP/s)")
         log(f"  {case.name:<18} " + "\n    ".join(rows) + f" [{card}]")
 
-    # 6. the kernels line ------------------------------------------------------
+    # 6-8. K5, the LM served on K1, K5 on the served attention, timings --------
+    k5_phase(gen, errs)
+    lm = lm_phase(gen, errs, card)
+    k5_rows = lm_timings(lm, gen, card, errs)
+
+    # 9. the kernels line ------------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
         "pas_matmul": "src/repro/kernels/pas_histogram.py:101",
         "pas_conv": "src/repro/kernels/pas_histogram.py:184",
+        "flash_attention": "src/repro/kernels/flash_attention.py:79",
     }
-    launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"],
+    launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"],
-                "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"]}
+                "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"],
+                "flash_attention": lm["k5"]["flash_attention"]}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     kernels = []
-    for key in KERNELS:
-        r = tot[key]
+    for key in ALL_KERNELS:
+        if key == "flash_attention":
+            r = dict(k5_rows["bfloat16"])
+            r["max_abs_err"] = errs[key]
+        else:
+            r = dict(tot[key], max_abs_err=errs[key])
+            r["bound_by"] = "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes"
         kernels.append({
             "name": key,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{key}.cu",
             "replaces": replaces[key],
             "launches": launches[key],
-            "max_abs_err": errs[key],
+            "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
-            "bound_by": "operations" if r["ops_ms"] >= r["bytes_ms"] else "bytes",
+            "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    log(f"times are sums over the five AlexNet stages at batch {TIME_BATCH}; "
-        f"launches are from the serving runs (K1-K3) and the stage run (K4) "
+    log(f"K1-K4 times are sums over the five AlexNet stages at batch {TIME_BATCH}, "
+        f"K5's the qwen3-32b prefill shape (S {K5_TIME_S}, causal, bf16); "
+        f"launches are from the serving runs (K1: AlexNet {counts['kernel']['pasm_matmul']} "
+        f"+ LM {lm['lm']['pasm_matmul']}; K2, K3), the stage run (K4) and the "
+        f"served attention (K5); max_abs_err is the largest over every check "
         f"[{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@ Mirrors the module paths of the JAX package ``repro`` so each counterpart is
 easy to find, but imports nothing of it (nor ``jax``): the two packages only
 meet in the tests, which feed both the same numpy inputs.
 
-Ported so far: the quantized AlexNet serving path and the paper-faithful
-two-phase PAS path:
+Ported so far: the quantized AlexNet serving path, the paper-faithful
+two-phase PAS path, and dense-transformer LM serving:
 
 * :mod:`repro_torch.core.pasm` — k-means weight sharing and int4 packing;
 * :mod:`repro_torch.core.pas` — the PASM identity (PAS phase, post-pass);
@@ -13,11 +13,15 @@ two-phase PAS path:
   latency model;
 * :mod:`repro_torch.core.params` — the ``PasmParams`` container;
 * :mod:`repro_torch.core.conv` — ``ConvParams`` / ``Conv2D`` / ``conv2d``;
-* :mod:`repro_torch.kernels` — four hand-written Hopper kernels (K1 the
+* :mod:`repro_torch.kernels` — five hand-written Hopper kernels (K1 the
   fused-dequant GEMM, K2 the implicit-GEMM conv, K3/K4 their two-phase PAS
-  counterparts) and their plain versions;
+  counterparts, K5 GQA flash attention) and their plain versions;
 * :mod:`repro_torch.models.cnn` + :mod:`repro_torch.configs.alexnet_conv`;
-* :mod:`repro_torch.serve.batcher` — ``CnnBatcher``;
+* :mod:`repro_torch.configs` — the LM registry (the four dense archs) and
+  :mod:`repro_torch.models.transformer` with :mod:`repro_torch.nn`;
+* :mod:`repro_torch.serve` — the continuous-batching ``Engine``, its
+  scheduler and fault plan, ``CnnBatcher`` and ``MixedBatcher``;
+  :mod:`repro_torch.launch.serve` is the launcher;
 * :mod:`repro_torch.interop` — carries the JAX package's weights across as
   numpy arrays.
 

@@ -29,6 +29,9 @@ __all__ = [
     "as_params",
     "is_quantized",
     "matmul",
+    "embed_lookup",
+    "dense_weight",
+    "dense_stack",
     "NOT_PORTED_MESH",
 ]
 
@@ -291,7 +294,9 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
     if p.kind == "dense" or impl in ("dense", "dequant"):
         from repro_torch.kernels.ref import apply_epilogue
 
-        y = matmul_f32(x, p.dense_matrix(x.dtype))
+        # the weight in x's dtype, every product exact in f32 and the sum
+        # taken in f32 (the JAX dot's preferred_element_type), for bf16 too
+        y = matmul_f32(x.float(), p.dense_matrix(x.dtype).float())
         return apply_epilogue(y, bias, relu).to(x.dtype)
     from repro_torch.kernels import ops as _kops
 
@@ -306,3 +311,36 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
             )
         return _kops.pas_matmul(x, t, bias=bias, relu=relu).to(x.dtype)
     return _kops.pasm_matmul(x, t, bias=bias, relu=relu).to(x.dtype)
+
+
+def embed_lookup(w: Weight, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding-table row gather for any weight leaf.
+
+    A quantized table gathers its uint8 index rows and dereferences the
+    dictionary, so no dense ``(V, D)`` matrix is made.  Single-dictionary
+    tables only (``quantize_params`` quantizes embeddings with ``G == 1``).
+    """
+    p = as_params(w)
+    if p.kind == "dense":
+        return p.w[tokens]
+    idx = _pasm.unpack_int4(p.idx) if p.packed else p.idx
+    rows = idx[tokens]
+    return p.codebook[0][rows.long()]
+
+
+def dense_weight(w: Weight, dtype=None) -> torch.Tensor:
+    """The logical dense ``(…, K, N)`` matrix of any weight leaf.
+
+    The tied-LM-head path: the kernels compute ``x @ W``, not ``x @ Wᵀ``, so
+    a tied head dequantizes once and transposes at the call site.
+    """
+    return as_params(w).dense_matrix(dtype)
+
+
+def dense_stack(w: Weight, dtype, constrain=None, spec=None) -> torch.Tensor:
+    """Stacked expert weights ``(E, K, N)`` → dense ``dtype``, for the MoE
+    einsum path.  ``constrain``/``spec`` re-lay-out the stored weight under
+    a mesh, which belongs to ROADMAP Queue 1 item 10: a ``spec`` raises."""
+    if spec is not None:
+        raise NotImplementedError(NOT_PORTED_MESH)
+    return as_params(w).dense_matrix(dtype)

@@ -17,7 +17,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core._f32 import matmul_f32
 
@@ -32,12 +31,13 @@ __all__ = [
     "logical_idx",
     "quantize_like",
     "codebook_lookup",
-    "QUANTILE_MAX_NUMEL",
+    "KMEANS_CHUNK",
 ]
 
-# torch.quantile refuses inputs above 2**24 elements; k-means init runs it
-# over one group's flattened weights, so that is the largest group it takes.
-QUANTILE_MAX_NUMEL = 1 << 24
+# k-means walks a group's weights in chunks of this many values, so its
+# temporaries stay bounded whatever the group size: at 16 bins the
+# ``(chunk, B)`` distances and the f32 one-hot take 256 MiB each.
+KMEANS_CHUNK = 1 << 22
 
 
 def bits_for_bins(bins: int) -> int:
@@ -89,28 +89,58 @@ class PASMTensor:
 # ---------------------------------------------------------------------------
 
 
+def _quantile_init(values: torch.Tensor, bins: int) -> torch.Tensor:
+    """``jnp.quantile(values, (arange(B) + 0.5) / B)`` (linear interpolation)
+    over any number of values, on one sort (``torch.quantile`` refuses
+    inputs above 2**24 elements).  The arithmetic is XLA's: f32 positions
+    and weights, and the interpolation contracted into one fused
+    multiply-add, ``fma(hi, w_hi, lo · w_lo)`` (taken in f64 here)."""
+    dev = values.device
+    qs = (torch.arange(bins, dtype=torch.float32, device=dev) + 0.5) / bins
+    srt = torch.sort(values).values
+    n = torch.tensor(float(values.numel()), dtype=torch.float32, device=dev)
+    pos = qs * (n - 1)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    w_hi = pos - lo
+    w_lo = 1 - w_hi
+    last = values.numel() - 1
+    lo_v = srt[lo.long().clamp(0, last)]
+    hi_v = srt[hi.long().clamp(0, last)]
+    return (hi_v.double() * w_hi.double() + (lo_v * w_lo).double()).float()
+
+
+def _assign(values: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Nearest centroid of each value, ties to the lower index (argmin's
+    first minimum)."""
+    return torch.argmin((values[:, None] - c[None, :]).abs_(), dim=1)
+
+
 def _kmeans_1d(values: torch.Tensor, bins: int, iters: int) -> tuple:
-    """1-D k-means on flat f32 ``values``. Returns (codebook (B,), idx (len,))."""
-    if values.numel() > QUANTILE_MAX_NUMEL:
-        raise ValueError(
-            f"k-means group of {values.numel()} weights exceeds torch.quantile's "
-            f"{QUANTILE_MAX_NUMEL}-element cap; quantize with more groups"
-        )
-    # quantile init (linear interpolation, as jnp.quantile) spreads the
-    # centroids across the empirical distribution
-    qs = (torch.arange(bins, dtype=torch.float32, device=values.device) + 0.5) / bins
-    centroids = torch.quantile(values, qs)
+    """1-D k-means on flat f32 ``values``. Returns (codebook (B,), idx (len,)).
 
-    def assign(c):
-        return torch.argmin((values[:, None] - c[None, :]).abs(), dim=1)
-
+    Quantile init, Lloyd iterations (an empty bin keeps its centroid), then
+    the sorted centroids and a last assignment, as the JAX package.  The
+    assignment and the per-bin counts and sums run over chunks of
+    :data:`KMEANS_CHUNK` values, so any group size fits; the sums are taken
+    in another order than the JAX one-hot product, which can move a centroid
+    by an ulp (ROADMAP Queue 3).
+    """
+    centroids = _quantile_init(values, bins)
+    chunks = values.split(KMEANS_CHUNK)
+    ids = torch.arange(bins, device=values.device)
     for _ in range(iters):
-        one_hot = F.one_hot(assign(centroids), bins).to(values.dtype)
-        counts = one_hot.sum(dim=0)
-        sums = matmul_f32(one_hot.T, values)
-        centroids = torch.where(counts > 0, sums / counts.clamp(min=1), centroids)
+        counts = torch.zeros(bins, dtype=torch.int64, device=values.device)
+        sums = torch.zeros(bins, dtype=torch.float32, device=values.device)
+        for v in chunks:
+            hit = _assign(v, centroids)[:, None] == ids
+            counts += hit.sum(dim=0)
+            sums += matmul_f32(hit.to(torch.float32).T, v)
+        # exact counts; as f32 they equal the JAX one-hot sums up to 2**24
+        n = counts.clamp(min=1).to(torch.float32)
+        centroids = torch.where(counts > 0, sums / n, centroids)
     centroids = torch.sort(centroids).values
-    return centroids, assign(centroids)
+    idx = torch.cat([_assign(v, centroids).to(torch.uint8) for v in chunks])
+    return centroids, idx
 
 
 def kmeans_codebook(w: torch.Tensor, bins: int, *, groups: int = 1,

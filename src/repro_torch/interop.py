@@ -10,7 +10,13 @@ them here:
   "pad_k", "kernel", "idx", "codebook", "bias"}`` (absent arrays None) →
   :class:`~repro_torch.core.conv.ConvParams`;
 * :func:`cnn_params_from_numpy` — ``{"conv": [conv dicts], "head": {"w",
-  "b"}}`` → the params dict :func:`repro_torch.models.cnn.forward` takes.
+  "b"}}`` → the params dict :func:`repro_torch.models.cnn.forward` takes;
+* :func:`lm_params_from_numpy` — the JAX transformer's params tree (from
+  ``init_params``, optionally ``quantize_params``) with every dense leaf an
+  array and every ``PasmParams`` leaf a ``{"kind", "shape", "bins",
+  "pad_k", "w", "idx", "codebook", "bias"}`` dict, per-layer leaves keeping
+  their leading layer axis → the port's tree, whose ``"layers"`` is a list
+  of per-layer dicts.
 
 Arrays keep their dtype (uint8 indices, float32 values) and are placed on
 ``device`` (default the card).
@@ -24,10 +30,11 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.conv import ConvParams
+from repro_torch.core.params import PasmParams
 from repro_torch.core.pasm import PASMTensor
 
 __all__ = ["pasm_tensor_from_numpy", "conv_params_from_numpy",
-           "cnn_params_from_numpy"]
+           "cnn_params_from_numpy", "lm_params_from_numpy"]
 
 
 def _t(a: Optional[np.ndarray], dev: torch.device) -> Optional[torch.Tensor]:
@@ -63,3 +70,41 @@ def cnn_params_from_numpy(tree: dict, *, device=None) -> dict:
         "conv": [conv_params_from_numpy(c, device=dev) for c in tree["conv"]],
         "head": {"w": _t(tree["head"]["w"], dev), "b": _t(tree["head"]["b"], dev)},
     }
+
+
+_PASM_FIELDS = ("w", "idx", "codebook", "bias")
+
+
+def _lm_leaf(x, dev: torch.device, layer: Optional[int]):
+    """One leaf: an array, or a ``PasmParams`` field dict; ``layer`` picks one
+    slice of the leading layer axis."""
+    pick = (lambda a: a) if layer is None else (lambda a: None if a is None else a[layer])
+    if isinstance(x, dict) and "kind" in x:
+        arrays = {f: _t(pick(x.get(f)), dev) for f in _PASM_FIELDS}
+        return PasmParams(**arrays, kind=x["kind"],
+                          shape=tuple(int(s) for s in x["shape"]),
+                          bins=None if x.get("bins") is None else int(x["bins"]),
+                          pad_k=int(x.get("pad_k", 0)))
+    if isinstance(x, dict):
+        return {k: _lm_leaf(v, dev, layer) for k, v in x.items()}
+    return _t(pick(x), dev)
+
+
+def _n_layers(tree) -> int:
+    if isinstance(tree, dict) and "kind" in tree:
+        a = tree["w"] if tree["kind"] == "dense" else tree["idx"]
+        return int(np.shape(a)[0])
+    if isinstance(tree, dict):
+        return _n_layers(next(iter(tree.values())))
+    return int(np.shape(tree)[0])
+
+
+def lm_params_from_numpy(tree: dict, *, device=None) -> dict:
+    dev = resolve_device(device)
+    out = {}
+    for k, v in tree.items():
+        if k == "layers":
+            out[k] = [_lm_leaf(v, dev, i) for i in range(_n_layers(v))]
+        else:
+            out[k] = _lm_leaf(v, dev, None)
+    return out

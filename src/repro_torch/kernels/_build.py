@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # one shared library per source; the names are the .cu stems
-SOURCES = ("pasm_matmul", "pasm_conv", "pas_matmul", "pas_conv")
+SOURCES = ("pasm_matmul", "pasm_conv", "pas_matmul", "pas_conv",
+           "flash_attention")
 
 _loaded: dict = {}  # name → ctypes.CDLL, loaded once per process
 _log: dict = {}  # name → nvcc's stderr (ptxas register / spill report)

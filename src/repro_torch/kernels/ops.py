@@ -3,7 +3,8 @@
 Port of the forward halves of ``repro.kernels.ops``: :func:`pasm_matmul`
 (K1) and :func:`pasm_conv2d` (K2), and the paper-faithful two-phase
 :func:`pas_matmul` (K3) and :func:`pas_conv2d` (K4), each with the fused
-``bias`` / ``relu`` epilogue and the window-major ``pool``.  Forward only:
+``bias`` / ``relu`` epilogue and the window-major ``pool``; and
+:func:`flash_attention` (K5).  Forward only:
 the PASM pair's custom VJPs come with the QAT/training slice (ROADMAP Queue
 1 item 7), the PAS pair is forward-only in the JAX package too, and the
 wrappers raise on tensors that require grad.
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch.core import pasm as _pasm
 from repro_torch.core.params import NOT_PORTED_MESH
+from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.pas_histogram import (
     pas_conv_kernel_call,
     pas_matmul_kernel_call,
@@ -40,8 +42,8 @@ from repro_torch.kernels.pasm_matmul import (
     pool_plan_exists,
 )
 
-__all__ = ["pasm_matmul", "pas_matmul", "pasm_conv2d", "pas_conv2d", "ConvGeom",
-           "pool_plan_exists"]
+__all__ = ["pasm_matmul", "pas_matmul", "pasm_conv2d", "pas_conv2d",
+           "flash_attention", "ConvGeom", "pool_plan_exists"]
 
 
 def _no_mesh(mesh) -> None:
@@ -179,3 +181,34 @@ def pas_conv2d(
     return pas_conv_kernel_call(
         x.contiguous(), _pasm.logical_idx(t).contiguous(),
         t.codebook.contiguous(), bias, geom=geom, relu=relu)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    bq: int = 128,
+    bk: int = 128,
+) -> torch.Tensor:
+    """Fused flash attention on K5.  q (B,Sq,H,hd); k,v (B,Sk,KV,hd) → (B,Sq,H,hd).
+
+    GQA: query heads are regrouped under their KV head,
+    ``(B·KV, G, Sq, hd)``, so one K/V stream serves the whole group.
+    ``bq``/``bk`` are the TPU kernel's tile hints, kept for signature
+    parity and unused: the Hopper kernel keeps its own tile and masks the
+    ragged Sq/Sk edges itself, so nothing is padded here.
+    """
+    del bq, bk
+    B, Sq, H, hd = q.shape
+    _, Sk, KV, _ = k.shape
+    if H % KV:
+        raise ValueError(f"{H} query heads do not group under {KV} KV heads")
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4).reshape(B * KV, G, Sq, hd)
+    kg = k.permute(0, 2, 1, 3).reshape(B * KV, Sk, hd)
+    vg = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, hd)
+    o = flash_attention_kernel_call(qg.contiguous(), kg.contiguous(),
+                                    vg.contiguous(), causal=causal, sk_orig=Sk)
+    return o.reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)

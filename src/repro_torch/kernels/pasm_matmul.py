@@ -103,10 +103,12 @@ def _pool_bm(pool: int) -> int:
     pw = pool * pool
     return next(bm for bm in BM_TILES if pw <= bm)
 
-# launches of each kernel in this process, K1 and K2 here and K3 and K4 of
-# repro_torch.kernels.pas_histogram too: each wrapper adds one per launch,
+# launches of each kernel in this process, K1 and K2 here, K3 and K4 of
+# repro_torch.kernels.pas_histogram and K5 of
+# repro_torch.kernels.flash_attention too: each wrapper adds one per launch,
 # and nowhere else (chip_smoke.py resets them around the main path)
-launches = {"pasm_matmul": 0, "pasm_conv": 0, "pas_matmul": 0, "pas_conv": 0}
+launches = {"pasm_matmul": 0, "pasm_conv": 0, "pas_matmul": 0, "pas_conv": 0,
+            "flash_attention": 0}
 
 _NO_GRAD = (
     "the CUDA PASM kernels are forward-only in this slice; autograd "
@@ -213,9 +215,22 @@ def patch_tile(img: torch.Tensor, m0: int, q0: int, *, geom: ConvGeom,
 # ---------------------------------------------------------------------------
 
 
+def _widen_bf16(x: torch.Tensor, codebook: torch.Tensor) -> tuple:
+    """K1's bf16 route: ``x`` widened to f32 and the codebook rounded to
+    bf16 and back.  Both steps are exact, and so is every product of two
+    bf16 values in f32, so the f32 GEMM computes the JAX kernel's
+    ``Σ_k bf16(x)·bf16(cb[idx])`` (it dequantizes each tile to ``x``'s
+    dtype and accumulates in f32) up to the order of the sum."""
+    if x.dtype != torch.bfloat16:
+        return x, codebook
+    return x.float(), codebook.to(torch.bfloat16).float()
+
+
 def pasm_matmul_plain(x, idx, codebook, bias=None, *, packed: bool,
                       relu: bool = False, pool: int = 1) -> torch.Tensor:
-    """K1's plain version: dequant GEMM, epilogue, window-major row pool."""
+    """K1's plain version: dequant GEMM, epilogue, window-major row pool.
+    ``x`` is f32 or bf16 (:func:`_widen_bf16`); the result is f32."""
+    x, codebook = _widen_bf16(x, codebook)
     y = _ref.pasm_matmul_ref(x, idx, codebook, packed=packed)
     return _ref.max_pool_rows(_ref.apply_epilogue(y, bias, relu), pool)
 
@@ -328,10 +343,13 @@ def pasm_matmul_kernel_call(
 
     ``bias (N,)`` and ``relu`` are the fused epilogue; ``pool > 1`` expects
     window-major rows (``M % pool² == 0``) and stores the pooled map.  The
-    row tile follows from ``pool`` (:func:`_pool_bm`).
+    row tile follows from ``pool`` (:func:`_pool_bm`).  ``x`` is f32 or
+    bf16: a bf16 ``x`` runs the f32 kernel on exact widenings
+    (:func:`_widen_bf16`).  The output is f32.
     """
     if x.ndim != 2:
         raise ValueError(f"x must be 2-D (M, K), got {tuple(x.shape)}")
+    x, codebook = _widen_bf16(x, codebook)
     _check_operands(x, idx, codebook, bias, packed=packed, gather=gather,
                     k_rows=x.shape[1])
     M, K = x.shape

@@ -1,1 +1,1 @@
-"""Models (this slice: the AlexNet-style CNN)."""
+"""Models: the dense transformer LM and the AlexNet-style CNN."""

@@ -1,14 +1,41 @@
-"""Model init helpers on an explicit ``torch.Generator``.
+"""Model-layer plumbing: init helpers, the layer loop, PASM param surgery.
 
-Port of ``repro.models.common``'s ``trunc_normal`` / ``Initializer``.  The
-two packages draw different numbers from the same seed; the tests carry
-weights across with :mod:`repro_torch.interop` instead.
+Port of ``repro.models.common``.  Init draws from an explicit
+``torch.Generator``; the two packages draw different numbers from the same
+seed, so the tests carry weights across with :mod:`repro_torch.interop`.
+
+Parameter trees are plain dicts and lists of tensors: per-layer parameters
+are a list of per-layer dicts (the JAX package stacks them on a leading
+axis for ``lax.scan``), and :func:`maybe_scan` is the Python loop over
+them.  :func:`quantize_params` swaps large dense leaves for
+:class:`~repro_torch.core.params.PasmParams` with the JAX package's rule.
 """
 from __future__ import annotations
 
+import dataclasses
+import re
+from typing import Any, Callable
+
 import torch
 
-__all__ = ["trunc_normal", "Initializer"]
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import params as _params
+from repro_torch.core import pasm as _pasm
+from repro_torch.core.params import NOT_PORTED_MESH
+
+__all__ = [
+    "ShardCtx",
+    "trunc_normal",
+    "Initializer",
+    "maybe_scan",
+    "map_leaves",
+    "quantize_params",
+    "param_count",
+    "weight_bytes",
+]
+
+# either weight-shared container counts as one leaf
+_CONTAINERS = (_params.PasmParams, _pasm.PASMTensor)
 
 
 def trunc_normal(gen: torch.Generator, shape, std, dtype=torch.float32) -> torch.Tensor:
@@ -28,3 +55,140 @@ class Initializer:
     def dense(self, shape, fan_in=None, dtype=torch.float32) -> torch.Tensor:
         fan_in = fan_in or shape[0]
         return trunc_normal(self.gen, shape, fan_in ** -0.5, dtype)
+
+
+def maybe_scan(body: Callable, carry, stacked, use_scan: bool = True):
+    """The port's ``lax.scan``: a Python loop of ``body(carry, item)`` over
+    the per-layer items of ``stacked``.  Returns ``(carry, ys)``, ``ys`` the
+    list of per-step outputs (None when the body emits None).  ``use_scan``
+    is kept for signature parity: the JAX package's scanned and unrolled
+    forms are the same loop here."""
+    del use_scan
+    ys = []
+    for item in stacked:
+        carry, y = body(carry, item)
+        ys.append(y)
+    return carry, (ys if ys and ys[0] is not None else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Mesh-axis naming threaded through model code for sharding constraints.
+
+    Only the inactive context is ported: every constraint is the identity.
+    An active one (a mesh) belongs to ROADMAP Queue 1 item 10 and raises.
+    """
+
+    batch: tuple = ("data",)
+    model: str = "model"
+    active: bool = False
+    dp: int = 1
+
+    def __post_init__(self):
+        if self.active:
+            raise NotImplementedError(NOT_PORTED_MESH)
+
+    def cs(self, x: torch.Tensor, *spec) -> torch.Tensor:
+        return x
+
+    def act_btd(self, x):  # (batch, seq, d_model)
+        return x
+
+    def act_bthd(self, x):  # (batch, seq, heads, hd)
+        return x
+
+    def act_btf(self, x):  # (batch, seq, ff)
+        return x
+
+
+def map_leaves(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves of nested dicts, lists and tuples
+    (a weight-shared container is one leaf); returns the same structure."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_leaves(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def _leaves(tree: Any) -> list:
+    out = []
+    map_leaves(lambda _, x: out.append(x), tree)
+    return out
+
+
+def param_count(params: Any) -> int:
+    """Logical parameter count (PASM leaves count their dense size)."""
+    n = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, _CONTAINERS):
+            p = _params.as_params(leaf)
+            lead = 1
+            for d in p._lead:
+                lead *= int(d)
+            n += lead * int(p.shape[0]) * int(p.shape[1])
+        elif isinstance(leaf, torch.Tensor):
+            n += leaf.numel()
+    return n
+
+
+# ---------------------------------------------------------------------------
+# PASM parameter surgery: replace selected dense leaves with PasmParams
+# ---------------------------------------------------------------------------
+
+_EXCLUDE = re.compile(
+    r"(norm|scale|bias|router|lam|A_log|ssm_D|dt_bias|conv|pos_embed)", re.IGNORECASE
+)
+
+
+def quantize_params(params: Any, cfg: ArchConfig, *, iters: int = 8) -> Any:
+    """Apply the paper's weight-sharing to a model's parameter tree.
+
+    Quantizes every ≥2-D dense leaf whose trailing ``(K, N)`` matrix has at
+    least ``cfg.quant.min_weight_elems`` elements (the paper's ``B ≪ N``
+    rule) and which is not an excluded parameter class (norms, biases,
+    routers… stay dense, paper §4; embeddings unless ``quantize_embed``).
+    Each layer's matrix gets its own dictionary, as the JAX package's
+    per-layer vmap does; 16-bin (int4) dictionaries are packed, with the §3
+    K-pad for odd reductions.  k-means runs on the leaf's device.
+    """
+    q = cfg.quant
+    if not q.enabled:
+        return params
+
+    def maybe_quantize(path, leaf):
+        name = "/".join(path)
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        if leaf.ndim < 2 or _EXCLUDE.search(name):
+            return leaf
+        if "embed" in name.lower() and not q.quantize_embed:
+            return leaf
+        K, N = leaf.shape[-2], leaf.shape[-1]
+        if K * N < q.min_weight_elems:
+            return leaf
+        p = _params.PasmParams.quantize(leaf, q.bins, groups=q.groups, iters=iters)
+        if _pasm.bits_for_bins(q.bins) == 4:
+            p = p.pack()
+        return p
+
+    return map_leaves(maybe_quantize, params)
+
+
+def weight_bytes(params: Any, dense_dtype_bytes: int = 2) -> dict:
+    """Device-memory weight bytes: dense vs PASM-stored."""
+    dense = 0
+    stored = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, _CONTAINERS):
+            p = _params.as_params(leaf)
+            lead = 1
+            for d in p._lead:
+                lead *= int(d)
+            dense += lead * int(p.shape[0]) * int(p.shape[1]) * dense_dtype_bytes
+            stored += p.nbytes_weights
+        elif isinstance(leaf, torch.Tensor):
+            dense += leaf.numel() * dense_dtype_bytes
+            stored += leaf.numel() * dense_dtype_bytes
+    return {"dense": dense, "stored": stored, "ratio": dense / max(stored, 1)}

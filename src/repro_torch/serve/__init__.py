@@ -1,1 +1,2 @@
-"""Serving (this slice: shape-bucketed CNN classification and its metrics)."""
+"""Serving: the continuous-batching LM engine, its scheduler and fault plan,
+shape-bucketed CNN classification, the mixed loop, and their metrics."""

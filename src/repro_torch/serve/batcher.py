@@ -9,8 +9,9 @@ same feature map as a natively-sized zero-extended image.
 
 The JAX version jits one closure per bucket and pads every chunk to
 ``max_batch`` images to keep its shape static; PyTorch runs eagerly, so a
-chunk runs at its own size.  ``MixedBatcher`` needs the LM ``Engine`` and
-comes with the serving slice (ROADMAP Queue 1 item 9).
+chunk runs at its own size.  :class:`MixedBatcher` interleaves one LM
+:class:`~repro_torch.serve.engine.Engine` tick with a CNN flush per service
+tick, so both traffic classes share the process continuously.
 
 Metrics ride :class:`repro_torch.serve.metrics.Metrics` (img/s, p50/p99
 latency) under ``"cnn-<n>"`` uids.
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from repro_torch._device import resolve_device
 from repro_torch.serve.metrics import Metrics
 
-__all__ = ["CnnRequest", "CnnBatcher", "default_hw_buckets"]
+__all__ = ["CnnRequest", "CnnBatcher", "MixedBatcher", "default_hw_buckets"]
 
 
 def default_hw_buckets(native_hw: Tuple[int, int]) -> List[Tuple[int, int]]:
@@ -157,3 +159,37 @@ class CnnBatcher:
                     self.metrics.mark_done(r.uid, 1)
                 served.extend(chunk)
         return served
+
+
+class MixedBatcher:
+    """One service loop over both traffic classes: every tick runs one LM
+    engine step (continuous admit + batched decode) and one CNN flush."""
+
+    def __init__(self, engine, cnn: Optional[CnnBatcher] = None):
+        self.engine = engine
+        self.cnn = cnn
+
+    @property
+    def drained(self) -> bool:
+        # engine.busy covers live slots, the queue AND pending retries: a
+        # backoff-delayed retry keeps the loop ticking until it resolves
+        lm_done = not self.engine.busy
+        cnn_done = self.cnn is None or not self.cnn.waiting
+        return lm_done and cnn_done
+
+    def tick(self):
+        self.engine.step()
+        if self.cnn is not None:
+            self.cnn.flush()
+
+    def run_until_drained(self, max_ticks: int = 1000, *, strict: bool = True) -> int:
+        t = 0
+        while not self.drained and t < max_ticks:
+            self.tick()
+            t += 1
+        if not self.drained:
+            msg = f"MixedBatcher: traffic undrained after {max_ticks} ticks"
+            if strict:
+                raise RuntimeError(msg)
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        return t

@@ -1,4 +1,5 @@
-"""K1–K4 on the card against their plain versions (``-m gpu``).
+"""K1–K5 on the card against their plain versions (``-m gpu``), and the
+dense LM served on K1.
 
 Every test here takes the ``cuda`` fixture, which skips when no card is
 present; the decision is made when the test runs, never at import, so every
@@ -225,3 +226,105 @@ def test_pas_kernels_raise_on_grad(cuda):
     img = torch.randn((1, 16, 2, 4), device=cuda, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):
         ph.pas_conv_kernel_call(img, idx, cb, geom=cv.conv_geom(conv, 2, 4))
+
+
+# ---------------------------------------------------------------------------
+# K5: flash attention; K1 with bf16 activations; the LM on the card
+# ---------------------------------------------------------------------------
+
+
+def _k5_tol(dtype):
+    # f32: sums in another order; bf16: one bf16 ulp (2**-7 relative)
+    return dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
+        dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("BKV,G,Sq,Sk,kvalid,hd", [
+    (4, 2, 64, 64, 64, 16),
+    (1, 4, 56, 56, 56, 16),      # ragged S
+    (1, 8, 128, 128, 128, 32),   # MQA
+    (2, 1, 100, 100, 100, 80),   # stablelm's hd, not a power of two
+    (1, 8, 130, 130, 120, 128),  # pad keys masked past kvalid
+    (1, 2, 70, 70, 70, 64),
+    (1, 2, 65, 65, 65, 192),
+    (1, 2, 40, 40, 40, 256),
+])
+def test_k5_matches_plain(cuda, dtype, causal, BKV, G, Sq, Sk, kvalid, hd):
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(hd + Sq)
+    q = torch.randn((BKV, G, Sq, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((BKV, Sk, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((BKV, Sk, hd), generator=g, device=cuda).to(dtype)
+    before = pm.launches["flash_attention"]
+    y = fa.flash_attention_kernel_call(q, k, v, causal=causal, sk_orig=kvalid)
+    assert pm.launches["flash_attention"] == before + 1 and y.dtype == dtype
+    want = fa.flash_attention_plain(q, k, v, causal=causal, sk_orig=kvalid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), want.float(), **_k5_tol(dtype))
+
+
+def test_k5_through_ops_matches_gqa_attention(cuda):
+    from repro_torch.nn import attention as A
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 300, 8, 64), generator=g, device=cuda)
+    k = torch.randn((2, 300, 2, 64), generator=g, device=cuda)
+    v = torch.randn((2, 300, 2, 64), generator=g, device=cuda)
+    y = ops.flash_attention(q, k, v, causal=True)
+    want = A.gqa_attention(q, k, v, causal=True, chunk=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+
+
+@pytest.mark.parametrize("M,K,N,groups", [(4, 512, 192, 1), (33, 1000, 70, 2)])
+def test_k1_bf16_matches_plain_and_dequant(cuda, M, K, N, groups):
+    from repro_torch.core import params as P
+
+    g = torch.Generator(device=cuda).manual_seed(M)
+    w = torch.randn((K, N), generator=g, device=cuda) * 0.05
+    x = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+    p = P.PasmParams.quantize(w, 16, groups=groups).pack()
+    t = p.gemm_tensor()
+    y = pm.pasm_matmul_kernel_call(x, t.idx, t.codebook, packed=True)
+    want = pm.pasm_matmul_plain(x, t.idx, t.codebook, packed=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, **TOL)
+    yk = P.matmul(x, p, impl="kernel")
+    yd = P.matmul(x, p, impl="dequant")
+    assert yk.dtype == yd.dtype == torch.bfloat16
+    torch.testing.assert_close(yk.float(), yd.float(), rtol=2.0 ** -7, atol=1e-5)
+
+
+def test_lm_serves_on_the_card(cuda):
+    """The qwen3 smoke config served on K1: launches per model call, no
+    degradation, tokens equal to the dequant oracle's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import quantize_params
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config("qwen3-32b", smoke=True).with_quant(
+        enabled=True, impl="kernel", min_weight_elems=1024)
+    params = quantize_params(TT.init_params(cfg, torch.Generator(device=cuda).manual_seed(0)), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 11, 3)]
+    outs = {}
+    for impl in ("kernel", "dequant"):
+        eng = Engine(cfg.with_quant(impl=impl), params, batch_slots=2, max_seq=32)
+        pm.reset_launches()
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        per_call = 7 * cfg.n_layers + 1
+        n_calls = eng.calls["prefill"] + eng.calls["decode"]
+        assert pm.launches["pasm_matmul"] == (per_call * n_calls if impl == "kernel" else 0)
+        assert eng.metrics.rollup().get("n_degraded", 0) == 0
+        outs[impl] = [r.out for r in reqs]
+    agree = np.mean([a == b for x, y in zip(outs["kernel"], outs["dequant"])
+                     for a, b in zip(x, y)])
+    assert agree >= 0.9

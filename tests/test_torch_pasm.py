@@ -166,9 +166,13 @@ def test_quantize_dequantize_quantize_like_match():
 
 
 def test_kmeans_refuses_groups_over_the_quantile_cap():
-    big = torch.zeros(tp.QUANTILE_MAX_NUMEL + 2, 1)
-    with pytest.raises(ValueError, match="quantile"):
-        tp.kmeans_codebook(big, 4, iters=1)
+    # torch.quantile's 2**24-element cap no longer bounds a group: the init
+    # sorts once and the Lloyd steps walk the group in chunks
+    big = torch.zeros((1 << 24) + 2, 1)
+    big[::3] = 1.0
+    cb, idx = tp.kmeans_codebook(big, 4, iters=1)
+    assert tuple(cb.shape) == (1, 4) and tuple(idx.shape) == tuple(big.shape)
+    assert torch.equal(tp.codebook_lookup(cb, idx), big)
 
 
 _GEOMS = [(ih, iw, k, s, pad)
