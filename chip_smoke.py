@@ -29,11 +29,13 @@ Phases (every one unguarded: any failure exits non-zero):
    for K1/K3, ``F.conv2d`` with TF32 off for K2/K4) and the bound
    ``max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)`` of the function (K3's is
    K1's, K4's is K2's);
-6. K5 (flash attention) against its plain version, f32 and bf16, causal and
-   not, at the ``tests/test_kernels.py`` shapes (GQA, MHA with a ragged S,
-   MQA), stablelm-3b's hd 80 over 32 heads and qwen3-32b's prefill shape
-   (64 heads over 8 KV heads, hd 128) at S = 512 and 1000, and against the
-   port's ``gqa_attention`` with ``chunk < S`` (the online-softmax loop);
+6. K5 (flash attention) against its plain version, f32 (SIMT route) and
+   bf16 (tensor-core route), causal and not, at the ``tests/test_kernels.py``
+   shapes (GQA, MHA with a ragged S, MQA), stablelm-3b's hd 80 over 32 heads,
+   hd 64, 192 and 256 (so bf16 runs at every head dim the kernel is built
+   for) and qwen3-32b's prefill shape (64 heads over 8 KV heads, hd 128) at
+   S = 512 and 1000, and against the port's ``gqa_attention`` with
+   ``chunk < S`` (the online-softmax loop);
 7. LM serving: qwen3-32b at full width (d_model 5120, 64/8 heads, hd 128,
    qk-norm, SwiGLU d_ff 25600, vocab 151936) cut to 4 of its 64 layers,
    seeded weights drawn on the card and quantized there (16 bins, int4
@@ -42,7 +44,10 @@ Phases (every one unguarded: any failure exits non-zero):
    ``impl="kernel"`` (K1 on every linear: 7 per layer + the head per model
    call, counted) and on ``impl="dequant"``, the oracle; the per-step logits
    of both, teacher-forced on the kernel run's tokens, within
-   ``LM_LOGIT_TOL``; then K5 through ``ops.flash_attention`` on the served
+   ``LM_LOGIT_TOL``, and a second kernel run's logits bitwise equal to the
+   first's (K1's split-K adds in a fixed order); K1's launches by route
+   (``stream`` at decode, ``mma`` at prefill); then K5 through
+   ``ops.flash_attention`` on the served
    model's own attention operands (what each layer handed ``gqa_attention``
    at that prefill), counted, and held against ``gqa_attention`` and K5's
    plain version;
@@ -51,7 +56,15 @@ Phases (every one unguarded: any failure exits non-zero):
    library yardstick ``F.scaled_dot_product_attention`` (timed only) and the
    bound; K1 at the decode (M = 4) and prefill (M = 384) rows of ``wq``,
    ``w1``, ``w2`` and ``lm_head`` with bf16 activations against
-   ``torch.matmul`` on the dequantized bf16 weight and the bound;
+   ``torch.matmul`` on the dequantized bf16 weight and the bound, warm (as
+   before) and with the L2 cache flushed before every call (cold: the
+   served model streams every other layer's weights between two uses); then
+   a K1 M-sweep on ``w2`` and ``lm_head`` (cold): the routed kernel beside
+   the old route (the same call on ``x.float()``, the f32 SIMT kernel) and
+   the bf16 ``torch.matmul``, with the route taken at each M.  Every timing
+   window (phases 5 and 8) opens behind a spin kernel that lasts longer than
+   the host takes to enqueue the timed calls, so the events read device
+   time; K1's LM rows also print the host's µs a call;
 9. one ``{"kernels": [...]}`` JSON line;
 10. last line: ``{"ok": true, "device": {...}}``.
 
@@ -73,8 +86,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 TOL = 1e-4  # kernel vs plain: |Δ| <= TOL + TOL·|plain| (f32 summation order)
-# K5 vs plain: f32 sums in another order; bf16 outputs one bf16 ulp apart
-K5_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}  # |Δ| <= t·|plain| + 1e-5
+# K5 vs plain: f32 sums in another order, |Δ| <= 1e-5·|plain| + 1e-5; the
+# bf16 tensor-core route rounds P to bf16 before P·V (the JAX kernel keeps
+# it f32), 2**-9·Σ_j p_j·|v_j| at most, and both round the output to bf16:
+# |Δ| <= t·(|plain| + Σ_j p_j·|v_j|) + 1e-5, the sum being the plain version
+# on |v| (k5_pv_scale)
+K5_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # K5 vs gqa_attention: gqa rounds the softmax weights to v's dtype before the
 # value product (2**-9 each in bf16), then both round the output:
 # |Δ| <= t·(|gqa| + max|v|)
@@ -84,6 +101,9 @@ K5_GQA_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # moves through 4 layers and the head: |Δ| <= LM_LOGIT_TOL · max|logit|
 LM_LOGIT_TOL = 0.025
 BF16_TFLOPS = 989.0  # H100 SXM dense bf16 tensor-core peak
+# the K1 M-sweep (phase 8): decode slots up to the Engine's largest bucket
+K1_SWEEP_M = (1, 2, 4, 8, 16, 32, 64, 128, 256, 384, 512)
+L2_FLUSH_BYTES = 128 << 20  # over the H100's 50 MB L2
 # the LM cell: qwen3-32b at full width, its depth cut to 4 of 64 layers
 LM_LAYERS = 4
 LM_SLOTS = 4
@@ -114,6 +134,30 @@ def card_line() -> str:
     return out[0].strip()
 
 
+def kernel_instance(mangled: str) -> str:
+    """``ns::kernel<args>`` of a mangled kernel name: its function name and
+    its integer, bool and type template arguments, so that the ptxas lines
+    name every template instance."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    names, pos = [], 3
+    while pos < len(mangled) and mangled[pos].isdigit():
+        n = re.match(r"\d+", mangled[pos:]).group()
+        pos += len(n)
+        names.append(mangled[pos:pos + int(n)])
+        pos += int(n)
+    args = []
+    if mangled[pos:pos + 1] == "I":
+        pos += 1
+        while pos < len(mangled) and mangled[pos] != "E":
+            m = re.match(r"L[ib](\d+)E|13__nv_bfloat16|f", mangled[pos:])
+            if not m:
+                break
+            args.append(m.group(1) or ("bf16" if m.group().startswith("13") else "f32"))
+            pos += len(m.group())
+    return "::".join(names) + (f"<{','.join(args)}>" if args else "")
+
+
 def max_err(got, want) -> float:
     """Max |Δ|; raises when an element is over ``TOL + TOL·|want|``."""
     import torch
@@ -130,8 +174,32 @@ def max_err(got, want) -> float:
     return float(d.max())
 
 
-def time_ms(fn, budget_s: float = 0.25) -> float:
-    """Mean device ms per call over a CUDA-event window, after warm-up."""
+_SPIN_CYCLES_PER_MS: list = []
+
+
+def cover_host(host_s: float) -> None:
+    """Keep the card busy for 1.5·host_s + 20 µs (a spin kernel) so that
+    what the host enqueues meanwhile then runs back to back: the CUDA events
+    around it time the device, not the wrappers' Python and launch cost
+    (which, at tens of µs a call, is as long as a small kernel)."""
+    import torch
+
+    if not _SPIN_CYCLES_PER_MS:  # the spin's clock, once per run
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(1000)
+        a.record()
+        torch.cuda._sleep(2_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN_CYCLES_PER_MS.append(2_000_000 / a.elapsed_time(b))
+    ms = min(1.5 * host_s * 1e3 + 0.02, 50.0)
+    torch.cuda._sleep(int(ms * _SPIN_CYCLES_PER_MS[0]))
+
+
+def time_ms_host(fn, budget_s: float = 0.25) -> tuple:
+    """(mean device ms per call over back-to-back calls after warm-up, host
+    µs per call to enqueue one).  The window opens behind cover_host, so a
+    call's host cost does not show in its device time."""
     import torch
 
     fn()
@@ -141,16 +209,75 @@ def time_ms(fn, budget_s: float = 0.25) -> float:
     torch.cuda.synchronize()
     once = max(time.perf_counter() - t0, 1e-5)
     reps = int(min(50, max(3, budget_s / once)))
-    for _ in range(2):
+    t0 = time.perf_counter()
+    for _ in range(reps):
         fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    cover_host(host)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, host / reps * 1e6
+
+
+def time_ms(fn, budget_s: float = 0.25) -> float:
+    """Mean device ms per call (:func:`time_ms_host`)."""
+    return time_ms_host(fn, budget_s)[0]
+
+
+def time_cold_ms(fn, budget_s: float = 0.25) -> float:
+    """Median device ms per call with the L2 cache flushed before each (a
+    read of 128 MiB: a write would leave dirty lines for the timed call to
+    write back), every call between its own CUDA events, after warm-up, each
+    window behind cover_host.  The median, as single calls of tens of µs
+    scatter."""
+    import torch
+
+    flush = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reps = int(min(30, max(3, budget_s / max(time.perf_counter() - t0, 1e-5))))
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(reps)]
+    for start, end in ev:
+        flush.amax()
+        cover_host(host)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
+def check_k1_bf16(y, x, t, bias=None, relu=False, what: str = "") -> tuple:
+    """K1's bf16 routes against the plain version: the same exact products
+    summed in another order, so |Δ| <= K1_BF16_TOL·(|x|@|W|) + 1e-6 (not
+    scaled by |plain|, which cancels at K = 25600).  Returns (max |Δ|, the
+    largest |Δ| / (|x|@|W|), i.e. the measured t)."""
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+
+    want = pm.pasm_matmul_plain(x, t.idx, t.codebook, bias, packed=t.packed, relu=relu)
+    scale = pm.pasm_matmul_plain(x.abs(), t.idx, t.codebook.abs(), packed=t.packed)
+    torch.cuda.synchronize()
+    if y.shape != want.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{what}: shape {tuple(y.shape)} or non-finite output")
+    d = (y - want).abs()
+    bad = d > pm.K1_BF16_TOL * scale + 1e-6
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} elements over tolerance, "
+                             f"max |Δ| {float(d.max()):.3e}")
+    return float(d.max()), float((d / scale.clamp_min(1e-30)).max())
 
 
 @dataclasses.dataclass
@@ -315,10 +442,11 @@ def bound(case: Case, explicit: bool) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def check_close(got, want, rtol: float, atol_scale: float = 0.0,
+def check_close(got, want, rtol: float, atol_scale=0.0,
                 what: str = "") -> float:
     """Max |Δ| in f32; raises when an element is over
-    ``rtol·|want| + 1e-5 + atol_scale``."""
+    ``rtol·|want| + 1e-5 + atol_scale`` (a float, or a tensor of want's
+    shape)."""
     import torch
 
     if got.shape != want.shape:
@@ -345,6 +473,18 @@ def regroup(q, k, v):
     return qg.contiguous(), kg.contiguous(), vg.contiguous()
 
 
+def k5_pv_scale(qg, kg, vg, causal: bool):
+    """Σ_j p_j·|v_j| for each output element, in f32, for the bf16 route's
+    tolerance: the plain version on |v| (p >= 0); 0 for f32."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    if qg.dtype != torch.bfloat16:
+        return 0.0
+    return fa.flash_attention_plain(qg, kg, vg.abs(), causal=causal).float()
+
+
 def check_k5(q, k, v, causal: bool, name: str, errs: dict) -> str:
     """K5 vs its plain version (regrouped operands) and ops.flash_attention
     vs the port's gqa_attention with chunk < S."""
@@ -359,7 +499,8 @@ def check_k5(q, k, v, causal: bool, name: str, errs: dict) -> str:
     y = fa.flash_attention_kernel_call(qg, kg, vg, causal=causal)
     want = fa.flash_attention_plain(qg, kg, vg, causal=causal)
     torch.cuda.synchronize()
-    e = check_close(y, want, K5_TOL[dt], what=f"K5 {name}")
+    e = check_close(y, want, K5_TOL[dt], K5_TOL[dt] * k5_pv_scale(qg, kg, vg, causal),
+                    what=f"K5 {name}")
     errs["flash_attention"] = max(errs["flash_attention"], e)
     S = q.shape[1]
     o = ops.flash_attention(q, k, v, causal=causal)
@@ -379,11 +520,15 @@ def k5_phase(gen, errs: dict) -> None:
     shapes = [  # (name, B, S, H, KV, hd)
         ("GQA", 2, 64, 4, 2, 16), ("MHA ragged S", 1, 56, 4, 4, 16),
         ("MQA", 1, 128, 8, 1, 32), ("stablelm-3b hd80 MHA", 1, 333, 32, 32, 80),
+        ("hd64 GQA", 1, 300, 8, 2, 64), ("hd192 GQA", 1, 200, 4, 2, 192),
+        ("hd256 MQA", 1, 160, 4, 1, 256),
         ("qwen3-32b prefill", 1, 512, 64, 8, 128),
         ("qwen3-32b prefill ragged", 1, 1000, 64, 8, 128),
     ]
-    log(f"phase 6: K5 vs plain (|Δ| <= t·|plain| + 1e-5, t = {K5_TOL}) and vs "
-        f"gqa_attention (chunk < S; |Δ| <= t·(|gqa| + max|v|) + 1e-5, t = {K5_GQA_TOL})")
+    log(f"phase 6: K5 vs plain (f32 SIMT route |Δ| <= t·|plain| + 1e-5, bf16 "
+        f"tensor-core route |Δ| <= t·(|plain| + Σp|v|) + 1e-5; t = {K5_TOL}) "
+        f"and vs gqa_attention (chunk < S; |Δ| <= t·(|gqa| + max|v|) + 1e-5, "
+        f"t = {K5_GQA_TOL})")
     for name, B, S, H, KV, hd in shapes:
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda")
         k = torch.randn((B, S, KV, hd), generator=gen, device="cuda")
@@ -429,7 +574,7 @@ def serve_lm(cfg, params, prompts, impl: str):
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, reqs, dict(pm.launches), wall, live_submits
+    return eng, reqs, dict(pm.launches), wall, live_submits, dict(pm.k1_routes)
 
 
 def teacher_forced_logits(cfg, params, prompts, tokens, impl: str) -> list:
@@ -490,7 +635,8 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
     per_call = 7 * cfg.n_layers + 1
     runs = {}
     for impl in ("kernel", "dequant"):
-        eng, reqs, counts, wall, live_submits = serve_lm(cfg, params, prompts, impl)
+        eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params,
+                                                                 prompts, impl)
         roll = eng.metrics.rollup()
         calls = eng.calls["prefill"] + eng.calls["decode"]
         want = {k: per_call * calls if (impl == "kernel" and k == "pasm_matmul") else 0
@@ -498,8 +644,9 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
         log(f"  {impl:<8} {len(reqs)} requests, {eng.tick} ticks, model calls "
             f"{eng.calls}, launches {counts}, submits while slots were live "
             f"{live_submits}, n_degraded "
-            f"{roll.get('n_degraded', 0)}, {wall:.2f} s host clock incl. first "
-            f"calls, {roll['tok_s']:.1f} tok/s ({card})")
+            f"{roll.get('n_degraded', 0)}, K1 launches by route {routes}, "
+            f"{wall:.2f} s host clock incl. first calls, {roll['tok_s']:.1f} "
+            f"tok/s ({card})")
         if counts != want:
             raise AssertionError(f"LM {impl}: expected launches {want} "
                                  f"({per_call} per model call), got {counts}")
@@ -507,7 +654,7 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
             raise AssertionError(f"LM {impl}: degraded or no continuous admission: {roll}")
         if not all(r.done and len(r.out) == LM_NEW for r in reqs):
             raise AssertionError(f"LM {impl}: a request was not served {LM_NEW} tokens")
-        runs[impl] = (counts, [r.out for r in reqs])
+        runs[impl] = (counts, [r.out for r in reqs], routes)
     ko, do = runs["kernel"][1], runs["dequant"][1]
     agree = float(np.mean([a == b for x, y in zip(ko, do) for a, b in zip(x, y)]))
     log(f"  greedy tokens agreeing, kernel vs dequant: {agree:.4f} of "
@@ -525,6 +672,11 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
         lk = teacher_forced_logits(cfg, params, prompts, ko, "kernel")
     finally:
         A.gqa_attention = gqa
+    lk2 = teacher_forced_logits(cfg, params, prompts, ko, "kernel")
+    if not all(torch.equal(a, b) for a, b in zip(lk, lk2)):
+        raise AssertionError("LM logits: a second kernel run differs bitwise")
+    log(f"  teacher-forced logits of a second kernel run: bitwise equal to the "
+        f"first at all {len(lk)} steps")
     ld = teacher_forced_logits(cfg, params, prompts, ko, "dequant")
     worst, top = 0.0, 0.0
     for j, (a, b) in enumerate(zip(lk, ld)):
@@ -555,7 +707,8 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
         f"launches {k5_counts}")
     for i, (q, k, v) in enumerate(captured):
         log(f"    layer {i}: " + check_k5(q, k, v, True, f"served layer {i}", errs))
-    return {"lm": runs["kernel"][0], "k5": k5_counts, "cfg": cfg, "params": params}
+    return {"lm": runs["kernel"][0], "k5": k5_counts, "cfg": cfg, "params": params,
+            "routes": runs["kernel"][2]}
 
 
 def k5_bound(B, S, H, KV, hd, nbytes: int, tflops: float) -> tuple:
@@ -589,7 +742,9 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
         p_fn = lambda: fa.flash_attention_plain(qg, kg, vg, causal=True)
         l_fn = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
                                                       enable_gqa=True)
-        e = check_close(k_fn(), p_fn(), K5_TOL[str(dtype).split(".")[-1]], what="K5 timing")
+        t = K5_TOL[str(dtype).split(".")[-1]]
+        e = check_close(k_fn(), p_fn(), t, t * k5_pv_scale(qg, kg, vg, True),
+                        what="K5 timing")
         errs["flash_attention"] = max(errs["flash_attention"], e)
         ms, plain_ms, lib_ms = time_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
         ops_ms, bytes_ms = k5_bound(B, S, H, KV, hd, q.element_size(), tflops)
@@ -607,29 +762,88 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
     lp = params["layers"][0]
     mats = {"wq": lp["attn"]["wq"], "w1": lp["mlp"]["w1"], "w2": lp["mlp"]["w2"],
             "lm_head": params["lm_head"]}
+    log(f"  K1 tolerance: |Δ| <= {pm.K1_BF16_TOL}·(|x|@|W|) + 1e-6; ms warm = "
+        f"back-to-back calls, cold = L2 flushed before every call, both device "
+        f"time (behind a spin kernel that covers the host's enqueue); host = "
+        f"µs a call takes the host to enqueue")
+    k1 = {}  # route -> summed row over the four matrices
+    worst_t = 0.0
     for M in (4, 384):
+        tot = dict.fromkeys(("ms", "ms_cold", "plain_ms", "library_ms",
+                             "library_ms_cold", "bound_ms"), 0.0)
         for name, p in mats.items():
             t = p.gemm_tensor()
             K, N = t.shape
             x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
             w = p.dense_matrix(torch.bfloat16)
+            route = pm.k1_plan(M, K, N, x.dtype, packed=t.packed,
+                               groups=t.codebook.shape[0]).route
             k_fn = lambda: ops.pasm_matmul(x, t)
             p_fn = lambda: pm.pasm_matmul_plain(x, t.idx, t.codebook, packed=t.packed)
             l_fn = lambda: torch.matmul(x, w)
-            e = max_err(k_fn(), p_fn())
+            e, tm = check_k1_bf16(k_fn(), x, t, what=f"K1 {route} M{M} {name}")
+            worst_t = max(worst_t, tm)
             errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
-            ms, plain_ms, lib_ms = time_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
+            (ms, host_us), plain_ms = time_ms_host(k_fn), time_ms(p_fn)
+            lib_ms, lib_host_us = time_ms_host(l_fn)
+            ms_c, lib_c = time_cold_ms(k_fn), time_cold_ms(l_fn)
             flops = 2 * M * K * N
             moved = M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4
             ops_ms = flops / (BF16_TFLOPS * 1e12) * 1e3
             bytes_ms = moved / (HBM_TBPS * 1e12) * 1e3
-            log(f"  K1 M{M:<4} {name:<8} K{K} N{N} bf16 x: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f}, library (bf16 matmul) {lib_ms:.4f}, bound "
+            for key, val in (("ms", ms), ("ms_cold", ms_c), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("library_ms_cold", lib_c),
+                             ("bound_ms", max(ops_ms, bytes_ms))):
+                tot[key] += val
+            log(f"  K1 M{M:<4} {name:<8} K{K} N{N} bf16 x, route {route}: kernel "
+                f"{ms:.4f} ms (cold {ms_c:.4f}, host {host_us:.1f} µs), plain "
+                f"{plain_ms:.4f}, library (bf16 matmul) {lib_ms:.4f} (cold "
+                f"{lib_c:.4f}, host {lib_host_us:.1f} µs), bound "
                 f"{max(ops_ms, bytes_ms):.4f} by "
                 f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, "
-                f"{flops / ms / 1e9:.2f} TFLOP/s, {moved / ms / 1e6:.1f} GB/s, "
-                f"max |Δ| vs plain {e:.2e} [{card}]")
+                f"{flops / ms / 1e9:.2f} TFLOP/s, {moved / ms_c / 1e6:.1f} GB/s cold, "
+                f"max |Δ| vs plain {e:.2e} (|Δ|/(|x|@|W|) {tm:.2e}) [{card}]")
             del w
+        tot["bound_by"] = "bytes" if M == 4 else "operations"
+        k1[route] = tot
+        log(f"  K1 M{M} sum of the four ({route}): kernel {tot['ms']:.4f} ms (cold "
+            f"{tot['ms_cold']:.4f}), plain {tot['plain_ms']:.4f}, library "
+            f"{tot['library_ms']:.4f} (cold {tot['library_ms_cold']:.4f}), bound "
+            f"{tot['bound_ms']:.4f} [{card}]")
+    log(f"  K1 bf16 routes: largest |Δ|/(|x|@|W|) over the LM rows {worst_t:.3e} "
+        f"(tolerance {pm.K1_BF16_TOL})")
+
+    log(f"  K1 M-sweep, L2 flushed before every call: routed kernel vs the old "
+        f"route (the call on x.float(): the f32 SIMT kernel) vs bf16 torch.matmul "
+        f"[{card}]")
+    for name in ("w2", "lm_head"):
+        p = mats[name]
+        t = p.gemm_tensor()
+        K, N = t.shape
+        w = p.dense_matrix(torch.bfloat16)
+        for M in K1_SWEEP_M:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            xf = x.float()
+            plan = pm.k1_plan(M, K, N, x.dtype, packed=t.packed,
+                              groups=t.codebook.shape[0])
+            k_fn = lambda: ops.pasm_matmul(x, t)
+            o_fn = lambda: ops.pasm_matmul(xf, t)
+            l_fn = lambda: torch.matmul(x, w)
+            e, _ = check_k1_bf16(k_fn(), x, t, what=f"K1 sweep {name} M{M}")
+            errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
+            ms, old_ms, lib_ms = time_cold_ms(k_fn), time_cold_ms(o_fn), time_cold_ms(l_fn)
+            bound = max(2 * M * K * N / (BF16_TFLOPS * 1e12),
+                        (M * K * 2 + t.idx.numel() + M * N * 4) / (HBM_TBPS * 1e12)) * 1e3
+            log(f"    {name:<8} M{M:<4} route {plan.route:<6} (splits {plan.splits}, "
+                f"tile {plan.tile}, {plan.blocks} blocks): kernel {ms:.4f} ms, old "
+                f"route {old_ms:.4f} ({old_ms / ms:.1f}x), bf16 matmul {lib_ms:.4f} "
+                f"({ms / lib_ms:.2f}x of it), bound {bound:.4f}")
+            if ms >= old_ms:
+                raise AssertionError(f"K1 {name} M{M}: the {plan.route} route "
+                                     f"({ms:.4f} ms) is not faster than the old "
+                                     f"route ({old_ms:.4f} ms)")
+        del w
+    rows["k1"] = k1
     return rows
 
 def main() -> int:
@@ -667,11 +881,10 @@ def main() -> int:
         entry = ""
         for ln in _build.build_log(name).splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
-            if m:  # the template instance: its integer arguments, bf16 or not
-                entry = ",".join(re.findall(r"ILi(\d+)E", m.group(1)))
-                entry += " bf16" if "bfloat16" in m.group(1) else ""
+            if m:
+                entry = kernel_instance(m.group(1))
             if "registers" in ln or "spill" in ln:
-                log(f"  ptxas {name}[{entry}]: {ln.strip()}")
+                log(f"  ptxas {name} {entry}: {ln.strip()}")
 
     # the full-width model: seeded weights, k-means on the card
     cfg = alexnet_conv.config()
@@ -867,6 +1080,24 @@ def main() -> int:
                 "flash_attention": lm["k5"]["flash_attention"]}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
+    csrc = "src/repro_torch/kernels/csrc/"
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # each kernel's routes with their launches on the main paths and times:
+    # K1 simt at the AlexNet sums, stream / mma at the LM's M = 4 / 384 sums
+    # (warm, plus cold), K5 bf16 and f32 at the qwen3 prefill shape
+    routes = {k: {"simt": {"source": csrc + k + ".cu", "launches": launches[k]}}
+              for k in KERNELS}
+    routes["pasm_matmul"]["simt"]["launches"] = counts["kernel"]["pasm_matmul"]
+    routes["pasm_matmul"]["simt"].update(
+        {k: tot["pasm_matmul"][k] for k in timed if k != "bound_by"},
+        bound_by="operations")
+    for r in ("stream", "mma"):
+        routes["pasm_matmul"][r] = dict(k5_rows["k1"][r], launches=lm["routes"][r],
+                                        source=csrc + "pasm_matmul_bf16.cu")
+    routes["flash_attention"] = {
+        dt: dict(k5_rows[dt], launches=lm["k5"]["flash_attention"] if dt == "bfloat16" else 0,
+                 source=csrc + "flash_attention.cu")
+        for dt in ("bfloat16", "float32")}
     kernels = []
     for key in ALL_KERNELS:
         if key == "flash_attention":
@@ -887,9 +1118,12 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "routes": routes[key],
         })
-    log(f"K1-K4 times are sums over the five AlexNet stages at batch {TIME_BATCH}, "
-        f"K5's the qwen3-32b prefill shape (S {K5_TIME_S}, causal, bf16); "
+    log(f"K1-K4 times are sums over the five AlexNet stages at batch {TIME_BATCH} "
+        f"(K1's simt route), K5's the qwen3-32b prefill shape (S {K5_TIME_S}, "
+        f"causal, bf16); K1's stream / mma routes are the LM's four matrices "
+        f"at M = 4 / 384 summed; "
         f"launches are from the serving runs (K1: AlexNet {counts['kernel']['pasm_matmul']} "
         f"+ LM {lm['lm']['pasm_matmul']}; K2, K3), the stage run (K4) and the "
         f"served attention (K5); max_abs_err is the largest over every check "

@@ -30,10 +30,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # one shared library per source; the names are the .cu stems
-SOURCES = ("pasm_matmul", "pasm_conv", "pas_matmul", "pas_conv",
-           "flash_attention")
+SOURCES = ("pasm_matmul", "pasm_matmul_bf16", "pasm_conv", "pas_matmul",
+           "pas_conv", "flash_attention")
 
 _loaded: dict = {}  # name → ctypes.CDLL, loaded once per process
+_fns: dict = {}  # (name, symbol) → the bound C function, set up once
 _log: dict = {}  # name → nvcc's stderr (ptxas register / spill report)
 
 
@@ -100,6 +101,9 @@ def entry_point(name: str, symbol: str, argtypes: list):
     first use, with ``argtypes`` set (pointers and the stream must be
     ``ctypes.c_void_p``, or ctypes cuts them to 32 bits) and an ``int``
     return: the ``cudaError_t`` of the launch."""
+    fn = _fns.get((name, symbol))
+    if fn is not None:
+        return fn
     lib = _loaded.get(name)
     if lib is None:
         build((name,))
@@ -107,4 +111,5 @@ def entry_point(name: str, symbol: str, argtypes: list):
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _fns[(name, symbol)] = fn
     return fn

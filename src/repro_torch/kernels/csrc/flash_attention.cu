@@ -7,14 +7,16 @@
 //   out[r] = Σ_j softmax_j(scale · q[r]·k[j]) v[j]   over the keys j with
 //            j < sk_valid and, when causal, j <= r
 //
-// f32 or bf16 in (every load is widened to f32), f32 online softmax
-// (m, l, acc), output in q's dtype (bf16 rounded to nearest even).
+// f32 online softmax (m, l, acc), output in q's dtype.  Two routes, chosen
+// by dtype:
+//  - f32: fa::flash_fwd, SIMT f32 FMA (below);
+//  - bf16: fa2::flash_fwd_bf16, tensor cores (further below).
 //
 // What bounds it on the H100.  Attention at a long S does 4·S²·hd flops
 // (2·S²·hd causal) on 4·S·hd values: hundreds of flops per byte, so it is
-// bound by operations, and at full speed by the tensor cores.  This first
-// kernel is plain SIMT f32 (no wgmma, no TMA): right first, fast later
-// (ROADMAP Queue 2).  What the design does:
+// bound by operations: 67 TFLOP/s in f32 outside the tensor cores, 989 in
+// bf16 on them.  The f32 route is plain SIMT (no tensor cores: they would
+// round the f32 inputs).  What its design does:
 //  - The TPU kept the whole (Sk, hd) K/V block resident in VMEM (8 MiB each
 //    at 32 k x 128 bf16); no SM holds that.  Here a block owns one
 //    (b·kv, g, 64-row q tile) and streams K/V through shared memory in
@@ -35,6 +37,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace fa {
 
 constexpr int BQ = 64;            // query rows per block
@@ -47,25 +51,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  return make_float4(fa.x, fa.y, fb.x, fb.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 template <int HD, typename T>
@@ -187,14 +174,13 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int dispatch(int hd, const void* q, const void* k, const void* v,
-                    void* out, int BKV, int G, int Sq, int Sk, int kvalid,
-                    int causal, float scale, cudaStream_t s) {
+static int dispatch_f32(int hd, const void* q, const void* k, const void* v,
+                        void* out, int BKV, int G, int Sq, int Sk, int kvalid,
+                        int causal, float scale, cudaStream_t s) {
   switch (hd) {
 #define FA_HD(n) \
   case n:        \
-    return launch<n, T>(q, k, v, out, BKV, G, Sq, Sk, kvalid, causal, scale, s);
+    return launch<n, float>(q, k, v, out, BKV, G, Sq, Sk, kvalid, causal, scale, s);
     FA_HD(16)
     FA_HD(32)
     FA_HD(64)
@@ -209,10 +195,305 @@ static int dispatch(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace fa
 
+// ---------------------------------------------------------------------------
+// bf16 route: FA2 on mma.sync.m16n8k16 (bf16 in, f32 accumulate)
+// ---------------------------------------------------------------------------
+//
+// A block of 4 warps owns 64 query rows of one (b·kv, g), 16 per warp (8
+// warps and 128 rows, half the K/V reads from L2, were no faster on an H100
+// at the qwen3 prefill shape: the tensor cores and the softmax set the
+// time).
+//  - Q fragments are loaded once with ldmatrix and stay in registers for the
+//    whole key loop (hd <= 128).  At hd 192 and 256 the f32 output
+//    accumulator alone is 96 and 128 registers a thread, so there Q stays in
+//    shared memory and is re-read with ldmatrix every key tile, and the key
+//    tile is 32 keys instead of 64 (the score accumulator halves).
+//  - K/V tiles come in by cp.async into a two-stage ring: the next tile's
+//    copy is in flight while the tensor cores work on this one.  Rows are
+//    padded by 16 bytes (hd + 8 bf16), so the 8 row addresses of every
+//    ldmatrix phase fall in 8 distinct 16-byte bank groups: conflict-free at
+//    every head dim (all are multiples of 16, so the padded stride is an odd
+//    number of 16-byte units).  K is read with ldmatrix, V with
+//    ldmatrix.trans.
+//  - S = Q Kᵀ accumulates in f32 registers; the scale, with log2(e) folded
+//    in, is applied to S in f32, so the softmax is exp2.
+//  - The online softmax runs on the accumulator fragments: the row max over
+//    the four lanes of a quad with shfl_xor; the row sum stays a per-lane
+//    partial until the end (the rescale factor is uniform over the quad).
+//  - P is rounded to bf16 in registers and is directly the A operand of
+//    P·V (the S accumulator layout is the A fragment layout), so P never
+//    touches shared memory.  The JAX kernel keeps P in f32: this is the one
+//    numeric difference, held to |Δ| <= 2^-7 (|plain| + Σ_j p_j |v_j|).
+//  - The causal bound ends the key loop at the block's last visible key;
+//    the per-element mask runs only on tiles that straddle the diagonal or
+//    the valid-key edge.  Rows past Sq compute but are not stored; keys past
+//    the valid count are zero-filled by cp.async and weigh 0.
+//  - Blocks walk the query tiles last-first, so the long causal rows start
+//    first and the short ones fill the tail.
+namespace fa2 {
+
+constexpr float NEG = -1e30f;   // the running max before any valid key
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+struct Cfg {
+  static constexpr bool Q_REGS = HD <= 128;         // Q fragments in registers
+  static constexpr int WARPS = 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * WARPS;             // query rows per block
+  static constexpr int BKEYS = Q_REGS ? 64 : 32;    // keys per tile
+  static constexpr int LD = HD + 8;                 // padded smem row (bf16)
+  static constexpr int KSTEPS = HD / 16;            // k16 steps of Q Kᵀ
+  static constexpr int NT_S = BKEYS / 8;            // score n8 tiles
+  static constexpr int NT_O = HD / 8;               // output n8 tiles
+  static constexpr int TILE = BKEYS * LD;           // elements of a K/V tile
+  // stage s holds K at 2s·TILE and V after it; Q in registers is staged
+  // over the second stage, else it has its own tile after the ring
+  static constexpr int Q_OFF = Q_REGS ? 2 * TILE : 4 * TILE;
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (size_t)(Q_REGS ? 4 * TILE : 4 * TILE + BQ * LD);
+  static_assert(!Q_REGS || BQ * LD <= 2 * TILE, "Q staging fits one stage");
+};
+
+// rows [r0, r0 + rows) of a (., HD) bf16 matrix into a padded smem tile;
+// rows at or past `valid` are zero-filled
+template <int HD>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int r0,
+                                          int rows, int valid) {
+  constexpr int CH = HD / 8;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < rows * CH; e += Cfg<HD>::THREADS) {
+    const int r = e / CH, c = e % CH;
+    const bool in = r0 + r < valid;
+    tc::cp_async16(dst + r * Cfg<HD>::LD + 8 * c,
+                   in ? src + (size_t)(r0 + r) * HD + 8 * c : src, in ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Cfg<HD>::THREADS)
+    flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ out, int G, int Sq, int Sk,
+                   int kvalid, int causal, float scale_log2) {
+  using C = Cfg<HD>;
+  constexpr int BKEYS = C::BKEYS, LD = C::LD, BQ = C::BQ;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* sK = sm;            // stage s: K at 2s·TILE ...
+  __nv_bfloat16* sV = sm + C::TILE;  // ... and V after it
+  __nv_bfloat16* sQ = sm + C::Q_OFF;  // [BQ][LD]
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // long causal rows first
+  const int q0 = qt * BQ;
+  const long long bkv = blockIdx.z;
+  const long long head = bkv * G + blockIdx.y;
+  const __nv_bfloat16* qb = q + head * Sq * HD;
+  const __nv_bfloat16* kb = k + bkv * Sk * HD;
+  const __nv_bfloat16* vb = v + bkv * Sk * HD;
+
+  const int kval = min(Sk, kvalid);  // keys that may weigh
+  int kend = kval;                   // keys this block's rows may see
+  if (causal) kend = min(kend, q0 + BQ);
+  const int ntiles = (kend + BKEYS - 1) / BKEYS;
+
+  load_rows<HD>(sQ, qb, q0, BQ, Sq);
+  tc::cp_async_commit();
+  load_rows<HD>(sK, kb, 0, BKEYS, kend);
+  load_rows<HD>(sV, vb, 0, BKEYS, kend);
+  tc::cp_async_commit();
+
+  // this lane's A-operand row address inside a 16-row tile (ldmatrix x4)
+  const int a_row = lane % 16, a_col = (lane / 16) * 8;
+  uint32_t qf[C::Q_REGS ? C::KSTEPS : 1][4];
+  if constexpr (C::Q_REGS) {
+    tc::cp_async_wait<1>();  // Q has landed (the first K/V tile may not)
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < C::KSTEPS; ++ks)
+      tc::ldmatrix_x4(qf[ks], sQ + (warp * 16 + a_row) * LD + ks * 16 + a_col);
+    __syncthreads();  // sQ (the second stage) is free before it is refilled
+  }
+
+  float o[C::NT_O][4];
+#pragma unroll
+  for (int i = 0; i < C::NT_O; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m_r[2] = {NEG, NEG};  // running max of rows g and g + 8 (log2 units)
+  float l_r[2] = {0.f, 0.f};  // this lane's partial row sums
+  const int g = lane / 4, t = lane % 4;
+  const int qw = q0 + warp * 16;  // this warp's first row
+  const int row0 = qw + g, row1 = qw + g + 8;
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < ntiles) {
+      load_rows<HD>(sK + (st ^ 1) * 2 * C::TILE, kb, (j + 1) * BKEYS, BKEYS, kend);
+      load_rows<HD>(sV + (st ^ 1) * 2 * C::TILE, vb, (j + 1) * BKEYS, BKEYS, kend);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // tile j (and Q) have landed
+    __syncthreads();
+    const __nv_bfloat16* tK = sK + st * 2 * C::TILE;
+    const __nv_bfloat16* tV = sV + st * 2 * C::TILE;
+    const int j0 = j * BKEYS;
+
+    // S = Q Kᵀ over the tile, f32
+    float s[C::NT_S][4];
+#pragma unroll
+    for (int i = 0; i < C::NT_S; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < C::KSTEPS; ++ks) {
+      uint32_t a[4];
+      if constexpr (C::Q_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[ks][i];
+      } else {
+        tc::ldmatrix_x4(a, sQ + (warp * 16 + a_row) * LD + ks * 16 + a_col);
+      }
+#pragma unroll
+      for (int np = 0; np < C::NT_S / 2; ++np) {
+        uint32_t b[4];  // keys np·16 + [0, 16), hd ks·16 + [0, 16)
+        tc::ldmatrix_x4(b, tK + (np * 16 + (lane % 8) + (lane / 16) * 8) * LD +
+                               ks * 16 + ((lane / 8) % 2) * 8);
+        tc::mma_bf16(s[2 * np], a, b[0], b[1]);
+        tc::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+
+    // scale (log2 units), mask, online softmax on the fragments
+    const bool edge = j0 + BKEYS > kval || (causal && j0 + BKEYS - 1 > qw);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int nt = 0; nt < C::NT_S; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale_log2;
+        if (edge) {
+          const int kj = j0 + nt * 8 + 2 * t + (e & 1);
+          const int qi = (e < 2) ? row0 : row1;
+          if (kj >= kval || (causal && kj > qi)) x = -INFINITY;
+        }
+        s[nt][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      alpha[h] = tc::exp2_approx(m_r[h] - mx[h]);
+      m_r[h] = mx[h];
+      l_r[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < C::NT_S; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = tc::exp2_approx(s[nt][e] - m_r[e / 2]);  // masked: 0
+        s[nt][e] = p;
+        l_r[e / 2] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < C::NT_O; ++i) {
+      o[i][0] *= alpha[0];
+      o[i][1] *= alpha[0];
+      o[i][2] *= alpha[1];
+      o[i][3] *= alpha[1];
+    }
+
+    // O += P V: P (bf16, registers) is the A operand, V via ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BKEYS / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = tc::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = tc::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = tc::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = tc::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < C::NT_O / 2; ++dp) {
+        uint32_t b[4];  // keys kk·16 + [0, 16), hd dp·16 + [0, 16)
+        tc::ldmatrix_x4_trans(
+            b, tV + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD +
+                   dp * 16 + (lane / 16) * 8);
+        tc::mma_bf16(o[2 * dp], a, b[0], b[1]);
+        tc::mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+  }
+  const float den0 = fmaxf(l_r[0], 1e-30f), den1 = fmaxf(l_r[1], 1e-30f);
+  __nv_bfloat16* ob = out + head * Sq * HD;
+#pragma unroll
+  for (int nt = 0; nt < C::NT_O; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * HD + c) =
+          tc::pack_bf16x2(o[nt][0] / den0, o[nt][1] / den0);
+    if (row1 < Sq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * HD + c) =
+          tc::pack_bf16x2(o[nt][2] / den1, o[nt][3] / den1);
+  }
+}
+
+template <int HD>
+static int launch(const void* q, const void* k, const void* v, void* out,
+                  int BKV, int G, int Sq, int Sk, int kvalid, int causal,
+                  float scale, cudaStream_t stream) {
+  const size_t smem = Cfg<HD>::SMEM;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((Sq + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ, G, BKV);
+  flash_fwd_bf16<HD><<<grid, Cfg<HD>::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), G,
+      Sq, Sk, kvalid, causal, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+static int dispatch_bf16(int hd, const void* q, const void* k, const void* v,
+                         void* out, int BKV, int G, int Sq, int Sk, int kvalid,
+                         int causal, float scale, cudaStream_t s) {
+  switch (hd) {
+#define FA_HD(n) \
+  case n:        \
+    return launch<n>(q, k, v, out, BKV, G, Sq, Sk, kvalid, causal, scale, s);
+    FA_HD(16)
+    FA_HD(32)
+    FA_HD(64)
+    FA_HD(80)
+    FA_HD(128)
+    FA_HD(192)
+    FA_HD(256)
+#undef FA_HD
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace fa2
+
 // Plain C entry point (bound with ctypes).  q, k, v and out are contiguous,
-// 16-byte aligned, all float32 (bf16 == 0) or all bfloat16 (bf16 == 1);
-// keys at or past kvalid weigh nothing.  hd is one of 16, 32, 64, 80, 128,
-// 192, 256 (every head dim of the registry's attention archs).  Returns the launch's cudaError_t; it does not synchronise.
+// 16-byte aligned, all float32 (bf16 == 0: the SIMT route) or all bfloat16
+// (bf16 == 1: the tensor-core route); keys at or past kvalid weigh nothing.
+// hd is one of 16, 32, 64, 80, 128, 192, 256 (every head dim of the
+// registry's attention archs).  Returns the launch's cudaError_t; it does
+// not synchronise.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int BKV,
                                       int G, int Sq, int Sk, int kvalid,
@@ -223,8 +504,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return fa::dispatch<__nv_bfloat16>(hd, q, k, v, out, BKV, G, Sq, Sk,
-                                       kvalid, causal, scale, s);
-  return fa::dispatch<float>(hd, q, k, v, out, BKV, G, Sq, Sk, kvalid, causal,
-                             scale, s);
+    return fa2::dispatch_bf16(hd, q, k, v, out, BKV, G, Sq, Sk, kvalid, causal,
+                              scale, s);
+  return fa::dispatch_f32(hd, q, k, v, out, BKV, G, Sq, Sk, kvalid, causal,
+                          scale, s);
 }

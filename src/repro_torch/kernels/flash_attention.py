@@ -13,8 +13,18 @@ The TPU kernel kept the whole K/V block resident in VMEM and needed Sq and
 Sk padded to its tiles.  The CUDA kernel streams K/V tiles through shared
 memory and masks the ragged Sq and Sk edges itself, so nothing is padded;
 ``bq``/``bk`` stay on :func:`repro_torch.kernels.ops.flash_attention` as the
-TPU's tile hints and the kernel keeps its own tile (64 query rows, 32 keys).
+TPU's tile hints and the kernel keeps its own tiles (64 query rows).
 Head dims: :data:`HEAD_DIMS` (every attention arch of the registry).
+
+Two routes, by dtype.  f32 runs SIMT f32 FMA (four threads a query row, 32-key
+tiles).  bf16 runs on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulate, FA2's layout: 16 query rows a warp, K/V by ``cp.async`` into a
+two-stage ring, the online softmax on the accumulator fragments).  There P
+is rounded to bf16 before P·V, as :func:`repro_torch.nn.attention.gqa_attention`
+rounds it to v's dtype; the JAX kernel keeps P in f32, so the bf16 route is
+held to its plain version with ``|Δ| ≤ 2^-7·(|plain| + Σ_j p_j·|v_j|)``
+(:data:`BF16_TOL`; the sum is the plain version on ``|v|``), the f32 route
+with ``1e-5``.
 
 On a CPU tensor the wrapper runs :func:`flash_attention_plain`; on a CUDA
 tensor it launches the kernel or raises.  Each launch adds one to
@@ -29,7 +39,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.kernels.pasm_matmul import _raise_on, _stream, launches
+from repro_torch.kernels.pasm_matmul import _on, _raise_on, _stream, launches
 
 __all__ = ["flash_attention_kernel_call", "flash_attention_plain", "HEAD_DIMS"]
 
@@ -37,6 +47,10 @@ __all__ = ["flash_attention_kernel_call", "flash_attention_plain", "HEAD_DIMS"]
 # head dim of the registry's attention archs
 HEAD_DIMS = (16, 32, 64, 80, 128, 192, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+# the bf16 route against flash_attention_plain: P is rounded to bf16 (2**-9
+# relative each, so 2**-9·Σ_j p_j·|v_j| at most) before P·V, then the output
+# to bf16 (2**-9): |Δ| <= BF16_TOL·(|plain| + Σ_j p_j·|v_j|)
+BF16_TOL = 2.0 ** -7
 _NEG_INF = -1e30
 
 
@@ -120,7 +134,7 @@ def flash_attention_kernel_call(
 
     fn = _build.entry_point("flash_attention", "flash_attention_launch",
                             [_P] * 4 + [_I] * 8 + [ctypes.c_float, _P])
-    with torch.cuda.device(q.device):
+    with _on(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  BKV, G, Sq, Sk, kvalid, hd, int(causal),
                  int(q.dtype == torch.bfloat16), hd ** -0.5, _stream(q.device))

@@ -1,4 +1,4 @@
-"""Launch wrappers for the two Hopper kernels, and their plain versions.
+"""Launch wrappers for K1 and K2 on Hopper, and their plain versions.
 
 ``y = x @ W`` where ``W`` never exists in device memory: only ``log2(B)``-bit
 indices (uint8, or two 4-bit indices per byte) plus a ``(G, B)`` codebook are
@@ -34,6 +34,30 @@ through a shared-memory tile.  A block's rows hold whole windows
 K edge is masked in-kernel (no tile-plan K pad); the §3 pack-time ``pad_k``
 row is part of the data format and is paired with a zero activation.
 
+**K1's bf16 routes** (``csrc/pasm_matmul_bf16.cu``).  A bf16 ``x`` is the LM's
+activation, and there the SIMT kernel above loses: its 64-row tile computes 64
+rows for a decode step's 4, and it has no tensor cores at prefill.
+:func:`k1_plan` picks one of three routes from the shapes and dtype alone:
+
+* ``simt`` — f32 ``x``, any fused pool, and what the bf16 routes' tables do
+  not hold (more than :data:`MAX_BF16_GROUPS` dictionaries, or packed bytes
+  whose two rows fall in two dictionaries): the kernel above, unchanged (K1
+  ≡ K2 bitwise).  A bf16 ``x`` is widened to it exactly
+  (:func:`_widen_bf16`).
+* ``stream`` — bf16, ``M <= STREAM_MAX_M`` (decode): a warp streams 128
+  index columns with 16-byte loads straight into tensor-core A fragments
+  (one pair-table lookup a byte), ``x`` is an 8- or 16-row B tile, and
+  split-K (a count fixed by K and N) fills the card; a second pass adds the
+  partial sums in split order (no float atomics).  Bound by the index
+  bytes.
+* ``mma`` — bf16, ``M > STREAM_MAX_M`` (prefill): the same dequant into A
+  fragments on ``BM × 256`` tiles, ``x`` and index tiles through a
+  ``cp.async`` ring.  Bound by operations.
+
+Both bf16 routes compute the JAX kernel's products exactly (bf16 × bf16 in
+f32) and sum each output row in an order set by K, N and the route, never by
+M, so a row computed in a batch equals it computed alone, bitwise.
+
 ``gather="take"|"onehot"`` were two TPU lowerings of one function; the port
 keeps the argument for signature parity and both run the same shared-memory
 lookup.
@@ -44,6 +68,7 @@ launches the kernel or raises.  Each launch adds one to :data:`launches`.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import NamedTuple, Optional
@@ -65,6 +90,10 @@ __all__ = [
     "BM_TILES",
     "GATHERS",
     "pool_plan_exists",
+    "K1Plan",
+    "k1_plan",
+    "K1_ROUTES",
+    "k1_routes",
 ]
 
 # the row tiles the CUDA kernels are compiled for (template BM in csrc);
@@ -117,10 +146,84 @@ _NO_GRAD = (
 )
 
 
+K1_ROUTES = ("simt", "stream", "mma")
+# K1 launches by route (each also counts once in launches["pasm_matmul"])
+k1_routes = dict.fromkeys(K1_ROUTES, 0)
+
+
 def reset_launches() -> None:
     """Set every launch count to 0."""
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, k1_routes):
+        for k in d:
+            d[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# K1's route plan
+# ---------------------------------------------------------------------------
+
+SMS = 132  # the H100 SXM's streaming multiprocessors: the fill target
+# M0: a bf16 x of at most this many rows takes `stream`, more take `mma`
+STREAM_MAX_M = 16
+STREAM_COLS = 128  # columns per stream block (csrc S_BN)
+STREAM_ROWS = (8, 16)  # rows of x per stream block (csrc 8 x template NT)
+MMA_BM, MMA_BN = 64, 256  # the mma block's output tile (csrc BM, BN)
+MAX_BF16_GROUPS = 2  # dictionaries the bf16 routes' tables hold (csrc MAX_GROUPS)
+MIN_SPLIT_K = 1024  # least K rows per split-K partition
+# the bf16 routes against pasm_matmul_plain: the same exact products summed
+# in another order (tensor-core accumulation): |Δ| <= K1_BF16_TOL·(|x|@|W|) + 1e-6
+K1_BF16_TOL = 1e-5
+
+
+class K1Plan(NamedTuple):
+    """How K1 runs one call: ``route`` (one of :data:`K1_ROUTES`), the
+    split-K count, the row tile (``simt``: 64/256 by pool; ``stream``: rows
+    per block; ``mma``: BM), the blocks launched, and the f32 elements of
+    split-K scratch the wrapper allocates (0 without split-K)."""
+
+    route: str
+    splits: int
+    tile: int
+    blocks: int
+    scratch: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k1_plan(M: int, K: int, N: int, dtype: torch.dtype, pool: int = 1, *,
+            packed: bool = False, groups: int = 1) -> K1Plan:
+    """K1's route for ``x (M, K) · W (K, N)`` over ``groups`` dictionaries
+    (``packed``: two int4 indices a byte) — a pure function of the shapes
+    and ``x``'s dtype.
+
+    f32, ``pool > 1``, more than :data:`MAX_BF16_GROUPS` dictionaries, and
+    packed bytes whose two K rows fall in two dictionaries (odd ``K /
+    groups``) take ``simt``; any other bf16 ``x`` takes ``stream`` up to
+    :data:`STREAM_MAX_M` rows, ``mma`` above.  The split-K count of both
+    bf16 routes depends on K and N only (so a row sums in the same order
+    whatever M is): enough splits to fill the SMs, each at least
+    :data:`MIN_SPLIT_K` K rows.
+    """
+    if dtype != torch.bfloat16 or pool > 1 or \
+            not 0 < groups <= MAX_BF16_GROUPS or (packed and (K // groups) % 2):
+        bm = _pool_bm(pool)
+        return K1Plan("simt", 1, bm, _cdiv(M, bm - bm % (pool * pool))
+                      * _cdiv(N, 64), 0)
+    route = "stream" if M <= STREAM_MAX_M else "mma"
+    cols = _cdiv(N, STREAM_COLS if route == "stream" else MMA_BN)
+    # split-K by K and N only, to about 1.5 blocks an SM on stream (measured
+    # at M = 4, H100: wq 3, w1 1, w2 5 splits are the fastest) and one on
+    # mma, whose blocks are heavier and which has M / 64 row blocks besides
+    want = (3 * SMS // 2) if route == "stream" else SMS
+    splits = max(1, min((2 * want + cols) // (2 * cols), K // MIN_SPLIT_K))
+    if route == "stream":
+        tile = STREAM_ROWS[0] if M <= STREAM_ROWS[0] else STREAM_ROWS[1]
+    else:
+        tile = MMA_BM
+    return K1Plan(route, splits, tile, cols * splits * _cdiv(M, tile),
+                  splits * M * N if splits > 1 else 0)
 
 
 class ConvGeom(NamedTuple):
@@ -263,7 +366,7 @@ def pasm_conv_plain(x, idx, codebook, bias=None, *, geom: ConvGeom,
 
 
 def _check_operands(x, idx, codebook, bias, *, packed: bool, gather: str,
-                    k_rows: int) -> None:
+                    k_rows: int, x_dtype: torch.dtype = torch.float32) -> None:
     """Device, dtype, shape and contiguity checks shared by K1 and K2."""
     if gather not in GATHERS:
         raise ValueError(f"gather must be one of {GATHERS}, got {gather!r}")
@@ -272,8 +375,9 @@ def _check_operands(x, idx, codebook, bias, *, packed: bool, gather: str,
         raise RuntimeError(_NO_GRAD)
     if len({t.device for t in ts}) != 1:
         raise ValueError(f"operands on different devices: {[str(t.device) for t in ts]}")
-    if x.dtype != torch.float32 or codebook.dtype != torch.float32:
-        raise TypeError(f"x and codebook must be float32, got {x.dtype}, {codebook.dtype}")
+    if x.dtype != x_dtype or codebook.dtype != torch.float32:
+        raise TypeError(f"x must be {x_dtype} and codebook float32, got "
+                        f"{x.dtype}, {codebook.dtype}")
     if idx.dtype != torch.uint8 or idx.ndim != 2:
         raise TypeError(f"idx must be 2-D uint8, got {idx.dtype} {tuple(idx.shape)}")
     if codebook.ndim != 2:
@@ -310,7 +414,19 @@ def _check_image(x: torch.Tensor, geom: ConvGeom, Kp: int) -> tuple:
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    """The current CUDA stream of ``dev`` as a raw handle (the call
+    PyTorch's own kernel launchers use: no Stream object is built)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
+
+
+def _on(dev: torch.device):
+    """The C launchers launch on the calling thread's current device: make it
+    ``dev`` (a no-op context when it already is, which skips two device
+    switches on every call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -342,22 +458,24 @@ def pasm_matmul_kernel_call(
     """K1: ``x (M, K) · idx (K or K/2, N) · codebook (G, B) → (M/pool², N)``.
 
     ``bias (N,)`` and ``relu`` are the fused epilogue; ``pool > 1`` expects
-    window-major rows (``M % pool² == 0``) and stores the pooled map.  The
-    row tile follows from ``pool`` (:func:`_pool_bm`).  ``x`` is f32 or
-    bf16: a bf16 ``x`` runs the f32 kernel on exact widenings
-    (:func:`_widen_bf16`).  The output is f32.
+    window-major rows (``M % pool² == 0``) and stores the pooled map.  ``x``
+    is f32 or bf16; :func:`k1_plan` picks the kernel.  The output is f32.
     """
     if x.ndim != 2:
         raise ValueError(f"x must be 2-D (M, K), got {tuple(x.shape)}")
-    x, codebook = _widen_bf16(x, codebook)
-    _check_operands(x, idx, codebook, bias, packed=packed, gather=gather,
-                    k_rows=x.shape[1])
     M, K = x.shape
-    N = idx.shape[1]
+    N = idx.shape[-1]
     pw = pool * pool
     if M % pw:
         raise ValueError(f"pool={pool} needs window-major rows, M={M} % {pw}")
-    bm = _pool_bm(pool)
+    plan = k1_plan(M, K, N, x.dtype, pool, packed=packed,
+                   groups=codebook.shape[0] if codebook.ndim else 1)
+    simt = plan.route == "simt"
+    if simt:
+        x, codebook = _widen_bf16(x, codebook)
+    _check_operands(x, idx, codebook, bias, packed=packed, gather=gather,
+                    k_rows=K, x_dtype=torch.float32 if simt else torch.bfloat16)
+    G, B = codebook.shape
     if x.device.type == "cpu":
         return pasm_matmul_plain(x, idx, codebook, bias, packed=packed,
                                  relu=relu, pool=pool)
@@ -368,15 +486,25 @@ def pasm_matmul_kernel_call(
         return out
     from repro_torch.kernels import _build
 
-    fn = _build.entry_point("pasm_matmul", "pasm_matmul_launch",
-                            [_P] * 5 + [_I] * 9 + [_P])
-    G, B = codebook.shape
-    with torch.cuda.device(x.device):
-        err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
-                 M, K, N, G, B, int(packed), int(relu), pool, bm,
-                 _stream(x.device))
-    _raise_on(err, "pasm_matmul")
+    with _on(x.device):
+        if simt:
+            fn = _build.entry_point("pasm_matmul", "pasm_matmul_launch",
+                                    [_P] * 5 + [_I] * 9 + [_P])
+            err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
+                     M, K, N, G, B, int(packed), int(relu), pool, plan.tile,
+                     _stream(x.device))
+        else:
+            part = torch.empty(plan.scratch, dtype=torch.float32,
+                               device=x.device) if plan.scratch else None
+            fn = _build.entry_point("pasm_matmul_bf16", "pasm_matmul_bf16_launch",
+                                    [_P] * 6 + [_I] * 10 + [_P])
+            err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
+                     _ptr(part), M, K, N, G, B, int(packed), int(relu),
+                     int(plan.route == "mma"), plan.splits, plan.tile,
+                     _stream(x.device))
+    _raise_on(err, f"pasm_matmul ({plan.route})")
     launches["pasm_matmul"] += 1
+    k1_routes[plan.route] += 1
     return out
 
 

@@ -233,10 +233,24 @@ def test_pas_kernels_raise_on_grad(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _k5_tol(dtype):
-    # f32: sums in another order; bf16: one bf16 ulp (2**-7 relative)
-    return dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else \
-        dict(rtol=2.0 ** -7, atol=1e-5)
+def _assert_k5_close(y, q, k, v, *, causal, sk_orig):
+    """K5 against flash_attention_plain.  f32: sums in another order (1e-5).
+    bf16: the tensor-core route rounds P to bf16 before P·V (the JAX kernel
+    keeps it f32), 2^-9·Σ_j p_j·|v_j| at most, and both round the output to
+    bf16, so |Δ| <= 2^-7·(|plain| + Σ_j p_j·|v_j|) (``fa.BF16_TOL``); the
+    sum is the plain version on |v| (p >= 0), and scales with the values P
+    weighs, not with |o|, which can cancel."""
+    from repro_torch.kernels import flash_attention as fa
+
+    want = fa.flash_attention_plain(q, k, v, causal=causal, sk_orig=sk_orig)
+    if y.dtype == torch.float32:
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
+        return
+    pv = fa.flash_attention_plain(q, k, v.abs(), causal=causal, sk_orig=sk_orig)
+    d = (y.float() - want.float()).abs()
+    lim = fa.BF16_TOL * (want.float().abs() + pv.float())
+    assert bool(torch.isfinite(y.float()).all()) and bool((d <= lim).all()), \
+        f"max |Δ| {float(d.max()):.3e}, {int((d > lim).sum())} over tolerance"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -261,9 +275,7 @@ def test_k5_matches_plain(cuda, dtype, causal, BKV, G, Sq, Sk, kvalid, hd):
     before = pm.launches["flash_attention"]
     y = fa.flash_attention_kernel_call(q, k, v, causal=causal, sk_orig=kvalid)
     assert pm.launches["flash_attention"] == before + 1 and y.dtype == dtype
-    want = fa.flash_attention_plain(q, k, v, causal=causal, sk_orig=kvalid)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(y.float(), want.float(), **_k5_tol(dtype))
+    _assert_k5_close(y, q, k, v, causal=causal, sk_orig=kvalid)
 
 
 def test_k5_through_ops_matches_gqa_attention(cuda):
@@ -328,3 +340,122 @@ def test_lm_serves_on_the_card(cuda):
     agree = np.mean([a == b for x, y in zip(outs["kernel"], outs["dequant"])
                      for a, b in zip(x, y)])
     assert agree >= 0.9
+
+
+# ---------------------------------------------------------------------------
+# K5's bf16 tensor-core route; K1's bf16 routes (stream, mma)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128, 192, 256])
+@pytest.mark.parametrize("BKV,G,Sq,Sk,kvalid", [
+    (2, 4, 96, 96, 96),      # GQA
+    (3, 1, 70, 130, 130),    # MHA, Sq != Sk, both ragged
+    (1, 8, 129, 65, 50),     # MQA-like wide group, keys past sk_orig masked
+    (1, 2, 1, 200, 200),     # a single query row
+])
+def test_k5_bf16_tensor_core_matches_plain(cuda, hd, causal, BKV, G, Sq, Sk, kvalid):
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(hd * 1000 + Sq + Sk)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda).bfloat16() for s in ((BKV, G, Sq, hd), (BKV, Sk, hd),
+                                              (BKV, Sk, hd)))
+    before = pm.launches["flash_attention"]
+    y = fa.flash_attention_kernel_call(q, k, v, causal=causal, sk_orig=kvalid)
+    assert pm.launches["flash_attention"] == before + 1 and y.dtype == torch.bfloat16
+    _assert_k5_close(y, q, k, v, causal=causal, sk_orig=kvalid)
+    again = fa.flash_attention_kernel_call(q, k, v, causal=causal, sk_orig=kvalid)
+    assert torch.equal(again, y)
+
+
+def _k1_operands(dev, M, K, N, groups, packed, bins=16, seed=0):
+    rng = np.random.default_rng(seed + M * 7 + K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(dev).bfloat16()
+    rows = K // 2 if packed else K
+    idx = torch.from_numpy(rng.integers(0, 256 if packed else bins, (rows, N))
+                           .astype(np.uint8)).to(dev)
+    cb = torch.from_numpy(rng.standard_normal((groups, bins)).astype(np.float32) * 0.1).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    return x, idx, cb, bias
+
+
+def _assert_k1_bf16_close(y, x, idx, cb, bias, packed, relu):
+    """|Δ| <= t·(|x|@|W|) + 1e-6: the same exact products summed in another
+    order (tensor-core accumulation on mma); |x|@|W| bounds the sum's
+    rounding where the output itself cancels."""
+    want = pm.pasm_matmul_plain(x, idx, cb, bias, packed=packed, relu=relu)
+    scale = pm.pasm_matmul_plain(x.abs(), idx, cb.abs(), packed=packed)
+    torch.cuda.synchronize()
+    d = (y - want).abs()
+    assert bool(torch.isfinite(y).all())
+    assert bool((d <= pm.K1_BF16_TOL * scale + 1e-6).all()), float(d.max())
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64, 384])
+@pytest.mark.parametrize("K,N,groups,packed", [
+    (1000, 333, 2, True),    # K not a multiple of any tile, odd N, G = 2
+    (512, 256, 1, False),    # uint8 indices
+    (96, 130, 1, True),
+    (998, 200, 2, False),    # uint8, G = 2, K / G odd
+])
+def test_k1_bf16_routes_match_plain(cuda, M, K, N, groups, packed):
+    """stream up to STREAM_MAX_M rows (1, 4, 16), mma above (17, 64, 384)."""
+    route = "stream" if M <= pm.STREAM_MAX_M else "mma"
+    x, idx, cb, bias = _k1_operands(cuda, M, K, N, groups, packed)
+    before = dict(pm.k1_routes)
+    y = pm.pasm_matmul_kernel_call(x, idx, cb, bias, packed=packed, relu=True)
+    assert pm.k1_routes[route] == before[route] + 1 and y.shape == (M, N)
+    _assert_k1_bf16_close(y, x, idx, cb, bias, packed, True)
+    # bitwise repeatable: split-K partials are added in a fixed order
+    y2 = pm.pasm_matmul_kernel_call(x, idx, cb, bias, packed=packed, relu=True)
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("M,rows", [(4, 1), (4 * (pm.STREAM_MAX_M + 1), pm.STREAM_MAX_M + 1)],
+                         ids=["stream", "mma"])
+@pytest.mark.parametrize("K,N,packed", [(5120, 1000, True), (25600, 512, True),
+                                        (300, 77, False)])
+def test_k1_bf16_rows_do_not_depend_on_m(cuda, M, rows, K, N, packed):
+    """A row computed in a batch equals that row computed in a smaller one
+    on the same route, bitwise (the Engine grafts batch-of-one prefills into
+    batched state): stream at 4 rows against 1, mma at 68 against 17."""
+    route = pm.k1_plan(rows, K, N, torch.bfloat16, packed=packed).route
+    assert route == pm.k1_plan(M, K, N, torch.bfloat16, packed=packed).route
+    x, idx, cb, bias = _k1_operands(cuda, M, K, N, 1, packed, seed=3)
+    pm.reset_launches()
+    y = pm.pasm_matmul_kernel_call(x, idx, cb, bias, packed=packed)
+    for i in range(0, M, rows):
+        part = pm.pasm_matmul_kernel_call(x[i:i + rows].contiguous(), idx, cb,
+                                          bias, packed=packed)
+        assert torch.equal(part, y[i:i + rows]), i
+    assert pm.k1_routes[route] == 1 + M // rows
+
+
+def test_k1_routes_by_plan(cuda):
+    """bf16 takes stream up to M0 and mma above; f32 and pooled bf16 take the
+    SIMT kernel, whose f32 result K2 matches bitwise (test_k2_...)."""
+    K, N = 512, 192
+    for M, dtype, pool, route in ((pm.STREAM_MAX_M, torch.bfloat16, 1, "stream"),
+                                  (pm.STREAM_MAX_M + 1, torch.bfloat16, 1, "mma"),
+                                  (64, torch.float32, 1, "simt"),
+                                  (36, torch.bfloat16, 3, "simt")):
+        x, idx, cb, bias = _k1_operands(cuda, M, K, N, 1, True)
+        pm.reset_launches()
+        pm.pasm_matmul_kernel_call(x.to(dtype), idx, cb, bias, packed=True, pool=pool)
+        assert pm.k1_routes == {r: int(r == route) for r in pm.K1_ROUTES}
+        assert pm.launches["pasm_matmul"] == 1
+    # more dictionaries than the bf16 routes' tables hold, or a packed
+    # byte's two rows in two dictionaries (K / G = 45): the SIMT kernel on
+    # the widened x, equal to the f32 call bitwise
+    for K, groups in ((512, 4), (90, 2)):
+        x, idx, cb, bias = _k1_operands(cuda, 4, K, N, groups, True)
+        pm.reset_launches()
+        y = pm.pasm_matmul_kernel_call(x, idx, cb, bias, packed=True)
+        assert pm.k1_routes == {"simt": 1, "stream": 0, "mma": 0}
+        want = pm.pasm_matmul_kernel_call(x.float(), idx, cb.bfloat16().float(),
+                                          bias, packed=True)
+        assert torch.equal(y, want)
+    with pytest.raises(TypeError, match="float32"):
+        pm.pasm_matmul_kernel_call(x.half(), idx, cb, packed=True)
