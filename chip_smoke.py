@@ -16,8 +16,9 @@ Phases (every one unguarded: any failure exits non-zero):
    a ``groups=2`` case (K1/K2), 4- and 256-bin dictionaries and indices past
    the dictionary (K3/K4) on conv3, an NHWC SAME conv1 case and the
    3×512×512 ``bigimg_conv1`` shape on K2/K4; K1 ≡ K2 and K3 ≡ K4 bitwise on
-   each stage, and on integer-valued images and dictionaries K3 == K1
-   bitwise (paper §5.3);
+   each stage, K3's rows independent of M (a slice of whole pool windows off
+   the block tiles against the full call, bitwise), and on integer-valued
+   images and dictionaries K3 == K1 bitwise (paper §5.3);
 4. the full-width AlexNet (3×224×224, 1000 classes, 16 bins, seeded weights,
    k-means on the card) serving mixed-size requests through ``CnnBatcher``
    with ``impl="kernel"``, ``"kernel_implicit"`` and ``"pas_kernel"``, then
@@ -28,7 +29,8 @@ Phases (every one unguarded: any failure exits non-zero):
    library yardstick (timed only: ``torch.matmul`` on the dequantized weight
    for K1/K3, ``F.conv2d`` with TF32 off for K2/K4) and the bound
    ``max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)`` of the function (K3's is
-   K1's, K4's is K2's);
+   K1's, K4's is K2's); K3/K4 also print their rate in adds/s (flops / 2:
+   one add per (m, k, n));
 6. K5 (flash attention) against its plain version, f32 (SIMT route) and
    bf16 (tensor-core route), causal and not, at the ``tests/test_kernels.py``
    shapes (GQA, MHA with a ragged S, MQA), stablelm-3b's hd 80 over 32 heads,
@@ -348,6 +350,16 @@ def check_case(case: Case, errs: dict, *, k1: bool = True, pasm: bool = True,
             line += f" K3 {e3:.2e} K3≡K4 {same}"
             if not same:
                 raise AssertionError(f"{case.name}: K3 and K4 differ bitwise")
+            # a row's result does not depend on M: a slice of whole pool
+            # windows, off the block tiles, gives the full call's rows
+            pw = case.pool * case.pool
+            w0, nw = 1, max(1, x.shape[0] // pw // 2)
+            part = ops.pas_matmul(x[w0 * pw:(w0 + nw) * pw].contiguous(), t,
+                                  bias=bias, relu=True, pool=case.pool)
+            indep = torch.equal(part, y3[w0:w0 + nw])
+            line += f" rows⊥M {indep}"
+            if not indep:
+                raise AssertionError(f"{case.name}: K3 rows depend on M")
     if not pasm:
         log(line)
         return
@@ -1055,9 +1067,11 @@ def main() -> int:
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", b_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
                 r[k] += v
+            rate = (f", {flops / 2 / ms / 1e9:.3f}e12 adds/s" if key.startswith("pas_")
+                    else "")
             rows.append(f"{key} {ms:.4f} ms (plain {plain_ms:.4f}, library "
                         f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by}, "
-                        f"{flops / ms / 1e9:.1f} TFLOP/s)")
+                        f"{flops / ms / 1e9:.1f} TFLOP/s{rate})")
         log(f"  {case.name:<18} " + "\n    ".join(rows) + f" [{card}]")
 
     # 6-8. K5, the LM served on K1, K5 on the served attention, timings --------

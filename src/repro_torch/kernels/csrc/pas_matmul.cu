@@ -8,102 +8,67 @@
 //
 // One dictionary (G = 1), unpacked uint8 idx (K, N).  The TPU kernel ran the
 // PAS phase as x_tile @ one_hot(idx_tile) into a (bm, bn, B) VMEM scratch
-// (1 MiB at its tiles) along a sequential k grid axis.  Here one block owns
-// a 32 x 32 (or 256 x 4) output tile and runs the whole K loop itself, 16
-// reduction rows per shared-memory stage, adding each activation into its
-// bin in shared memory (pas_common.cuh: layout, tiles per B, passes).  The
-// post-pass folds the codebook in at the end, then K1's epilogue runs.
+// along a sequential k grid axis.  Here a block of 16 warps owns a 128 x 16
+// (or 256 x 8) output tile and walks its K range (or its split's) itself:
+// lanes over rows, warps over columns, so the bin of each add is the same
+// in every lane of a warp, and the 16 bins of a lane's 4 rows sit in
+// registers, reached by a ballot walk per bin (pas_common.cuh: layout,
+// passes, split-K, what bounds it).  The x stage comes in 16-byte loads
+// (4-byte where K or x's alignment forbids) while the warps add the
+// previous one.
 #include "pas_common.cuh"
 
 namespace pasm {
 
-template <int BM>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(PAS_THREADS, 1)
     pas_matmul_kernel(const float* __restrict__ x,
                       const uint8_t* __restrict__ idx,
                       const float* __restrict__ cb,
                       const float* __restrict__ bias, float* __restrict__ out,
-                      int M, int K, int N, int B, int relu, int pool,
-                      int rows) {
-  using L = PasLayout<BM>;
-  __shared__ PasStage<L> st;
-  extern __shared__ float4 dyn4[];
-  float* cb_s = reinterpret_cast<float*>(dyn4);
-  float* pool_s = cb_s + ((B + 3) / 4) * 4;
-  float* bins = pool_s + (pool > 1 ? L::BM * L::BN : 0);
-
-  const int tx = threadIdx.x % L::BN, ty = threadIdx.x / L::BN;
-  const long long m0 = (long long)blockIdx.x * rows;
-  const int n0 = blockIdx.y * L::BN;
-  load_codebook(cb_s, cb, B);
-
-  float y[PAS_TM][1];
-#pragma unroll
-  for (int i = 0; i < PAS_TM; ++i) y[i][0] = 0.f;
-
-  // BK divides THREADS, so each thread always loads the same column kk
-  const int kk = threadIdx.x % BK;
-  for (int b0 = 0; b0 < B; b0 += PAS_BINS) {
-    const int nb = min(PAS_BINS, B - b0);
-    zero_bins(bins, nb);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      __syncthreads();  // previous stage consumed; codebook visible
-      const int k = k0 + kk;
-      for (int r = threadIdx.x / BK; r < BM; r += THREADS / BK) {
-        long long m = m0 + r;
-        st.xs[kk][r] = (r < rows && m < M && k < K) ? x[m * K + k] : 0.f;
-      }
-      load_bin_tile<L>(st, idx, k0, n0, K, N);
-      __syncthreads();
-      pas_stage<L>(st, bins, b0, nb, ty, tx);
-    }
-    pas_postpass(bins, cb_s, b0, nb, y);
-  }
-
-  const int pw = pool * pool;
-  epilogue<L>(y, pool_s, bias, out, n0, N, rows, m0 / pw, M / pw, relu, pool,
-              ty, tx);
-}
-
-template <int BM>
-static int launch(const float* x, const uint8_t* idx, const float* cb,
-                  const float* bias, float* out, int M, int K, int N, int B,
-                  int relu, int pool, int rows, cudaStream_t stream) {
-  using L = PasLayout<BM>;
-  dim3 grid((M + rows - 1) / rows, (N + L::BN - 1) / L::BN);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  size_t smem = pas_dyn_smem_bytes(B, L::BM, L::BN, pool);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pas_matmul_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  pas_matmul_kernel<BM><<<grid, THREADS, smem, stream>>>(
-      x, idx, cb, bias, out, M, K, N, B, relu, pool, rows);
-  return (int)cudaGetLastError();
+                      float* __restrict__ part, int M, int K, int N,
+                      int B, int relu, int pool, int tile, int splits) {
+  __shared__ PasSmem sm;
+  extern __shared__ float4 pas_ring[];
+  float* ring = reinterpret_cast<float*>(pas_ring);
+  const PasTile t = pas_tile(tile, pool, K, N, splits, blockIdx.x);
+  load_codebook(sm.cb, cb, B);
+  float y[PAS_TM];
+  MatmulLoader ld{x, M, K,
+                  K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0};
+  pas_block(sm, ring, ld, idx, t, N, B, y);
+  const int cols = (N + t.bn - 1) / t.bn;
+  pas_epilogue(y, ring, t, bias, out, part, M, N, (blockIdx.x / cols) % splits,
+               splits, M / (pool * pool), relu, pool);
 }
 
 }  // namespace pasm
 
-// Plain C entry point (bound with ctypes).  bm is the row tile (32 or 256);
-// a block owns the whole pool windows that fit it.  bias may be NULL.
-// Returns the launch's cudaError_t; it does not synchronise.
+// Plain C entry point (bound with ctypes).  tile (128 or 256 rows) and
+// splits come from pas_histogram.py::pas_plan; a block owns the whole pool
+// windows that fit its tile.  part: splits x M x N f32 scratch when
+// splits > 1 (else NULL).  bias may be NULL.  Returns the first failing
+// launch's cudaError_t; it does not synchronise.
 extern "C" int pas_matmul_launch(const float* x, const uint8_t* idx,
                                  const float* cb, const float* bias,
-                                 float* out, int M, int K, int N, int B,
-                                 int relu, int pool, int bm, void* stream) {
+                                 float* out, float* part, long long M, int K,
+                                 int N, int B, int relu, int pool, int tile,
+                                 int splits, void* stream) {
+  using namespace pasm;
   const int pw = pool * pool;
-  if (M <= 0 || N <= 0 || K <= 0 || B <= 0 || B > 256 || pool < 1 ||
-      M % pw || pw > bm)
+  if (M <= 0 || M > PAS_MAX_M || K <= 0 || M % pw ||
+      !pas_args_ok(N, B, pool, tile, splits, part))
     return (int)cudaErrorInvalidValue;
-  const int rows = bm - bm % pw;
+  const int rows = tile - tile % pw, bn = pas_cols(tile);
+  const long long blocks =
+      (M + rows - 1) / rows * ((N + bn - 1) / bn) * (long long)splits;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t dyn = pas_dyn_smem_bytes(tile);
+  int e0 = pas_smem_opt_in(pas_matmul_kernel, dyn, sizeof(PasSmem));
+  if (e0) return e0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 32)
-    return pasm::launch<32>(x, idx, cb, bias, out, M, K, N, B, relu, pool,
-                            rows, s);
-  if (bm == 256)
-    return pasm::launch<256>(x, idx, cb, bias, out, M, K, N, B, relu, pool,
-                             rows, s);
-  return (int)cudaErrorInvalidValue;
+  pas_matmul_kernel<<<(unsigned)blocks, PAS_THREADS, dyn, s>>>(
+      x, idx, cb, bias, out, part, (int)M, K, N, B, relu, pool, tile, splits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return pas_split_sum_launch(part, bias, out, M, N, splits, relu, pool, 1, s);
 }

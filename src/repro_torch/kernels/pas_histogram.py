@@ -15,15 +15,22 @@ uint8 indices, as on the TPU.
   ``repro/kernels/pas_histogram.py::pas_conv_kernel_call`` (``_conv_kernel``):
   K3's PAS phase and post-pass on K2's in-kernel patch gather.
 
-**What bounds them on the H100.**  A faithful PAS phase is a runtime-chosen
-add per ``(m, k, n)``: SIMT has no multiply to save, and the bins must live
-in shared memory (a register array indexed at run time spills), so each add
-is a shared-memory read-modify-write.  The kernels keep the bins laid out
-``[bin][row][thread]`` — conflict-free whatever bins a warp's lanes pick —
-decode each index once for a thread's four rows, and run the post-pass
-(``M·N·B`` FMAs) once at the end.  They are bound by shared-memory
-accesses, several times slower than K1/K2's register-tile FMA on the same
-function; ``csrc/pas_common.cuh`` gives the tiles per ``B``.
+**How they run on the H100** (``csrc/pas_common.cuh``).  A faithful PAS
+phase is a data-chosen add per ``(m, k, n)``.  Lanes run over rows and warps
+over columns, so every lane of a warp adds into the same bin at each ``k``:
+the 16 bins of a lane's 4 rows are registers, and for each bin a ballot
+gives the stage's ``k`` rows in it, which the warp walks in increasing
+``k`` (no branch on the bin, no shared-memory bins).  :func:`pas_plan` picks
+the tile (128 rows x 16 columns, or 256 x 8 for windows of more than 128
+rows), the passes of 16 bins and a split-K count from ``K`` and ``N`` alone;
+split partials are added in order by a second pass, so a row's result never
+depends on ``M``.
+
+**What bounds them.**  Issue and latency in the walk (about 11
+instructions a warp per ``k`` for 128 adds), then the stage loads where one
+stage of adds does not hide them; K4's in-kernel gather costs more than K3's
+16-byte loads.  ``kernels/pas_ablation.py`` times the kernels with the walk
+or the loads taken out; PERF.md has the numbers.
 
 An index ``>= B`` adds nothing in the kernels and in the plain versions, as
 the JAX reference's one-hot does (K1/K2 clamp it instead: a different
@@ -38,7 +45,8 @@ kernels.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,6 +55,7 @@ from repro_torch.kernels.pasm_matmul import (
     _I,
     _P,
     ConvGeom,
+    _cdiv,
     _check_image,
     _check_operands,
     _pad_image,
@@ -63,12 +72,20 @@ __all__ = [
     "pas_conv_kernel_call",
     "pas_matmul_plain",
     "pas_conv_plain",
-    "PAS_BM_TILES",
+    "PasPlan",
+    "pas_plan",
 ]
 
-# the row tiles the PAS kernels are compiled for (csrc/pas_common.cuh):
-# 32 x 32 outputs, or 256 x 4 when a pool window holds more than 32 rows
-PAS_BM_TILES = (32, 256)
+_L = ctypes.c_longlong
+
+# the block of csrc/pas_common.cuh: 16 warps, a warp 128 rows x 1 column;
+# the warps stand 1 x 16 (128 x 16 outputs) or, for windows of more than
+# 128 rows, 2 x 8 (256 x 8).  Row tile -> block columns:
+PAS_TILES = {128: 16, 256: 8}
+PAS_BINS = 16  # bins per pass (register accumulators per row)
+PAS_BK = 32  # reduction rows per stage (one per lane)
+PAS_SPLIT_K = 1536  # K rows per split-K partition (at least)
+PAS_SPLIT_MAX_N = 512  # split K only up to this many columns
 
 _NO_GRAD = (
     "the PAS kernels are forward-only, as the TPU kernels they replace are: "
@@ -76,16 +93,47 @@ _NO_GRAD = (
 )
 
 
-def _pas_bm(pool: int) -> int:
-    """The PAS kernels' row tile for a ``pool`` window (whole windows per
-    block, as for K1/K2)."""
+class PasPlan(NamedTuple):
+    """How K3/K4 run one call: the row tile (128 or 256) and the rows a
+    block owns (whole pool windows), the columns per block, the passes of
+    :data:`PAS_BINS` bins, the split-K count, the blocks launched and the
+    f32 elements of split-K scratch (0 without split-K)."""
+
+    tile: int
+    rows: int
+    cols: int
+    passes: int
+    splits: int
+    blocks: int
+    scratch: int
+
+
+def pas_plan(M: int, K: int, N: int, B: int, pool: int = 1) -> PasPlan:
+    """K3/K4's launch for ``x (M, K) · idx (K, N)`` over ``B`` bins (K4: the
+    ``M = batch · P_rows`` rows of the implicit patch matrix, image after
+    image) — a pure function of the shapes.
+
+    The row tile is 128 unless a ``pool`` window holds more rows (then 256,
+    with 8 columns a block); a block owns ``tile - tile % pool²`` rows.  The
+    split-K count depends on K and N only, so a row sums in the same order
+    whatever M is: a layer of at most :data:`PAS_SPLIT_MAX_N` columns splits
+    K into parts of at least :data:`PAS_SPLIT_K` rows (measured on the H100:
+    conv4 and conv5 of AlexNet, K = 3456, gain from 2 splits; conv2 and
+    conv3, K = 2400 and 2304, lose).
+    """
     if not pool_plan_exists(pool):
         raise ValueError(
             f"no pool-aligned tile plan for pool={pool}: use the unfused "
             "max_pool2d fallback (conv2d pool dispatch does this automatically)"
         )
     pw = pool * pool
-    return next(bm for bm in PAS_BM_TILES if pw <= bm)
+    tile = next(t for t in PAS_TILES if pw <= t)
+    cols = PAS_TILES[tile]
+    rows = tile - tile % pw
+    splits = max(1, K // PAS_SPLIT_K) if N <= PAS_SPLIT_MAX_N else 1
+    blocks = _cdiv(M, rows) * _cdiv(N, cols) * splits
+    return PasPlan(tile, rows, cols, _cdiv(B, PAS_BINS), splits, blocks,
+                   splits * M * N if splits > 1 else 0)
 
 
 def _check_pas(x, idx, codebook, bias, k_rows: int) -> None:
@@ -158,7 +206,8 @@ def pas_matmul_kernel_call(
     pw = pool * pool
     if M % pw:
         raise ValueError(f"pool={pool} needs window-major rows, M={M} % {pw}")
-    bm = _pas_bm(pool)
+    B = codebook.shape[1]
+    plan = pas_plan(M, K, N, B, pool)
     if x.device.type == "cpu":
         return pas_matmul_plain(x, idx, codebook, bias, relu=relu, pool=pool)
     if x.device.type != "cuda":
@@ -168,12 +217,14 @@ def pas_matmul_kernel_call(
         return out
     from repro_torch.kernels import _build
 
+    part = torch.empty(plan.scratch, dtype=torch.float32,
+                       device=x.device) if plan.scratch else None
     fn = _build.entry_point("pas_matmul", "pas_matmul_launch",
-                            [_P] * 5 + [_I] * 7 + [_P])
+                            [_P] * 6 + [_L] + [_I] * 7 + [_P])
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
-                 M, K, N, codebook.shape[1], int(relu), pool, bm,
-                 _stream(x.device))
+                 _ptr(part), M, K, N, B, int(relu), pool, plan.tile,
+                 plan.splits, _stream(x.device))
     _raise_on(err, "pas_matmul")
     launches["pas_matmul"] += 1
     return out
@@ -200,26 +251,29 @@ def pas_conv_kernel_call(
     _check_pas(x, idx, codebook, bias, k_rows=Kp)
     batch = x.shape[0]
     C, H, W = _check_image(x, geom, Kp)
-    bm = _pas_bm(geom.pool)
+    N, B = idx.shape[1], codebook.shape[1]
+    plan = pas_plan(batch * geom.P_rows, Kp, N, B, geom.pool)
     if x.device.type == "cpu":
         return pas_conv_plain(x, idx, codebook, bias, geom=geom, relu=relu)
     if x.device.type != "cuda":
         raise ValueError(f"no PAS kernel for device {x.device}")
-    N = idx.shape[1]
     out = torch.empty((batch, geom.P_out, N), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
         return out
     from repro_torch.kernels import _build
 
+    part = torch.empty(plan.scratch, dtype=torch.float32,
+                       device=x.device) if plan.scratch else None
     fn = _build.entry_point("pas_conv", "pas_conv_launch",
-                            [_P] * 5 + [_I] * 19 + [_P])
+                            [_P] * 6 + [_I] * 20 + [_P])
     (plh, _), (plw, _) = geom.pad
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
-                 batch, C, H, W, int(geom.nhwc), geom.ky, geom.kx, geom.stride,
-                 plh, plw, geom.ow, geom.pool, geom.P_out, geom.conv_k, Kp,
-                 N, codebook.shape[1], int(relu), bm, _stream(x.device))
+                 _ptr(part), batch, C, H, W, int(geom.nhwc), geom.ky, geom.kx,
+                 geom.stride, plh, plw, geom.ow, geom.pool, geom.P_out,
+                 geom.conv_k, Kp, N, B, int(relu), plan.tile, plan.splits,
+                 _stream(x.device))
     _raise_on(err, "pas_conv")
     launches["pas_conv"] += 1
     return out

@@ -135,6 +135,15 @@ def test_kernels_raise_on_grad(cuda):
     (36, 2400, 40, 16, False, 3),
     (64, 96, 33, 256, False, 2),    # 16 passes of 16 bins
     (144, 40, 10, 16, True, 6),     # a 144-row window: the 256-row tile
+    (4 * 97, 37, 17, 16, False, 2),  # M, N and K off the tile and the stage
+    (200, 150, 24, 1, False, 1),    # one bin
+    (130, 77, 20, 5, False, 1),     # a partial pass of 5
+    (290, 61, 18, 20, False, 1),    # a full pass and a partial one
+    (36 * 5, 120, 17, 256, False, 3),
+    (9 * 30, 300, 21, 16, False, 3),   # 9-row windows across lanes
+    (36 * 8, 100, 20, 16, False, 6),   # 36-row windows across lanes
+    (144 * 3, 64, 20, 16, False, 12),  # 2 x 4 warps: 256 x 8 outputs
+    (512, 3456, 256, 16, False, 2),    # conv5 at batch 32, split-K
 ])
 def test_k3_matches_plain(cuda, M, K, N, bins, packed, pool):
     g = torch.Generator(device=cuda).manual_seed(M + K)
@@ -158,6 +167,9 @@ def test_k3_matches_plain(cuda, M, K, N, bins, packed, pool):
     ("NHWC", "same", 2, True, 16),
     ("NCHW", "same", 1, True, 4),
     ("NHWC", "valid", 3, False, 256),
+    ("NCHW", "same", 2, False, 2),
+    ("NCHW", "valid", 3, True, 5),
+    ("NHWC", "same", 6, False, 20),
 ])
 def test_k4_matches_plain_and_k3_bitwise(cuda, layout, padding, pool, packed, bins):
     conv = cv.Conv2D(k=5, c_in=6, c_out=70, stride=2, padding=padding,
@@ -182,6 +194,53 @@ def test_k4_matches_plain_and_k3_bitwise(cuda, layout, padding, pool, packed, bi
     for engine in ("pas_kernel", "pas_kernel_implicit"):
         unfused = cv.conv2d(x, p, conv, engine=engine, pool=pool, pool_impl="unfused")
         assert torch.equal(unfused, y3)
+
+
+def test_k4_split_matches_plain_and_k3_bitwise(cuda):
+    """conv5's shape (384 -> 256 channels, 3x3 over 7x7, pool 2): the plan
+    splits K, and K3 over the window-major patches still equals K4."""
+    conv = cv.Conv2D(k=3, c_in=384, c_out=256, padding="valid_centred",
+                     relu=True)
+    p = _params((256, 384, 3, 3), 16, 1, False, "NCHW", cuda)
+    x = torch.randn((3, 384, 7, 7), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    g = cv.conv_geom(conv, 7, 7, pool=2)
+    assert ph.pas_plan(3 * g.P_rows, g.conv_k, 256, 16, 2).splits > 1
+    t = p.gemm_tensor("NCHW")
+    y4 = ops.pas_conv2d(x, t, g, bias=p.bias, relu=True)
+    want = ph.pas_conv_plain(x, _pasm.logical_idx(t), t.codebook, p.bias, geom=g,
+                             relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y4, want, **TOL)
+    y3 = cv.conv2d(x, p, conv, engine="pas_kernel", pool=2)
+    assert torch.equal(cv.conv2d(x, p, conv, engine="pas_kernel_implicit", pool=2), y3)
+    unfused = cv.conv2d(x, p, conv, engine="pas_kernel_implicit", pool=2,
+                        pool_impl="unfused")
+    assert torch.equal(unfused, y3)
+
+
+@pytest.mark.parametrize("M,K,N,bins,pool", [
+    (512, 3456, 256, 16, 2),     # conv5 at batch 32: split-K
+    (2592, 2304, 384, 16, 1),    # conv3 at batch 32
+    (9 * 60, 300, 21, 20, 3),
+    (144 * 4, 64, 20, 16, 12),
+])
+def test_k3_rows_do_not_depend_on_m(cuda, M, K, N, bins, pool):
+    """A slice of whole pool windows, wherever it starts, gives the rows of
+    the full call bitwise: the split-K partition and the order of every sum
+    are set by K and N, never by M or by where a block's tile falls."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    idx = torch.randint(0, bins, (K, N), generator=g, device=cuda, dtype=torch.uint8)
+    cb = torch.randn((1, bins), generator=g, device=cuda)
+    bias = torch.randn(N, generator=g, device=cuda)
+    y = ph.pas_matmul_kernel_call(x, idx, cb, bias, relu=True, pool=pool)
+    pw = pool * pool
+    for w0, nw in ((0, 1), (1, 3), (5, M // pw // 2), (M // pw - 2, 2)):
+        part = ph.pas_matmul_kernel_call(x[w0 * pw:(w0 + nw) * pw].contiguous(),
+                                         idx, cb, bias, relu=True, pool=pool)
+        torch.cuda.synchronize()
+        assert torch.equal(part, y[w0:w0 + nw]), (w0, nw)
 
 
 def test_k3_equals_k1_on_integers(cuda):

@@ -255,9 +255,10 @@ def test_pas_kernel_wrappers_refuse_grouped_and_grad():
     with pytest.raises(ValueError, match="one dictionary"):
         tph.pas_conv_kernel_call(torch.randn(1, 2, 6, 6), torch.zeros(
             (18, 5), dtype=torch.uint8), torch.randn(3, 16), geom=g)
-    assert tph._pas_bm(2) == 32 and tph._pas_bm(6) == 256
+    assert tph.pas_plan(8, 32, 5, 16, 2).tile == 128
+    assert tph.pas_plan(144, 32, 5, 16, 12).tile == 256
     with pytest.raises(ValueError, match="unfused"):
-        tph._pas_bm(17)
+        tph.pas_plan(289, 32, 5, 16, 17)
 
 
 @pytest.mark.parametrize("engine", ["einsum", "pas_einsum", "pas_kernel",
