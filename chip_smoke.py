@@ -16,9 +16,10 @@ Phases (every one unguarded: any failure exits non-zero):
    a ``groups=2`` case (K1/K2), 4- and 256-bin dictionaries and indices past
    the dictionary (K3/K4) on conv3, an NHWC SAME conv1 case and the
    3×512×512 ``bigimg_conv1`` shape on K2/K4; K1 ≡ K2 and K3 ≡ K4 bitwise on
-   each stage, K3's rows independent of M (a slice of whole pool windows off
-   the block tiles against the full call, bitwise), and on integer-valued
-   images and dictionaries K3 == K1 bitwise (paper §5.3);
+   each stage, K1's and K3's rows independent of M (a slice of whole pool
+   windows off the block tiles against the full call, bitwise; conv3–conv5
+   run split-K on both), and on integer-valued images and dictionaries
+   K3 == K1 bitwise (paper §5.3);
 4. the full-width AlexNet (3×224×224, 1000 classes, 16 bins, seeded weights,
    k-means on the card) serving mixed-size requests through ``CnnBatcher``
    with ``impl="kernel"``, ``"kernel_implicit"`` and ``"pas_kernel"``, then
@@ -30,7 +31,8 @@ Phases (every one unguarded: any failure exits non-zero):
    for K1/K3, ``F.conv2d`` with TF32 off for K2/K4) and the bound
    ``max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)`` of the function (K3's is
    K1's, K4's is K2's); K3/K4 also print their rate in adds/s (flops / 2:
-   one add per (m, k, n));
+   one add per (m, k, n)), K1/K2 their plan (tile, split-K count, blocks:
+   ``pasm_matmul.simt_plan``);
 6. K5 (flash attention) against its plain version, f32 (SIMT route) and
    bf16 (tensor-core route), causal and not, at the ``tests/test_kernels.py``
    shapes (GQA, MHA with a ragged S, MQA), stablelm-3b's hd 80 over 32 heads,
@@ -381,6 +383,16 @@ def check_case(case: Case, errs: dict, *, k1: bool = True, pasm: bool = True,
         line += f" K1 {e1:.2e} K1≡K2 {same}"
         if not same:
             raise AssertionError(f"{case.name}: K1 and K2 differ bitwise")
+        # K1 simt's rows do not depend on M either (split-K by K and N only)
+        pw = case.pool * case.pool
+        w0, nw = 1, max(1, x.shape[0] // pw // 2)
+        part = ops.pasm_matmul(x[w0 * pw:(w0 + nw) * pw].contiguous(), t,
+                               bias=bias, relu=True, pool=case.pool)
+        indep = torch.equal(part, y1[w0:w0 + nw])
+        plan = pm.simt_plan(x.shape[0], x.shape[1], t.shape[1], case.pool)
+        line += f" K1 rows⊥M {indep} (splits {plan.splits})"
+        if not indep:
+            raise AssertionError(f"{case.name}: K1 rows depend on M")
     log(line)
 
 
@@ -1067,8 +1079,13 @@ def main() -> int:
             for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", b_ms), ("ops_ms", ops_ms), ("bytes_ms", bytes_ms)):
                 r[k] += v
-            rate = (f", {flops / 2 / ms / 1e9:.3f}e12 adds/s" if key.startswith("pas_")
-                    else "")
+            if key.startswith("pas_"):
+                rate = f", {flops / 2 / ms / 1e9:.3f}e12 adds/s"
+            else:  # K1 simt / K2: the plan over the same M = batch · P_rows rows
+                p = pm.simt_plan(TIME_BATCH * g.P_rows, t.shape[0], t.shape[1],
+                                 case.pool)
+                rate = (f", plan {p.tile}x{p.cols} tile, {p.splits} splits, "
+                        f"{p.blocks} blocks")
             rows.append(f"{key} {ms:.4f} ms (plain {plain_ms:.4f}, library "
                         f"{lib_ms:.4f}, bound {b_ms:.4f} by {b_by}, "
                         f"{flops / ms / 1e9:.1f} TFLOP/s{rate})")

@@ -416,10 +416,12 @@ def max_pool2d(x: torch.Tensor, pool: int, layout: str) -> torch.Tensor:
     shape = list(x.shape)
     shape[h_ax], shape[h_ax + 1] = oh, ow
     out = torch.full(shape, init, dtype=x.dtype, device=x.device)
+    if oh == 0 or ow == 0:  # an axis shorter than the window: no window
+        return out
     for dy in range(pool):
         for dx in range(pool):
-            win = x.narrow(h_ax, dy, (oh - 1) * pool + 1 if oh else 0)
-            win = win.narrow(h_ax + 1, dx, (ow - 1) * pool + 1 if ow else 0)
+            win = x.narrow(h_ax, dy, (oh - 1) * pool + 1)
+            win = win.narrow(h_ax + 1, dx, (ow - 1) * pool + 1)
             sl = [slice(None)] * x.ndim
             sl[h_ax] = slice(None, None, pool)
             sl[h_ax + 1] = slice(None, None, pool)

@@ -42,15 +42,16 @@
 // this replaced; without split-K the output is the same bitwise.  With
 // split-K (a count fixed by K and N, pas_plan in pas_histogram.py) each
 // split runs its own bins and post-pass over a K range, writes its partial
-// y to scratch, and pas_split_sum adds the partials in split order, then the
-// epilogue: no float atomics, and a row's result never depends on M.
+// y to scratch, and split_sum (pasm_common.cuh) adds the partials in split
+// order, then the epilogue: no float atomics, and a row's result never
+// depends on M.
 //
 // What bounds it: the walk's shared-memory reads (one 16-byte read a lane
 // per 4 adds: at most 32 adds an SM clock) and its issue (11 instructions a
 // warp per k, a chain of 3 dependent integer operations on the mask per
 // row, 4 warps a scheduler to cover it), then the stage loads, which share
 // the load/store pipe with the walk, so issuing them earlier does not hide
-// them (kernels/pas_ablation.py times each part; PERF.md has the numbers).
+// them (kernels/ablation.py times each part; PERF.md has the numbers).
 // K4's gather issues 4-byte loads where K3 issues 16-byte ones.
 #pragma once
 
@@ -194,20 +195,35 @@ struct MatmulLoader {
   }
 };
 
-// K4's stage: the patch rows gathered from the unpadded images (K2's
-// decode, pasm_common.cuh: window-major rows, masked spatial pad, 0 at q >=
-// conv_k).  The rows run over the whole batch, image after image, as K3's
-// rows do, so a block is full whatever the image size.  A warp loads one k
-// of 32 consecutive rows an instruction: neighbouring output pixels read
-// neighbouring input pixels, and the shared stores are conflict-free.  The
-// warp's lanes decode its PAS_K4_KS k at once (lane a: the a-th) and hand
-// them round by shuffles; each row is one 8-byte shared read (pas_conv_rows).
+// K4's stage: the patch rows gathered from the unpadded images (window-
+// major rows, masked spatial pad, 0 at q >= conv_k).  The rows run over the
+// whole batch, image after image, as K3's rows do, so a block is full
+// whatever the image size.  A warp loads one k of 32 consecutive rows an
+// instruction: neighbouring output pixels read neighbouring input pixels,
+// and the shared stores are conflict-free.  The warp's lanes decode its
+// PAS_K4_KS k at once (lane a: the a-th) and hand them round by shuffles;
+// each row is one 8-byte shared read (pas_conv_rows).  Pixel coordinates
+// travel as 16-bit halves; an image whose coordinates need more (WIDE)
+// takes 16-byte row records and a second shuffle.
 constexpr int PAS_K4_KS = PAS_BK / PAS_WARPS;      // k rows per warp
 constexpr int PAS_K4_RS = PAS_ROUND / 32;          // rows per lane a round
 
+// per tile row: {iy0 & 0xffff | ix0 << 16, image}, or (WIDE) {iy0, ix0,
+// image, 0}
+template <bool WIDE>
+struct PasRow {
+  using T = int2;
+};
+template <>
+struct PasRow<true> {
+  using T = int4;
+};
+
+template <bool WIDE>
 struct ConvLoader {
+  using Row = typename PasRow<WIDE>::T;
   const float* __restrict__ x;
-  const int2* rows;  // shared: per tile row, {iy0 | ix0 << 16, image}
+  const Row* rows;  // shared: per tile row
   int conv_k, nhwc, C, H, W, ky, kx;
   int k0;
   float v[PAS_K4_KS][PAS_K4_RS];
@@ -217,7 +233,7 @@ struct ConvLoader {
     // lane a < PAS_K4_KS decodes k0 + warp + PAS_WARPS a: the offset of
     // its channel and its (dy, dx), packed; out of range: dy far off
     const int q = k0 + warp + PAS_WARPS * (lane % PAS_K4_KS);
-    int koff = 0, dydx = (int)0x80008000;
+    int koff = 0, dydx = (int)0x80008000, dyw = -(1 << 29);
     if (q < conv_k && q < t.ke) {
       int c, dy, dx;
       if (nhwc) {
@@ -230,25 +246,49 @@ struct ConvLoader {
         dx = q % kx;
       }
       koff = nhwc ? c : c * H * W;
-      dydx = (int)(((unsigned)dy & 0xffffu) | ((unsigned)dx << 16));
+      if constexpr (WIDE) {
+        dyw = dy;
+        dydx = dx;
+      } else {
+        dydx = (int)(((unsigned)dy & 0xffffu) | ((unsigned)dx << 16));
+      }
     }
     const size_t chw = (size_t)C * H * W;
-    int2 rw[PAS_K4_RS];
+    Row rw[PAS_K4_RS];
 #pragma unroll
     for (int i = 0; i < PAS_K4_RS; ++i) rw[i] = rows[PAS_ROUND * round + lane + 32 * i];
 #pragma unroll
     for (int a = 0; a < PAS_K4_KS; ++a) {
       const int ko = __shfl_sync(0xffffffffu, koff, a);
       const int dd = __shfl_sync(0xffffffffu, dydx, a);
-      const int dy = (short)(dd & 0xffff), dx = dd >> 16;
+      int dy, dx;
+      if constexpr (WIDE) {
+        dy = __shfl_sync(0xffffffffu, dyw, a);
+        dx = dd;
+      } else {
+        dy = (short)(dd & 0xffff);
+        dx = dd >> 16;
+      }
 #pragma unroll
       for (int i = 0; i < PAS_K4_RS; ++i) {
-        const int iy = (short)(rw[i].x & 0xffff) + dy, ix = (rw[i].x >> 16) + dx;
+        int iy, ix;
+        if constexpr (WIDE) {
+          iy = rw[i].x + dy;
+          ix = rw[i].y + dx;
+        } else {
+          iy = (short)(rw[i].x & 0xffff) + dy;
+          ix = (rw[i].x >> 16) + dx;
+        }
         v[a][i] = 0.f;
         if ((unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W) {
           const size_t off = nhwc ? (size_t)(iy * W + ix) * C + ko
                                   : (size_t)ko + iy * W + ix;
-          v[a][i] = __ldg(x + (size_t)rw[i].y * chw + off);
+          int img;
+          if constexpr (WIDE)
+            img = rw[i].z;
+          else
+            img = rw[i].y;
+          v[a][i] = __ldg(x + (size_t)img * chw + off);
         }
       }
     }
@@ -266,25 +306,31 @@ struct ConvLoader {
 };
 
 // Top-left input pixel and image of each of the block's tile rows (global
-// rows m0 + r over the batch), {iy0 & 0xffff | ix0 << 16, image}; rows past
-// the block's or past M are off every image (iy0 = -32768).
-__device__ __forceinline__ void pas_conv_rows(int2* rows, const PasTile& t,
-                                              int M, int P_rows,
-                                              int pool, int ow, int stride,
-                                              int pad_h, int pad_w) {
+// rows m0 + r over the batch), as PasRow<WIDE>; rows past the block's or
+// past M are off every image (iy0 = -32768, or -2^29 when WIDE).
+template <bool WIDE>
+__device__ __forceinline__ void pas_conv_rows(typename PasRow<WIDE>::T* rows,
+                                              const PasTile& t, int M,
+                                              int P_rows, int pool, int ow,
+                                              int stride, int pad_h,
+                                              int pad_w) {
   const int pw = pool * pool, owp = ow / pool;
   for (int r = threadIdx.x; r < PAS_MAX_ROWS; r += PAS_THREADS) {
     const int m = t.m0 + r;
-    int2 rw = make_int2(0x8000, 0);
-    if (r < t.rows && m < M) {
+    const bool in = r < t.rows && m < M;
+    int iy = -(1 << 29), ix = 0, img = 0;
+    if (in) {
       const int p = (int)(m % P_rows);
       const int pp = p / pw, s = p % pw;
-      const int iy = ((pp / owp) * pool + s / pool) * stride - pad_h;
-      const int ix = ((pp % owp) * pool + s % pool) * stride - pad_w;
-      rw = make_int2((int)(((unsigned)iy & 0xffffu) | ((unsigned)ix << 16)),
-                     (int)(m / P_rows));
+      iy = ((pp / owp) * pool + s / pool) * stride - pad_h;
+      ix = ((pp % owp) * pool + s % pool) * stride - pad_w;
+      img = (int)(m / P_rows);
     }
-    rows[r] = rw;
+    if constexpr (WIDE)
+      rows[r] = make_int4(iy, ix, img, 0);
+    else
+      rows[r] = in ? make_int2((int)(((unsigned)iy & 0xffffu) | ((unsigned)ix << 16)), img)
+                   : make_int2(0x8000, 0);
   }
 }
 
@@ -476,7 +522,7 @@ __device__ __forceinline__ void pas_block(PasSmem& sm, float* ring,
 }
 
 // Epilogue of one block.  splits > 1: the raw partial y goes to
-// part[split][m][n] (M rows) for pas_split_sum.  Otherwise bias -> ReLU ->
+// part[split][m][n] (M rows) for split_sum.  Otherwise bias -> ReLU ->
 // (pool > 1) the max over each pool^2 consecutive rows through a pool tile
 // in the x ring -> out (row stride N; row 0 is this matrix's first output
 // row; out_rows bounds it).
@@ -529,46 +575,6 @@ __device__ __forceinline__ void pas_epilogue(
     }
     out[(size_t)m * N + nc] = v;
   }
-}
-
-// Second pass of split-K: y = part[0] + part[1] + ... in split order, then
-// bias -> ReLU -> window max, as pas_epilogue.  blockIdx.y is the image
-// (part: splits x M x N per image; out: M / pool^2 x N per image).
-__global__ void __launch_bounds__(THREADS)
-    pas_split_sum(const float* __restrict__ part, const float* __restrict__ bias,
-                  float* __restrict__ out, long long M, int N, int splits,
-                  int relu, int pool) {
-  const int pw = pool * pool;
-  const long long out_rows = M / pw;
-  part += (long long)blockIdx.y * splits * M * N;
-  out += (long long)blockIdx.y * out_rows * N;
-  for (long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-       e < out_rows * N; e += (long long)gridDim.x * THREADS) {
-    const long long mo = e / N;
-    const int n = (int)(e % N);
-    float best = 0.f;
-    for (int s = 0; s < pw; ++s) {
-      const long long m = mo * pw + s;
-      float v = part[m * N + n];
-      for (int p = 1; p < splits; ++p) v += part[((long long)p * M + m) * N + n];
-      if (bias != nullptr) v += bias[n];
-      if (relu) v = v < 0.f ? 0.f : v;
-      best = (s == 0 || !(isnan(best) || v <= best)) ? v : best;
-    }
-    out[e] = best;
-  }
-}
-
-inline int pas_split_sum_launch(const float* part, const float* bias,
-                                float* out, long long M, int N, int splits,
-                                int relu, int pool, int batch,
-                                cudaStream_t stream) {
-  const long long n = M / (pool * pool) * N;
-  const long long want = (n + THREADS - 1) / THREADS;
-  dim3 grid((unsigned)(want < 4096 ? (want > 0 ? want : 1) : 4096), batch);
-  pas_split_sum<<<grid, THREADS, 0, stream>>>(part, bias, out, M, N, splits,
-                                              relu, pool);
-  return (int)cudaGetLastError();
 }
 
 // Checks shared by the two C entry points: the tile is one of the two warp

@@ -6,17 +6,19 @@
 //   out (B, P_out, N) = window_max(relu(PAS(patches(x), idx, cb) + bias))
 //
 // K3's device body (pas_common.cuh: pas_block, pas_epilogue) with the patch
-// stage gathered straight from the unpadded images with K2's row and column
-// decode (pasm_common.cuh: window-major rows, masked spatial pad, 0 at q >=
-// c*ky*kx).  The rows of the implicit patch matrix run image after image,
-// so K3 on the explicit patches and K4 take the same plan, walk K in the
-// same stages and add into each bin in the same order: the explicit and
-// implicit PAS engines agree bitwise.  No patch matrix, no slab schedule:
-// images of any size run.
+// stage gathered straight from the unpadded images (ConvLoader: window-major
+// rows, masked spatial pad, 0 at q >= c*ky*kx).  The rows of the implicit
+// patch matrix run image after image, so K3 on the explicit patches and K4
+// take the same plan, walk K in the same stages and add into each bin in
+// the same order: the explicit and implicit PAS engines agree bitwise.  No
+// patch matrix, no slab schedule: images of any size run (an image wider
+// or taller than 16-bit coordinates hold takes the WIDE row record), and
+// the wrapper splits a batch of more than PAS_MAX_M rows into launches.
 #include "pas_common.cuh"
 
 namespace pasm {
 
+template <bool WIDE>
 __global__ void __launch_bounds__(PAS_THREADS, 1)
     pas_conv_kernel(const float* __restrict__ x,
                     const uint8_t* __restrict__ idx,
@@ -27,14 +29,14 @@ __global__ void __launch_bounds__(PAS_THREADS, 1)
                     int pad_w, int ow, int pool, int P_rows, int conv_k,
                     int Kp, int N, int B, int relu, int tile, int splits) {
   __shared__ PasSmem sm;
-  __shared__ int2 rows[PAS_MAX_ROWS];
+  __shared__ typename PasRow<WIDE>::T rows[PAS_MAX_ROWS];
   extern __shared__ float4 pas_ring[];
   float* ring = reinterpret_cast<float*>(pas_ring);
   const PasTile t = pas_tile(tile, pool, Kp, N, splits, blockIdx.x);
   load_codebook(sm.cb, cb, B);
-  pas_conv_rows(rows, t, M, P_rows, pool, ow, stride, pad_h, pad_w);
+  pas_conv_rows<WIDE>(rows, t, M, P_rows, pool, ow, stride, pad_h, pad_w);
   __syncthreads();  // row origins visible to the first stage's gather
-  ConvLoader ld{x, rows, conv_k, nhwc, C, H, W, ky, kx};
+  ConvLoader<WIDE> ld{x, rows, conv_k, nhwc, C, H, W, ky, kx};
   float y[PAS_TM];
   pas_block(sm, ring, ld, idx, t, N, B, y);
   const int cols = (N + t.bn - 1) / t.bn;
@@ -60,10 +62,9 @@ extern "C" int pas_conv_launch(const float* x, const uint8_t* idx,
                                int tile, int splits, void* stream) {
   using namespace pasm;
   const int pw = pool * pool;
-  // pixel coordinates travel as 16-bit halves (pas_conv_rows), offsets
-  // within an image as int
-  if (batch <= 0 || P_out <= 0 || Kp < conv_k || Kp <= 0 || H > 32767 ||
-      W > 32767 || (long long)C * H * W > 0x7fffffffLL ||
+  // offsets within an image are ints
+  if (batch <= 0 || P_out <= 0 || Kp < conv_k || Kp <= 0 ||
+      (long long)C * H * W > 0x7fffffffLL ||
       !pas_args_ok(N, B, pool, tile, splits, part))
     return (int)cudaErrorInvalidValue;
   const int P_rows = P_out * pw;
@@ -72,15 +73,28 @@ extern "C" int pas_conv_launch(const float* x, const uint8_t* idx,
   const int rows = tile - tile % pw, bn = pas_cols(tile);
   const long long blocks = (M + rows - 1) / rows * ((N + bn - 1) / bn) * splits;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // a pixel coordinate (with its kernel offset) lies in [-(k + stride),
+  // size + k + stride]: 16-bit halves hold it up to 32767
+  const bool wide = (long long)H + ky + stride > 32767 ||
+                    (long long)W + kx + stride > 32767;
   const size_t dyn = pas_dyn_smem_bytes(tile);
-  int e0 = pas_smem_opt_in(pas_conv_kernel, dyn,
-                           sizeof(PasSmem) + PAS_MAX_ROWS * sizeof(int2));
-  if (e0) return e0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  pas_conv_kernel<<<(unsigned)blocks, PAS_THREADS, dyn, s>>>(
-      x, idx, cb, bias, out, part, (int)M, C, H, W, nhwc, ky, kx, stride, pad_h,
-      pad_w, ow, pool, P_rows, conv_k, Kp, N, B, relu, tile, splits);
+  if (wide) {
+    int e0 = pas_smem_opt_in(pas_conv_kernel<true>, dyn,
+                             sizeof(PasSmem) + PAS_MAX_ROWS * sizeof(int4));
+    if (e0) return e0;
+    pas_conv_kernel<true><<<(unsigned)blocks, PAS_THREADS, dyn, s>>>(
+        x, idx, cb, bias, out, part, (int)M, C, H, W, nhwc, ky, kx, stride,
+        pad_h, pad_w, ow, pool, P_rows, conv_k, Kp, N, B, relu, tile, splits);
+  } else {
+    int e0 = pas_smem_opt_in(pas_conv_kernel<false>, dyn,
+                             sizeof(PasSmem) + PAS_MAX_ROWS * sizeof(int2));
+    if (e0) return e0;
+    pas_conv_kernel<false><<<(unsigned)blocks, PAS_THREADS, dyn, s>>>(
+        x, idx, cb, bias, out, part, (int)M, C, H, W, nhwc, ky, kx, stride,
+        pad_h, pad_w, ow, pool, P_rows, conv_k, Kp, N, B, relu, tile, splits);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  return pas_split_sum_launch(part, bias, out, M, N, splits, relu, pool, 1, s);
+  return split_sum_launch(part, bias, out, M, N, splits, relu, pool, 1, s);
 }

@@ -70,5 +70,5 @@ extern "C" int pas_matmul_launch(const float* x, const uint8_t* idx,
       x, idx, cb, bias, out, part, (int)M, K, N, B, relu, pool, tile, splits);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  return pas_split_sum_launch(part, bias, out, M, N, splits, relu, pool, 1, s);
+  return split_sum_launch(part, bias, out, M, N, splits, relu, pool, 1, s);
 }

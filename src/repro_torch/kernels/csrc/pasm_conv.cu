@@ -5,115 +5,113 @@
 //
 //   out (B, P_out, N) = window_max(relu(patches(x) . W + bias)),
 //
-// per image, where patches(x) is never stored: each stage's patch tile is
-// gathered straight from the image in global memory (it is L2-resident: a
-// 3 x 224 x 224 f32 image is 602 KB against a 50 MB L2), with the index
-// decode of the TPU kernel's patch_tile.  GEMM rows are window-major under
-// pool (row m = offset m % pool^2 of pooled pixel m / pool^2); columns are
+// where patches(x) is never stored: each stage's patch rows are gathered
+// straight from the images in global memory (L2-resident: a 3 x 224 x 224
+// f32 image is 602 KB against a 50 MB L2) into K1's stage ring, by masked
+// 4-byte cp.async.  The rows of the implicit patch matrix run over the
+// whole batch, image after image (row m: pixel m % P_rows of image m /
+// P_rows, window-major under pool), so a block is full whatever the image
+// size, and K1 on the explicit patches takes the same plan.  Columns are
 // reduction positions in (c, ky, kx) order (NCHW) or (ky, kx, c) (NHWC).
-// The spatial zero-pad is a masked read, and positions at or past c*ky*kx
-// (the pack-time K pad) read 0.  There is no whole-image residency and no
-// slab schedule, so images of any size run.  Then the same dequant stage and
-// epilogue as K1 (pasm_common.cuh).
+// A block decodes its rows and columns once into shared-memory tables, so
+// an element costs an add and a bounds test; the spatial zero pad and
+// positions at or past c*ky*kx (the pack-time K pad) read 0.  No slab
+// schedule: images of any size run.  Then K1's dequant stage, product,
+// split-K and epilogue (pasm_common.cuh): K1 == K2 bitwise.
 #include "pasm_common.cuh"
 
 namespace pasm {
 
-template <int BM>
-__global__ void __launch_bounds__(THREADS)
+template <int BM, int BN>
+__global__ void __launch_bounds__(THREADS, Simt<BM, BN>::MIN_BLOCKS)
     pasm_conv_kernel(const float* __restrict__ x,
                      const uint8_t* __restrict__ idx,
                      const float* __restrict__ cb,
                      const float* __restrict__ bias, float* __restrict__ out,
-                     int C, int H, int W, int nhwc, int ky, int kx, int stride,
-                     int pad_h, int pad_w, int ow, int pool, int P_out,
-                     int conv_k, int Kp, int N, int G, int B, int packed,
-                     int relu, int rows) {
-  constexpr int TM = BM / 16;
-  __shared__ Stage<BM> st;
-  __shared__ int row_iy[BM], row_ix[BM];  // top-left input pixel of each row
-  extern __shared__ float4 dyn4[];
-  float* cb_s = reinterpret_cast<float*>(dyn4);
-  float* pool_s = cb_s + ((G * B + 3) / 4) * 4;
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int pw = pool * pool;
-  const int m0 = blockIdx.x * rows;
-  const int n0 = blockIdx.y * BN;
-  const float* img = x + (size_t)blockIdx.z * C * H * W;
-  const int gs = Kp / G;
+                     float* __restrict__ part, long long M, SimtConvGeom g,
+                     int Kp, int N, int G, int B, int packed, int relu,
+                     int splits, int tabn) {
+  using S = Simt<BM, BN>;
+  extern __shared__ float4 simt_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(simt_smem);
+  float* cb_s = reinterpret_cast<float*>(smem + S::AREA);
+  int4* rowtab = reinterpret_cast<int4*>(cb_s + (G * B + 3) / 4 * 4);
+  int2* coltab = reinterpret_cast<int2*>(rowtab + BM);
+  const SimtTile t = simt_tile(BM, BN, g.pool, Kp, N, splits);
+  const int ty = simt_ty(), tx = simt_tx();
   load_codebook(cb_s, cb, G * B);
-  conv_row_origins<BM>(row_iy, row_ix, m0, rows, P_out * pw, pool, ow, stride,
-                       pad_h, pad_w);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < Kp; k0 += BK) {
-    __syncthreads();  // previous stage consumed; codebook and rows visible
-    gather_patch_stage<BM>(&st.xs[0][0], BM + 1, img, row_iy, row_ix, k0,
-                           conv_k, nhwc, C, H, W, ky, kx);
-    load_weight_tile<BM>(st, idx, cb_s, k0, n0, Kp, N, gs, B, packed);
-    __syncthreads();
-    stage_product<BM>(st, acc, ty, tx);
-  }
-
-  epilogue<GemmLayout<BM>>(acc, pool_s, bias,
-                           out + (size_t)blockIdx.z * P_out * N, n0, N, rows,
-                           m0 / pw, P_out, relu, pool, ty, tx);
+  simt_conv_rows<S>(rowtab, t, M, g);
+  simt_conv_cols(coltab, t.kb, tabn, g);
+  __syncthreads();  // the tables are visible to the first stages' gathers
+  SimtConvLoader<S> ld{x, rowtab, coltab, g, tabn, t.kb, min(t.ke, g.conv_k)};
+  float acc[S::TM][S::TN];
+  simt_gemm<S>(smem, cb_s, ld, idx, t, Kp, N, G, B, packed, acc, ty, tx);
+  simt_epilogue<S>(acc, smem, bias, out, part, M, N, t, splits, relu, g.pool,
+                   ty, tx);
 }
 
-template <int BM>
+template <int BM, int BN>
 static int launch(const float* x, const uint8_t* idx, const float* cb,
-                  const float* bias, float* out, int batch, int C, int H,
-                  int W, int nhwc, int ky, int kx, int stride, int pad_h,
-                  int pad_w, int ow, int pool, int P_out, int conv_k, int Kp,
-                  int N, int G, int B, int packed, int relu, int rows,
-                  cudaStream_t stream) {
-  size_t smem = dyn_smem_bytes(G, B, BM, pool);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pasm_conv_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int P_rows = P_out * pool * pool;
-  dim3 grid((P_rows + rows - 1) / rows, (N + BN - 1) / BN, batch);
-  pasm_conv_kernel<BM><<<grid, THREADS, smem, stream>>>(
-      x, idx, cb, bias, out, C, H, W, nhwc, ky, kx, stride, pad_h, pad_w, ow,
-      pool, P_out, conv_k, Kp, N, G, B, packed, relu, rows);
-  return (int)cudaGetLastError();
+                  const float* bias, float* out, float* part, long long M,
+                  const SimtConvGeom& g, int Kp, int N, int G, int B,
+                  int packed, int relu, int splits, cudaStream_t stream) {
+  using S = Simt<BM, BN>;
+  const int rows = BM - BM % (g.pool * g.pool);
+  const long long blocks =
+      (M + rows - 1) / rows * ((N + BN - 1) / BN) * (long long)splits;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the column table holds a split's stages, at most SIMT_TAB_MAX columns
+  const int stages = (Kp + SIMT_BK - 1) / SIMT_BK;
+  const int per = (stages + splits - 1) / splits * SIMT_BK;
+  const int tabn = min(per, SIMT_TAB_MAX);
+  const size_t smem = simt_smem_bytes<S>(G, B, tabn);
+  int e0 = simt_smem_opt_in(pasm_conv_kernel<BM, BN>, smem);
+  if (e0) return e0;
+  pasm_conv_kernel<BM, BN><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      x, idx, cb, bias, out, part, M, g, Kp, N, G, B, packed, relu, splits,
+      tabn);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return split_sum_launch(part, bias, out, M, N, splits, relu, g.pool, 1,
+                          stream);
 }
 
 }  // namespace pasm
 
 // Plain C entry point (bound with ctypes).  x is the unpadded image batch;
-// bm is the row tile (64 or 256) and a block owns the whole pool windows
-// that fit it; bias may be NULL.  Returns the launch's cudaError_t; it does
-// not synchronise.
+// its rows (output pixels, window-major) run image after image, as K1's
+// rows of the explicit patch matrix do, and bm x bn and splits come from
+// pasm_matmul.py::simt_plan over them.  part: splits x batch*P_rows x N f32
+// scratch when splits > 1 (else NULL); bias may be NULL.  Returns the first
+// failing launch's cudaError_t; it does not synchronise.
 extern "C" int pasm_conv_launch(const float* x, const uint8_t* idx,
                                 const float* cb, const float* bias, float* out,
-                                int batch, int C, int H, int W, int nhwc,
-                                int ky, int kx, int stride, int pad_h,
-                                int pad_w, int ow, int pool, int P_out,
-                                int conv_k, int Kp, int N, int G, int B,
-                                int packed, int relu, int bm, void* stream) {
-  const int pw = pool * pool;
-  if (batch <= 0 || batch > 65535 || P_out <= 0 || N <= 0 || G <= 0 ||
-      Kp % G || Kp < conv_k || pool < 1 || pw > bm)
+                                float* part, long long batch, int C, int H,
+                                int W, int nhwc, int ky, int kx, int stride,
+                                int pad_h, int pad_w, int ow, int pool,
+                                int P_out, int conv_k, int Kp, int N, int G,
+                                int B, int packed, int relu, int bm, int bn,
+                                int splits, void* stream) {
+  using namespace pasm;
+  // offsets within an image are ints; a column's (dy, dx) travel as 16 bits
+  if (batch <= 0 || P_out <= 0 || Kp < conv_k || Kp <= 0 ||
+      !simt_args_ok(N, G, B, pool, bm, bn, splits, part) || Kp % G ||
+      (long long)C * H * W > 0x7fffffffLL || ky > 32767 || kx > 32767)
     return (int)cudaErrorInvalidValue;
-  const int rows = bm - bm % pw;
+  const int P_rows = P_out * pool * pool;
+  const long long M = batch * P_rows;
+  const SimtConvGeom g{C,     H,     W,  nhwc, ky,     kx,    stride,
+                       pad_h, pad_w, ow, pool, P_rows, conv_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 64)
-    return pasm::launch<64>(x, idx, cb, bias, out, batch, C, H, W, nhwc, ky,
-                            kx, stride, pad_h, pad_w, ow, pool, P_out, conv_k,
-                            Kp, N, G, B, packed, relu, rows, s);
   if (bm == 256)
-    return pasm::launch<256>(x, idx, cb, bias, out, batch, C, H, W, nhwc, ky,
-                             kx, stride, pad_h, pad_w, ow, pool, P_out,
-                             conv_k, Kp, N, G, B, packed, relu, rows, s);
-  return (int)cudaErrorInvalidValue;
+    return launch<256, 64>(x, idx, cb, bias, out, part, M, g, Kp, N, G, B,
+                           packed, relu, splits, s);
+  if (bn == 64)
+    return launch<128, 64>(x, idx, cb, bias, out, part, M, g, Kp, N, G, B,
+                           packed, relu, splits, s);
+  if (bn == 96)
+    return launch<128, 96>(x, idx, cb, bias, out, part, M, g, Kp, N, G, B,
+                           packed, relu, splits, s);
+  return launch<128, 128>(x, idx, cb, bias, out, part, M, g, Kp, N, G, B,
+                          packed, relu, splits, s);
 }

@@ -1,4 +1,4 @@
-// K1 — fused-dequant PASM GEMM for sm_90a.
+// K1 (f32 route) — fused-dequant PASM GEMM for sm_90a.
 //
 // Replaces the TPU kernel repro/kernels/pasm_matmul.py::pasm_matmul_kernel_call
 // (_kernel -> _fused_dequant_step, _dequant_tile, _unpack_int4_tile).
@@ -7,98 +7,89 @@
 //   W[k, n] = codebook[k / (K / G)][idx[k, n]]     (never stored)
 //
 // The TPU kernel walked a sequential k grid axis with a VMEM accumulator;
-// here one block owns a BM x 64 output tile and runs the whole K loop
-// itself, 16 reduction rows per shared-memory stage, accumulating in f32
-// registers (see pasm_common.cuh for the thread layout and epilogue).  It
-// is bound by f32 FMA throughput at the AlexNet shapes; no tensor cores yet.
+// here a block owns a 128 x 64/96/128 output tile (a thread 8 x 8, 8 x 6 or
+// 8 x 4 of it) and runs its K range itself: x and index stages arrive by
+// cp.async in a ring, 16 k a stage, each index stage is dequantized once
+// into an f32 tile, and every output is one f32 fmaf chain (no tensor cores,
+// no TF32).  It is bound by the f32 FMA pipe at the AlexNet shapes.  Split-K
+// (a count fixed by K and N, pasm_matmul.py::simt_plan) runs the late
+// stages' short-M layers on enough blocks; split_sum adds the partials in
+// order.  pasm_common.cuh has the layout, the ring and the epilogue.
 #include "pasm_common.cuh"
 
 namespace pasm {
 
-template <int BM>
-__global__ void __launch_bounds__(THREADS)
+template <int BM, int BN>
+__global__ void __launch_bounds__(THREADS, Simt<BM, BN>::MIN_BLOCKS)
     pasm_matmul_kernel(const float* __restrict__ x,
                        const uint8_t* __restrict__ idx,
                        const float* __restrict__ cb,
                        const float* __restrict__ bias, float* __restrict__ out,
-                       int M, int K, int N, int G, int B, int packed, int relu,
-                       int pool, int rows) {
-  constexpr int TM = BM / 16;
-  __shared__ Stage<BM> st;
-  extern __shared__ float4 dyn4[];
-  float* cb_s = reinterpret_cast<float*>(dyn4);
-  float* pool_s = cb_s + ((G * B + 3) / 4) * 4;
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long m0 = (long long)blockIdx.x * rows;
-  const int n0 = blockIdx.y * BN;
-  const int gs = K / G;
+                       float* __restrict__ part, long long M, int K, int N,
+                       int G, int B, int packed, int relu, int pool,
+                       int splits) {
+  using S = Simt<BM, BN>;
+  extern __shared__ float4 simt_smem[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(simt_smem);
+  float* cb_s = reinterpret_cast<float*>(smem + S::AREA);
+  const SimtTile t = simt_tile(BM, BN, pool, K, N, splits);
+  const int ty = simt_ty(), tx = simt_tx();
   load_codebook(cb_s, cb, G * B);
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  // BK divides THREADS, so each thread always loads the same column kk
-  const int kk = threadIdx.x % BK;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // previous stage consumed; codebook visible
-    const int k = k0 + kk;
-    for (int r = threadIdx.x / BK; r < BM; r += THREADS / BK) {
-      long long m = m0 + r;
-      st.xs[kk][r] = (r < rows && m < M && k < K) ? x[m * K + k] : 0.f;
-    }
-    load_weight_tile<BM>(st, idx, cb_s, k0, n0, K, N, gs, B, packed);
-    __syncthreads();
-    stage_product<BM>(st, acc, ty, tx);
-  }
-
-  const int pw = pool * pool;
-  epilogue<GemmLayout<BM>>(acc, pool_s, bias, out, n0, N, rows, m0 / pw,
-                           M / pw, relu, pool, ty, tx);
+  SimtMatLoader<S> ld{x, M, K,
+                      K % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0};
+  float acc[S::TM][S::TN];
+  simt_gemm<S>(smem, cb_s, ld, idx, t, K, N, G, B, packed, acc, ty, tx);
+  simt_epilogue<S>(acc, smem, bias, out, part, M, N, t, splits, relu, pool,
+                   ty, tx);
 }
 
-template <int BM>
+template <int BM, int BN>
 static int launch(const float* x, const uint8_t* idx, const float* cb,
-                  const float* bias, float* out, int M, int K, int N, int G,
-                  int B, int packed, int relu, int pool, int rows,
-                  cudaStream_t stream) {
-  size_t smem = dyn_smem_bytes(G, B, BM, pool);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pasm_matmul_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((M + rows - 1) / rows, (N + BN - 1) / BN);
-  pasm_matmul_kernel<BM><<<grid, THREADS, smem, stream>>>(
-      x, idx, cb, bias, out, M, K, N, G, B, packed, relu, pool, rows);
-  return (int)cudaGetLastError();
+                  const float* bias, float* out, float* part, long long M,
+                  int K, int N, int G, int B, int packed, int relu, int pool,
+                  int splits, cudaStream_t stream) {
+  using S = Simt<BM, BN>;
+  const int rows = BM - BM % (pool * pool);
+  const long long blocks =
+      (M + rows - 1) / rows * ((N + BN - 1) / BN) * (long long)splits;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = simt_smem_bytes<S>(G, B, 0);
+  int e0 = simt_smem_opt_in(pasm_matmul_kernel<BM, BN>, smem);
+  if (e0) return e0;
+  pasm_matmul_kernel<BM, BN><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      x, idx, cb, bias, out, part, M, K, N, G, B, packed, relu, pool, splits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return split_sum_launch(part, bias, out, M, N, splits, relu, pool, 1, stream);
 }
 
 }  // namespace pasm
 
-// Plain C entry point (bound with ctypes).  bm is the row tile (64 or 256);
-// a block owns the whole pool windows that fit it.  bias may be NULL.
-// Returns the launch's cudaError_t; it does not synchronise.
+// Plain C entry point (bound with ctypes).  bm x bn is the block tile and
+// splits the split-K count, both from pasm_matmul.py::simt_plan; a block
+// owns the whole pool windows that fit its bm rows.  part: splits x M x N
+// f32 scratch when splits > 1 (else NULL); bias may be NULL.  Returns the
+// first failing launch's cudaError_t; it does not synchronise.
 extern "C" int pasm_matmul_launch(const float* x, const uint8_t* idx,
                                   const float* cb, const float* bias,
-                                  float* out, int M, int K, int N, int G,
-                                  int B, int packed, int relu, int pool,
-                                  int bm, void* stream) {
-  const int pw = pool * pool;
-  if (M <= 0 || N <= 0 || K <= 0 || G <= 0 || K % G || pool < 1 ||
-      M % pw || pw > bm)
+                                  float* out, float* part, long long M, int K,
+                                  int N, int G, int B, int packed, int relu,
+                                  int pool, int bm, int bn, int splits,
+                                  void* stream) {
+  using namespace pasm;
+  if (M <= 0 || K <= 0 || !simt_args_ok(N, G, B, pool, bm, bn, splits, part) ||
+      K % G || M % (pool * pool))
     return (int)cudaErrorInvalidValue;
-  const int rows = bm - bm % pw;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bm == 64)
-    return pasm::launch<64>(x, idx, cb, bias, out, M, K, N, G, B, packed,
-                            relu, pool, rows, s);
   if (bm == 256)
-    return pasm::launch<256>(x, idx, cb, bias, out, M, K, N, G, B, packed,
-                             relu, pool, rows, s);
-  return (int)cudaErrorInvalidValue;
+    return launch<256, 64>(x, idx, cb, bias, out, part, M, K, N, G, B, packed,
+                           relu, pool, splits, s);
+  if (bn == 64)
+    return launch<128, 64>(x, idx, cb, bias, out, part, M, K, N, G, B, packed,
+                           relu, pool, splits, s);
+  if (bn == 96)
+    return launch<128, 96>(x, idx, cb, bias, out, part, M, K, N, G, B, packed,
+                           relu, pool, splits, s);
+  return launch<128, 128>(x, idx, cb, bias, out, part, M, K, N, G, B, packed,
+                          relu, pool, splits, s);
 }

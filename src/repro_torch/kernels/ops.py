@@ -11,12 +11,17 @@ wrappers raise on tensors that require grad.
 
 The TPU tile plan (``_pick_blocks``: 128/512 tiles, K padded to 128
 multiples through a reserved zero-codebook bin) is replaced by the Hopper
-plan the kernel wrappers derive from ``pool`` alone
-(``pasm_matmul._pool_bm``): a block computes a ``bm``-row tile (64, or 256
-for pool windows of more than 64 rows) by 64 columns and owns the whole pool
-windows that fit it; the kernels mask the ragged M, N and K edges
-themselves, so no operand is padded in memory.  The §3 pack-time ``pad_k``
-row is data format, not tile plan, and stays.
+plans the kernel wrappers derive from the shapes (``pasm_matmul.simt_plan``
+for K1's f32 route and K2, ``pas_histogram.pas_plan`` for K3/K4): K1/K2's
+block computes a 128-row tile (256 for pool windows of more than 128 rows)
+by 64, 96 or 128 columns, a thread 8 rows × up to 8 columns, from a
+``cp.async`` ring of 16-k stages, owns the whole pool windows that fit it,
+and splits K by a count set by K and N alone, the partials added in order
+by a second pass; K2 gathers its stages from the image through per-block
+row and column tables, its rows running over the whole batch.  The kernels
+mask the ragged M, N and K edges themselves, so no operand is padded in
+memory.  The §3 pack-time ``pad_k`` row is data format, not tile plan, and
+stays.
 
 ``SlabPlan`` / ``conv_slab_plan`` described a TPU VMEM schedule and are not
 ported: K2 gathers from global memory, so any image size runs.  ``mesh=``

@@ -29,7 +29,7 @@ depends on ``M``.
 **What bounds them.**  Issue and latency in the walk (about 11
 instructions a warp per ``k`` for 128 adds), then the stage loads where one
 stage of adds does not hide them; K4's in-kernel gather costs more than K3's
-16-byte loads.  ``kernels/pas_ablation.py`` times the kernels with the walk
+16-byte loads.  ``kernels/ablation.py`` times the kernels with the walk
 or the loads taken out; PERF.md has the numbers.
 
 An index ``>= B`` adds nothing in the kernels and in the plain versions, as
@@ -86,6 +86,10 @@ PAS_BINS = 16  # bins per pass (register accumulators per row)
 PAS_BK = 32  # reduction rows per stage (one per lane)
 PAS_SPLIT_K = 1536  # K rows per split-K partition (at least)
 PAS_SPLIT_MAX_N = 512  # split K only up to this many columns
+# GEMM rows of one launch (csrc PAS_MAX_M: rows are ints in the kernels, up
+# to a tile below 2^31); K4 splits a larger batch into launches of whole
+# images, which give the same rows (a row's result does not depend on M)
+PAS_MAX_M = 0x7FFFFFFF - 256
 
 _NO_GRAD = (
     "the PAS kernels are forward-only, as the TPU kernels they replace are: "
@@ -245,7 +249,8 @@ def pas_conv_kernel_call(
     ``x`` is the UNPADDED image batch (``geom.pad`` is a masked read, as in
     K2).  ``idx (Kp, N)`` holds ``Kp >= geom.conv_k`` unpacked reduction
     rows; positions past ``conv_k`` (the §3 pack-time pad) pair with zero
-    activations.
+    activations.  A batch of more than :data:`PAS_MAX_M` GEMM rows runs as
+    several launches of whole images (each counts as a launch).
     """
     Kp = idx.shape[0] if idx.ndim == 2 else -1
     _check_pas(x, idx, codebook, bias, k_rows=Kp)
@@ -263,17 +268,21 @@ def pas_conv_kernel_call(
         return out
     from repro_torch.kernels import _build
 
-    part = torch.empty(plan.scratch, dtype=torch.float32,
-                       device=x.device) if plan.scratch else None
     fn = _build.entry_point("pas_conv", "pas_conv_launch",
                             [_P] * 6 + [_I] * 20 + [_P])
     (plh, _), (plw, _) = geom.pad
-    with torch.cuda.device(x.device):
-        err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
-                 _ptr(part), batch, C, H, W, int(geom.nhwc), geom.ky, geom.kx,
-                 geom.stride, plh, plw, geom.ow, geom.pool, geom.P_out,
-                 geom.conv_k, Kp, N, B, int(relu), plan.tile, plan.splits,
-                 _stream(x.device))
-    _raise_on(err, "pas_conv")
-    launches["pas_conv"] += 1
+    per = max(1, PAS_MAX_M // geom.P_rows)  # images a launch
+    for b0 in range(0, batch, per):
+        nb = min(per, batch - b0)
+        part = torch.empty(plan.splits * nb * geom.P_rows * N,
+                           dtype=torch.float32, device=x.device) \
+            if plan.scratch else None
+        with torch.cuda.device(x.device):
+            err = fn(_ptr(x[b0:]), _ptr(idx), _ptr(codebook), _ptr(bias),
+                     _ptr(out[b0:]), _ptr(part), nb, C, H, W, int(geom.nhwc),
+                     geom.ky, geom.kx, geom.stride, plh, plw, geom.ow,
+                     geom.pool, geom.P_out, geom.conv_k, Kp, N, B, int(relu),
+                     plan.tile, plan.splits, _stream(x.device))
+        _raise_on(err, "pas_conv")
+        launches["pas_conv"] += 1
     return out

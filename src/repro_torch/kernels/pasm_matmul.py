@@ -18,32 +18,49 @@ read, and each weight tile is dequantized in shared memory.
 ``2·M·K·N`` flops over ``K`` = 363…3456, at least 45 flops per byte they
 must move (K1 reads the patch matrix; K2 only the image, so more): above the
 f32 ridge (67 TFLOP/s over 3.35 TB/s ≈ 20), so they are bound by f32
-operations.  This slice's design is the plain SIMT
-answer to that: a 16×16-thread block owns a ``bm × 64`` output tile with the
-K loop inside the block; each thread keeps a ``bm/16 × 4`` register tile of
-f32 accumulators, so every pair of shared-memory reads feeds
-``bm/16 · 4 / (bm/16 + 4)`` FMAs; ``x``/patch and dequantized weight tiles
-(16 K rows) are staged in shared memory; the codebook (``G·B`` floats) is
-staged once per block and dequant is a shared-memory lookup.  No tensor
-cores, no TF32, no TMA yet (ROADMAP Queue 2, K1/K2 speed).
+operations, and the design spends as few other instructions as it can per
+FMA (``csrc/pasm_common.cuh``, one device body for both):
 
-The fused epilogue runs after the K loop: ``+bias``, ReLU, then with
-``pool > 1`` the max over each ``pool²`` consecutive (window-major) rows,
-through a shared-memory tile.  A block's rows hold whole windows
-(``rows = bm - bm % pool²``), so no window straddles two blocks.  The ragged
-K edge is masked in-kernel (no tile-plan K pad); the §3 pack-time ``pad_k``
-row is part of the data format and is paired with a zero activation.
+* a 256-thread block owns a 128-row tile (256 when a pool window holds more
+  than 128 rows: :data:`BM_TILES`) by 64, 96 or 128 columns, picked from N
+  by :func:`simt_plan`; a thread holds 8 rows × 8 (6, 4) columns of f32
+  accumulators in two 4-wide halves, so one stage of 16 k costs it 64
+  conflict-free 16-byte shared reads for 1024 FMAs;
+* x (K1: rows of the patch matrix in 16-byte copies where ``K % 4 == 0``,
+  else 4-byte ones; K2: the patch rows gathered from the image) and the
+  index bytes arrive by ``cp.async`` in a 3-stage ring, one barrier a
+  stage; each index stage is dequantized once into an f32 weight tile
+  through the shared codebook (``G·B`` floats, staged once per block);
+* K2's rows run over the whole batch (row ``m``: pixel ``m % P_rows`` of
+  image ``m // P_rows``), and a block decodes its rows' origins and its
+  columns' ``(c, dy, dx)`` once into shared tables, so an element is an add
+  and a bounds test;
+* split-K by K and N only (:func:`simt_plan`: AlexNet's conv3–conv5 split
+  4, 6 and 6 ways) fills the card where M is short; partials go to a
+  ``torch.empty`` scratch and a second pass adds them in split order.
+
+No tensor cores and no TF32: every output is one f32 ``fmaf`` chain in
+ascending k a split, so an unsplit output is bitwise that of the 64 × 64
+design this replaced, and K1 ≡ K2 bitwise.
+
+The fused epilogue runs after the K loop (or in the split-K pass): ``+bias``,
+ReLU, then with ``pool > 1`` the max over each ``pool²`` consecutive
+(window-major) rows, through a shared-memory tile.  A block's rows hold
+whole windows (``rows = bm - bm % pool²``), so no window straddles two
+blocks.  The ragged K edge is masked in-kernel (no tile-plan K pad); the §3
+pack-time ``pad_k`` row is part of the data format and is paired with a
+zero activation.
 
 **K1's bf16 routes** (``csrc/pasm_matmul_bf16.cu``).  A bf16 ``x`` is the LM's
-activation, and there the SIMT kernel above loses: its 64-row tile computes 64
-rows for a decode step's 4, and it has no tensor cores at prefill.
+activation, and there the SIMT kernel above loses: its 128-row tile computes
+128 rows for a decode step's 4, and it has no tensor cores at prefill.
 :func:`k1_plan` picks one of three routes from the shapes and dtype alone:
 
 * ``simt`` — f32 ``x``, any fused pool, and what the bf16 routes' tables do
   not hold (more than :data:`MAX_BF16_GROUPS` dictionaries, or packed bytes
-  whose two rows fall in two dictionaries): the kernel above, unchanged (K1
-  ≡ K2 bitwise).  A bf16 ``x`` is widened to it exactly
-  (:func:`_widen_bf16`).
+  whose two rows fall in two dictionaries): the f32 kernel above, with the
+  tile and split-K of :func:`simt_plan` (K1 ≡ K2 bitwise).  A bf16 ``x`` is
+  widened to it exactly (:func:`_widen_bf16`).
 * ``stream`` — bf16, ``M <= STREAM_MAX_M`` (decode): a warp streams 128
   index columns with 16-byte loads straight into tensor-core A fragments
   (one pair-table lookup a byte), ``x`` is an 8- or 16-row B tile, and
@@ -92,15 +109,16 @@ __all__ = [
     "pool_plan_exists",
     "K1Plan",
     "k1_plan",
+    "simt_plan",
     "K1_ROUTES",
     "k1_routes",
 ]
 
-# the row tiles the CUDA kernels are compiled for (template BM in csrc);
-# 256 is only taken when a pool window holds more than 64 rows (pool >= 9),
-# which no AlexNet stage does: it is kept so that every window the JAX
-# package fuses into its epilogue also fuses here (same conv2d dispatch)
-BM_TILES = (64, 256)
+# the row tiles of K1 simt and K2 (csrc/pasm_common.cuh, template BM): 128,
+# or 256 when a pool window holds more than 128 rows (pool 12 and 16), which
+# no AlexNet stage does: it is kept so that every window the JAX package
+# fuses into its epilogue also fuses here (same conv2d dispatch)
+BM_TILES = (128, 256)
 GATHERS = ("take", "onehot")
 
 
@@ -121,9 +139,9 @@ def pool_plan_exists(pool: int) -> bool:
 
 
 def _pool_bm(pool: int) -> int:
-    """The kernels' row tile for a ``pool`` window: 64 rows unless a window
-    holds more (then 256).  The C launchers give each block the whole
-    windows that fit it (``bm - bm % pool²`` rows)."""
+    """K1 simt's and K2's row tile for a ``pool`` window: 128 rows unless a
+    window holds more (then 256).  The C launchers give each block the
+    whole windows that fit it (``bm - bm % pool²`` rows)."""
     if not pool_plan_exists(pool):
         raise ValueError(
             f"no pool-aligned tile plan for pool={pool}: use the unfused "
@@ -175,21 +193,61 @@ MIN_SPLIT_K = 1024  # least K rows per split-K partition
 K1_BF16_TOL = 1e-5
 
 
+# K1 simt and K2 (csrc/pasm_common.cuh): the column tiles (a thread holds
+# 8 rows x 8, 6 or 4 columns; the 256-row tile takes 64) and split-K: a
+# layer of at most SIMT_SPLIT_MAX_N columns whose weight matrix holds at
+# least SIMT_SPLIT_MIN_KN entries splits K into parts of at least
+# SIMT_SPLIT_K rows, at most SIMT_MAX_SPLITS of them
+SIMT_BNS = (128, 96, 64)
+SIMT_SPLIT_K = 576
+SIMT_MAX_SPLITS = 8
+SIMT_SPLIT_MIN_KN = 3 << 18
+SIMT_SPLIT_MAX_N = 512
+
+
 class K1Plan(NamedTuple):
-    """How K1 runs one call: ``route`` (one of :data:`K1_ROUTES`), the
-    split-K count, the row tile (``simt``: 64/256 by pool; ``stream``: rows
-    per block; ``mma``: BM), the blocks launched, and the f32 elements of
-    split-K scratch the wrapper allocates (0 without split-K)."""
+    """How K1 (or K2) runs one call: ``route`` (one of :data:`K1_ROUTES`),
+    the split-K count, the block's row tile (``simt``: 128/256 by pool;
+    ``stream``: rows of x per block; ``mma``: BM) and column tile, the
+    blocks launched, and the f32 elements of split-K scratch the wrapper
+    allocates (0 without split-K)."""
 
     route: str
     splits: int
     tile: int
+    cols: int
     blocks: int
     scratch: int
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def simt_plan(M: int, K: int, N: int, pool: int = 1) -> K1Plan:
+    """K1 simt's and K2's launch for ``x (M, K) · W (K, N)`` (K2: the
+    ``M = batch · P_rows`` rows of the implicit patch matrix, image after
+    image) — a pure function of the shapes.
+
+    The row tile follows from ``pool`` (:func:`_pool_bm`); a block owns
+    ``tile - tile % pool²`` rows.  The column tile is the one of
+    :data:`SIMT_BNS` that pads N least (the larger on a tie), 64 on the
+    256-row tile.  The split-K count depends on K and N only, so every
+    output is one ascending-k ``fmaf`` chain a split, in the same order
+    whatever M is: the late stages of a CNN, whose weight matrices are large
+    and whose maps are small, split (AlexNet's conv3–conv5 at K = 2304 and
+    3456: 4, 6 and 6 parts); conv1 and conv2 do not.
+    """
+    bm = _pool_bm(pool)
+    rows = bm - bm % (pool * pool)
+    bn = 64 if bm > BM_TILES[0] else \
+        min(SIMT_BNS, key=lambda b: (_cdiv(N, b) * b, -b))
+    splits = 1
+    if K * N >= SIMT_SPLIT_MIN_KN and N <= SIMT_SPLIT_MAX_N:
+        splits = max(1, min(SIMT_MAX_SPLITS, K // SIMT_SPLIT_K))
+    return K1Plan("simt", splits, bm, bn,
+                  _cdiv(M, rows) * _cdiv(N, bn) * splits,
+                  splits * M * N if splits > 1 else 0)
 
 
 def k1_plan(M: int, K: int, N: int, dtype: torch.dtype, pool: int = 1, *,
@@ -200,17 +258,15 @@ def k1_plan(M: int, K: int, N: int, dtype: torch.dtype, pool: int = 1, *,
 
     f32, ``pool > 1``, more than :data:`MAX_BF16_GROUPS` dictionaries, and
     packed bytes whose two K rows fall in two dictionaries (odd ``K /
-    groups``) take ``simt``; any other bf16 ``x`` takes ``stream`` up to
-    :data:`STREAM_MAX_M` rows, ``mma`` above.  The split-K count of both
-    bf16 routes depends on K and N only (so a row sums in the same order
-    whatever M is): enough splits to fill the SMs, each at least
-    :data:`MIN_SPLIT_K` K rows.
+    groups``) take ``simt`` (:func:`simt_plan`); any other bf16 ``x``
+    takes ``stream`` up to :data:`STREAM_MAX_M` rows, ``mma`` above.  The
+    split-K count of every route depends on K and N only (so a row sums in
+    the same order whatever M is); on the bf16 routes it is enough splits
+    to fill the SMs, each at least :data:`MIN_SPLIT_K` K rows.
     """
     if dtype != torch.bfloat16 or pool > 1 or \
             not 0 < groups <= MAX_BF16_GROUPS or (packed and (K // groups) % 2):
-        bm = _pool_bm(pool)
-        return K1Plan("simt", 1, bm, _cdiv(M, bm - bm % (pool * pool))
-                      * _cdiv(N, 64), 0)
+        return simt_plan(M, K, N, pool)
     route = "stream" if M <= STREAM_MAX_M else "mma"
     cols = _cdiv(N, STREAM_COLS if route == "stream" else MMA_BN)
     # split-K by K and N only, to about 1.5 blocks an SM on stream (measured
@@ -222,7 +278,9 @@ def k1_plan(M: int, K: int, N: int, dtype: torch.dtype, pool: int = 1, *,
         tile = STREAM_ROWS[0] if M <= STREAM_ROWS[0] else STREAM_ROWS[1]
     else:
         tile = MMA_BM
-    return K1Plan(route, splits, tile, cols * splits * _cdiv(M, tile),
+    return K1Plan(route, splits, tile,
+                  STREAM_COLS if route == "stream" else MMA_BN,
+                  cols * splits * _cdiv(M, tile),
                   splits * M * N if splits > 1 else 0)
 
 
@@ -399,9 +457,6 @@ def _check_image(x: torch.Tensor, geom: ConvGeom, Kp: int) -> tuple:
     """The implicit-GEMM kernels' image checks (K2, K4); returns ``(C, H, W)``."""
     if x.ndim != 4:
         raise ValueError(f"x must be a 4-D image batch, got {tuple(x.shape)}")
-    if x.shape[0] > 65535:  # the launch grid's z extent
-        raise ValueError(f"the conv kernels take at most 65535 images per "
-                         f"call, got {x.shape[0]}")
     C, H, W = (x.shape[3], x.shape[1], x.shape[2]) if geom.nhwc \
         else (x.shape[1], x.shape[2], x.shape[3])
     (plh, phh), (plw, phw) = geom.pad
@@ -441,7 +496,7 @@ def _raise_on(err: int, what: str) -> None:
         )
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def pasm_matmul_kernel_call(
@@ -486,16 +541,16 @@ def pasm_matmul_kernel_call(
         return out
     from repro_torch.kernels import _build
 
+    part = torch.empty(plan.scratch, dtype=torch.float32,
+                       device=x.device) if plan.scratch else None
     with _on(x.device):
         if simt:
             fn = _build.entry_point("pasm_matmul", "pasm_matmul_launch",
-                                    [_P] * 5 + [_I] * 9 + [_P])
+                                    [_P] * 6 + [_L] + [_I] * 10 + [_P])
             err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
-                     M, K, N, G, B, int(packed), int(relu), pool, plan.tile,
-                     _stream(x.device))
+                     _ptr(part), M, K, N, G, B, int(packed), int(relu), pool,
+                     plan.tile, plan.cols, plan.splits, _stream(x.device))
         else:
-            part = torch.empty(plan.scratch, dtype=torch.float32,
-                               device=x.device) if plan.scratch else None
             fn = _build.entry_point("pasm_matmul_bf16", "pasm_matmul_bf16_launch",
                                     [_P] * 6 + [_I] * 10 + [_P])
             err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
@@ -520,7 +575,8 @@ def pasm_conv_kernel_call(
     gather: str = "take",
 ) -> torch.Tensor:
     """K2: implicit-GEMM conv, ``x (B, C, H, W)`` or ``(B, H, W, C)`` →
-    ``(B, P_out, N)`` f32.  The row tile follows from ``geom.pool``.
+    ``(B, P_out, N)`` f32, any batch: the rows run over the batch, and the
+    tile and split-K are :func:`simt_plan`'s over its ``B · P_rows`` rows.
 
     ``x`` is the UNPADDED image batch: ``geom.pad`` is applied as masked
     zero reads inside the kernel (the TPU kernel took a padded image).
@@ -532,28 +588,31 @@ def pasm_conv_kernel_call(
                     k_rows=Kp)
     batch = x.shape[0]
     C, H, W = _check_image(x, geom, Kp)
-    bm = _pool_bm(geom.pool)
+    N = idx.shape[1]
+    plan = simt_plan(batch * geom.P_rows, Kp, N, geom.pool)
     if x.device.type == "cpu":
         return pasm_conv_plain(x, idx, codebook, bias, geom=geom,
                                packed=packed, relu=relu)
     if x.device.type != "cuda":
         raise ValueError(f"no PASM kernel for device {x.device}")
-    N = idx.shape[1]
     out = torch.empty((batch, geom.P_out, N), dtype=torch.float32,
                       device=x.device)
     if out.numel() == 0:
         return out
     from repro_torch.kernels import _build
 
+    part = torch.empty(plan.scratch, dtype=torch.float32,
+                       device=x.device) if plan.scratch else None
     fn = _build.entry_point("pasm_conv", "pasm_conv_launch",
-                            [_P] * 5 + [_I] * 21 + [_P])
+                            [_P] * 6 + [_L] + [_I] * 22 + [_P])
     G, B = codebook.shape
     (plh, _), (plw, _) = geom.pad
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(idx), _ptr(codebook), _ptr(bias), _ptr(out),
-                 batch, C, H, W, int(geom.nhwc), geom.ky, geom.kx, geom.stride,
-                 plh, plw, geom.ow, geom.pool, geom.P_out, geom.conv_k, Kp,
-                 N, G, B, int(packed), int(relu), bm, _stream(x.device))
+                 _ptr(part), batch, C, H, W, int(geom.nhwc), geom.ky, geom.kx,
+                 geom.stride, plh, plw, geom.ow, geom.pool, geom.P_out,
+                 geom.conv_k, Kp, N, G, B, int(packed), int(relu), plan.tile,
+                 plan.cols, plan.splits, _stream(x.device))
     _raise_on(err, "pasm_conv")
     launches["pasm_conv"] += 1
     return out

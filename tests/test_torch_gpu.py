@@ -49,6 +49,10 @@ def _params(kshape, bins, groups, packed, layout, dev, seed=0):
     (36, 2400, 70, 16, 2, True, 3),
     (1024, 3456, 256, 16, 1, True, 2),
     (256, 40, 10, 256, 1, False, 16),   # a 256-row window: the 256-row tile
+    (144 * 3, 64, 20, 16, 1, False, 12),  # 144-row windows: the 256-row tile
+    (200, 300, 70, 16, 2, True, 1),       # two dictionaries, packed
+    (64, 90, 40, 16, 2, True, 1),         # a packed byte across two dictionaries
+    (70, 363, 10, 16, 1, False, 1),       # 4-byte x copies, N < 16: byte indices
 ])
 def test_k1_matches_plain(cuda, M, K, N, bins, groups, packed, pool):
     g = torch.Generator(device=cuda).manual_seed(M + K)
@@ -67,11 +71,37 @@ def test_k1_matches_plain(cuda, M, K, N, bins, groups, packed, pool):
     torch.testing.assert_close(y, want, **TOL)
 
 
+@pytest.mark.parametrize("M,K,N,packed,pool", [
+    (2592, 2304, 384, False, 1),   # conv3 at batch 32: 4 splits
+    (1568, 3456, 384, False, 1),   # conv4: 6 splits
+    (512, 3456, 256, True, 2),     # conv5: 6 splits
+])
+def test_k1_split_matches_plain(cuda, M, K, N, packed, pool):
+    """AlexNet's split stages at batch 32, with dictionaries at a conv
+    layer's scale (1/sqrt(K), as the served model's): at unit scale the
+    outputs reach |y| ~ 60, and two f32 orders of 3456 terms differ by more
+    than the absolute 1e-4 near 0."""
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    idx = torch.randint(0, 256 if packed else 16, (K // 2 if packed else K, N),
+                        generator=g, device=cuda, dtype=torch.uint8)
+    cb = torch.randn((1, 16), generator=g, device=cuda) * K ** -0.5
+    bias = torch.randn(N, generator=g, device=cuda)
+    assert pm.simt_plan(M, K, N, pool).splits > 1
+    y = pm.pasm_matmul_kernel_call(x, idx, cb, bias, packed=packed, relu=True,
+                                   pool=pool)
+    want = pm.pasm_matmul_plain(x, idx, cb, bias, packed=packed, relu=True, pool=pool)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want, **TOL)
+
+
 @pytest.mark.parametrize("layout,padding,pool,packed,groups", [
     ("NCHW", "valid_centred", 2, False, 1),
     ("NHWC", "same", 2, True, 1),
     ("NCHW", "same", 1, True, 5),      # packed groups need even K/G: 150/5
     ("NHWC", "valid", 3, False, 3),
+    ("NHWC", "valid_centred", 2, False, 2),
+    ("NCHW", "same", 2, True, 1),
 ])
 def test_k2_matches_plain_and_k1_bitwise(cuda, layout, padding, pool, packed, groups):
     conv = cv.Conv2D(k=5, c_in=6, c_out=70, stride=2, padding=padding,
@@ -97,6 +127,130 @@ def test_k2_matches_plain_and_k1_bitwise(cuda, layout, padding, pool, packed, gr
     for engine in ("kernel", "kernel_implicit"):
         unfused = cv.conv2d(x, p, conv, engine=engine, pool=pool, pool_impl="unfused")
         assert torch.equal(unfused, y1)
+
+
+@pytest.mark.parametrize("c_in,c_out,hw,pool", [(384, 384, 9, 1), (384, 256, 7, 2)],
+                         ids=["conv4", "conv5"])
+def test_k2_split_matches_plain_and_k1_bitwise(cuda, c_in, c_out, hw, pool):
+    """AlexNet's conv4 and conv5 at batch 32: the plan splits K; K1 over the
+    window-major patches still equals K2, and the fused pool the unfused."""
+    conv = cv.Conv2D(k=3, c_in=c_in, c_out=c_out, padding="valid_centred", relu=True)
+    p = _params((c_out, c_in, 3, 3), 16, 1, False, "NCHW", cuda)
+    x = torch.randn((32, c_in, hw, hw),
+                    generator=torch.Generator(device=cuda).manual_seed(4), device=cuda)
+    g = cv.conv_geom(conv, hw, hw, pool=pool)
+    assert pm.simt_plan(32 * g.P_rows, g.conv_k, c_out, pool).splits > 1
+    t = p.gemm_tensor("NCHW")
+    y2 = ops.pasm_conv2d(x, t, g, bias=p.bias, relu=True)
+    want = pm.pasm_conv_plain(x, t.idx, t.codebook, p.bias, geom=g, packed=False,
+                              relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y2, want, **TOL)
+    y1 = cv.conv2d(x, p, conv, engine="kernel", pool=pool)
+    assert torch.equal(cv.conv2d(x, p, conv, engine="kernel_implicit", pool=pool), y1)
+    unfused = cv.conv2d(x, p, conv, engine="kernel_implicit", pool=pool,
+                        pool_impl="unfused")
+    assert torch.equal(unfused, y1)
+
+
+@pytest.mark.parametrize("pool", [1, 2])
+def test_k2_rows_cross_images(cuda, pool):
+    """16 GEMM rows an image (4x4 maps), 20 images: a 128-row block holds
+    rows of 8 images, and K2 equals its plain version and K1 bitwise."""
+    conv = cv.Conv2D(k=3, c_in=8, c_out=40, padding="valid", relu=True)
+    p = _params((40, 8, 3, 3), 16, 1, True, "NCHW", cuda)
+    x = torch.randn((20, 8, 6, 6), generator=torch.Generator(device=cuda).manual_seed(6),
+                    device=cuda)
+    g = cv.conv_geom(conv, 6, 6, pool=pool)
+    assert g.P_rows == 16
+    t = p.gemm_tensor("NCHW")
+    y2 = ops.pasm_conv2d(x, t, g, bias=p.bias, relu=True)
+    want = pm.pasm_conv_plain(x, t.idx, t.codebook, p.bias, geom=g, packed=True,
+                              relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y2, want, **TOL)
+    assert torch.equal(cv.conv2d(x, p, conv, engine="kernel", pool=pool),
+                       cv.conv2d(x, p, conv, engine="kernel_implicit", pool=pool))
+
+
+@pytest.mark.parametrize("M,K,N,pool", [
+    (512, 3456, 256, 2),     # conv5 at batch 32: split-K
+    (2592, 2304, 384, 1),    # conv3 at batch 32: split-K
+    (9 * 60, 300, 21, 3),
+    (144 * 4, 64, 20, 12),
+])
+def test_k1_simt_rows_do_not_depend_on_m(cuda, M, K, N, pool):
+    """A slice of whole pool windows, wherever it starts, gives the rows of
+    the full call bitwise: the split-K partition and the order of every sum
+    are set by K and N, never by M or by where a block's tile falls."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((M, K), generator=g, device=cuda)
+    idx = torch.randint(0, 16, (K, N), generator=g, device=cuda, dtype=torch.uint8)
+    cb = torch.randn((1, 16), generator=g, device=cuda)
+    bias = torch.randn(N, generator=g, device=cuda)
+    y = pm.pasm_matmul_kernel_call(x, idx, cb, bias, packed=False, relu=True, pool=pool)
+    pw = pool * pool
+    for w0, nw in ((0, 1), (1, 3), (5, M // pw // 2), (M // pw - 2, 2)):
+        part = pm.pasm_matmul_kernel_call(x[w0 * pw:(w0 + nw) * pw].contiguous(),
+                                          idx, cb, bias, packed=False, relu=True,
+                                          pool=pool)
+        torch.cuda.synchronize()
+        assert torch.equal(part, y[w0:w0 + nw]), (w0, nw)
+
+
+def test_implicit_convs_take_70000_images(cuda, monkeypatch):
+    """More images than a grid's y/z extent: K2 runs its rows over the batch,
+    K4 too and splits a batch of more than PAS_MAX_M rows into launches of
+    whole images, which give the same rows bitwise."""
+    conv = cv.Conv2D(k=3, c_in=1, c_out=8, relu=True)
+    p = _params((8, 1, 3, 3), 16, 1, False, "NCHW", cuda)
+    x = torch.randn((70000, 1, 3, 3), generator=torch.Generator(device=cuda).manual_seed(3),
+                    device=cuda)
+    g = cv.conv_geom(conv, 3, 3)
+    t = p.gemm_tensor("NCHW")
+    y2 = ops.pasm_conv2d(x, t, g, bias=p.bias, relu=True)
+    want = pm.pasm_conv_plain(x, t.idx, t.codebook, p.bias, geom=g, packed=False,
+                              relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y2, want, **TOL)
+    assert torch.equal(cv.conv2d(x, p, conv, engine="kernel"),
+                       cv.conv2d(x, p, conv, engine="kernel_implicit"))
+    li = _pasm.logical_idx(t)
+    pm.reset_launches()
+    y4 = ops.pas_conv2d(x, t, g, bias=p.bias, relu=True)
+    assert pm.launches["pas_conv"] == 1
+    torch.testing.assert_close(y4, ph.pas_conv_plain(x, li, t.codebook, p.bias, geom=g,
+                                                     relu=True), **TOL)
+    monkeypatch.setattr(ph, "PAS_MAX_M", 30000)
+    pm.reset_launches()
+    assert torch.equal(ops.pas_conv2d(x, t, g, bias=p.bias, relu=True), y4)
+    assert pm.launches["pas_conv"] == 3
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_implicit_convs_take_an_image_past_16_bit_coordinates(cuda, layout):
+    """A 3 x 40000 map (W > 32767; NHWC: H): K4 takes its wide row record,
+    and K3 over the explicit patches still equals it bitwise; K2 too."""
+    conv = cv.Conv2D(k=3, c_in=2, c_out=8, padding="same", layout=layout, relu=True)
+    p = _params((8, 2, 3, 3), 16, 1, False, layout, cuda)
+    hw = (3, 40000) if layout == "NCHW" else (40000, 3)
+    shape = (1, 2) + hw if layout == "NCHW" else (1,) + hw + (2,)
+    x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    g = cv.conv_geom(conv, *hw)
+    t = p.gemm_tensor(layout)
+    y4 = ops.pas_conv2d(x, t, g, bias=p.bias, relu=True)
+    want = ph.pas_conv_plain(x, _pasm.logical_idx(t), t.codebook, p.bias, geom=g,
+                             relu=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y4, want, **TOL)
+    assert torch.equal(cv.conv2d(x, p, conv, engine="pas_kernel"),
+                       cv.conv2d(x, p, conv, engine="pas_kernel_implicit"))
+    y2 = ops.pasm_conv2d(x, t, g, bias=p.bias, relu=True)
+    torch.testing.assert_close(y2, pm.pasm_conv_plain(x, t.idx, t.codebook, p.bias,
+                                                      geom=g, packed=False, relu=True),
+                               **TOL)
+    assert torch.equal(cv.conv2d(x, p, conv, engine="kernel"),
+                       cv.conv2d(x, p, conv, engine="kernel_implicit"))
 
 
 def test_smoke_forward_on_the_card(cuda):

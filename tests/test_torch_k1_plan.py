@@ -59,7 +59,8 @@ def test_w2_fills_the_card_at_decode():
 def test_scratch_and_blocks(M, name):
     K, N = LM[name]
     p = pm.k1_plan(M, K, N, BF16)
-    cols = -(-N // (pm.STREAM_COLS if p.route == "stream" else pm.MMA_BN))
+    assert p.cols == (pm.STREAM_COLS if p.route == "stream" else pm.MMA_BN)
+    cols = -(-N // p.cols)
     assert p.scratch == (p.splits * M * N if p.splits > 1 else 0)
     assert p.blocks == cols * p.splits * -(-M // p.tile)
     if p.route == "stream":
@@ -68,13 +69,83 @@ def test_scratch_and_blocks(M, name):
         assert p.tile == pm.MMA_BM
 
 
-@pytest.mark.parametrize("M,pool", [(64, 1), (36, 3), (256, 16)])
+# (M at batch 32, K, N, pool) of AlexNet's five conv stages: K1 simt's and
+# K2's shapes on the served model
+ALEXNET = {"conv1": (93312, 363, 96, 2), "conv2": (15488, 2400, 256, 2),
+           "conv3": (2592, 2304, 384, 1), "conv4": (1568, 3456, 384, 1),
+           "conv5": (512, 3456, 256, 2)}
+
+
+@pytest.mark.parametrize("M,pool", [(64, 1), (36, 3), (256, 16), (144, 12), (400, 10)])
 def test_simt_plan_is_the_old_tile(M, pool):
+    """The row tile follows from the pool window alone: 128 rows, or 256
+    when a window holds more than 128 (pool 12, 16); a block owns whole
+    windows.  The 256-row tile takes 64 columns."""
     p = pm.k1_plan(M, 2400, 70, F32, pool=pool)
-    assert p == pm.K1Plan("simt", 1, pm._pool_bm(pool),
-                          p.blocks, 0)
+    pw = pool * pool
+    assert p.route == "simt" and p.tile == pm._pool_bm(pool)
+    assert p.tile == (128 if pw <= 128 else 256)
+    rows = p.tile - p.tile % pw
+    assert p.cols == (96 if p.tile == 128 else 64)
+    assert p.blocks == -(-M // rows) * -(-70 // p.cols) * p.splits
+    assert p == pm.simt_plan(M, 2400, 70, pool)
+
+
+@pytest.mark.parametrize("N,cols", [(96, 96), (256, 128), (384, 128), (64, 64),
+                                    (10, 64), (70, 96), (130, 96), (160, 96),
+                                    (200, 128), (1000, 128)])
+def test_simt_columns_pad_n_least(N, cols):
+    """The column tile of SIMT_BNS that pads N least, the larger on a tie:
+    conv1's N = 96 takes 96 and wastes nothing."""
+    p = pm.simt_plan(1000, 363, N)
+    assert p.cols == cols
+    waste = {b: -(-N // b) * b for b in pm.SIMT_BNS}
+    assert waste[cols] == min(waste.values())
+
+
+@pytest.mark.parametrize("name", sorted(ALEXNET))
+def test_simt_splits_depend_on_k_and_n_only(name):
+    """Every output sums one fmaf chain a split, in the same order whatever
+    M is: the split count is a function of K and N (and so is K2's, which
+    takes the same plan over batch · P_rows rows).  conv3–conv5 split,
+    conv1 and conv2 do not."""
+    M, K, N, pool = ALEXNET[name]
+    plans = {pm.simt_plan(m * pool * pool, K, N, pool).splits
+             for m in (1, 7, 64, M // (pool * pool), 10 * M)}
+    assert len(plans) == 1
+    splits = plans.pop()
+    assert splits == {"conv1": 1, "conv2": 1, "conv3": 4, "conv4": 6,
+                      "conv5": 6}[name]
+    assert splits == 1 or K // splits >= pm.SIMT_SPLIT_K
+    # f32 takes this plan, and so does a pooled bf16 x (widened)
+    assert pm.k1_plan(M, K, N, F32, pool=pool) == pm.simt_plan(M, K, N, pool)
+    assert pm.k1_plan(M, K, N, BF16, pool=2) == pm.simt_plan(M, K, N, 2)
+
+
+@pytest.mark.parametrize("name", sorted(ALEXNET))
+def test_simt_blocks_and_scratch(name):
+    """Blocks: row tiles x column tiles x splits; the split-K scratch holds
+    every split's M x N partial sums.  Batch 32 fills at least 48 blocks
+    on every stage (an unsplit 64 x 64 tile gave conv5 32)."""
+    M, K, N, pool = ALEXNET[name]
+    p = pm.simt_plan(M, K, N, pool)
     rows = p.tile - p.tile % (pool * pool)
-    assert p.blocks == -(-M // rows) * -(-70 // 64)
+    assert p.blocks == -(-M // rows) * -(-N // p.cols) * p.splits
+    assert p.scratch == (p.splits * M * N if p.splits > 1 else 0)
+    assert p.blocks >= 48
+
+
+def test_simt_split_bounds():
+    """A wide layer (N > SIMT_SPLIT_MAX_N) or a small weight matrix never
+    splits, and no layer takes more than SIMT_MAX_SPLITS parts, each of at
+    least SIMT_SPLIT_K rows."""
+    assert pm.simt_plan(4, 25600, 5120).splits == 1
+    assert pm.simt_plan(4, 100000, 64).splits == pm.SIMT_MAX_SPLITS
+    assert pm.simt_plan(4, 1000, 500).splits == 1  # 1000 // 576 = 1
+    assert pm.simt_plan(4, 2000, 100).splits == 1  # K·N below the floor
+    for K in (576, 1151, 1152, 4000):
+        s = pm.simt_plan(4, K, 512).splits
+        assert 1 <= s <= pm.SIMT_MAX_SPLITS and (s == 1 or K // s >= pm.SIMT_SPLIT_K)
 
 
 @pytest.mark.parametrize("M", [4, 384])

@@ -168,6 +168,57 @@ def test_max_pool2d_matches_jax(dtype, layout):
         np.testing.assert_array_equal(
             tcv.max_pool2d(torch.from_numpy(x[0]), pool, layout).numpy(),
             np.asarray(jcv.max_pool2d(jnp.asarray(x[0]), pool, layout)))
+    # maps with an axis shorter than the window give an empty map, 3-D and
+    # 4-D: pool 2 on an empty axis, pool 3 on a 1-row axis
+    for (h, w), pool in (((0, 5), 2), ((1, 5), 3), ((4, 1), 3), ((2, 0), 2)):
+        shape = (2, h, w, 3) if layout == "NHWC" else (2, 3, h, w)
+        e = np.zeros(shape, dtype=x.dtype)
+        for arr in (e, e[0]):
+            want = np.asarray(jcv.max_pool2d(jnp.asarray(arr), pool, layout))
+            got = tcv.max_pool2d(torch.from_numpy(arr), pool, layout)
+            assert got.dtype == dtype and 0 in got.shape
+            assert tuple(got.shape) == want.shape
+
+
+@pytest.mark.parametrize("engine", ["auto", "einsum", "kernel", "kernel_implicit",
+                                    "pas_kernel", "pas_kernel_implicit", "pas_einsum"])
+def test_conv2d_pool_longer_than_the_map_matches_jax(engine):
+    """k 5x3, s 2, valid_centred on a 10x4 image: a 3x1 conv map, shorter
+    than the pool-3 window on one axis, so the unfused max_pool2d returns an
+    empty map.  Held against JAX's engine of the same name, which runs this
+    shape (its kernel engines raise only on an empty conv output)."""
+    rng = np.random.default_rng(11)
+    idx = rng.integers(0, 16, size=(4, 2, 5, 3)).astype(np.uint8)
+    cb = np.sort(rng.standard_normal((1, 16)).astype(np.float32), axis=1)
+    bias = rng.standard_normal(4).astype(np.float32)
+    pj = jcv.ConvParams.shared(jnp.asarray(idx), jnp.asarray(cb), bias=jnp.asarray(bias))
+    pt = interop.conv_params_from_numpy(_conv_tree(pj), device="cpu")
+    conv = dict(k=(5, 3), c_in=2, c_out=4, stride=2, padding="valid_centred",
+                relu=True)
+    x = rng.standard_normal((2, 2, 10, 4)).astype(np.float32)
+    yt = tcv.conv2d(torch.from_numpy(x), pt, tcv.Conv2D(**conv), engine=engine, pool=3)
+    yj = jcv.conv2d(jnp.asarray(x), pj, jcv.Conv2D(**conv), engine=engine, pool=3,
+                    interpret=True)
+    assert tuple(yt.shape) == np.asarray(yj).shape == (2, 4, 1, 0)
+
+
+@pytest.mark.parametrize("engine", ["kernel_implicit", "pas_kernel_implicit"])
+def test_conv2d_takes_more_than_65535_images(engine):
+    """65536 images of 1x3x3: the implicit engines take any batch (K2's rows
+    run over the batch, K4 splits one into launches of at most PAS_MAX_M
+    rows), as JAX's do.  Held against JAX's einsum engine."""
+    rng = np.random.default_rng(13)
+    idx = rng.integers(0, 16, size=(4, 1, 3, 3)).astype(np.uint8)
+    cb = np.sort(rng.standard_normal((1, 16)).astype(np.float32), axis=1)
+    bias = rng.standard_normal(4).astype(np.float32)
+    pj = jcv.ConvParams.shared(jnp.asarray(idx), jnp.asarray(cb), bias=jnp.asarray(bias))
+    pt = interop.conv_params_from_numpy(_conv_tree(pj), device="cpu")
+    conv = dict(k=3, c_in=1, c_out=4, relu=True)
+    x = rng.standard_normal((65536, 1, 3, 3)).astype(np.float32)
+    yt = tcv.conv2d(torch.from_numpy(x), pt, tcv.Conv2D(**conv), engine=engine)
+    yj = jcv.conv2d(jnp.asarray(x), pj, jcv.Conv2D(**conv), engine="einsum")
+    assert tuple(yt.shape) == (65536, 4, 1, 1)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
 
 
 def test_pool_plan_and_tiles():
