@@ -69,8 +69,27 @@ Phases (every one unguarded: any failure exits non-zero):
    window (phases 5 and 8) opens behind a spin kernel that lasts longer than
    the host takes to enqueue the timed calls, so the events read device
    time; K1's LM rows also print the host's µs a call;
-9. one ``{"kernels": [...]}`` JSON line;
-10. last line: ``{"ok": true, "device": {...}}``.
+9. training, under ``torch.use_deterministic_algorithms(True)`` (cuBLAS's
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set before the first cuBLAS
+   call of the run): (a) the K1/K2 autograd Functions' dx, dcodebook and
+   dbias against ``torch.autograd`` through the plain chain (dequantize,
+   dot, epilogue) through ``conv2d(engine="kernel" | "kernel_implicit")``
+   at AlexNet's conv1 (pooled; shared and packed) and conv3 (shared,
+   packed, ``groups=2``), and through ``ops.pasm_matmul`` at the LM's
+   ``w2`` and ``lm_head`` with bf16 x at M = 1024; (b) qwen3-32b at full
+   width (phase 7's 4 quantized layers, ``remat``) trained: one step's
+   loss and grads on ``impl="kernel"`` against ``"dequant"`` with exactly
+   57 K1 launches, all ``mma`` (29 forward + 28 recomputed), the step
+   timed on both with its peak memory, the codebook-gradient pass and
+   ``lm_head``'s backward timed, 3 steps of ``run_loop``, and a poisoned
+   step bitwise a no-op; (c) the smoke config (layers weight-shared, K1)
+   trained 6 steps with checkpoints, then again under ``ft.Supervisor``
+   with a crash at step 3: the resumed run's params and optimizer state
+   bitwise the uninterrupted run's; (d) the full-width AlexNet QAT-trained
+   2 steps at batch 8, frozen with ``qat_requantize`` and served on K1
+   and K2 within ``TOL`` of ``qat_forward``;
+10. one ``{"kernels": [...]}`` JSON line;
+11. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -79,6 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -124,6 +144,29 @@ ALL_KERNELS = KERNELS + ("flash_attention",)
 # the kernel each served engine launches (five per batch, and no other)
 SERVED_KERNEL = {"kernel": "pasm_matmul", "kernel_implicit": "pasm_conv",
                  "pas_kernel": "pas_matmul"}
+# phase 9(a): the Functions' dx, dcodebook and dbias against autograd through
+# the plain chain, |Δ| <= t·max|plain| per tensor.  f32: the same products
+# summed in another order (the chain's codebook gradient is an index
+# scatter-add, the Function's a masked sum per bin).  bf16 x: dx = g·Wᵀ is
+# rounded to bf16 on both sides, the Function rounding g to bf16 first (the
+# JAX VJP's g.astype(x.dtype)), and the chain's codebook gradient comes back
+# through its bf16 rounding of the codebook (2**-9 relative each)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# the upstream gradient is zeroed where the two sides may take different
+# valid subgradients: within KINK of the ReLU's kink, and in pool windows
+# whose two largest inputs lie within KINK of each other
+KINK = 1e-3
+# phase 9(b): kernel vs dequant loss and grads at full width, |Δ| <= t·max
+# per leaf: the same products in another order in f32, rounded to bf16
+# after every linear and every backward op, so a one-ulp flip (2**-8)
+# moves through 4 layers and the head — PERF.md's LM logit tolerance
+LM_GRAD_TOL = LM_LOGIT_TOL
+LM_LOSS_TOL = 1e-3  # relative; the loss is a mean over 1024 rows
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the JAX launcher's defaults: M = 1024
+# K1 launches of one qwen3 train step with remat: 7 a layer + the head in
+# the forward, 7 a layer again in the backward's recompute
+TRAIN_K1 = 7 * LM_LAYERS + 1 + 7 * LM_LAYERS
+QAT_BATCH = 8
 
 
 def log(*a) -> None:
@@ -870,6 +913,479 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
     rows["k1"] = k1
     return rows
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+
+def bwd_close(got, want, tol: float, what: str) -> float:
+    """Max |Δ| / max|want|; raises when an element is over ``tol·max|want|``."""
+    import torch
+
+    if got is None or got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: gradient {None if got is None else got.shape} "
+                             f"vs {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite gradient")
+    top = float(w.abs().max())
+    d = float((g - w).abs().max())
+    if d > tol * top:
+        raise AssertionError(f"{what}: max |Δ| {d:.3e} over {tol:.1e} of max|want| "
+                             f"{top:.3e}")
+    return d / max(top, 1e-30)
+
+
+def kink_free_grad(pre, pool: int, gen):
+    """A random upstream gradient for a relu'd, ``pool``-pooled NCHW map,
+    zero where either side may pick another valid subgradient: pooled
+    windows whose largest pre-activation is within KINK of 0 or of the
+    window's second largest (pool 1: pixels within KINK of 0)."""
+    import torch
+
+    B, C, oh, ow = pre.shape
+    ohp, owp = oh // pool, ow // pool
+    win = pre[:, :, : ohp * pool, : owp * pool].reshape(B, C, ohp, pool, owp, pool)
+    win = win.permute(0, 1, 2, 4, 3, 5).reshape(B, C, ohp, owp, pool * pool)
+    top = torch.topk(win, min(2, pool * pool), dim=-1).values
+    keep = top[..., 0].abs() >= KINK
+    if pool > 1:
+        keep &= (top[..., 0] - top[..., 1]) >= KINK
+    g = torch.randn((B, C, ohp, owp), generator=gen, device=pre.device)
+    return g * keep, float(keep.float().mean())
+
+
+def conv_bwd_cases(cfg, params, qparams, gen, errs: dict) -> None:
+    """Phase 9(a), AlexNet: conv1 (pooled) shared and packed, conv3 shared,
+    packed and groups=2, on both kernel engines, against the einsum engine
+    (dequantize, dot, bias, ReLU, unfused pool) under autograd."""
+    import torch
+
+    from repro_torch.core import conv as cv
+    from repro_torch.kernels import pasm_matmul as pm
+
+    cases = stage_cases(cfg, qparams, 4, gen)
+    for i in (0, 2):
+        case = cases[i]
+        shared = case.params
+        variants = [("shared", shared), ("packed", shared.pack(layout=case.conv.layout))]
+        if i == 2:
+            variants.append(("groups=2", cv.ConvParams.quantize(
+                params["conv"][i].kernel, cfg.bins, bias=params["conv"][i].bias,
+                groups=2)))
+        with torch.no_grad():
+            pre = cv.conv2d(case.img, shared,
+                            dataclasses.replace(case.conv, relu=False), engine="einsum")
+        g, kept = kink_free_grad(pre, case.pool, gen)
+        for kind, p in variants:
+            want = None
+            for engine in ("einsum", "kernel", "kernel_implicit"):
+                x = case.img.clone().requires_grad_()
+                cb = p.codebook.clone().requires_grad_()
+                b = p.bias.clone().requires_grad_()
+                pm.reset_launches()
+                y = cv.conv2d(x, dataclasses.replace(p, codebook=cb, bias=b), case.conv,
+                              engine=engine, pool=case.pool)
+                got = torch.autograd.grad(y, (x, cb, b), g)
+                torch.cuda.synchronize()
+                if engine == "einsum":
+                    want = got
+                    continue
+                key = SERVED_KERNEL[engine]
+                if pm.launches[key] != 1 or sum(pm.launches.values()) != 1:
+                    raise AssertionError(f"{case.name} {kind} {engine}: launches "
+                                         f"{pm.launches}")
+                rel = [bwd_close(a, w, BWD_TOL["float32"],
+                                 f"{case.name} {kind} {engine} d{n}")
+                       for a, w, n in zip(got, want, ("x", "codebook", "bias"))]
+                errs["bwd_f32"] = max(errs["bwd_f32"], *rel)
+                log(f"  {case.name:<16} pool {case.pool} {kind:<8} {engine:<15} "
+                    f"|Δ|/max: dx {rel[0]:.2e}, dcodebook {rel[1]:.2e}, dbias "
+                    f"{rel[2]:.2e} (g kept on {kept:.4f} of the outputs)")
+
+
+def lm_bwd_cases(lm: dict, gen, errs: dict) -> None:
+    """Phase 9(a), LM: ``ops.pasm_matmul`` at ``w2`` and ``lm_head`` with bf16
+    x at M = 1024 (the ``mma`` route) against the plain chain."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pasm_matmul as pm
+
+    params = lm["params"]
+    M = TRAIN_BATCH * TRAIN_SEQ
+    for name, p in (("w2", params["layers"][0]["mlp"]["w2"]),
+                    ("lm_head", params["lm_head"])):
+        t = p.gemm_tensor()
+        K, N = t.shape
+        x0 = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn((M, N), generator=gen, device="cuda")
+        grads = {}
+        for side in ("kernel", "plain"):
+            x = x0.clone().requires_grad_()
+            cb = t.codebook.clone().requires_grad_()
+            pm.reset_launches()
+            if side == "kernel":
+                y = ops.pasm_matmul(x, dataclasses.replace(t, codebook=cb))
+            else:
+                y = pm.pasm_matmul_plain(x, t.idx, cb, packed=t.packed)
+            grads[side] = torch.autograd.grad(y, (x, cb), g)
+            torch.cuda.synchronize()
+            if side == "kernel" and (pm.k1_routes["mma"] != 1 or
+                                     sum(pm.launches.values()) != 1):
+                raise AssertionError(f"LM {name}: launches {pm.launches} "
+                                     f"{pm.k1_routes}")
+            del y
+        rel = [bwd_close(a, w, BWD_TOL["bfloat16"], f"LM {name} d{n}")
+               for a, w, n in zip(grads["kernel"], grads["plain"], ("x", "codebook"))]
+        errs["bwd_bf16"] = max(errs["bwd_bf16"], *rel)
+        log(f"  LM {name:<8} K{K} N{N} bf16 x M{M} (mma): |Δ|/max dx {rel[0]:.2e}, "
+            f"dcodebook {rel[1]:.2e}")
+        del grads, x0, g
+        torch.cuda.empty_cache()
+
+
+def leaf_grads(grads) -> dict:
+    """The grads of the codebooks, norms and ``embed`` by path."""
+    from repro_torch.tree import flatten_with_path
+
+    return {"/".join(path): g for path, g in flatten_with_path(grads)
+            if path[-1] == "codebook" or "norm" in path[-1] or path == ("embed",)}
+
+
+def step_parts(params, gen, card: str) -> dict:
+    """CUDA-event times of one train step's large parts at M = 1024, per
+    layer (its seven weight-shared linears) and for ``lm_head``: K1's
+    forward, the backward's ``dx = g·Wᵀ`` (W dequantized to bf16), its f32
+    ``xᵀg`` and the codebook gradient's masked sums over it."""
+    import torch
+
+    from repro_torch.core import pasm as _pasm
+    from repro_torch.core.qat import bin_sums
+    from repro_torch.kernels import ops
+
+    M = TRAIN_BATCH * TRAIN_SEQ
+    lp = params["layers"][0]
+    groups = {"layer": [lp["attn"][k] for k in ("wq", "wk", "wv", "wo")]
+              + [lp["mlp"][k] for k in ("w1", "w3", "w2")],
+              "lm_head": [params["lm_head"]]}
+    out = {}
+    for name, mats in groups.items():
+        tot = dict.fromkeys(("k1", "dx", "xg", "bins"), 0.0)
+        for p in mats:
+            t = p.gemm_tensor()
+            K, N = t.shape
+            G, B = t.codebook.shape
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            g = torch.randn((M, N), generator=gen, device="cuda")
+            tot["k1"] += time_ms(lambda: ops.pasm_matmul(x, t))
+            tot["dx"] += time_ms(lambda: ops._pasm_bwd(x, t.idx, t.codebook, t.packed,
+                                                       g, True, False))
+            tot["xg"] += time_ms(lambda: torch.matmul(x.T.float(), g))
+            xg = torch.matmul(x.T.float(), g).reshape(G, K // G, N)
+            li = _pasm.unpack_int4(t.idx).reshape(G, K // G, N)
+            tot["bins"] += time_ms(lambda: bin_sums(xg, li, B))
+            del x, g, xg, li
+            torch.cuda.empty_cache()
+        out[name] = tot
+    h = out["lm_head"]
+    K, N = params["lm_head"].shape
+    log(f"  lm_head backward parts (K{K} N{N}, M{M}): dx {h['dx']:.3f} ms, "
+        f"x^T g {h['xg']:.3f} ms, the codebook gradient's masked sums "
+        f"{h['bins']:.3f} ms; its forward on K1 {h['k1']:.3f} ms; a layer's seven "
+        f"linears: K1 {out['layer']['k1']:.3f}, dx {out['layer']['dx']:.3f}, x^T g "
+        f"{out['layer']['xg']:.3f}, masked sums {out['layer']['bins']:.3f} ms [{card}]")
+    return out
+
+
+def lm_train(lm: dict, gen, card: str, errs: dict) -> dict:
+    """Phase 9(b): qwen3-32b at full width (4 of 64 layers) trained."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.train.loop import run_loop
+    from repro_torch.tree import tree_leaves
+
+    cfg, params = lm["cfg"], lm["params"]
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name}: remat is off")
+    cfg_d = cfg.with_quant(impl="dequant")
+    dcfg = DataConfig(seed=SEED, vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batch = synthetic_batch(dcfg, 0, device="cuda")
+    log(f"phase 9(b): {cfg.name} full width, {cfg.n_layers} of 64 layers, trained "
+        f"at batch {TRAIN_BATCH} x seq {TRAIN_SEQ} (M = {TRAIN_BATCH * TRAIN_SEQ} "
+        f"rows), remat on [{card}]")
+    res = {}
+    for impl, c in (("kernel", cfg), ("dequant", cfg_d)):
+        torch.cuda.synchronize()
+        pm.reset_launches()
+        loss, _, grads = st.loss_and_grads(params, batch, c)
+        torch.cuda.synchronize()
+        res[impl] = (float(loss), leaf_grads(grads), dict(pm.launches),
+                     dict(pm.k1_routes))
+        del grads
+    want_k = {k: TRAIN_K1 if k == "pasm_matmul" else 0 for k in ALL_KERNELS}
+    routes_k = {"simt": 0, "stream": 0, "mma": TRAIN_K1}
+    if res["kernel"][2] != want_k or res["kernel"][3] != routes_k:
+        raise AssertionError(f"train step on kernel: launches {res['kernel'][2]} "
+                             f"routes {res['kernel'][3]}, want {want_k} {routes_k}")
+    if any(res["dequant"][2].values()):
+        raise AssertionError(f"train step on dequant launched {res['dequant'][2]}")
+    lk, ld = res["kernel"][0], res["dequant"][0]
+    if not (np.isfinite(lk) and abs(lk - ld) <= LM_LOSS_TOL * abs(ld)):
+        raise AssertionError(f"train loss kernel {lk} vs dequant {ld}")
+    worst = {}
+    for name, gd in res["dequant"][1].items():
+        gk = res["kernel"][1][name]
+        kind = name.split("/")[-1] if "norm" in name else (
+            "embed" if name == "embed" else "codebook")
+        worst[kind] = max(worst.get(kind, 0.0),
+                          bwd_close(gk, gd, LM_GRAD_TOL, f"train grad {name}"))
+    errs["lm_grad"] = max(worst.values())
+    log(f"  one step, kernel vs dequant: loss {lk:.6f} vs {ld:.6f}; grads |Δ|/max "
+        f"by leaf kind {', '.join(f'{k} {v:.2e}' for k, v in sorted(worst.items()))} "
+        f"(tolerance {LM_GRAD_TOL}); K1 launches {res['kernel'][2]['pasm_matmul']} "
+        f"(routes {res['kernel'][3]}), on dequant {sum(res['dequant'][2].values())}")
+    del res
+    torch.cuda.empty_cache()
+
+    parts = step_parts(params, gen, card)
+    ocfg = opt.AdamWConfig()
+    opt_state = opt.init_opt_state(params)
+    timing = {}
+    for impl, c in (("kernel", cfg), ("dequant", cfg_d)):
+        step = st.make_train_step(c, ocfg)
+        out = step(params, opt_state, batch)  # warm
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        a.record()
+        out = step(params, opt_state, batch)
+        b.record()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+        ms, peak = a.elapsed_time(b), torch.cuda.max_memory_allocated()
+        m = out[2]
+        if int(m["skipped"]) or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"train step on {impl}: {m}")
+        timing[impl] = dict(ms=ms, host_s=host, peak_gb=peak / 1e9)
+        log(f"  train step on {impl:<7}: {ms:.1f} ms between CUDA events "
+            f"({host:.3f} s host clock), peak memory {peak / 1e9:.2f} GB "
+            f"(max_memory_allocated), loss {float(m['loss']):.6f} [{card}]")
+        del out, step
+        torch.cuda.empty_cache()
+
+    # the step's update (AdamW, the non-finite probe, the select) alone
+    _, _, grads = st.loss_and_grads(params, batch, cfg)
+    loss = torch.zeros((), device="cuda")
+    upd_ms = time_ms(lambda: st._guarded_update(params, opt_state, loss, grads, ocfg,
+                                                guard=True))
+    del grads
+    torch.cuda.empty_cache()
+    L = cfg.n_layers
+    k1 = (2 * L * parts["layer"]["k1"] + parts["lm_head"]["k1"])
+    dx, xg, bins = (L * parts["layer"][k] + parts["lm_head"][k] for k in ("dx", "xg", "bins"))
+    rest = timing["kernel"]["ms"] - (k1 + dx + xg + bins + upd_ms)
+    log(f"  where the kernel step's {timing['kernel']['ms']:.1f} ms go (each part "
+        f"timed alone at the step's shapes, summed over its calls): K1 "
+        f"{2 * L * 7 + 1} launches (forward + recompute) {k1:.1f} ms; dx = g·W^T "
+        f"(W dequantized to bf16, bf16 cuBLAS) {dx:.1f}; x^T g (f32 cuBLAS, TF32 "
+        f"off) {xg:.1f}; codebook masked sums {bins:.1f}; AdamW + probe + select "
+        f"{upd_ms:.1f}; the rest (attention, norms, loss, embedding, autograd) "
+        f"{rest:.1f} [{card}]")
+    parts.update(k1_ms=k1, dx_ms=dx, xg_ms=xg, bins_ms=bins, update_ms=upd_ms,
+                 rest_ms=rest)
+
+    step = st.make_train_step(cfg, ocfg)
+    res = run_loop(step, (params, opt_state),
+                   lambda s: synthetic_batch(dcfg, s, device="cuda"), steps=3)
+    losses = [res.losses[s] for s in range(3)]
+    if res.n_skipped or not all(np.isfinite(losses)):
+        raise AssertionError(f"run_loop: losses {losses}, skipped {res.n_skipped}")
+    log(f"  run_loop, 3 steps on kernel: losses {[f'{v:.6f}' for v in losses]}")
+    del res
+    torch.cuda.empty_cache()
+
+    poisoned = dict(batch, loss_scale=torch.tensor(float("nan"), device="cuda"))
+    new_p, new_s, m = step(params, opt_state, poisoned)
+    same = all(torch.equal(a.view(torch.uint8) if a.ndim else a,
+                           b.view(torch.uint8) if b.ndim else b)
+               for a, b in zip(tree_leaves((new_p, new_s)), tree_leaves((params, opt_state))))
+    if int(m["skipped"]) != 1 or not same:
+        raise AssertionError(f"poisoned step: skipped {int(m['skipped'])}, state "
+                             f"bitwise unchanged {same}")
+    log(f"  poisoned step (loss_scale NaN): skipped {int(m['skipped'])}, params and "
+        f"optimizer state bitwise unchanged ({len(tree_leaves(params))} + "
+        f"{len(tree_leaves(opt_state))} leaves)")
+    del new_p, new_s, opt_state
+    torch.cuda.empty_cache()
+    return dict(timing, parts=parts)
+
+
+def resume_check(card: str) -> dict:
+    """Phase 9(c): the smoke config, weight-shared layers on K1, 6 steps with
+    checkpoints every 2; again under the supervisor with a crash after step
+    3's update: the resumed run equals the uninterrupted one bitwise."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import ft
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import quantize_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.train.faults import TrainFaultPlan, TrainFaultSpec
+    from repro_torch.train.loop import run_loop
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("qwen3-32b", smoke=True).with_quant(
+        enabled=True, impl="kernel", min_weight_elems=1 << 10)
+    steps = 6
+    dcfg = DataConfig(seed=SEED, vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    step = st.make_train_step(cfg, opt.AdamWConfig(total_steps=steps, warmup_steps=5))
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = quantize_params(TT.init_params(cfg, gen), cfg)
+        return params, opt.init_opt_state(params)
+
+    def batches(s):
+        return synthetic_batch(dcfg, s, device="cuda")
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        pm.reset_launches()
+        ref = run_loop(step, fresh(), batches, steps=steps,
+                       mgr=ckpt.CheckpointManager(f"{d}/ref"), ckpt_every=2)
+        torch.cuda.synchronize()
+        k1 = pm.launches["pasm_matmul"]
+        mgr = ckpt.CheckpointManager(f"{d}/run")
+        plan = TrainFaultPlan([TrainFaultSpec("crash", step=3)])
+        sup = ft.Supervisor(ft.RestartPolicy(max_restarts=2, backoff_s=0.0),
+                            sleep=lambda _s: None)
+        losses, box = {}, {}
+
+        def loop(resume_step):
+            state, start = fresh(), 0
+            if ckpt.latest_step(mgr.dir) is not None:  # --resume auto
+                if resume_step is not None:
+                    state, man = ckpt.restore(mgr.dir, state, step=resume_step)
+                else:
+                    state, man = mgr.restore_latest(state)
+                start = man["step"]
+                box["resumed_at"] = start
+            res = run_loop(step, state, batches, steps=steps, start_step=start,
+                           mgr=mgr, ckpt_every=2, faults=plan, losses=losses)
+            box["state"] = res.state
+            return res.last_step
+
+        last = sup.run(loop)
+        saved = ckpt.complete_steps(mgr.dir)
+    same = all(torch.equal(a.view(torch.uint8) if a.ndim else a,
+                           b.view(torch.uint8) if b.ndim else b)
+               for a, b in zip(tree_leaves(box["state"]), tree_leaves(ref.state)))
+    same_losses = [losses[s] for s in range(steps)] == [ref.losses[s] for s in range(steps)]
+    if last != steps or sup.restarts != 1 or not same or not same_losses or not k1:
+        raise AssertionError(f"resume: last {last}, restarts {sup.restarts}, state "
+                             f"bitwise equal {same}, losses equal {same_losses}, "
+                             f"K1 launches {k1}")
+    log(f"phase 9(c): {cfg.name} (layers and head weight-shared, {k1} K1 launches "
+        f"in {steps} steps) crashed after step 3's update, restored from step "
+        f"{box['resumed_at']} by the supervisor ({sup.restarts} restart; "
+        f"checkpoints {saved}): losses and final params + optimizer state "
+        f"bitwise equal to the uninterrupted run [{card}]")
+    return {"k1": k1}
+
+
+def qat_check(cfg, params, gen, card: str) -> dict:
+    """Phase 9(d): the full-width AlexNet QAT-trained 2 steps at batch 8,
+    frozen, and served on K1 and K2 within TOL of ``qat_forward``."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, synthetic_image_batch
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.models import cnn
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+
+    dcfg = DataConfig(seed=SEED, global_batch=QAT_BATCH)
+
+    def batch(s):
+        return synthetic_image_batch(dcfg, s, chw=cfg.in_chw, classes=cfg.classes,
+                                     device="cuda")
+
+    tree = {"params": params, "codebooks": cnn.qat_codebooks(params, cfg)}
+    state = opt.init_opt_state(tree)
+    step = st.make_cnn_train_step(cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1))
+    losses = []
+    t0 = time.perf_counter()
+    for s in range(2):
+        tree, state, m = step(tree, state, batch(s))
+        losses.append(float(m["loss"]))
+        if int(m["skipped"]) or not np.isfinite(losses[-1]):
+            raise AssertionError(f"QAT step {s}: {m}")
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    frozen = cnn.qat_requantize(tree["params"], tree["codebooks"], cfg)
+    imgs = batch(2)["images"]
+    with torch.no_grad():
+        want = cnn.qat_forward(tree["params"], tree["codebooks"], imgs, cfg)
+    counts, worst = {}, 0.0
+    for impl in ("kernel", "kernel_implicit"):
+        torch.cuda.synchronize()
+        pm.reset_launches()
+        with torch.no_grad():
+            got = cnn.forward(frozen, imgs, dataclasses.replace(cfg, impl=impl))
+        torch.cuda.synchronize()
+        counts[impl] = dict(pm.launches)
+        key = SERVED_KERNEL[impl]
+        if counts[impl] != {k: len(cfg.layers) if k == key else 0 for k in ALL_KERNELS}:
+            raise AssertionError(f"QAT frozen {impl}: launches {counts[impl]}")
+        worst = max(worst, max_err(got, want))
+    log(f"phase 9(d): {cfg.name} QAT, 2 steps at batch {QAT_BATCH} (losses "
+        f"{[f'{v:.6f}' for v in losses]}, {t_steps:.2f} s host clock incl. first "
+        f"calls), frozen by qat_requantize: logits on K1 and K2 vs qat_forward max "
+        f"|Δ| {worst:.3e} (|logit| max {float(want.abs().max()):.3f}, tolerance "
+        f"{TOL} + {TOL}·|want|), launches {counts} [{card}]")
+    return {"k1": counts["kernel"]["pasm_matmul"],
+            "k2": counts["kernel_implicit"]["pasm_conv"]}
+
+
+def train_phase(cfg, params, qparams, lm: dict, gen, card: str) -> dict:
+    """Phase 9; returns the K1/K2 launches of its main paths and its times."""
+    import torch
+
+    from repro_torch.train.step import deterministic
+
+    errs = {"bwd_f32": 0.0, "bwd_bf16": 0.0, "lm_grad": 0.0}
+    torch.cuda.empty_cache()
+    with deterministic(), torch.enable_grad():
+        log(f"phase 9(a): K1/K2 backwards vs autograd through the plain chain "
+            f"(|Δ| <= {BWD_TOL['float32']}·max|plain| f32, "
+            f"{BWD_TOL['bfloat16']:.4g}·max|plain| bf16)")
+        conv_bwd_cases(cfg, params, qparams, gen, errs)
+        lm_bwd_cases(lm, gen, errs)
+        out = lm_train(lm, gen, card, errs)
+        out["resume"] = resume_check(card)
+        out["qat"] = qat_check(cfg, params, gen, card)
+    log(f"phase 9: largest |Δ|/max: backwards f32 {errs['bwd_f32']:.3e}, bf16 "
+        f"{errs['bwd_bf16']:.3e}; train grads kernel vs dequant {errs['lm_grad']:.3e}")
+    return dict(out, errs=errs)
+
+
 def main() -> int:
     import torch
 
@@ -878,6 +1394,9 @@ def main() -> int:
               "runs on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # phase 9 trains under torch.use_deterministic_algorithms, which needs
+    # cuBLAS's workspace fixed before the run's first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch.nn.functional as F
 
     from repro_torch.configs import alexnet_conv
@@ -1096,7 +1615,10 @@ def main() -> int:
     lm = lm_phase(gen, errs, card)
     k5_rows = lm_timings(lm, gen, card, errs)
 
-    # 9. the kernels line ------------------------------------------------------
+    # 9. training --------------------------------------------------------------
+    train = train_phase(cfg, params, qparams, lm, gen, card)
+
+    # 10. the kernels line -----------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -1104,8 +1626,9 @@ def main() -> int:
         "pas_conv": "src/repro/kernels/pas_histogram.py:184",
         "flash_attention": "src/repro/kernels/flash_attention.py:79",
     }
-    launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"],
-                "pasm_conv": counts["kernel_implicit"]["pasm_conv"],
+    launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"]
+                + TRAIN_K1 + train["qat"]["k1"],
+                "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"],
                 "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"],
                 "flash_attention": lm["k5"]["flash_attention"]}
@@ -1118,13 +1641,15 @@ def main() -> int:
     # (warm, plus cold), K5 bf16 and f32 at the qwen3 prefill shape
     routes = {k: {"simt": {"source": csrc + k + ".cu", "launches": launches[k]}}
               for k in KERNELS}
-    routes["pasm_matmul"]["simt"]["launches"] = counts["kernel"]["pasm_matmul"]
+    routes["pasm_matmul"]["simt"]["launches"] = (counts["kernel"]["pasm_matmul"]
+                                                 + train["qat"]["k1"])
     routes["pasm_matmul"]["simt"].update(
         {k: tot["pasm_matmul"][k] for k in timed if k != "bound_by"},
         bound_by="operations")
     for r in ("stream", "mma"):
-        routes["pasm_matmul"][r] = dict(k5_rows["k1"][r], launches=lm["routes"][r],
-                                        source=csrc + "pasm_matmul_bf16.cu")
+        routes["pasm_matmul"][r] = dict(
+            k5_rows["k1"][r], launches=lm["routes"][r] + (TRAIN_K1 if r == "mma" else 0),
+            source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
         dt: dict(k5_rows[dt], launches=lm["k5"]["flash_attention"] if dt == "bfloat16" else 0,
                  source=csrc + "flash_attention.cu")
@@ -1156,9 +1681,15 @@ def main() -> int:
         f"causal, bf16); K1's stream / mma routes are the LM's four matrices "
         f"at M = 4 / 384 summed; "
         f"launches are from the serving runs (K1: AlexNet {counts['kernel']['pasm_matmul']} "
-        f"+ LM {lm['lm']['pasm_matmul']}; K2, K3), the stage run (K4) and the "
-        f"served attention (K5); max_abs_err is the largest over every check "
-        f"[{card}]")
+        f"+ LM {lm['lm']['pasm_matmul']}; K2, K3), the stage run (K4), the "
+        f"served attention (K5) and training (K1: one qwen3 step {TRAIN_K1} + the "
+        f"frozen QAT AlexNet {train['qat']['k1']}; K2: {train['qat']['k2']}); "
+        f"max_abs_err is the largest over every forward check [{card}]")
+    log(f"train step at full width: kernel {train['kernel']['ms']:.1f} ms, dequant "
+        f"{train['dequant']['ms']:.1f} ms; peak memory {train['kernel']['peak_gb']:.2f} / "
+        f"{train['dequant']['peak_gb']:.2f} GB; codebook-gradient sums "
+        f"{train['parts']['bins_ms']:.1f} ms a step, lm_head's "
+        f"{train['parts']['lm_head']['bins']:.3f} ms [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ easy to find, but imports nothing of it (nor ``jax``): the two packages only
 meet in the tests, which feed both the same numpy inputs.
 
 Ported so far: the quantized AlexNet serving path, the paper-faithful
-two-phase PAS path, and dense-transformer LM serving:
+two-phase PAS path, dense-transformer LM serving, and training:
 
 * :mod:`repro_torch.core.pasm` — k-means weight sharing and int4 packing;
 * :mod:`repro_torch.core.pas` — the PASM identity (PAS phase, post-pass);
@@ -22,6 +22,12 @@ two-phase PAS path, and dense-transformer LM serving:
 * :mod:`repro_torch.serve` — the continuous-batching ``Engine``, its
   scheduler and fault plan, ``CnnBatcher`` and ``MixedBatcher``;
   :mod:`repro_torch.launch.serve` is the launcher;
+* :mod:`repro_torch.core.qat` (the STE) and the CNN's QAT functions;
+  :mod:`repro_torch.train` (AdamW, the guarded train steps, the crash-safe
+  loop, its fault plan), :mod:`repro_torch.ckpt.checkpoint`,
+  :mod:`repro_torch.ft`, :mod:`repro_torch.data.pipeline` and
+  :mod:`repro_torch.launch.train`; :mod:`repro_torch.tree` walks the
+  parameter trees;
 * :mod:`repro_torch.interop` — carries the JAX package's weights across as
   numpy arrays.
 

@@ -16,7 +16,15 @@ them here:
   array and every ``PasmParams`` leaf a ``{"kind", "shape", "bins",
   "pad_k", "w", "idx", "codebook", "bias"}`` dict, per-layer leaves keeping
   their leading layer axis → the port's tree, whose ``"layers"`` is a list
-  of per-layer dicts.
+  of per-layer dicts;
+* :func:`cnn_qat_tree_from_numpy` — the CNN QAT tree ``{"params": cnn
+  tree, "codebooks": [(bins,) arrays]}`` → the tree
+  :func:`repro_torch.train.step.make_cnn_train_step` trains;
+* :func:`opt_state_from_numpy` — ``{"step", "mu", "nu"}`` (the JAX
+  ``OptState``, its moment trees in the format of the params tree they
+  mirror, 0-d placeholders at integer leaves) →
+  :class:`~repro_torch.train.optimizer.OptState`, each moment tree through
+  the converter of its params tree.
 
 Arrays keep their dtype (uint8 indices, float32 values) and are placed on
 ``device`` (default the card).
@@ -32,9 +40,11 @@ from repro_torch._device import resolve_device
 from repro_torch.core.conv import ConvParams
 from repro_torch.core.params import PasmParams
 from repro_torch.core.pasm import PASMTensor
+from repro_torch.train.optimizer import OptState
 
 __all__ = ["pasm_tensor_from_numpy", "conv_params_from_numpy",
-           "cnn_params_from_numpy", "lm_params_from_numpy"]
+           "cnn_params_from_numpy", "lm_params_from_numpy",
+           "cnn_qat_tree_from_numpy", "opt_state_from_numpy"]
 
 
 def _t(a: Optional[np.ndarray], dev: torch.device) -> Optional[torch.Tensor]:
@@ -78,7 +88,9 @@ _PASM_FIELDS = ("w", "idx", "codebook", "bias")
 def _lm_leaf(x, dev: torch.device, layer: Optional[int]):
     """One leaf: an array, or a ``PasmParams`` field dict; ``layer`` picks one
     slice of the leading layer axis."""
-    pick = (lambda a: a) if layer is None else (lambda a: None if a is None else a[layer])
+    def pick(a):  # a 0-d array is an optimizer moment's placeholder: shared
+        return a if layer is None or a is None or np.ndim(a) == 0 else a[layer]
+
     if isinstance(x, dict) and "kind" in x:
         arrays = {f: _t(pick(x.get(f)), dev) for f in _PASM_FIELDS}
         return PasmParams(**arrays, kind=x["kind"],
@@ -92,8 +104,8 @@ def _lm_leaf(x, dev: torch.device, layer: Optional[int]):
 
 def _n_layers(tree) -> int:
     if isinstance(tree, dict) and "kind" in tree:
-        a = tree["w"] if tree["kind"] == "dense" else tree["idx"]
-        return int(np.shape(a)[0])
+        return next(int(np.shape(tree[f])[0]) for f in _PASM_FIELDS
+                    if tree.get(f) is not None and np.ndim(tree[f]))
     if isinstance(tree, dict):
         return _n_layers(next(iter(tree.values())))
     return int(np.shape(tree)[0])
@@ -108,3 +120,18 @@ def lm_params_from_numpy(tree: dict, *, device=None) -> dict:
         else:
             out[k] = _lm_leaf(v, dev, None)
     return out
+
+
+def cnn_qat_tree_from_numpy(tree: dict, *, device=None) -> dict:
+    dev = resolve_device(device)
+    return {"params": cnn_params_from_numpy(tree["params"], device=dev),
+            "codebooks": [_t(c, dev) for c in tree["codebooks"]]}
+
+
+def opt_state_from_numpy(d: dict, tree_from_numpy, *, device=None):
+    """``tree_from_numpy`` is the params tree's converter, e.g.
+    :func:`lm_params_from_numpy` or :func:`cnn_qat_tree_from_numpy`."""
+    dev = resolve_device(device)
+    return OptState(step=_t(np.asarray(d["step"], np.int32), dev),
+                    mu=tree_from_numpy(d["mu"], device=dev),
+                    nu=tree_from_numpy(d["nu"], device=dev))

@@ -9,7 +9,8 @@
   ``pas_conv_kernel_call``) and their plain versions;
 * :mod:`~repro_torch.kernels.flash_attention` — the GQA flash-attention
   launch wrapper (K5 ``flash_attention_kernel_call``) and its plain version;
-* :mod:`~repro_torch.kernels.ops` — shape plumbing and the Hopper tile plan;
+* :mod:`~repro_torch.kernels.ops` — shape plumbing, the Hopper tile plan and
+  the K1/K2 autograd Functions (the PASM backwards);
 * :mod:`~repro_torch.kernels.ref` — the plain versions;
 * :mod:`~repro_torch.kernels._build` — ``nvcc`` + ``ctypes`` loading of
   ``csrc/*.cu`` at first use.

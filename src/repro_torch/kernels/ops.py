@@ -1,13 +1,23 @@
 """Op wrappers around the Hopper kernels: shapes, layouts and the tile plan.
 
-Port of the forward halves of ``repro.kernels.ops``: :func:`pasm_matmul`
-(K1) and :func:`pasm_conv2d` (K2), and the paper-faithful two-phase
+Port of ``repro.kernels.ops``: :func:`pasm_matmul` (K1) and
+:func:`pasm_conv2d` (K2), and the paper-faithful two-phase
 :func:`pas_matmul` (K3) and :func:`pas_conv2d` (K4), each with the fused
 ``bias`` / ``relu`` epilogue and the window-major ``pool``; and
-:func:`flash_attention` (K5).  Forward only:
-the PASM pair's custom VJPs come with the QAT/training slice (ROADMAP Queue
-1 item 7), the PAS pair is forward-only in the JAX package too, and the
-wrappers raise on tensors that require grad.
+:func:`flash_attention` (K5).
+
+The PASM pair is differentiable in ``x``, the codebook and ``bias``, as the
+JAX package's custom VJPs make it: when any of them requires grad the call
+runs through :class:`_PasmMatmul` or :class:`_PasmConv`, a
+``torch.autograd.Function`` whose forward is the kernel and whose backward
+is the JAX package's, in plain torch (dx through the dequantized weight,
+the codebook gradient the per-group bin sums of ``xᵀg``, the pooled
+backward routed through a recomputed pre-pool map, the conv's dx through
+im2colᵀ).  Each Function covers the JAX pair ``_pasm_matmul`` /
+``_pasm_matmul_ep`` (and ``_pasm_conv`` / ``_pasm_conv_ep``): ``bias`` may
+be None.  The kernel wrappers themselves stay forward-only and raise on
+tensors that require grad.  The PAS pair is forward-only, as in the JAX
+package; so is K5, which no model calls in training.
 
 The TPU tile plan (``_pick_blocks``: 128/512 tiles, K padded to 128
 multiples through a reserved zero-codebook bin) is replaced by the Hopper
@@ -32,9 +42,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import pasm as _pasm
+from repro_torch.core._f32 import matmul_f32
 from repro_torch.core.params import NOT_PORTED_MESH
+from repro_torch.core.qat import bin_sums
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.pas_histogram import (
     pas_conv_kernel_call,
@@ -64,6 +78,80 @@ def _pool_rows(x: torch.Tensor, pool: int) -> None:
         )
 
 
+def _needs_grad(*ts) -> bool:
+    """Whether a call must record a backward.  Serving calls the kernel
+    directly: ``Function.apply`` alone costs about as much host time as a
+    K1 launch's enqueue, which bounds a decode step."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in ts)
+
+
+def _pasm_bwd(x, idx, codebook, packed: bool, g, need_dx: bool, need_dcb: bool):
+    """The GEMM's backward: ``dx = g·Wᵀ`` in x's dtype, W dequantized to
+    x's dtype; the codebook gradient the per-group bin sums of ``xᵀg`` in
+    f32 (packed int4: lo nibble = even K row).  Either may be skipped."""
+    dx = dcb = None
+    if need_dx:
+        w = _ref.dequant_ref(idx, codebook, packed=packed).to(x.dtype)
+        dx = matmul_f32(g.to(x.dtype), w.T)
+        del w
+    if need_dcb:
+        xg = matmul_f32(x.T.float(), g.float())  # (K, N)
+        li = _pasm.unpack_int4(idx) if packed else idx
+        K, N = li.shape
+        G, B = codebook.shape
+        dcb = bin_sums(xg.reshape(G, K // G, N), li.reshape(G, K // G, N), B)
+        dcb = dcb.to(codebook.dtype)
+    return dx, dcb
+
+
+def _pre_pool_bwd(y_lin, bias, relu: bool, pool_fn, g):
+    """Route ``g`` through the pool argmax and the ReLU mask of the
+    recomputed pre-pool map ``y_lin``: the fused forward never stores it.
+    ``pool_fn``'s own backward (``amax``: ties share evenly, as
+    ``jnp.max``'s VJP does) defines the routing.  Returns the cotangent at
+    the linear output."""
+    with torch.enable_grad():
+        yl = y_lin.detach().requires_grad_()
+        b = None if bias is None else bias.detach()
+        out = pool_fn(_ref.apply_epilogue(yl, b, relu))
+        g, = torch.autograd.grad(out, yl, g)
+    return g
+
+
+class _PasmMatmul(torch.autograd.Function):
+    """``x @ dequant(idx, codebook)`` (+ ``bias``, ReLU, window-major pool)
+    on K1, with the JAX package's ``_pasm_matmul`` / ``_pasm_matmul_ep``
+    backward.  ``idx`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, idx, codebook, bias, packed, gather, relu, pool):
+        y = pasm_matmul_kernel_call(x, idx, codebook, bias, packed=packed,
+                                    relu=relu, pool=pool, gather=gather)
+        ctx.packed, ctx.relu, ctx.pool = packed, relu, pool
+        # y only for the unpooled ReLU mask: a pooled output cannot give the
+        # pre-pool mask, which the backward recomputes instead
+        ctx.save_for_backward(x, idx, codebook, bias,
+                              y if relu and pool == 1 else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, codebook, bias, y = ctx.saved_tensors
+        if ctx.pool > 1:
+            w = _ref.dequant_ref(idx, codebook, packed=ctx.packed).to(x.dtype)
+            y_lin = matmul_f32(x.float(), w.float())
+            del w
+            g = _pre_pool_bwd(y_lin, bias, ctx.relu,
+                              lambda v: _ref.max_pool_rows(v, ctx.pool), g)
+        elif ctx.relu:
+            g = g * (y > 0)
+        dx, dcb = _pasm_bwd(x, idx, codebook, ctx.packed, g,
+                            ctx.needs_input_grad[0], ctx.needs_input_grad[2])
+        dbias = g.sum(dim=0).to(bias.dtype) if ctx.needs_input_grad[3] else None
+        return dx, None, dcb, dbias, None, None, None, None
+
+
 def pasm_matmul(
     x: torch.Tensor,
     t: _pasm.PASMTensor,
@@ -79,7 +167,8 @@ def pasm_matmul(
     ``bias (N,)`` / ``relu`` fuse into the kernel epilogue.  ``pool > 1``
     needs a 2-D ``x`` with **window-major** rows (each consecutive ``pool²``
     rows one window — the explicit conv path's ``_pool_order_patches``
-    ordering) and returns the pooled ``(M/pool², N)``.
+    ordering) and returns the pooled ``(M/pool², N)``.  Differentiable in
+    ``x``, ``t.codebook`` and ``bias`` (:class:`_PasmMatmul`).
     """
     _no_mesh(mesh)
     K, N = t.shape
@@ -87,15 +176,17 @@ def pasm_matmul(
         bias = bias.to(torch.float32).contiguous()
     if pool > 1:
         _pool_rows(x, pool)
-        return pasm_matmul_kernel_call(
-            x.contiguous(), t.idx.contiguous(), t.codebook.contiguous(), bias,
-            packed=t.packed, relu=relu, pool=pool, gather=gather)
-    lead = x.shape[:-1]
-    y = pasm_matmul_kernel_call(
-        x.reshape(-1, K).contiguous(), t.idx.contiguous(),
-        t.codebook.contiguous(), bias,
-        packed=t.packed, relu=relu, gather=gather)
-    return y.reshape(*lead, N)
+        x2 = x.contiguous()
+    else:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, K).contiguous()
+    idx, codebook = t.idx.contiguous(), t.codebook.contiguous()
+    if _needs_grad(x2, codebook, bias):
+        y = _PasmMatmul.apply(x2, idx, codebook, bias, t.packed, gather, relu, pool)
+    else:
+        y = pasm_matmul_kernel_call(x2, idx, codebook, bias, packed=t.packed,
+                                    relu=relu, pool=pool, gather=gather)
+    return y if pool > 1 else y.reshape(*lead, N)
 
 
 def pas_matmul(
@@ -131,6 +222,62 @@ def pas_matmul(
     return y.reshape(*lead, N)
 
 
+def _pool_rowmajor(y: torch.Tensor, geom: ConvGeom, batch: int) -> torch.Tensor:
+    """Row-major conv output ``(B·P, N) → (B·P_out, N)`` pooled: the
+    floor-cropped ``(pool, pool)`` window max the pooled backward routes
+    ``g`` through (remainder pixels the kernel never computes get zero)."""
+    p = geom.pool
+    N = y.shape[-1]
+    yb = y.reshape(batch, geom.oh, geom.ow, N)[:, : geom.ohp * p, : geom.owp * p]
+    yb = yb.reshape(batch, geom.ohp, p, geom.owp, p, N)
+    return yb.amax(dim=(2, 4)).reshape(batch * geom.P_out, N)
+
+
+class _PasmConv(torch.autograd.Function):
+    """Implicit-GEMM conv on K2 (+ ``bias``, ReLU, fused pool), with the
+    JAX package's ``_pasm_conv`` / ``_pasm_conv_ep`` backward: explicit
+    patches, the GEMM backward, dx back through im2colᵀ (col2im)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, codebook, bias, geom, packed, gather, relu):
+        y = pasm_conv_kernel_call(x, idx, codebook, bias, geom=geom,
+                                  packed=packed, relu=relu, gather=gather)
+        ctx.geom, ctx.packed, ctx.relu = geom, packed, relu
+        ctx.save_for_backward(x, idx, codebook, bias,
+                              y if relu and geom.pool == 1 else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, idx, codebook, bias, y = ctx.saved_tensors
+        geom = ctx.geom
+        need_dx = ctx.needs_input_grad[0]
+        g2 = g.reshape(-1, g.shape[-1])
+        K = idx.shape[0] * (2 if ctx.packed else 1)
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(need_dx)
+            patches = _ref.im2col_patches(
+                xr, nhwc=geom.nhwc, ky=geom.ky, kx=geom.kx, stride=geom.stride,
+                oh=geom.oh, ow=geom.ow, c_in=geom.c_in, pad=geom.pad)
+        # the §3 pack-time K-pad rows carry zero activations
+        pp = F.pad(patches.detach(), (0, K - geom.conv_k))
+        if geom.pool > 1:
+            w = _ref.dequant_ref(idx, codebook, packed=ctx.packed).to(pp.dtype)
+            y_lin = matmul_f32(pp, w)
+            del w
+            g2 = _pre_pool_bwd(y_lin, bias, ctx.relu,
+                               lambda v: _pool_rowmajor(v, geom, x.shape[0]), g2)
+        elif ctx.relu:
+            g2 = g2 * (y.reshape(g2.shape) > 0)
+        dp, dcb = _pasm_bwd(pp, idx, codebook, ctx.packed, g2, need_dx,
+                            ctx.needs_input_grad[2])
+        dx = None
+        if need_dx:
+            dx, = torch.autograd.grad(patches, xr, dp[:, : geom.conv_k])
+        dbias = g2.sum(dim=0).to(bias.dtype) if ctx.needs_input_grad[3] else None
+        return dx, None, dcb, dbias, None, None, None, None
+
+
 def pasm_conv2d(
     x: torch.Tensor,
     t: _pasm.PASMTensor,
@@ -148,6 +295,8 @@ def pasm_conv2d(
     kernel, so no ``(B·P, K)`` patch matrix exists.  ``bias (N,)`` /
     ``relu`` and ``geom.pool > 1`` fuse into the epilogue, so a whole
     conv/ReLU/pool stage is one launch storing only the pooled map.
+    Differentiable in ``x``, ``t.codebook`` and ``bias`` (:class:`_PasmConv`:
+    the backward materializes the patches and recomputes the pre-pool map).
     ``vmem_budget`` is kept for signature parity with the JAX package and is
     unused: K2 has no VMEM schedule to size.
     """
@@ -155,9 +304,11 @@ def pasm_conv2d(
     _no_mesh(mesh)
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
-    return pasm_conv_kernel_call(
-        x.contiguous(), t.idx.contiguous(), t.codebook.contiguous(), bias,
-        geom=geom, packed=t.packed, relu=relu, gather=gather)
+    x, idx, codebook = x.contiguous(), t.idx.contiguous(), t.codebook.contiguous()
+    if _needs_grad(x, codebook, bias):
+        return _PasmConv.apply(x, idx, codebook, bias, geom, t.packed, gather, relu)
+    return pasm_conv_kernel_call(x, idx, codebook, bias, geom=geom,
+                                 packed=t.packed, relu=relu, gather=gather)
 
 
 def pas_conv2d(

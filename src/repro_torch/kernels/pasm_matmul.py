@@ -158,9 +158,10 @@ launches = {"pasm_matmul": 0, "pasm_conv": 0, "pas_matmul": 0, "pas_conv": 0,
             "flash_attention": 0}
 
 _NO_GRAD = (
-    "the CUDA PASM kernels are forward-only in this slice; autograd "
-    "(torch.autograd.Function backwards) arrives with the QAT/training slice, "
-    "ROADMAP Queue 1 item 7 — call under torch.no_grad() or detach the inputs"
+    "the K1/K2 launch wrappers are forward-only: differentiate through "
+    "repro_torch.kernels.ops.pasm_matmul / pasm_conv2d (their "
+    "torch.autograd.Function backwards), or call under torch.no_grad() or "
+    "detach the inputs"
 )
 
 

@@ -1,6 +1,6 @@
 """AlexNet-style CNN on the weight-shared conv accelerator.
 
-Port of ``repro.models.cnn`` (inference: QAT comes with the training slice).
+Port of ``repro.models.cnn``, inference and QAT.
 Conv/ReLU/pool stages, each conv carrying its own dictionary (the paper's
 one-dictionary-per-layer rule), then a dense classifier head.  Every stage is
 one :class:`~repro_torch.core.conv.ConvParams` +
@@ -13,6 +13,12 @@ the JAX package::
     params = cnn.init_params(cfg, torch.Generator().manual_seed(0), device="cuda")
     qparams = cnn.quantize(params, cfg)          # per-layer k-means codebooks
     logits = cnn.forward(qparams, images, cfg)   # (B, classes) via K1 / K2
+
+QAT (:mod:`repro_torch.core.qat`'s STE through the conv dictionaries)::
+
+    cbs = cnn.qat_codebooks(params, cfg)               # per-layer dictionaries
+    logits = cnn.qat_forward(params, cbs, images, cfg)  # STE-snapped forward
+    qparams = cnn.qat_requantize(params, cbs, cfg)      # freeze for serving
 """
 from __future__ import annotations
 
@@ -24,12 +30,15 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.alexnet_conv import CNNConfig
 from repro_torch.core import conv as _conv
+from repro_torch.core import pasm as _pasm
+from repro_torch.core import qat as _qat
 from repro_torch.core._f32 import matmul_f32
 from repro_torch.core.params import NOT_PORTED_MESH
 from repro_torch.models.common import Initializer
 
 __all__ = ["stages", "feature_shape", "init_params", "quantize", "forward",
-           "forward_dense"]
+           "forward_dense", "qat_codebooks", "qat_apply", "qat_forward",
+           "qat_requantize"]
 
 # CNNConfig.impl == conv2d engine (pas_kernel_implicit is reached through
 # conv2d only, as in the JAX package)
@@ -127,3 +136,64 @@ def forward_dense(params: dict, images: torch.Tensor, cfg: CNNConfig, *,
     for p, (conv, pool) in zip(params["conv"], stages(cfg)):
         x = _conv.conv2d(x, p, conv, engine="einsum", pool=pool)
     return _head(x, params["head"])
+
+
+# ---------------------------------------------------------------------------
+# QAT: core/qat.py's STE through the conv stack's per-layer dictionaries
+# ---------------------------------------------------------------------------
+
+
+def _qat_check_groups(cfg: CNNConfig) -> None:
+    if cfg.groups > 1:
+        raise ValueError(
+            "CNN QAT is single-dictionary (the paper's per-layer rule): "
+            f"cfg.groups={cfg.groups} would train/freeze a different "
+            "quantization scheme than quantize() serves; set groups=1"
+        )
+
+
+def qat_codebooks(params: dict, cfg: CNNConfig, *, iters: int = 16) -> list:
+    """Initial per-layer dictionaries: k-means over each dense master kernel
+    (the rule :func:`quantize` bakes into ``shared`` params), kept as plain
+    ``(bins,)`` tensors so they can be trained."""
+    _qat_check_groups(cfg)
+    return [_pasm.kmeans_codebook(p.kernel.reshape(-1, 1), cfg.bins, groups=1,
+                                  iters=iters)[0][0]
+            for p in params["conv"]]
+
+
+def qat_apply(params: dict, codebooks) -> dict:
+    """STE-snap every dense master ``ConvParams`` onto its layer dictionary:
+    the forward serves codebook values, the gradient flows straight through
+    to the master and each codebook entry gathers the bin-summed gradients
+    of its weights.  Bias stays dense (§4)."""
+    convs = [_conv.ConvParams.dense(_qat.ste_quantize(p.kernel, cb), bias=p.bias)
+             for p, cb in zip(params["conv"], codebooks)]
+    return {"conv": convs, "head": params["head"]}
+
+
+def qat_forward(params: dict, codebooks, images: torch.Tensor, cfg: CNNConfig,
+                *, mesh=None) -> torch.Tensor:
+    """QAT training forward: masters STE-snapped, then the dense reference
+    engine (differentiable in masters, codebooks, bias and head)."""
+    return forward_dense(qat_apply(params, codebooks), images, cfg, mesh=mesh)
+
+
+def qat_requantize(params: dict, codebooks, cfg: CNNConfig, *, mesh=None) -> dict:
+    """Freeze trained masters onto their dictionaries for serving.
+
+    The re-assignment is :func:`repro_torch.core.qat.assign_bins`, the STE
+    forward's own rule, so the frozen ``shared`` params' :func:`forward`
+    equals :func:`qat_forward` at the same masters and codebooks.
+    """
+    _qat_check_groups(cfg)
+    if mesh is not None:
+        raise NotImplementedError(NOT_PORTED_MESH)
+    convs = []
+    for p, cb in zip(params["conv"], codebooks):
+        idx = _qat.assign_bins(p.kernel, cb).to(torch.uint8)
+        q = _conv.ConvParams.shared(idx, cb, bias=p.bias)
+        if cfg.packed:
+            q = q.pack(layout=cfg.layout)
+        convs.append(q)
+    return {"conv": convs, "head": params["head"]}

@@ -6,7 +6,9 @@ list of per-layer dicts walked by a Python loop (:func:`maybe_scan`); PASM
 quantization swaps any large dense leaf for a ``PasmParams`` and every
 matmul dispatches through :func:`repro_torch.nn.layers.linear`.  The
 activations run in bf16, as the JAX package's do; attention goes through
-:func:`repro_torch.nn.attention.gqa_attention`, as there.
+:func:`repro_torch.nn.attention.gqa_attention`, as there.  With
+``cfg.remat`` a differentiated :func:`forward` recomputes each layer in the
+backward (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
 
 Configs with ``moe`` experts or a ``vit`` frontend raise
 ``NotImplementedError``: their modules come with ROADMAP Queue 1 item 8.
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -197,9 +200,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     cos, sin = cos[None], sin[None]
     impl = _impl(cfg)
 
+    def layer(h, lp):
+        return _layer_fwd(h, lp, cfg, sctx, cos, sin, impl=impl)[0]
+
     def body(h, lp):
-        h, _ = _layer_fwd(h, lp, cfg, sctx, cos, sin, impl=impl)
-        return h, None
+        if cfg.remat and torch.is_grad_enabled():
+            # jax.checkpoint's counterpart: the layer keeps only its input
+            # and reruns (K1 included) in the backward
+            return checkpoint(layer, h, lp, use_reentrant=False), None
+        return layer(h, lp), None
 
     x, _ = maybe_scan(body, x, params["layers"], cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

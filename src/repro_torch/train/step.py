@@ -1,0 +1,209 @@
+"""train_step / eval_step factories: loss, grads, microbatching, QAT hook.
+
+Port of ``repro.train.step``.  Every train step built here carries the
+fused non-finite guard: one finiteness probe over loss + all grads
+(``optimizer.nonfinite_probe``).  A non-finite step *skips* the update —
+params and opt_state come back bit-identical (``tree_select`` copies the
+old leaves; the step counter does not advance) — and reports
+``metrics["skipped"] == 1`` so the loop (train/loop.py) can count skips
+and escalate.  ``batch["loss_scale"]`` (an optional scalar tensor)
+multiplies the loss *inside* the differentiated function: the
+loss-scaling hook, and where train/faults.py poisons a step.
+
+The steps are functional: a float leaf is differentiated through a
+``detach().requires_grad_()`` view, so the caller's tensors are never
+modified.  Integer leaves (PASM indices) get no gradient (``None`` in the
+grads tree).  For bitwise reproducibility run them under
+:func:`deterministic`.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import api
+from repro_torch.models.common import ShardCtx
+from repro_torch.train import optimizer as opt
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+__all__ = ["make_train_step", "make_eval_step", "make_cnn_train_step",
+           "cnn_qat_loss", "loss_and_grads", "deterministic"]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Run the body under ``torch.use_deterministic_algorithms(True)``.
+
+    Sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` first (unless the environment
+    sets it), which cuBLAS needs to be deterministic; it takes effect for
+    handles made after it, so enter this before the process's first cuBLAS
+    call.  The previous mode is restored on exit."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def _value_and_grad(loss_fn: Callable, params: Any) -> tuple:
+    """``(loss, aux, grads)`` of ``loss_fn(params) -> (loss, aux)``; the
+    grads tree has params' structure, ``None`` at integer leaves and zeros
+    where a float leaf did not reach the loss."""
+    diff = tree_map(lambda x: x.detach().requires_grad_() if x.is_floating_point()
+                    else x, params)
+    with torch.enable_grad():
+        loss, aux = loss_fn(diff)
+    leaves = tree_leaves(diff)
+    wrt = [x for x in leaves if x.requires_grad]
+    got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+    grads = []
+    for x in leaves:
+        if not x.requires_grad:
+            grads.append(None)
+            continue
+        g = next(got)
+        grads.append(torch.zeros_like(x) if g is None else g)
+    return loss.detach(), aux, tree_unflatten(diff, grads)
+
+
+def _lm_loss(params, batch, cfg: ArchConfig, sctx: ShardCtx, model, scale=None):
+    logits, aux = model.forward(params, batch["tokens"], cfg, sctx)
+    loss = api.lm_loss(logits, batch["labels"], batch.get("loss_mask"))
+    if scale is not None:
+        loss = loss * scale  # inside the grad: a poisoned scale poisons grads
+    return loss, {k: v.detach() for k, v in aux.items()}
+
+
+def _split_scale(batch: dict) -> tuple:
+    """Pop the optional scalar ``loss_scale`` out of the batch (it must not
+    ride the microbatch axis-0 slicing)."""
+    if "loss_scale" not in batch:
+        return batch, None
+    return {k: v for k, v in batch.items() if k != "loss_scale"}, batch["loss_scale"]
+
+
+def loss_and_grads(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx = ShardCtx(),
+                   *, microbatches: int = 1) -> tuple:
+    """``(loss, aux, grads)`` of the LM loss — what :func:`make_train_step`
+    hands the optimizer.  ``microbatches > 1`` accumulates gradients over
+    sequential slices of the batch (activation-memory relief at a fixed
+    global batch) and averages them."""
+    model = api.get_model(cfg)
+    batch, scale = _split_scale(batch)
+    if microbatches == 1:
+        return _value_and_grad(
+            lambda p: _lm_loss(p, batch, cfg, sctx, model, scale), params)
+    grads, loss = None, None
+    for i in range(microbatches):
+        mb = {k: v[i * (v.shape[0] // microbatches):(i + 1) * (v.shape[0] // microbatches)]
+              for k, v in batch.items()}
+        l, _, g = _value_and_grad(
+            lambda p: _lm_loss(p, mb, cfg, sctx, model, scale), params)
+        grads = g if grads is None else tree_map(
+            lambda a, b: None if a is None else a + b, grads, g)
+        loss = l if loss is None else loss + l
+    grads = tree_map(lambda g: None if g is None else g / microbatches, grads)
+    return loss / microbatches, {}, grads
+
+
+def _guarded_update(params, opt_state, loss, grads, ocfg, *, guard: bool):
+    """AdamW + the fused non-finite guard: ONE probe scalar decides between
+    the updated tree and the bit-identical old one."""
+    new_p, new_s, metrics = opt.adamw_update(params, grads, opt_state, ocfg)
+    if not guard:
+        return new_p, new_s, dict(metrics, skipped=torch.zeros(
+            (), dtype=torch.int32, device=loss.device))
+    ok = opt.nonfinite_probe(loss, grads)
+    params = opt.tree_select(ok, new_p, params)
+    opt_state = opt.tree_select(ok, new_s, opt_state)
+    return params, opt_state, dict(metrics, skipped=(~ok).to(torch.int32))
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    ocfg: opt.AdamWConfig,
+    sctx: ShardCtx = ShardCtx(),
+    *,
+    microbatches: int = 1,
+    compress_grads_bins: int = 0,
+    guard_nonfinite: bool = True,
+):
+    """Returns ``train_step(params, opt_state, batch) → (params, opt_state,
+    metrics)``.
+
+    ``compress_grads_bins`` applies the PASM-style dictionary compression
+    to the gradients before the optimizer.  ``guard_nonfinite`` (default
+    on) folds the fused non-finite guard into the step.
+    """
+
+    def train_step(params, opt_state, batch):
+        loss, aux, grads = loss_and_grads(params, batch, cfg, sctx,
+                                          microbatches=microbatches)
+        if compress_grads_bins:
+            grads = opt.compress_grads(grads, compress_grads_bins)
+        params, opt_state, metrics = _guarded_update(
+            params, opt_state, loss, grads, ocfg, guard=guard_nonfinite)
+        return params, opt_state, dict(metrics, loss=loss, **aux)
+
+    return train_step
+
+
+def make_eval_step(cfg: ArchConfig, sctx: ShardCtx = ShardCtx()):
+    model = api.get_model(cfg)
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            loss, aux = _lm_loss(params, batch, cfg, sctx, model)
+        return {"loss": loss, **aux}
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# CNN QAT: the AlexNet-family weight-shared training step
+# ---------------------------------------------------------------------------
+
+
+def cnn_qat_loss(tree: dict, batch: dict, cfg, *, mesh=None, scale=None):
+    """Softmax cross-entropy through the STE-snapped conv stack.
+
+    ``tree = {"params": cnn dense masters, "codebooks": [per-layer dicts]}``
+    — both differentiable (``cnn.qat_forward``: masters get straight-through
+    grads, codebook entries the bin-summed grads of their assigned weights).
+    """
+    from repro_torch.models import cnn
+
+    logits = cnn.qat_forward(tree["params"], tree["codebooks"], batch["images"],
+                             cfg, mesh=mesh)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"][:, None].long())
+    loss = torch.mean(nll)
+    if scale is not None:
+        loss = loss * scale
+    return loss
+
+
+def make_cnn_train_step(cfg, ocfg: opt.AdamWConfig, *, mesh=None,
+                        guard_nonfinite: bool = True) -> Callable:
+    """QAT train step for the conv stack: ``(tree, opt_state, batch) →
+    (tree, opt_state, metrics)`` where ``tree`` holds the dense masters AND
+    the per-layer codebooks (freeze with ``cnn.qat_requantize`` for
+    serving).  The fused non-finite guard and ``batch["loss_scale"]``
+    behave exactly as in :func:`make_train_step`.  ``mesh=`` belongs to
+    ROADMAP Queue 1 item 10 and raises in the forward."""
+
+    def train_step(tree, opt_state, batch):
+        batch, scale = _split_scale(batch)
+        loss, _, grads = _value_and_grad(
+            lambda t: (cnn_qat_loss(t, batch, cfg, mesh=mesh, scale=scale), {}), tree)
+        tree, opt_state, metrics = _guarded_update(
+            tree, opt_state, loss, grads, ocfg, guard=guard_nonfinite)
+        return tree, opt_state, dict(metrics, loss=loss)
+
+    return train_step

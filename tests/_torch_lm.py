@@ -22,3 +22,66 @@ def tree_to_numpy(t):
 
 def port_params(jax_params):
     return lm_params_from_numpy(tree_to_numpy(jax_params), device="cpu")
+
+
+def _key(p):
+    for a in ("key", "name", "idx"):
+        if hasattr(p, a):
+            return str(getattr(p, a))
+    return str(p)
+
+
+def jax_flat(tree):
+    """A JAX tree as ``{"a/b/c": numpy}`` keyed by its pytree paths."""
+    import jax
+
+    return {"/".join(_key(p) for p in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def port_flat(tree):
+    """A port tree keyed as :func:`jax_flat` keys the JAX one: the
+    per-layer ``"layers"`` lists are stacked on a leading axis."""
+    import torch
+
+    from repro_torch.tree import flatten_with_path
+
+    out, stacked = {}, set()
+    for path, leaf in flatten_with_path(tree):
+        if "layers" in path:
+            i = path.index("layers")
+            path = path[: i + 1] + path[i + 2:]
+            stacked.add("/".join(path))
+        a = leaf.detach().cpu()
+        out.setdefault("/".join(path), []).append(
+            (a.float() if a.dtype == torch.bfloat16 else a).numpy())
+    return {k: np.stack(v) if k in stacked else v[0] for k, v in out.items()}
+
+
+def assert_update_close(port_state, jax_state, tol, *, g_floor, p_tol=1e-5):
+    """One optimizer step of both packages from the same state: the moments
+    (linear in the gradient) everywhere within ``tol`` of the largest; the
+    new params within ``p_tol`` where ``|mu| >= g_floor·max|mu|`` of the
+    leaf.  The first AdamW step moves a weight by ``lr·g/(|g| + eps)``,
+    which does not depend on ``g``'s last digits unless ``g`` is within
+    their reach of zero: ``g_floor`` must exceed the moments' tolerance."""
+    pp, ps = port_state
+    jpp, js = jax_state
+    got, want = port_flat({"p": pp, "mu": ps.mu, "nu": ps.nu}), \
+        jax_flat({"p": jpp, "mu": js.mu, "nu": js.nu})
+    assert int(ps.step) == int(js.step)
+    for k, w in want.items():
+        if k.endswith("/idx"):
+            continue
+        g = got[k]
+        assert g.shape == w.shape, k
+        w = w.astype(np.float32)
+        if k.startswith("p/"):
+            mu = np.abs(want["mu/" + k[2:]])
+            mask = mu >= g_floor * mu.max()
+            np.testing.assert_allclose(g[mask], w[mask], rtol=p_tol, atol=p_tol,
+                                       err_msg=k)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=tol * float(np.abs(w).max(initial=0)),
+                                       err_msg=k)

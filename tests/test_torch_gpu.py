@@ -274,7 +274,7 @@ def test_kernels_raise_on_grad(cuda):
     x = torch.randn((8, 16), device=cuda, requires_grad=True)
     idx = torch.zeros((16, 4), dtype=torch.uint8, device=cuda)
     cb = torch.zeros((1, 4), device=cuda)
-    with pytest.raises(RuntimeError, match="QAT/training slice"):
+    with pytest.raises(RuntimeError, match="kernels.ops"):
         pm.pasm_matmul_kernel_call(x, idx, cb, packed=False)
 
 
@@ -672,3 +672,145 @@ def test_k1_routes_by_plan(cuda):
         assert torch.equal(y, want)
     with pytest.raises(TypeError, match="float32"):
         pm.pasm_matmul_kernel_call(x.half(), idx, cb, packed=True)
+
+
+# ---------------------------------------------------------------------------
+# the K1/K2 autograd Functions on the card, and a bitwise-repeatable step
+# ---------------------------------------------------------------------------
+
+# |Δ| <= t·max|chain| per gradient: f32 sums in another order; bf16 x: dx
+# rounded to bf16 on both sides, g to bf16 first on the Function's (the JAX
+# VJP's rule), and the chain's codebook gradient comes back through its own
+# bf16 rounding of the codebook
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+KINK = 1e-3
+
+
+def _kink_free(pre, pool, gen):
+    """A random upstream gradient over ``pre``'s window-major pooled rows,
+    zero where the two sides may take different valid subgradients (the
+    ReLU's kink, near-tied pool windows)."""
+    pw = pool * pool
+    win = pre.reshape(pre.shape[0] // pw, pw, pre.shape[1])
+    top = torch.topk(win, min(2, pw), dim=1).values
+    keep = top[:, 0].abs() >= KINK
+    if pw > 1:
+        keep &= (top[:, 0] - top[:, 1]) >= KINK
+    return torch.randn(keep.shape, generator=gen, device=pre.device) * keep
+
+
+def _assert_bwd_close(got, want, dtype, what):
+    for a, w, n in zip(got, want, ("x", "codebook", "bias")):
+        assert a.dtype == w.dtype and a.shape == w.shape, (what, n)
+        top = float(w.float().abs().max())
+        d = float((a.float() - w.float()).abs().max())
+        assert d <= BWD_TOL[dtype] * top, f"{what} d{n}: |Δ| {d:.3e}, max {top:.3e}"
+
+
+@pytest.mark.parametrize("M,K,N,bins,groups,packed,relu,pool,dtype", [
+    (64, 363, 96, 16, 1, False, True, 2, torch.float32),   # conv1-like, pooled
+    (64, 364, 96, 16, 1, True, True, 2, torch.float32),    # packed, pad row
+    (200, 2304, 384, 16, 2, False, True, 1, torch.float32),  # grouped, split-K
+    (144, 2400, 70, 16, 2, True, False, 3, torch.float32),
+    (1024, 2048, 512, 16, 1, True, False, 1, torch.bfloat16),  # mma
+    (8, 1024, 256, 16, 2, True, False, 1, torch.bfloat16),     # stream
+])
+def test_k1_backward_matches_chain(cuda, M, K, N, bins, groups, packed, relu, pool,
+                                   dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w = torch.randn((K, N), generator=g, device=cuda) * K ** -0.5
+    t = _pasm.quantize(w, bins, groups=groups, pack=packed)
+    x0 = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    b0 = torch.randn(N, generator=g, device=cuda) * 0.1 if relu or pool > 1 else None
+    with torch.no_grad():
+        pre = pm.pasm_matmul_plain(x0, t.idx, t.codebook, b0, packed=packed)
+    up = _kink_free(pre if relu else pre + 10.0, pool, g)  # no ReLU: no kink
+    grads = []
+    for side in ("kernel", "chain"):
+        x = x0.clone().requires_grad_()
+        cb = t.codebook.clone().requires_grad_()
+        b = None if b0 is None else b0.clone().requires_grad_()
+        before = pm.launches["pasm_matmul"]
+        if side == "kernel":
+            y = ops.pasm_matmul(x, dataclasses.replace(t, codebook=cb), bias=b,
+                                relu=relu, pool=pool)
+            assert pm.launches["pasm_matmul"] == before + 1
+        else:
+            y = pm.pasm_matmul_plain(x, t.idx, cb, b, packed=packed, relu=relu,
+                                     pool=pool)
+        grads.append(torch.autograd.grad(y, [x, cb] + ([] if b is None else [b]), up))
+    torch.cuda.synchronize()
+    _assert_bwd_close(grads[0], grads[1], dtype, f"K1 M{M} K{K} N{N}")
+
+
+@pytest.mark.parametrize("engine", ["kernel", "kernel_implicit"])
+@pytest.mark.parametrize("k,stride,pool,groups,packed", [
+    (11, 4, 2, 1, False),   # conv1's geometry, pooled
+    (11, 4, 2, 1, True),    # packed: K = 363 takes the pad row
+    (3, 1, 1, 2, False),    # conv3's geometry, grouped
+    (3, 1, 1, 1, True),
+])
+def test_k2_backward_matches_chain(cuda, engine, k, stride, pool, groups, packed):
+    c_in = 3 if k == 11 else 32
+    conv = cv.Conv2D(k=k, c_in=c_in, c_out=48, stride=stride, relu=True)
+    hw = 63 if k == 11 else 13
+    p = _params((48, c_in, k, k), 16, groups, packed, "NCHW", cuda)
+    g = torch.Generator(device=cuda).manual_seed(k + pool)
+    img = torch.randn((3, c_in, hw, hw), generator=g, device=cuda)
+    with torch.no_grad():
+        pre = cv.conv2d(img, p, dataclasses.replace(conv, relu=False), engine="einsum")
+        B, C, oh, ow = pre.shape
+        ohp, owp = oh // pool, ow // pool
+        win = pre[:, :, : ohp * pool, : owp * pool].reshape(B, C, ohp, pool, owp, pool)
+        win = win.permute(0, 2, 4, 3, 5, 1).reshape(-1, C)  # window-major rows
+    up = _kink_free(win, pool, g).reshape(B, ohp, owp, C).permute(0, 3, 1, 2)
+    grads = []
+    for eng in (engine, "einsum"):
+        x = img.clone().requires_grad_()
+        cb = p.codebook.clone().requires_grad_()
+        b = p.bias.clone().requires_grad_()
+        y = cv.conv2d(x, dataclasses.replace(p, codebook=cb, bias=b), conv, engine=eng,
+                      pool=pool)
+        grads.append(torch.autograd.grad(y, (x, cb, b), up))
+    torch.cuda.synchronize()
+    _assert_bwd_close(grads[0], grads[1], torch.float32, f"{engine} k{k} pool{pool}")
+
+
+def test_train_steps_bitwise_repeatable(cuda):
+    """Two identical train steps on the card, LM on K1 (``remat``) and CNN
+    QAT, give bitwise equal params and optimizer state under
+    ``torch.use_deterministic_algorithms``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch, synthetic_image_batch
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import quantize_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen3-32b", smoke=True), remat=True).with_quant(
+        enabled=True, impl="kernel", min_weight_elems=1024)
+    with st.deterministic():
+        params = quantize_params(
+            TT.init_params(cfg, torch.Generator(device=cuda).manual_seed(0)), cfg)
+        state = opt.init_opt_state(params)
+        batch = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8), 0,
+                                device=cuda)
+        step = st.make_train_step(cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1))
+        before = pm.launches["pasm_matmul"]
+        a = step(params, state, batch)[:2]
+        assert pm.launches["pasm_matmul"] - before == 7 * cfg.n_layers * 2 + 1
+        b = step(params, state, batch)[:2]
+        qcfg = dataclasses.replace(alexnet_conv.smoke_config(), impl="einsum")
+        cparams = cnn.init_params(qcfg, torch.Generator(device=cuda).manual_seed(0),
+                                  device=cuda)
+        tree = {"params": cparams, "codebooks": cnn.qat_codebooks(cparams, qcfg)}
+        cstate = opt.init_opt_state(tree)
+        cbatch = synthetic_image_batch(DataConfig(global_batch=4), 0, chw=qcfg.in_chw,
+                                       classes=qcfg.classes, device=cuda)
+        cstep = st.make_cnn_train_step(qcfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1))
+        c1, c2 = cstep(tree, cstate, cbatch)[:2], cstep(tree, cstate, cbatch)[:2]
+    torch.cuda.synchronize()
+    for x, y in zip(tree_leaves((a, c1)), tree_leaves((b, c2))):
+        assert torch.equal(x.view(torch.uint8) if x.ndim else x,
+                           y.view(torch.uint8) if y.ndim else y)
