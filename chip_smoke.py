@@ -88,8 +88,35 @@ Phases (every one unguarded: any failure exits non-zero):
    bitwise the uninterrupted run's; (d) the full-width AlexNet QAT-trained
    2 steps at batch 8, frozen with ``qat_requantize`` and served on K1
    and K2 within ``TOL`` of ``qat_forward``;
-10. one ``{"kernels": [...]}`` JSON line;
-11. last line: ``{"ok": true, "device": {...}}``.
+10. the MoE family and the vit prefix at full width, depth cut: (a)
+    deepseek-moe-16b (d_model 2048, 16/16 heads of hd 128, layer 0 dense
+    with SwiGLU d_ff 10944, then 64 routed experts top-6 of d_expert 1408
+    and 2 shared experts fused to 2816, vocab 102400) cut to 4 of its 28
+    layers, weights drawn and quantized on the card (16 bins, int4 packed,
+    each expert's matrices their own dictionaries), served as phase 7
+    serves qwen3 on ``kernel`` (K1 once per expert: exactly 605 launches a
+    model call, by route) and ``dequant``; the teacher-forced logits in
+    batches of 4 (a 4 × 384 prefill has T > 512, so the dropless cap is 180
+    rows an expert) bitwise on a second kernel run and within
+    ``LM_LOGIT_TOL`` of ``dequant`` on the kernel run's experts with its own
+    gates (on its own activations a bf16 near-tie can rank another expert
+    first, and the cap then moves other tokens: each expert set that
+    differs must be a near-tie, within ``MOE_TIE`` of dequant's k-th
+    probability); the (token,
+    expert) entries the cap dropped at each prefill; K5 on the served
+    prefill's attention operands; a decode step and a 4 × 384 prefill on
+    each impl and the engine's own 512-token bucket timed (wall and host
+    clocks, device time and K1's share from a ``torch.profiler`` trace),
+    and K1 at the expert shapes;
+    (b) internvl2-26b (d_model 6144, 48/8 heads, d_ff 16384, vocab 92553,
+    a 256 × 3200 vit prefix through ``vproj``) cut to 4 of its 48 layers:
+    one prefill of 2 sequences behind 256 seeded patch embeddings each
+    (prompts of 64 and 40 tokens, right-padded) and 8 decode steps on
+    ``kernel`` and ``dequant``: cache positions 320 / 296, 29 K1 launches a
+    model call (``vproj`` dequantizes), logits within ``LM_LOGIT_TOL``, K5
+    on the prefill's attention operands;
+11. one ``{"kernels": [...]}`` JSON line;
+12. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -167,6 +194,15 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the JAX launcher's defaults: M = 1024
 # the forward, 7 a layer again in the backward's recompute
 TRAIN_K1 = 7 * LM_LAYERS + 1 + 7 * LM_LAYERS
 QAT_BATCH = 8
+# phase 10: the MoE family and the vit prefix at full width, depth cut
+MOE_LAYERS = 4  # of deepseek-moe-16b's 28: the dense layer 0 and 3 MoE layers
+# a kernel-run expert that dequant did not rank in its own top-k lies at most
+# this far below dequant's k-th probability, relative (a near-tie)
+MOE_TIE = 2.0 ** -5
+VLM_LAYERS = 4  # of internvl2-26b's 48
+VLM_PROMPTS = (64, 40)  # right-padded behind 256 patch tokens each
+VLM_DECODE = 8
+MOE_TIME_B, MOE_TIME_S = LM_SLOTS, 384  # the timed prefill: one full bucket
 
 
 def log(*a) -> None:
@@ -644,59 +680,50 @@ def serve_lm(cfg, params, prompts, impl: str):
     return eng, reqs, dict(pm.launches), wall, live_submits, dict(pm.k1_routes)
 
 
-def teacher_forced_logits(cfg, params, prompts, tokens, impl: str) -> list:
-    """Per-step logits of all prompts as one right-padded batch: prefill,
-    then decode steps fed the given tokens (the kernel run's)."""
+def padded(prompts) -> tuple:
+    """Right-padded ``(B, S)`` tokens on the card and their lengths."""
     import torch
 
-    from repro_torch.models import transformer as TT
-
-    c = cfg.with_quant(impl=impl)
     B, S = len(prompts), max(len(p) for p in prompts)
     toks = np.zeros((B, S), np.int32)
     for i, p in enumerate(prompts):
         toks[i, : len(p)] = p
     lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device="cuda")
-    caches = TT.init_caches(c, B, LM_MAX_SEQ, device="cuda")
-    logits, caches = TT.prefill(params, torch.from_numpy(toks).cuda(), caches, c,
-                                lengths=lengths)
-    out = [logits.float()]
-    for j in range(LM_NEW - 1):
-        nxt = torch.tensor([[t[j]] for t in tokens], dtype=torch.int32, device="cuda")
-        logits, caches = TT.decode_step(params, nxt, caches, c)
-        out.append(logits.float())
+    return torch.from_numpy(toks).cuda(), lengths
+
+
+def teacher_forced_logits(cfg, params, prompts, tokens, impl: str, batch: int = 0) -> list:
+    """Per-step logits of all prompts as right-padded batches of ``batch``
+    prompts (0: one batch): prefill, then decode steps fed the given tokens
+    (the kernel run's); each step's logits concatenated over the batches."""
+    import torch
+
+    from repro_torch.models import transformer as TT
+
+    c = cfg.with_quant(impl=impl)
+    batch = batch or len(prompts)
+    steps = []
+    for i in range(0, len(prompts), batch):
+        toks, lengths = padded(prompts[i:i + batch])
+        caches = TT.init_caches(c, toks.shape[0], LM_MAX_SEQ, device="cuda")
+        logits, caches = TT.prefill(params, toks, caches, c, lengths=lengths)
+        out = [logits.float()]
+        for j in range(LM_NEW - 1):
+            nxt = torch.tensor([[t[j]] for t in tokens[i:i + batch]], dtype=torch.int32,
+                               device="cuda")
+            logits, caches = TT.decode_step(params, nxt, caches, c)
+            out.append(logits.float())
+        steps.append(out)
     torch.cuda.synchronize()
-    return out
+    return [torch.cat(s) for s in zip(*steps)]
 
 
 def lm_phase(gen, errs: dict, card: str) -> dict:
     """Phase 7; returns the launch counts of the kernel run and the K5 run."""
     import torch
 
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import pasm_matmul as pm
-    from repro_torch.models import transformer as TT
-    from repro_torch.models.common import param_count, quantize_params, weight_bytes
-    from repro_torch.nn import attention as A
-
     cfg = lm_config()
-    t0 = time.perf_counter()
-    dense = TT.init_params(cfg, gen)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    params = quantize_params(dense, cfg)
-    torch.cuda.synchronize()
-    t_quant = time.perf_counter() - t0
-    wb = weight_bytes(params)
-    log(f"phase 7: {cfg.name} full width (d_model {cfg.d_model}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
-        f"{cfg.n_layers} of 64 layers, {param_count(params) / 1e9:.3f} B params; "
-        f"weights drawn in {t_init:.2f} s, quantized on the card in {t_quant:.2f} s "
-        f"({cfg.quant.bins} bins, int4 packed); weight bytes dense bf16 "
-        f"{wb['dense']} -> stored {wb['stored']} ({wb['ratio']:.2f}x)")
-    del dense
-    torch.cuda.empty_cache()
+    params = build_lm(cfg, gen, "7", 64)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in LM_PROMPTS]
     per_call = 7 * cfg.n_layers + 1
@@ -728,17 +755,8 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
         f"{len(ko) * LM_NEW} (streams: {sum(x == y for x, y in zip(ko, do))}/{len(ko)} equal)")
     # the kernel run also records what the transformer hands gqa_attention
     # at prefill: the served model's own attention operands, every layer
-    captured, gqa = [], A.gqa_attention
-
-    def spy(q, k, v, **kw):
-        captured.append((q, k, v))
-        return gqa(q, k, v, **kw)
-
-    A.gqa_attention = spy
-    try:
+    with AttnSpy() as attn:
         lk = teacher_forced_logits(cfg, params, prompts, ko, "kernel")
-    finally:
-        A.gqa_attention = gqa
     lk2 = teacher_forced_logits(cfg, params, prompts, ko, "kernel")
     if not all(torch.equal(a, b) for a, b in zip(lk, lk2)):
         raise AssertionError("LM logits: a second kernel run differs bitwise")
@@ -756,25 +774,11 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
         f"{len(prompts)} prompts: max |Δ| {worst:.4e} (|logit| max {top:.3f}, "
         f"tolerance {LM_LOGIT_TOL} of it); steps with every argmax equal {same:.3f}")
 
-    # K5 on the served model's attention operands
-    torch.cuda.synchronize()
-    pm.reset_launches()
-    for q, k, v in captured:
-        ops.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    k5_counts = dict(pm.launches)
-    if k5_counts != {k: len(captured) if k == "flash_attention" else 0 for k in ALL_KERNELS} \
-            or len(captured) != cfg.n_layers:
-        raise AssertionError(f"K5 on the served attention: launches {k5_counts}, "
-                             f"{len(captured)} prefill attention calls recorded")
-    q = captured[0][0]
-    log(f"  K5 through ops.flash_attention on the served prefill's attention "
-        f"operands ({len(captured)} layers, B{q.shape[0]} S{q.shape[1]} "
-        f"H{q.shape[2]}/{captured[0][1].shape[2]} hd{q.shape[3]} {q.dtype}): "
-        f"launches {k5_counts}")
-    for i, (q, k, v) in enumerate(captured):
-        log(f"    layer {i}: " + check_k5(q, k, v, True, f"served layer {i}", errs))
-    return {"lm": runs["kernel"][0], "k5": k5_counts, "cfg": cfg, "params": params,
+    # K5 on the served model's attention operands, one prefill call a layer
+    if len(attn.captured) != cfg.n_layers:
+        raise AssertionError(f"{len(attn.captured)} prefill attention calls recorded")
+    k5 = held_k5(attn.captured, cfg.name, errs)
+    return {"lm": runs["kernel"][0], "k5": k5, "cfg": cfg, "params": params,
             "routes": runs["kernel"][2]}
 
 
@@ -1386,6 +1390,466 @@ def train_phase(cfg, params, qparams, lm: dict, gen, card: str) -> dict:
     return dict(out, errs=errs)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family and the vit prefix at full width
+# ---------------------------------------------------------------------------
+
+
+def k1_per_call(cfg) -> int:
+    """K1 launches of one model call, from the code: each quantized linear
+    once (4 attention, 2 or 3 FFN matrices, the untied head), and in a MoE
+    layer the shared experts' matrices once and each routed expert's once
+    per expert (``nn/moe.py::_expert_matmul``).  ``vproj`` dequantizes."""
+    ffn = 3 if cfg.act == "swiglu" else 2
+    m = cfg.moe if cfg.moe and cfg.moe.n_experts else None
+    n_dense = min(m.first_dense_layers, cfg.n_layers) if m else cfg.n_layers
+    moe_layer = 4 + (ffn if m.n_shared else 0) + m.n_experts * ffn if m else 0
+    return (n_dense * (4 + ffn) + (cfg.n_layers - n_dense) * moe_layer
+            + (0 if cfg.tie_embeddings else 1))
+
+
+class MoeSpy:
+    """Wraps ``nn.moe.moe_ffn`` while active: per call the token count, the
+    capacity, the (token, expert) entries the capacity dropped (the first
+    ``cap`` of each expert's entries in token order are kept) and the chosen
+    experts, as device tensors read after the run.  With ``replay`` (another
+    spy's calls) each call takes the recorded call's experts, so the same
+    dispatch and the same kept entries, with its gates from its own router
+    probabilities; where its own top-k differs (``flips``, token-layers),
+    ``gap`` is the largest relative shortfall of an expert taken below its
+    own k-th probability, 0 when every taken expert is one it chose."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.nn import moe as M
+
+        self.mod, self.inner = M, M.moe_ffn
+        M.moe_ffn = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_ffn = self.inner
+
+    def __call__(self, x, params, cfg, **kw):
+        import torch
+
+        M = self.mod
+        G, cap = M.capacity(x.shape[0], cfg, dropless=kw.get("dropless", False),
+                            n_groups=kw.get("n_groups", 1))
+        probs, top_w, top_i = M.route(x, params["router"], cfg.top_k)
+        call = {"T": x.shape[0], "cap": cap}
+        if self.replay is not None:
+            own, top_i = top_i, self.replay[len(self.calls)]["top_i"]
+            taken = probs.gather(1, top_i)
+            kth = probs.gather(1, own[:, -1:])  # route sorts descending
+            top_w = taken / torch.clamp(taken.sum(-1, keepdim=True), min=1e-9)
+            call["flips"] = (own.sort(-1).values != top_i.sort(-1).values).any(-1).sum()
+            call["gap"] = ((kth - taken) / kth).clamp(min=0).max()
+        counts = torch.stack([torch.bincount(g.reshape(-1), minlength=cfg.n_experts)
+                              for g in top_i.reshape(G, -1, cfg.top_k)])
+        self.calls.append(dict(call, top_i=top_i,
+                               dropped=(counts - cap).clamp(min=0).sum()))
+        if self.replay is None:
+            return self.inner(x, params, cfg, **kw)
+        route = M.route
+        M.route = lambda *a: (probs, top_w, top_i)
+        try:
+            return self.inner(x, params, cfg, **kw)
+        finally:
+            M.route = route
+
+    def dropped(self) -> list:
+        """(T, cap, dropped entries) per call."""
+        return [(c["T"], c["cap"], int(c["dropped"])) for c in self.calls]
+
+
+K1_KERNEL_NAMES = ("k1b::", "pasm")  # K1's bf16 routes' namespace, its f32 kernel
+
+
+def time_step(fn, reps: int = 3) -> dict:
+    """One call of a whole model step, warm, medians over ``reps``: ``wall_ms``
+    from an idle card to the step's end; ``host_ms`` until its last launch
+    returns (the host's time, unless the launch queue filled); from one
+    ``torch.profiler`` trace of the step, ``device_ms`` the sum of its
+    kernels' device times (one stream: the card's busy time), ``k1_ms``
+    K1's part of it and ``kernels`` their count.  A step launches more
+    kernels than the queue holds, so no spin can cover its host time and
+    CUDA events around it would time the host; the profiler reads each
+    kernel's own interval.  ``device_ms`` is None if the trace holds no
+    kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    wall, host = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        host.append(t1 - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+    dev = sum(t for _, t in kern) / 1e3
+    k1 = sum(t for n, t in kern if any(k in n for k in K1_KERNEL_NAMES)) / 1e3
+    return {"wall_ms": float(np.median(wall)) * 1e3, "host_ms": float(np.median(host)) * 1e3,
+            "device_ms": dev if kern else None, "k1_ms": k1 if kern else None,
+            "kernels": len(kern)}
+
+
+def fmt_step(t: dict) -> str:
+    if t["device_ms"] is None:
+        dev = "device not measured (the profiler saw no kernel)"
+    else:
+        dev = (f"device {t['device_ms']:.3f} ms in {t['kernels']} kernels (idle "
+               f"{1 - t['device_ms'] / t['wall_ms']:.1%} of the wall time), K1 "
+               f"{t['k1_ms']:.3f} ms ({t['k1_ms'] / t['device_ms']:.1%} of the device time)")
+    return f"wall {t['wall_ms']:.3f} ms, host {t['host_ms']:.3f} ms, {dev}"
+
+
+def k1_calls_of(fn) -> list:
+    """The K1 wrapper calls one run of ``fn`` makes: (x, t, bias, relu)."""
+    from repro_torch.kernels import ops
+
+    calls, inner = [], ops.pasm_matmul
+
+    def rec(x, t, *, bias=None, relu=False, **kw):
+        calls.append((x, t, bias, relu))
+        return inner(x, t, bias=bias, relu=relu, **kw)
+
+    ops.pasm_matmul = rec
+    try:
+        fn()
+    finally:
+        ops.pasm_matmul = inner
+    return calls
+
+
+def k1_replay(calls):
+    """A function that makes the recorded K1 calls again, back to back."""
+    from repro_torch.kernels import ops
+
+    def run():
+        for x, t, bias, relu in calls:
+            ops.pasm_matmul(x, t, bias=bias, relu=relu)
+    return run
+
+
+def moe_config():
+    """deepseek-moe-16b at full width, 4 of its 28 layers, 16-bin int4 PASM."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("deepseek-moe-16b"), n_layers=MOE_LAYERS) \
+        .with_quant(enabled=True, bins=16, impl="kernel")
+
+
+def build_lm(cfg, gen, phase: str, full_layers: int) -> dict:
+    """Seeded weights drawn on the card and quantized there, logged."""
+    import torch
+
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import param_count, quantize_params, weight_bytes
+
+    t0 = time.perf_counter()
+    dense = TT.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = quantize_params(dense, cfg)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    del dense
+    torch.cuda.empty_cache()
+    wb = weight_bytes(params)
+    log(f"phase {phase}: {cfg.name} full width (d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+        + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of d_expert "
+           f"{cfg.moe.d_expert}, {cfg.moe.n_shared} shared (fused width "
+           f"{cfg.moe.n_shared * cfg.moe.d_shared}), first {cfg.moe.first_dense_layers} "
+           f"layer(s) dense" if cfg.moe else "")
+        + (f", vit prefix {cfg.frontend_tokens} x {cfg.frontend_dim}" if
+           cfg.frontend == "vit" else "")
+        + f"), reduced to {cfg.n_layers} of its {full_layers} layers, "
+        f"{param_count(params) / 1e9:.3f} B params; weights drawn in {t_init:.2f} s, "
+        f"quantized on the card in {t_quant:.2f} s ({cfg.quant.bins} bins, int4 packed"
+        + (", each expert's matrices their own dictionaries" if cfg.moe else "")
+        + f"); weight bytes dense bf16 "
+        f"{wb['dense']} -> stored {wb['stored']} ({wb['ratio']:.2f}x)")
+    return params
+
+
+def held_k5(captured, name: str, errs: dict) -> int:
+    """K5 through ops.flash_attention on recorded prefill attention
+    operands, counted, each held against gqa_attention and K5's plain
+    version; returns the launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pasm_matmul as pm
+
+    torch.cuda.synchronize()
+    pm.reset_launches()
+    for q, k, v in captured:
+        ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    counts = dict(pm.launches)
+    if counts != {k: len(captured) if k == "flash_attention" else 0 for k in ALL_KERNELS}:
+        raise AssertionError(f"K5 on {name}'s attention: launches {counts}")
+    q, k = captured[0][:2]
+    log(f"  K5 through ops.flash_attention on {name}'s prefill attention operands "
+        f"({len(captured)} calls, B{q.shape[0]} S{q.shape[1]} H{q.shape[2]}/{k.shape[2]} "
+        f"hd{q.shape[3]} {q.dtype}): launches {counts}")
+    for i, (q, k, v) in enumerate(captured):
+        log(f"    call {i}: " + check_k5(q, k, v, True, f"{name} call {i}", errs))
+    return counts["flash_attention"]
+
+
+class AttnSpy:
+    """Records what the transformer hands ``gqa_attention`` while active."""
+
+    def __enter__(self):
+        from repro_torch.nn import attention as A
+
+        self.mod, self.inner, self.captured = A, A.gqa_attention, []
+
+        def spy(q, k, v, **kw):
+            self.captured.append((q, k, v))
+            return self.inner(q, k, v, **kw)
+
+        A.gqa_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gqa_attention = self.inner
+
+
+def moe_phase(gen, errs: dict, card: str) -> dict:
+    """Phase 10(a): deepseek-moe-16b served at full width on K1."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.models import transformer as TT
+
+    cfg = moe_config()
+    params = build_lm(cfg, gen, "10(a)", 28)
+    per_call = k1_per_call(cfg)
+    if per_call != 605:
+        raise AssertionError(f"K1 launches a model call: {per_call}, not 605")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in LM_PROMPTS]
+    runs = {}
+    for impl in ("kernel", "dequant"):
+        with MoeSpy() as spy:
+            eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params, prompts,
+                                                                     impl)
+        roll = eng.metrics.rollup()
+        calls = eng.calls["prefill"] + eng.calls["decode"]
+        want = {k: per_call * calls if (impl == "kernel" and k == "pasm_matmul") else 0
+                for k in ALL_KERNELS}
+        pre = [d for d in spy.dropped() if d[0] > LM_SLOTS]
+        log(f"  {impl:<8} {len(reqs)} requests, {eng.tick} ticks, model calls "
+            f"{eng.calls}, launches {counts} ({per_call} a model call), K1 by route "
+            f"{routes}, submits while slots were live {live_submits}, n_degraded "
+            f"{roll.get('n_degraded', 0)}, {wall:.2f} s host clock incl. first calls, "
+            f"{roll['tok_s']:.1f} tok/s; prefill MoE calls (T, cap, dropped entries): "
+            f"{pre} ({card})")
+        if counts != want or (impl == "kernel" and sum(routes.values()) != per_call * calls):
+            raise AssertionError(f"MoE {impl}: expected launches {want}, got {counts}, "
+                                 f"routes {routes}")
+        if roll.get("n_degraded", 0) or not live_submits:
+            raise AssertionError(f"MoE {impl}: degraded or no continuous admission: {roll}")
+        if not all(r.done and len(r.out) == LM_NEW for r in reqs):
+            raise AssertionError(f"MoE {impl}: a request was not served {LM_NEW} tokens")
+        runs[impl] = (counts, [r.out for r in reqs], routes)
+    ko, do = runs["kernel"][1], runs["dequant"][1]
+    agree = float(np.mean([a == b for x, y in zip(ko, do) for a, b in zip(x, y)]))
+    log(f"  greedy tokens agreeing, kernel vs dequant: {agree:.4f} of {len(ko) * LM_NEW}")
+
+    # teacher-forced, in batches of the engine's slot count: a 4 x 384 bucket
+    # has T > 512 tokens, so the dropless cap is 1.25x the balanced load
+    with AttnSpy() as attn, MoeSpy() as spy_k:
+        lk = teacher_forced_logits(cfg, params, prompts, ko, "kernel", batch=LM_SLOTS)
+    lk2 = teacher_forced_logits(cfg, params, prompts, ko, "kernel", batch=LM_SLOTS)
+    if not all(torch.equal(a, b) for a, b in zip(lk, lk2)):
+        raise AssertionError("MoE logits: a second kernel run differs bitwise")
+    pre = [d for d in spy_k.dropped() if d[0] > LM_SLOTS]
+    log(f"  teacher-forced (batches of {LM_SLOTS}): a second kernel run bitwise equal "
+        f"at all {len(lk)} steps; prefill MoE calls (T, cap, dropped entries): {pre}")
+    # the oracle takes the kernel run's experts (so the same dispatch and
+    # drops) with its own gates: every expert's product on dequant against
+    # K1.  On its own activations it may rank two experts the other way;
+    # each such choice must be a near-tie in its own probabilities
+    with MoeSpy(replay=spy_k.calls) as spy_d:
+        ld = teacher_forced_logits(cfg, params, prompts, ko, "dequant", batch=LM_SLOTS)
+    flips = [int(c["flips"]) for c in spy_d.calls]
+    gap = max(float(c["gap"]) for c in spy_d.calls)
+    log(f"  dequant on its own activations ranks another expert set than the kernel "
+        f"run took at {sum(flips)} of {sum(c['T'] for c in spy_d.calls)} token-layers "
+        f"(prefill calls: {flips[:6]}); the expert taken lies at most {gap:.4e} of "
+        f"dequant's k-th probability below it (tolerance {MOE_TIE})")
+    if gap > MOE_TIE:
+        raise AssertionError(f"MoE routing: a kernel-run expert {gap:.4e} below "
+                             f"dequant's k-th probability, over {MOE_TIE}")
+    worst, top = 0.0, 0.0
+    for j, (a, b) in enumerate(zip(lk, ld)):
+        top = max(top, float(b.abs().max()))
+        worst = max(worst, check_close(a, b, 0.0, LM_LOGIT_TOL * float(b.abs().max()),
+                                       what=f"MoE logits step {j}"))
+    same = float(np.mean([bool((a.argmax(-1) == b.argmax(-1)).all()) for a, b in zip(lk, ld)]))
+    log(f"  teacher-forced logits, kernel vs dequant on the kernel run's experts, "
+        f"{len(lk)} steps x {len(prompts)} prompts: max |Δ| {worst:.4e} (|logit| max "
+        f"{top:.3f}, tolerance {LM_LOGIT_TOL} of it); steps with every argmax equal "
+        f"{same:.3f}")
+    k5 = held_k5(attn.captured, cfg.name, errs)
+    del attn, lk, lk2, ld, spy_k, spy_d
+
+    # timings: one decode step (4 slots) and one 4 x 384 prefill, each impl
+    rows = {}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (MOE_TIME_B, MOE_TIME_S))
+                            .astype(np.int32)).cuda()
+    for impl in ("kernel", "dequant"):
+        c = cfg.with_quant(impl=impl)
+        caches = TT.init_caches(c, MOE_TIME_B, LM_MAX_SEQ, device="cuda")
+        pre_fn = lambda: TT.prefill(params, toks, caches, c)  # noqa: E731
+        _, filled = pre_fn()
+        nxt = toks[:, -1:]
+        dec_fn = lambda: TT.decode_step(params, nxt, filled, c)  # noqa: E731
+        for name, fn in (("decode", dec_fn), ("prefill", pre_fn)):
+            row = rows[(impl, name)] = time_step(fn)
+            extra = ""
+            if impl == "kernel":
+                k1 = k1_calls_of(fn)
+                if len(k1) != per_call:
+                    raise AssertionError(f"MoE {name}: {len(k1)} K1 calls, not {per_call}")
+                rep = time_step(k1_replay(k1))
+                row["k1_host_ms"] = rep["host_ms"]
+                extra = (f"; its {per_call} K1 calls replayed alone: host "
+                         f"{rep['host_ms']:.3f} ms ({rep['host_ms'] / per_call * 1e3:.1f} "
+                         f"µs a call), wall {rep['wall_ms']:.3f} ms")
+                del k1
+            log(f"  {name:<7} step ({MOE_TIME_B} x {1 if name == 'decode' else MOE_TIME_S}"
+                f" tokens) on {impl:<7}: {fmt_step(row)}{extra} [{card}]")
+        del caches, filled
+    # the engine's own prefill bucket: one 384-token prompt padded to 512,
+    # cap = T = 512 rows an expert (JAX's dropless rule), ~91 % of them empty
+    c = cfg
+    one = torch.zeros((1, 512), dtype=torch.int32, device="cuda")
+    one[0, :MOE_TIME_S] = toks[0]
+    caches = TT.init_caches(c, 1, LM_MAX_SEQ, device="cuda")
+    lengths = torch.tensor([MOE_TIME_S], dtype=torch.int32, device="cuda")
+    fn = lambda: TT.prefill(params, one, caches, c, lengths=lengths)  # noqa: E731
+    rows[("kernel", "bucket")] = time_step(fn)
+    empty = 1 - 512 * cfg.moe.top_k / (cfg.moe.n_experts * 512)
+    log(f"  engine prefill bucket (1 x 512, 384 real) on kernel: "
+        f"{fmt_step(rows[('kernel', 'bucket')])}; each expert runs M = 512 rows, "
+        f"{empty:.1%} of them empty by the routing's count [{card}]")
+    del caches
+    # K1 at the expert shapes: the rows an expert gets at decode, at the
+    # timed prefill's cap, at the bucket's cap, and at its balanced load
+    lp = params["layers"][0]["moe"]
+    for name in ("w1", "w2"):
+        t = lp[name].select(0).gemm_tensor()
+        K, N = t.shape
+        w = lp[name].select(0).dense_matrix(torch.bfloat16)
+        for M in (4, 48, 180, 512):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            k_fn = lambda: ops.pasm_matmul(x, t)  # noqa: E731
+            e, _ = check_k1_bf16(k_fn(), x, t, what=f"K1 expert {name} M{M}")
+            errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
+            ms_c = time_cold_ms(k_fn)
+            lib_c = time_cold_ms(lambda: torch.matmul(x, w))
+            bound = max(2 * M * K * N / (BF16_TFLOPS * 1e12),
+                        (M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4)
+                        / (HBM_TBPS * 1e12)) * 1e3
+            log(f"    K1 expert {name} K{K} N{N} M{M:<4} route "
+                f"{pm.k1_plan(M, K, N, x.dtype, packed=t.packed, groups=t.codebook.shape[0]).route:<6}"
+                f": {ms_c:.4f} ms cold (bf16 matmul {lib_c:.4f}), bound {bound:.4f}")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": runs["kernel"][0]["pasm_matmul"], "routes": runs["kernel"][2],
+            "k5": k5, "times": rows}
+
+
+def vlm_phase(gen, errs: dict, card: str) -> dict:
+    """Phase 10(b): internvl2-26b at full width prefills its patch prefix."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(get_config("internvl2-26b"), n_layers=VLM_LAYERS) \
+        .with_quant(enabled=True, bins=16, impl="kernel")
+    params = build_lm(cfg, gen, "10(b)", 48)
+    if not hasattr(params["vproj"], "idx"):
+        raise AssertionError("vproj is not weight-shared")
+    per_call = k1_per_call(cfg)
+    if per_call != 29:
+        raise AssertionError(f"K1 launches a model call: {per_call}, not 29")
+    rng = np.random.default_rng(SEED + 1)
+    toks, lengths = padded([rng.integers(0, cfg.vocab, size=n) for n in VLM_PROMPTS])
+    fe = torch.randn((len(VLM_PROMPTS), cfg.frontend_tokens, cfg.frontend_dim),
+                     generator=gen, device="cuda").to(torch.bfloat16)
+    P = cfg.frontend_tokens
+    logits, routes, tokens = {}, {}, None
+    for impl in ("kernel", "dequant"):
+        c = cfg.with_quant(impl=impl)
+        caches = TT.init_caches(c, len(VLM_PROMPTS), LM_MAX_SEQ, device="cuda")
+        torch.cuda.synchronize()
+        pm.reset_launches()
+        with AttnSpy() as attn:
+            out, caches = TT.prefill(params, toks, caches, c, lengths=lengths,
+                                     frontend_embeds=fe)
+        steps = [out.float()]
+        pos = [x.pos.tolist() for x in caches["dense"] + caches["scan"]]
+        want_pos = [[n + P for n in VLM_PROMPTS]] * cfg.n_layers
+        if pos != want_pos:
+            raise AssertionError(f"VLM {impl}: cache positions {pos}, not {want_pos}")
+        if tokens is None:  # the kernel run's greedy tokens feed both runs
+            tokens = [out.argmax(-1)]
+        for j in range(VLM_DECODE):
+            if impl == "kernel" and j:
+                tokens.append(steps[-1].argmax(-1))
+            out, caches = TT.decode_step(params, tokens[j].to(torch.int32), caches, c)
+            steps.append(out.float())
+        torch.cuda.synchronize()
+        counts = dict(pm.launches)
+        want = {k: per_call * (1 + VLM_DECODE) if (impl == "kernel" and k == "pasm_matmul")
+                else 0 for k in ALL_KERNELS}
+        log(f"  {impl:<8} prefill of {len(VLM_PROMPTS)} sequences ({P} patch tokens + "
+            f"prompts {VLM_PROMPTS}, right-padded) + {VLM_DECODE} decode steps: cache "
+            f"positions after the prefill {pos[0]}, launches {counts} ({per_call} a "
+            f"model call), K1 by route {dict(pm.k1_routes)}")
+        if counts != want:
+            raise AssertionError(f"VLM {impl}: expected launches {want}, got {counts}")
+        if not all(bool(torch.isfinite(s).all()) for s in steps):
+            raise AssertionError(f"VLM {impl}: non-finite logits")
+        logits[impl], routes[impl] = steps, dict(pm.k1_routes)
+        if impl == "kernel":
+            captured, launches = attn.captured, counts["pasm_matmul"]
+    worst, top = 0.0, 0.0
+    for j, (a, b) in enumerate(zip(logits["kernel"], logits["dequant"])):
+        top = max(top, float(b.abs().max()))
+        worst = max(worst, check_close(a, b, 0.0, LM_LOGIT_TOL * float(b.abs().max()),
+                                       what=f"VLM logits step {j}"))
+    log(f"  logits, kernel vs dequant, {len(logits['kernel'])} steps x "
+        f"{len(VLM_PROMPTS)} sequences: max |Δ| {worst:.4e} (|logit| max {top:.3f}, "
+        f"tolerance {LM_LOGIT_TOL} of it)")
+    k5 = held_k5(captured, cfg.name, errs)
+    del params, captured
+    torch.cuda.empty_cache()
+    return {"launches": launches, "routes": routes["kernel"], "k5": k5}
+
+
 def main() -> int:
     import torch
 
@@ -1618,7 +2082,13 @@ def main() -> int:
     # 9. training --------------------------------------------------------------
     train = train_phase(cfg, params, qparams, lm, gen, card)
 
-    # 10. the kernels line -----------------------------------------------------
+    # 10. the MoE family and the vit prefix at full width ------------------------
+    del lm["params"]  # qwen3's weights: the card's memory goes to the next models
+    torch.cuda.empty_cache()
+    moe = moe_phase(gen, errs, card)
+    vlm = vlm_phase(gen, errs, card)
+
+    # 11. the kernels line -----------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -1627,18 +2097,19 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention.py:79",
     }
     launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"]
-                + TRAIN_K1 + train["qat"]["k1"],
+                + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"],
                 "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"],
-                "flash_attention": lm["k5"]["flash_attention"]}
+                "flash_attention": lm["k5"] + moe["k5"] + vlm["k5"]}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     csrc = "src/repro_torch/kernels/csrc/"
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # each kernel's routes with their launches on the main paths and times:
     # K1 simt at the AlexNet sums, stream / mma at the LM's M = 4 / 384 sums
-    # (warm, plus cold), K5 bf16 and f32 at the qwen3 prefill shape
+    # (warm, plus cold), K5 bf16 and f32 at the qwen3 prefill shape; the
+    # served LMs' launches: qwen3, deepseek-moe-16b and internvl2-26b
     routes = {k: {"simt": {"source": csrc + k + ".cu", "launches": launches[k]}}
               for k in KERNELS}
     routes["pasm_matmul"]["simt"]["launches"] = (counts["kernel"]["pasm_matmul"]
@@ -1648,10 +2119,11 @@ def main() -> int:
         bound_by="operations")
     for r in ("stream", "mma"):
         routes["pasm_matmul"][r] = dict(
-            k5_rows["k1"][r], launches=lm["routes"][r] + (TRAIN_K1 if r == "mma" else 0),
+            k5_rows["k1"][r], launches=lm["routes"][r] + moe["routes"][r] + vlm["routes"][r]
+            + (TRAIN_K1 if r == "mma" else 0),
             source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
-        dt: dict(k5_rows[dt], launches=lm["k5"]["flash_attention"] if dt == "bfloat16" else 0,
+        dt: dict(k5_rows[dt], launches=launches["flash_attention"] if dt == "bfloat16" else 0,
                  source=csrc + "flash_attention.cu")
         for dt in ("bfloat16", "float32")}
     kernels = []
@@ -1681,8 +2153,10 @@ def main() -> int:
         f"causal, bf16); K1's stream / mma routes are the LM's four matrices "
         f"at M = 4 / 384 summed; "
         f"launches are from the serving runs (K1: AlexNet {counts['kernel']['pasm_matmul']} "
-        f"+ LM {lm['lm']['pasm_matmul']}; K2, K3), the stage run (K4), the "
-        f"served attention (K5) and training (K1: one qwen3 step {TRAIN_K1} + the "
+        f"+ qwen3 {lm['lm']['pasm_matmul']} + deepseek-moe-16b {moe['launches']} + "
+        f"internvl2-26b {vlm['launches']}; K2, K3), the stage run (K4), the "
+        f"served attention (K5: qwen3 {lm['k5']}, deepseek "
+        f"{moe['k5']}, internvl2 {vlm['k5']}) and training (K1: one qwen3 step {TRAIN_K1} + the "
         f"frozen QAT AlexNet {train['qat']['k1']}; K2: {train['qat']['k2']}); "
         f"max_abs_err is the largest over every forward check [{card}]")
     log(f"train step at full width: kernel {train['kernel']['ms']:.1f} ms, dequant "
@@ -1690,6 +2164,9 @@ def main() -> int:
         f"{train['dequant']['peak_gb']:.2f} GB; codebook-gradient sums "
         f"{train['parts']['bins_ms']:.1f} ms a step, lm_head's "
         f"{train['parts']['lm_head']['bins']:.3f} ms [{card}]")
+    for (impl, name), t in moe["times"].items():
+        log(f"deepseek-moe-16b ({MOE_LAYERS} of 28 layers) {name} on {impl}: "
+            f"{fmt_step(t)} [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Port of ``repro.configs``.  :func:`get_config` resolves ``--arch <id>`` for
 every entry point.  The registry names all ten archs of the JAX package; the
-four dense transformers are ported, and an arch whose family is not ported
-yet raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+transformer families (dense, MoE and the vit-prefixed VLM) are ported, and
+an arch whose family is not ported yet raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -29,12 +30,13 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
-# the config modules ported so far (the dense transformer family)
-_PORTED = {"qwen3-32b", "nemotron-4-340b", "phi3-medium-14b", "stablelm-3b"}
+# the config modules ported so far (the transformer families)
+_PORTED = {"qwen3-32b", "nemotron-4-340b", "phi3-medium-14b", "stablelm-3b",
+           "deepseek-moe-16b", "kimi-k2-1t-a32b", "internvl2-26b"}
 
 NOT_PORTED_FAMILY = (
-    "is not ported yet: the MoE, SSM, hybrid, VLM and audio families come "
-    "with ROADMAP Queue 1 item 8 (LM families)"
+    "is not ported yet: the SSM, hybrid and audio families come with "
+    "ROADMAP Queue 1 item 8 (LM families)"
 )
 
 

@@ -179,6 +179,17 @@ class PasmParams:
             return None
         return 4 if self.packed else _pasm.bits_for_bins(self.bins)
 
+    def select(self, i: int) -> "PasmParams":
+        """Slice ``i`` of the leading stack dim (one expert of an ``(E, K,
+        N)`` stack): every array field indexed at ``i``, a view that copies
+        nothing.  ``kind``, ``shape``, ``bins``, ``pad_k`` and the packed
+        layout are the stack's; the slice keeps its own dictionaries."""
+        if len(self._lead) < 1:
+            raise ValueError(f"select() needs stacked params, got lead dims {self._lead}")
+        pick = lambda a: None if a is None else a[i]  # noqa: E731
+        return dataclasses.replace(self, w=pick(self.w), idx=pick(self.idx),
+                                   codebook=pick(self.codebook), bias=pick(self.bias))
+
     def gemm_tensor(self) -> _pasm.PASMTensor:
         """The dictionary as the physical GEMM operand, shape
         ``(K + pad_k, N)`` — callers pad the activation by ``pad_k``."""

@@ -16,7 +16,10 @@ them here:
   array and every ``PasmParams`` leaf a ``{"kind", "shape", "bins",
   "pad_k", "w", "idx", "codebook", "bias"}`` dict, per-layer leaves keeping
   their leading layer axis → the port's tree, whose ``"layers"`` is a list
-  of per-layer dicts;
+  of per-layer dicts.  The MoE family's ``"dense_layers"`` is already a
+  list of per-layer dicts (as in JAX) and stays one; a stacked expert leaf
+  ``(L, E, K, N)`` becomes, per layer, a ``PasmParams`` (or array) with a
+  leading E, each expert's dictionaries its own;
 * :func:`cnn_qat_tree_from_numpy` — the CNN QAT tree ``{"params": cnn
   tree, "codebooks": [(bins,) arrays]}`` → the tree
   :func:`repro_torch.train.step.make_cnn_train_step` trains;
@@ -99,6 +102,8 @@ def _lm_leaf(x, dev: torch.device, layer: Optional[int]):
                           pad_k=int(x.get("pad_k", 0)))
     if isinstance(x, dict):
         return {k: _lm_leaf(v, dev, layer) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_lm_leaf(v, dev, layer) for v in x]
     return _t(pick(x), dev)
 
 

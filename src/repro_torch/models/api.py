@@ -1,8 +1,10 @@
-"""Model API: family dispatch, cache length, loss — one surface for all archs.
+"""Model API: family dispatch, input specs, loss — one surface for all archs.
 
-Port of ``repro.models.api``.  The dense transformer family and the CNN are
-ported; the MoE, VLM, SSM, hybrid and audio families raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 8.
+Port of ``repro.models.api``.  The transformer families (dense, MoE, VLM)
+and the CNN are ported; the SSM, hybrid and audio families raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 8.  Input specs are
+``meta`` tensors: a shape and a dtype, no storage (the JAX package's
+``jax.ShapeDtypeStruct``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 from repro_torch.configs import NOT_PORTED_FAMILY
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 
-__all__ = ["get_model", "cache_len", "lm_loss"]
+__all__ = ["get_model", "cache_len", "frontend_spec", "input_specs", "lm_loss"]
 
 _FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio", "cnn")
 
@@ -22,7 +24,7 @@ def get_model(cfg):
     """The module implementing ``init_params``/``forward``/``init_caches``/
     ``prefill``/``decode_step`` for ``cfg``'s family.  Family ``cnn``
     (a ``CNNConfig``) exposes ``init_params``/``quantize``/``forward``."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as m
     elif cfg.family == "cnn":
         from repro_torch.models import cnn as m
@@ -37,6 +39,43 @@ def cache_len(cfg: ArchConfig, shape: ShapeSpec) -> int:
     """KV-cache length for a serve cell (VLM prefill also stores the patch prefix)."""
     extra = cfg.frontend_tokens if cfg.frontend == "vit" else 0
     return shape.seq_len + extra
+
+
+def _spec(shape: tuple, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def frontend_spec(cfg: ArchConfig, batch: int) -> Optional[torch.Tensor]:
+    """The modality frontend's input: vit patch embeddings (stub), bf16
+    ``(B, frontend_tokens, frontend_dim)``; None without a frontend.  The
+    audio frontend (log-mel frames) belongs to the encdec family, not
+    ported yet."""
+    if cfg.frontend == "vit":
+        return _spec((batch, cfg.frontend_tokens, cfg.frontend_dim), torch.bfloat16)
+    if cfg.frontend == "audio":
+        raise NotImplementedError(f"the audio frontend {NOT_PORTED_FAMILY}")
+    return None
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell.
+
+    train/prefill: the full-length token batch (+ frontend embeds);
+    decode: one new token (the caches come from ``init_caches(...,
+    device="meta")``).
+    """
+    B = shape.global_batch
+    if shape.kind == "train":
+        d = {"tokens": _spec((B, shape.seq_len), torch.int32),
+             "labels": _spec((B, shape.seq_len), torch.int32)}
+    elif shape.kind == "prefill":
+        d = {"tokens": _spec((B, shape.seq_len), torch.int32)}
+    else:  # decode: one token against a seq_len cache
+        d = {"tokens": _spec((B, 1), torch.int32)}
+    fe = frontend_spec(cfg, B)
+    if fe is not None and shape.kind != "decode":
+        d["frontend_embeds"] = fe
+    return d
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -149,8 +149,8 @@ def quantize_params(params: Any, cfg: ArchConfig, *, iters: int = 8) -> Any:
     least ``cfg.quant.min_weight_elems`` elements (the paper's ``B ≪ N``
     rule) and which is not an excluded parameter class (norms, biases,
     routers… stay dense, paper §4; embeddings unless ``quantize_embed``).
-    Each layer's matrix gets its own dictionary, as the JAX package's
-    per-layer vmap does; 16-bin (int4) dictionaries are packed, with the §3
+    Each layer's matrix, and each expert's in a stack, gets its own
+    dictionary, as the JAX package's per-slice quantization does; 16-bin (int4) dictionaries are packed, with the §3
     K-pad for odd reductions.  k-means runs on the leaf's device.
     """
     q = cfg.quant

@@ -1,17 +1,20 @@
-"""Decoder-only transformer LM: the dense family, GQA (+qk-norm).
+"""Decoder-only transformer LM: dense & MoE, GQA (+qk-norm), the vit prefix.
 
-Port of ``repro.models.transformer`` for the dense archs (qwen3-32b,
-nemotron-4-340b, phi3-medium-14b, stablelm-3b).  Per-layer parameters are a
-list of per-layer dicts walked by a Python loop (:func:`maybe_scan`); PASM
-quantization swaps any large dense leaf for a ``PasmParams`` and every
-matmul dispatches through :func:`repro_torch.nn.layers.linear`.  The
+Port of ``repro.models.transformer``: qwen3-32b, nemotron-4-340b,
+phi3-medium-14b, stablelm-3b, deepseek-moe-16b, kimi-k2-1t-a32b, and the LM
+backbone of internvl2-26b (``frontend="vit"``: projected patch embeddings
+prefix the tokens).  Per-layer parameters are a list of per-layer dicts
+walked by a Python loop (:func:`maybe_scan`); the MoE family's leading
+dense-FFN layers (``first_dense_layers``) are a second list,
+``"dense_layers"``, walked first.  PASM quantization swaps any large dense
+leaf for a ``PasmParams`` (an expert stack keeps its leading E, each expert
+with its own dictionaries) and every matmul dispatches through
+:func:`repro_torch.nn.layers.linear` or :mod:`repro_torch.nn.moe`.  The
 activations run in bf16, as the JAX package's do; attention goes through
 :func:`repro_torch.nn.attention.gqa_attention`, as there.  With
-``cfg.remat`` a differentiated :func:`forward` recomputes each layer in the
-backward (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
-
-Configs with ``moe`` experts or a ``vit`` frontend raise
-``NotImplementedError``: their modules come with ROADMAP Queue 1 item 8.
+``cfg.remat`` a differentiated :func:`forward` recomputes each scanned
+layer in the backward (``torch.utils.checkpoint``, the JAX package's
+``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.core import params as _params
 from repro_torch.models.common import Initializer, ShardCtx, map_leaves, maybe_scan
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe as M
 
 __all__ = [
     "init_params",
@@ -34,17 +38,6 @@ __all__ = [
     "prefill",
     "decode_step",
 ]
-
-NOT_PORTED_MOE_VIT = (
-    "MoE experts and the vit frontend are not ported yet: ROADMAP Queue 1 "
-    "item 8 (LM families: nn/moe.py and the vit prefix)"
-)
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    if (cfg.moe and cfg.moe.n_experts) or cfg.frontend == "vit":
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MOE_VIT}")
-
 
 # ---------------------------------------------------------------------------
 # init
@@ -74,32 +67,65 @@ def _init_dense_ffn(cfg: ArchConfig, ini: Initializer) -> dict:
     return p
 
 
-def _init_layer(cfg: ArchConfig, ini: Initializer) -> dict:
+def _init_moe(cfg: ArchConfig, ini: Initializer) -> dict:
+    m = cfg.moe
+    D, E, Fe = cfg.d_model, m.n_experts, m.d_expert
+    p = {
+        "router": ini.dense((D, E)),
+        "w1": ini.dense((E, D, Fe), fan_in=D),
+        "w3": ini.dense((E, D, Fe), fan_in=D),
+        "w2": ini.dense((E, Fe, D), fan_in=Fe),
+    }
+    if m.n_shared:
+        Fs = m.d_shared * m.n_shared
+        p["shared_w1"] = ini.dense((D, Fs))
+        p["shared_w3"] = ini.dense((D, Fs))
+        p["shared_w2"] = ini.dense((Fs, D), fan_in=Fs)
+    return p
+
+
+def _init_layer(cfg: ArchConfig, ini: Initializer, moe: bool = False) -> dict:
     D = cfg.d_model
     dev = ini.gen.device
-    return {
+    p = {
         "attn_norm": torch.zeros((D,), device=dev),
         "ffn_norm": torch.zeros((D,), device=dev),
         "attn": _init_attn(cfg, ini),
-        "mlp": _init_dense_ffn(cfg, ini),
     }
+    if moe:
+        p["moe"] = _init_moe(cfg, ini)
+    else:
+        p["mlp"] = _init_dense_ffn(cfg, ini)
+    return p
+
+
+def _moe_on(cfg: ArchConfig) -> bool:
+    return bool(cfg.moe and cfg.moe.n_experts)
+
+
+def _n_dense(cfg: ArchConfig) -> int:
+    """The MoE family's leading dense-FFN layers (0 for the dense family)."""
+    return min(cfg.moe.first_dense_layers, cfg.n_layers) if _moe_on(cfg) else 0
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> dict:
     """Seeded random weights on the generator's device (the JAX package's
     init laws: truncated normal at ``fan_in ** -0.5``, embeddings N(0, 0.02²),
     zero norm scales).  Use a CUDA generator for the card."""
-    _check_ported(cfg)
     ini = Initializer(gen)
     D, V = cfg.d_model, cfg.vocab
     dev = gen.device
-    params: dict = {
-        "embed": torch.randn((V, D), generator=gen, device=dev) * 0.02,
-        "layers": [_init_layer(cfg, ini) for _ in range(cfg.n_layers)],
-        "final_norm": torch.zeros((D,), device=dev),
-    }
+    n_dense = _n_dense(cfg)
+    params: dict = {"embed": torch.randn((V, D), generator=gen, device=dev) * 0.02}
+    if n_dense:
+        params["dense_layers"] = [_init_layer(cfg, ini) for _ in range(n_dense)]
+    params["layers"] = [_init_layer(cfg, ini, moe=_moe_on(cfg))
+                        for _ in range(cfg.n_layers - n_dense)]
+    params["final_norm"] = torch.zeros((D,), device=dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.dense((D, V))
+    if cfg.frontend == "vit":
+        params["vproj"] = ini.dense((cfg.frontend_dim, D))
     if dtype != torch.float32:
         params = map_leaves(lambda _, x: x.to(dtype), params)
     return params
@@ -149,7 +175,15 @@ def _attention_block(x, p, cfg: ArchConfig, sctx: ShardCtx, cos, sin, *,
     return sctx.act_btd(y), new_cache
 
 
-def _ffn_block(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str):
+def _ffn_block(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str,
+               dropless: bool = False) -> tuple:
+    """The layer's FFN: routed experts (``"moe"``) or a dense MLP.  Returns
+    ``(y, aux)``, ``aux`` the MoE terms (empty when dropless or dense)."""
+    B, S, D = x.shape
+    if "moe" in p:
+        y, aux = M.moe_ffn(x.reshape(B * S, D), p["moe"], cfg.moe, act=cfg.act,
+                           impl=impl, dropless=dropless, n_groups=sctx.dp)
+        return sctx.act_btd(y.reshape(B, S, D)), aux
     mp = p["mlp"]
     if cfg.act == "swiglu":
         h = L.swiglu(L.linear(x, mp["w1"], impl), L.linear(x, mp["w3"], impl))
@@ -157,17 +191,19 @@ def _ffn_block(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str):
         h = L.sq_relu(L.linear(x, mp["w1"], impl))
     else:
         h = L.gelu_ffn_act(L.linear(x, mp["w1"], impl))
-    return sctx.act_btd(L.linear(sctx.act_btf(h), mp["w2"], impl))
+    return sctx.act_btd(L.linear(sctx.act_btf(h), mp["w2"], impl)), {}
 
 
-def _layer_fwd(x, p, cfg, sctx, cos, sin, cache=None, impl="dense", lengths=None):
+def _layer_fwd(x, p, cfg, sctx, cos, sin, cache=None, impl="dense", dropless=False,
+               lengths=None):
     h, new_cache = _attention_block(
         L.rms_norm(x, p["attn_norm"], cfg.norm_eps), p["attn"], cfg, sctx, cos, sin,
         cache=cache, impl=impl, lengths=lengths,
     )
     x = x + h
-    h = _ffn_block(L.rms_norm(x, p["ffn_norm"], cfg.norm_eps), p, cfg, sctx, impl)
-    return x + h, new_cache
+    h, aux = _ffn_block(L.rms_norm(x, p["ffn_norm"], cfg.norm_eps), p, cfg, sctx,
+                        impl, dropless)
+    return x + h, new_cache, aux
 
 
 def _impl(cfg: ArchConfig) -> str:
@@ -178,8 +214,21 @@ def _head_impl(cfg: ArchConfig) -> str:
     return "dense" if cfg.tie_embeddings else _impl(cfg)
 
 
-def _embed(params, tokens):
-    return _params.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+def _prep_inputs(params, cfg: ArchConfig, sctx: ShardCtx, tokens, frontend_embeds):
+    """Token embeddings in bf16, prefixed by the projected patch embeddings
+    when the config has a vit frontend and they are given.  Returns ``(x,
+    n_prefix)``.  ``vproj`` takes the ``dense`` path even when quantized
+    (the JAX package's rule): it dequantizes, and launches no kernel."""
+    x = _params.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    n_prefix = 0
+    if cfg.frontend == "vit" and frontend_embeds is not None:
+        pe = L.linear(frontend_embeds.to(torch.bfloat16), params["vproj"], "dense")
+        x = torch.cat([pe, x], dim=1)
+        n_prefix = pe.shape[1]
+    return sctx.act_btd(x), n_prefix
+
+
+_AUX_KEYS = ("moe_load_balance", "moe_drop_frac")
 
 
 # ---------------------------------------------------------------------------
@@ -190,39 +239,47 @@ def _embed(params, tokens):
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             sctx: ShardCtx = ShardCtx(), *, frontend_embeds=None) -> tuple:
     """Full forward (training / prefill-style).  Returns ``(logits, aux)``;
-    ``aux`` holds the JAX package's MoE terms, zero for the dense family."""
-    _check_ported(cfg)
-    if frontend_embeds is not None:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MOE_VIT}")
-    x = sctx.act_btd(_embed(params, tokens))
+    ``aux`` holds the MoE terms summed over the scanned layers (zero for
+    the dense family).  With ``frontend_embeds`` (vit) the logits cover the
+    token positions only: the patch prefix is sliced off."""
+    x, n_prefix = _prep_inputs(params, cfg, sctx, tokens, frontend_embeds)
     B, S, D = x.shape
     cos, sin = L.rope(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     cos, sin = cos[None], sin[None]
     impl = _impl(cfg)
 
-    def layer(h, lp):
-        return _layer_fwd(h, lp, cfg, sctx, cos, sin, impl=impl)[0]
+    for p in params.get("dense_layers", []):
+        x = _layer_fwd(x, p, cfg, sctx, cos, sin, impl=impl)[0]
 
-    def body(h, lp):
+    def layer(h, lp):
+        h, _, a = _layer_fwd(h, lp, cfg, sctx, cos, sin, impl=impl)
+        return (h,) + tuple(a.get(k, zero) for k in _AUX_KEYS)
+
+    def body(carry, lp):
+        h, aux = carry
         if cfg.remat and torch.is_grad_enabled():
             # jax.checkpoint's counterpart: the layer keeps only its input
             # and reruns (K1 included) in the backward
-            return checkpoint(layer, h, lp, use_reentrant=False), None
-        return layer(h, lp), None
+            h, *a = checkpoint(layer, h, lp, use_reentrant=False)
+        else:
+            h, *a = layer(h, lp)
+        return (h, [s + t for s, t in zip(aux, a)]), None
 
-    x, _ = maybe_scan(body, x, params["layers"], cfg.scan_layers)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    (x, aux), _ = maybe_scan(body, (x, [zero] * len(_AUX_KEYS)), params["layers"],
+                             cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.linear(x, _lm_head(params, cfg), _head_impl(cfg))
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits, {"moe_load_balance": zero, "moe_drop_frac": zero.clone()}
+    if n_prefix:
+        logits = logits[:, n_prefix:]
+    return logits, dict(zip(_AUX_KEYS, aux))
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
                 device=None) -> dict:
-    """One KV cache per layer (``"scan"``), on ``device`` (default the card;
-    ``"meta"`` for shapes only).  ``"dense"`` holds the leading dense layers
-    of the MoE family, empty here."""
-    _check_ported(cfg)
+    """One KV cache per layer, on ``device`` (default the card; ``"meta"``
+    for shapes only): ``"dense"`` for the MoE family's leading dense layers,
+    ``"scan"`` for the rest."""
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     if cfg.quant.enabled and cfg.quant.kv_bits == 8:
         one = lambda: A.init_quant_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd,  # noqa: E731
@@ -230,16 +287,18 @@ def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
     else:
         one = lambda: A.init_kv_cache(batch, seq, cfg.n_kv_heads, cfg.hd, dtype,  # noqa: E731
                                       device=dev)
-    return {"dense": [], "scan": [one() for _ in range(cfg.n_layers)]}
+    n_dense = _n_dense(cfg)
+    return {"dense": [one() for _ in range(n_dense)],
+            "scan": [one() for _ in range(cfg.n_layers - n_dense)]}
 
 
 def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
                 sctx: ShardCtx = ShardCtx()) -> tuple:
     """One autoregressive step against the KV caches.  ``tokens (B, 1)``.
     Returns ``(logits, caches)``; RoPE takes each slot's own position."""
-    _check_ported(cfg)
-    x = sctx.act_btd(_embed(params, tokens))
-    # every layer advances in lockstep: layer 0's counters position all slots
+    x, _ = _prep_inputs(params, cfg, sctx, tokens, None)
+    # every layer advances in lockstep: the first scanned layer's counters
+    # position all slots
     pos = caches["scan"][0].pos
     cos, sin = L.rope(pos, cfg.hd, cfg.rope_theta)
     cos, sin = cos[:, None], sin[:, None]  # (B, 1, hd/2): per-slot rope
@@ -247,13 +306,17 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
 
     def body(h, inp):
         lp, cache = inp
-        return _layer_fwd(h, lp, cfg, sctx, cos, sin, cache=cache, impl=impl)
+        h, nc, _ = _layer_fwd(h, lp, cfg, sctx, cos, sin, cache=cache, impl=impl,
+                              dropless=True)
+        return h, nc
 
+    x, new_dense = maybe_scan(body, x, list(zip(params.get("dense_layers", []),
+                                                caches["dense"])))
     x, new_scan = maybe_scan(body, x, list(zip(params["layers"], caches["scan"])),
                              cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.linear(x, _lm_head(params, cfg), _head_impl(cfg))
-    return logits, {"dense": [], "scan": new_scan}
+    return logits, {"dense": new_dense or [], "scan": new_scan}
 
 
 def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
@@ -266,28 +329,32 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     batch: cache counters advance by ``lengths`` (pad rows are never valid
     to decode) and the returned logits are each slot's LAST REAL position.
     ``None`` keeps the full-length semantics (every slot is S tokens).
+    With ``frontend_embeds`` (vit) the patch prefix is written to the cache
+    ahead of the prompt: the counters advance by ``lengths`` plus the
+    prefix.
     """
-    _check_ported(cfg)
-    if frontend_embeds is not None:
-        raise NotImplementedError(f"{cfg.name}: {NOT_PORTED_MOE_VIT}")
-    x = sctx.act_btd(_embed(params, tokens))
+    x, n_prefix = _prep_inputs(params, cfg, sctx, tokens, frontend_embeds)
     B, S, D = x.shape
     cos, sin = L.rope(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     cos, sin = cos[None], sin[None]
     impl = _impl(cfg)
+    eff_lengths = None if lengths is None else lengths + n_prefix
 
     def body(h, inp):
         lp, cache = inp
-        return _layer_fwd(h, lp, cfg, sctx, cos, sin, cache=cache, impl=impl,
-                          lengths=lengths)
+        h, nc, _ = _layer_fwd(h, lp, cfg, sctx, cos, sin, cache=cache, impl=impl,
+                              dropless=True, lengths=eff_lengths)
+        return h, nc
 
+    x, new_dense = maybe_scan(body, x, list(zip(params.get("dense_layers", []),
+                                                caches["dense"])))
     x, new_scan = maybe_scan(body, x, list(zip(params["layers"], caches["scan"])),
                              cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if lengths is None:
+    if eff_lengths is None:
         x_last = x[:, -1:]
     else:
-        last = torch.clamp(lengths.long() - 1, 0, S - 1)
+        last = torch.clamp(eff_lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=x.device), last][:, None]
     logits = L.linear(x_last, _lm_head(params, cfg), _head_impl(cfg))
-    return logits, {"dense": [], "scan": new_scan}
+    return logits, {"dense": new_dense or [], "scan": new_scan}

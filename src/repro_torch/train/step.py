@@ -73,8 +73,13 @@ def _value_and_grad(loss_fn: Callable, params: Any) -> tuple:
 
 
 def _lm_loss(params, batch, cfg: ArchConfig, sctx: ShardCtx, model, scale=None):
-    logits, aux = model.forward(params, batch["tokens"], cfg, sctx)
+    kw = {}
+    if "frontend_embeds" in batch:
+        kw["frontend_embeds"] = batch["frontend_embeds"]
+    logits, aux = model.forward(params, batch["tokens"], cfg, sctx, **kw)
     loss = api.lm_loss(logits, batch["labels"], batch.get("loss_mask"))
+    if aux.get("moe_load_balance") is not None and cfg.moe:
+        loss = loss + 0.01 * aux["moe_load_balance"] / max(cfg.n_layers, 1)
     if scale is not None:
         loss = loss * scale  # inside the grad: a poisoned scale poisons grads
     return loss, {k: v.detach() for k, v in aux.items()}

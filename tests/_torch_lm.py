@@ -9,7 +9,8 @@ _FIELDS = ("w", "idx", "codebook", "bias")
 
 def tree_to_numpy(t):
     """The JAX transformer's params tree as numpy: dense leaves as arrays,
-    ``PasmParams`` leaves as field dicts (leading layer axis kept)."""
+    ``PasmParams`` leaves as field dicts (leading layer axis kept), lists
+    (the MoE family's ``dense_layers``) as lists."""
     if isinstance(t, PasmParams):
         d = {f: None if getattr(t, f) is None else np.asarray(getattr(t, f))
              for f in _FIELDS}
@@ -17,6 +18,8 @@ def tree_to_numpy(t):
                 "pad_k": t.pad_k, **d}
     if isinstance(t, dict):
         return {k: tree_to_numpy(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [tree_to_numpy(v) for v in t]
     return np.asarray(t)
 
 

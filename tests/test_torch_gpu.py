@@ -814,3 +814,52 @@ def test_train_steps_bitwise_repeatable(cuda):
     for x, y in zip(tree_leaves((a, c1)), tree_leaves((b, c2))):
         assert torch.equal(x.view(torch.uint8) if x.ndim else x,
                            y.view(torch.uint8) if y.ndim else y)
+
+
+# ---------------------------------------------------------------------------
+# MoE: K1 once per expert, each expert with its own dictionaries
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [4, 64], ids=["stream", "mma"])
+def test_moe_ffn_runs_k1_per_expert(cuda, T):
+    """``moe_ffn`` on ``kernel`` with bf16 x: one K1 launch per expert and
+    matrix plus the shared experts' three, on the route its rows take
+    (dropless: each expert's M is T); within a bf16 rounding of ``dequant``
+    on the card and of K1's plain version (the CPU), and bitwise repeatable."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.core import params as P
+    from repro_torch.nn import moe as TM
+
+    E, k, D, Fe = 8, 2, 256, 128
+    g = torch.Generator(device=cuda).manual_seed(T)
+
+    def q(*shape):
+        return P.PasmParams.quantize(torch.randn(shape, generator=g, device=cuda) * 0.05,
+                                     16).pack()
+
+    cfg = MoEConfig(n_experts=E, top_k=k, d_expert=Fe, n_shared=1, d_shared=Fe)
+    p = {"router": torch.randn((D, E), generator=g, device=cuda) * 0.1,
+         "w1": q(E, D, Fe), "w3": q(E, D, Fe), "w2": q(E, Fe, D),
+         "shared_w1": q(D, Fe), "shared_w3": q(D, Fe), "shared_w2": q(Fe, D)}
+    x = torch.randn((T, D), generator=g, device=cuda).bfloat16()
+    route = "stream" if T <= pm.STREAM_MAX_M else "mma"
+    pm.reset_launches()
+    y, aux = TM.moe_ffn(x, p, cfg, impl="kernel", dropless=True)
+    torch.cuda.synchronize()
+    assert aux == {} and y.dtype == torch.bfloat16 and y.shape == (T, D)
+    assert pm.launches["pasm_matmul"] == 3 * E + 3
+    assert pm.k1_routes[route] == 3 * E + 3
+    y2, _ = TM.moe_ffn(x, p, cfg, impl="kernel", dropless=True)
+    assert torch.equal(y, y2)
+    yd, _ = TM.moe_ffn(x, p, cfg, impl="dequant", dropless=True)
+    cpu = {n: P.PasmParams(**{f: getattr(w, f).cpu() if torch.is_tensor(getattr(w, f)) else
+                              getattr(w, f) for f in ("w", "idx", "codebook", "bias", "kind",
+                                                      "shape", "bins", "pad_k")})
+           if isinstance(w, P.PasmParams) else w.cpu() for n, w in p.items()}
+    yp, _ = TM.moe_ffn(x.cpu(), cpu, cfg, impl="kernel", dropless=True)
+    torch.cuda.synchronize()
+    for want in (yd, yp):
+        want = want.float().to(cuda)
+        torch.testing.assert_close(y.float(), want, rtol=0,
+                                   atol=2.0 ** -7 * float(want.abs().max()))

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 from _torch_lm import port_params
 from repro.configs import get_config as jget
 from repro.models import transformer as JT
@@ -171,6 +172,54 @@ def test_engine_tokens_match_jax_engine():
     assert [o[0] for o in to] == [o[0] for o in jo]
     agree = np.mean([a == b for x, y in zip(to, jo) for a, b in zip(x, y)])
     assert agree >= 0.9, (to, jo)
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at ``|x|`` (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(abs(x))) - 7)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "internvl2-26b"])
+def test_moe_and_vlm_engine_tokens_match_jax_engine(arch):
+    """The MoE family (a dense leading layer: a non-empty ``caches["dense"]``
+    grafted slot by slot; dropless routing at prefill and decode) and the
+    VLM served text-only, as the JAX ``Engine`` serves it: the same weights
+    and traffic through both engines give the same token streams, each up
+    to its first difference.  There both engines have read the same tokens,
+    and the two candidates must be a greedy near-tie: their logits, from a
+    prefill of that common prefix in each package, lie within one bf16 ulp
+    of each other (past it the stream runs on other inputs)."""
+    jc = jget(arch, smoke=True)
+    jparams = jax.jit(lambda k: JT.init_params(jc, k))(jax.random.PRNGKey(0))
+    cfg = get_config(arch, smoke=True)
+    params = port_params(jparams)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)) for n in (5, 9, 3, 12)]
+    outs = []
+    for eng in (JEngine(jc, jparams, batch_slots=2, max_seq=48),
+                Engine(cfg, params, batch_slots=2, max_seq=48)):
+        reqs = [eng.submit(p, max_new=6) for p in prompts[:2]]
+        eng.step()
+        reqs += [eng.submit(p, max_new=6) for p in prompts[2:]]
+        eng.run_until_drained()
+        outs.append([r.out for r in reqs])
+    assert len(eng.caches["dense"]) == (cfg.moe.first_dense_layers if cfg.moe else 0)
+    to, jo = outs[1], outs[0]
+    assert [len(o) for o in to] == [len(o) for o in jo] == [6] * len(prompts)
+    for prompt, t, j in zip(prompts, to, jo):
+        diff = [i for i, (a, b) in enumerate(zip(t, j)) if a != b]
+        if not diff:
+            continue
+        i = diff[0]
+        seq = np.concatenate([prompt, np.asarray(j[:i])]).astype(np.int32)[None]
+        jl, _ = JT.prefill(jparams, jnp.asarray(seq), JT.init_caches(jc, 1, 48), jc)
+        tl, _ = TT.prefill(params, torch.from_numpy(seq),
+                           TT.init_caches(cfg, 1, 48, device="cpu"), cfg)
+        for lg in (np.asarray(jl.astype(jnp.float32))[0, -1], tl.float().numpy()[0, -1]):
+            a, b = float(lg[t[i]]), float(lg[j[i]])
+            assert abs(a - b) <= _bf16_ulp(max(abs(a), abs(b))), (i, t, j, a, b)
+    assert tlaunch.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
+                         "--max-new", "2", "--max-seq", "32"]) == 0
 
 
 def _quantized(impl="kernel"):

@@ -226,6 +226,49 @@ def test_lm_train_step_matches_jax(lm_pair):
     assert tl[-1] < tl[0]
 
 
+def test_moe_train_step_matches_jax():
+    """One deepseek-moe-16b smoke train step (the layers and experts
+    weight-shared, one dictionary set per expert; K1's plain version) from
+    the same state as the JAX step on ``dequant``: the loss carries the MoE
+    balance term, ``0.01·moe_load_balance / n_layers``, and the router gets
+    its gradient through the gates and that term; loss, grads and the
+    update within the LM tolerance."""
+    q = dict(enabled=True, min_weight_elems=1024)
+    jcfg = jget_config("deepseek-moe-16b", smoke=True).with_quant(impl="dequant", **q)
+    tcfg = get_config("deepseek-moe-16b", smoke=True).with_quant(impl="kernel", **q)
+    jparams = jax.jit(lambda k: jquantize(japi.get_model(jcfg).init_params(jcfg, k), jcfg))(
+        jax.random.PRNGKey(0))
+    tparams = port_params(jparams)
+    assert tparams["layers"][0]["moe"]["w1"].idx.shape[0] == tcfg.moe.n_experts
+    toks = np.asarray(jpipe.synthetic_batch(
+        jpipe.DataConfig(seed=3, vocab=jcfg.vocab, seq_len=16, global_batch=2), 0)["tokens"])
+    (x, y), = _batches(toks, 1)
+    js = jopt.init_opt_state(jparams)
+    ts = interop.opt_state_from_numpy(
+        {"step": np.asarray(js.step), "mu": tree_to_numpy(js.mu),
+         "nu": tree_to_numpy(js.nu)}, interop.lm_params_from_numpy, device="cpu")
+    ocfg_j, ocfg_t = jopt.AdamWConfig(**OCFG), opt.AdamWConfig(**OCFG)
+    jb = {"tokens": jnp.asarray(x), "labels": jnp.asarray(y)}
+    tb = {"tokens": _t(x), "labels": _t(y)}
+    jp, jo, jm, jgrads = _jax_step(jcfg, ocfg_j)(jparams, js, jb)
+    loss, aux, grads = tstep.loss_and_grads(tparams, tb, tcfg)
+    _, jaux = jstep._loss_fn(jparams, jb, jcfg, JShardCtx(), japi.get_model(jcfg))
+    np.testing.assert_allclose(float(aux["moe_load_balance"]),
+                               float(jaux["moe_load_balance"]), rtol=1e-2)
+    np.testing.assert_allclose(float(loss), float(jm["loss"]), rtol=1e-3)
+    got, want = port_flat(grads), jax_flat(jgrads)
+    assert set(got) == {k for k in want if not k.endswith("/idx")}
+    assert float(np.abs(got["layers/moe/router"]).max()) > 0
+    for k, g in got.items():
+        np.testing.assert_allclose(g, want[k], rtol=0,
+                                   atol=LM_TOL * float(np.abs(want[k]).max()), err_msg=k)
+    tp, to, tm = tstep.make_train_step(tcfg, ocfg_t)(tparams, ts, tb)
+    assert int(tm["skipped"]) == int(jm["skipped"]) == 0
+    # nu = (1 - b2)·g² doubles g's relative error (measured: grads within
+    # 1.9e-2 of max here, the router and the codebooks the largest)
+    assert_update_close((tp, to), (jp, jo), 2 * LM_TOL, g_floor=4 * LM_TOL)
+
+
 def test_remat_reruns_each_layer_in_the_backward(monkeypatch):
     """``cfg.remat``: a step calls K1 7 times a layer + the head in the
     forward and again 7 times a layer in the backward; without remat only

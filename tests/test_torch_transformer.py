@@ -1,4 +1,5 @@
-"""The port's dense transformer LM against the JAX package on the CPU.
+"""The port's transformer LM (dense, MoE, the vit prefix) against the JAX
+package on the CPU.
 
 Weights are drawn once by the JAX package and carried into the port
 (:func:`repro_torch.interop.lm_params_from_numpy`), dense or quantized by
@@ -13,6 +14,7 @@ fused vs separate elementwise ops), so logits of magnitude ~3 differ by a
 few bf16 ulps: |Δ| ≤ 2.5 % of max |logit|.  A mismatch of the algorithm
 (a mask, a rope position, a cache slot) moves them by O(1).
 """
+import contextlib
 import dataclasses
 import functools
 
@@ -31,6 +33,7 @@ from repro.models import api as japi
 from repro.models import common as jcommon
 from repro.models import transformer as JT
 from repro.nn import layers as JL
+from repro.nn import moe as JM
 from repro_torch import configs as tconfigs
 from repro_torch import interop
 from repro_torch.core import params as tpar
@@ -40,9 +43,32 @@ from repro_torch.models import api as tapi
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as TT
 from repro_torch.nn import layers as TL
+from repro_torch.nn import moe as TM
 
 ARCHS = ("qwen3-32b", "stablelm-3b", "nemotron-4-340b")
+MOE_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
+PORTED = ARCHS + MOE_ARCHS + ("phi3-medium-14b", "internvl2-26b")
 LOGIT_TOL = 0.025  # of max |logit|: bf16 rounding in two frameworks (above)
+# a routing near-tie: an expert within 2^-5 of the k-th largest probability
+# (the bf16 ulps above move router probabilities by about 1e-3 of themselves)
+TIE = 2.0 ** -5
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init(arch: str):
+    cfg = jconfigs.get_config(arch, smoke=True)
+    if arch in ARCHS:
+        return JT.init_params(cfg, jax.random.PRNGKey(0))
+    # the MoE and VLM configs: jitted, as eager tracing of the init costs
+    # seconds (the same laws)
+    return jax.jit(lambda k: JT.init_params(cfg, k))(jax.random.PRNGKey(0))
+
+
+def _jit(fn, *args, **kw):
+    """``fn(*args, **kw)`` through ``jax.jit`` (a fresh trace: spies run)
+    with the config and the other non-array arguments closed over."""
+    arrays = {k: v for k, v in kw.items() if v is not None}
+    return jax.jit(lambda a, k: fn(*a, **k))(args, arrays)
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,12 +76,15 @@ def _setup(arch: str, quant: bool):
     """JAX and port configs and params, dense or quantized (``dequant``)."""
     jc = jconfigs.get_config(arch, smoke=True)
     tc = tconfigs.get_config(arch, smoke=True)
-    jparams = JT.init_params(jc, jax.random.PRNGKey(0))
+    jparams = _jax_init(arch)
     if quant:
         # the smoke matrices are small: lower the B ≪ N floor so they quantize
         kw = dict(enabled=True, impl="dequant", min_weight_elems=1024)
         jc, tc = jc.with_quant(**kw), tc.with_quant(**kw)
-        jparams = jcommon.quantize_params(jparams, jc)
+        if arch in ARCHS:
+            jparams = jcommon.quantize_params(jparams, jc)
+        else:  # jitted: the same dictionaries, without eager tracing
+            jparams = jax.jit(lambda p: jcommon.quantize_params(p, jc))(jparams)
     return jc, tc, jparams, port_params(jparams)
 
 
@@ -72,28 +101,34 @@ def _close(got: torch.Tensor, want) -> None:
 
 
 def test_configs_equal_jax():
-    for arch in ARCHS + ("phi3-medium-14b",):
+    for arch in PORTED:
         for smoke in (False, True):
             a = dataclasses.asdict(jconfigs.get_config(arch, smoke=smoke))
             b = dataclasses.asdict(tconfigs.get_config(arch, smoke=smoke))
             assert a == b
             c = tconfigs.get_config(arch, smoke=smoke)
-            assert c.n_params() == jconfigs.get_config(arch, smoke=smoke).n_params()
+            j = jconfigs.get_config(arch, smoke=smoke)
+            assert (c.n_params(), c.n_active_params()) == (j.n_params(), j.n_active_params())
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert tconfigs.all_cells() == jconfigs.all_cells()
-    for arch in set(tconfigs.ARCH_IDS) - set(ARCHS + ("phi3-medium-14b",)):
+    assert set(tconfigs.ARCH_IDS) - set(PORTED) == {
+        "mamba2-130m", "recurrentgemma-2b", "whisper-tiny"}
+    for arch in set(tconfigs.ARCH_IDS) - set(PORTED):
         with pytest.raises(NotImplementedError, match="item 8"):
             tconfigs.get_config(arch)
-    moe = dataclasses.replace(tconfigs.get_config("qwen3-32b", smoke=True),
-                              family="moe")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.get_model(moe)
+    for family in ("ssm", "hybrid", "audio"):
+        later = dataclasses.replace(tconfigs.get_config("qwen3-32b", smoke=True),
+                                    family=family)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            tapi.get_model(later)
     with pytest.raises(KeyError):
         tconfigs.get_config("gpt-2")
-    assert tapi.get_model(tconfigs.get_config("stablelm-3b")) is TT
-    full = tconfigs.get_config("qwen3-32b")
-    assert tapi.cache_len(full, tconfigs.get_shape("decode_32k")) == \
-        japi.cache_len(jconfigs.get_config("qwen3-32b"), jconfigs.get_shape("decode_32k"))
+    for arch in ("stablelm-3b", "deepseek-moe-16b", "kimi-k2-1t-a32b", "internvl2-26b"):
+        assert tapi.get_model(tconfigs.get_config(arch)) is TT
+    for arch in ("qwen3-32b", "internvl2-26b"):
+        for shape in ("decode_32k", "train_4k"):
+            assert tapi.cache_len(tconfigs.get_config(arch), tconfigs.get_shape(shape)) == \
+                japi.cache_len(jconfigs.get_config(arch), jconfigs.get_shape(shape))
 
 
 def test_layers_match_jax():
@@ -198,6 +233,179 @@ def test_forward_prefill_decode_match_jax(arch, quant):
         assert tcache["scan"][-1].pos.tolist() == [12, 7]
 
 
+@contextlib.contextmanager
+def _moe_inputs(mod, log: list):
+    """Record what each ``mod.moe_ffn`` call routes: ``(x as f32 numpy,
+    router as numpy)``; inside the JAX package's scan through a debug
+    callback, which runs with the values in layer order."""
+    inner = mod.moe_ffn
+
+    def spy(x, params, cfg, **kw):
+        if torch.is_tensor(x):
+            log.append((x.float().numpy(), params["router"].numpy()))
+        else:
+            jax.debug.callback(lambda a, r: log.append((np.array(a), np.array(r))),
+                               x.astype(jnp.float32), params["router"], ordered=True)
+        return inner(x, params, cfg, **kw)
+
+    mod.moe_ffn = spy
+    try:
+        yield log
+    finally:
+        mod.moe_ffn = inner
+
+
+def _flips(jlog, tlog, k: int, seq: int = 0) -> dict:
+    """Where the packages' chosen experts part, per group of rows: the
+    whole batch under a capacity (``seq=0``: a changed expert moves later
+    tokens' queue positions), else each sequence of ``seq`` rows (dropless:
+    only attention carries a change, to later positions).  Returns ``{group:
+    first differing flat row}``, taken at the group's first MoE call with a
+    difference; every difference there must be a near-tie in JAX's own
+    probabilities (the expert the port took within ``TIE`` of JAX's k-th).
+    The rows before a group's entry are unaffected by it."""
+    assert len(jlog) == len(tlog)
+    first: dict = {}
+    for (xj, r), (xt, _) in zip(jlog, tlog):
+        pj = np.asarray(jax.nn.softmax(jnp.dot(jnp.asarray(xj), jnp.asarray(r)), -1))
+        ij = np.sort(np.asarray(jax.lax.top_k(jnp.asarray(pj), k)[1]), -1)
+        it = np.sort(TM.route(torch.from_numpy(xt), torch.from_numpy(r), k)[2].numpy(), -1)
+        new = {}
+        for t in np.flatnonzero((ij != it).any(-1)):
+            g = int(t) // seq if seq else 0
+            if g in first:
+                continue  # already parted at an earlier layer
+            kth = np.sort(pj[t])[-k]
+            extra = set(it[t]) - set(ij[t])
+            assert all(pj[t, e] >= kth * (1 - TIE) for e in extra), (t, pj[t], ij[t], it[t])
+            new.setdefault(g, int(t))
+        first.update(new)
+    return first
+
+
+def _close_rows(got: torch.Tensor, want, rows) -> None:
+    """:func:`_close` on the given rows of ``(B, S, V)`` logits flattened
+    to ``(B·S, V)``, scaled by the max |logit| of all rows."""
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    assert got.shape == want.shape and len(rows)
+    V = want.shape[-1]
+    d = np.abs(got.reshape(-1, V)[rows] - want.reshape(-1, V)[rows]).max()
+    assert d <= LOGIT_TOL * np.abs(want).max(), (d, np.abs(want).max())
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "quantized"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_prefill_decode_match_jax(arch, quant):
+    """deepseek-moe-16b and kimi-k2-1t-a32b (a leading dense layer, then
+    MoE layers; capacity routing in ``forward``, dropless in ``prefill`` and
+    ``decode_step``) as :func:`test_forward_prefill_decode_match_jax` holds
+    the dense family.  Both packages route the same bf16 activations up to
+    an ulp, so a token whose k-th and (k+1)-th experts are a near-tie may
+    take the other one in the port: every such difference must be a
+    near-tie, and the logits are compared on the rows it cannot reach
+    (:func:`_flips`).  The MoE terms: the same drop fraction (up to the
+    f32 sum over layers) when no choice differs; the balance loss within
+    1e-2."""
+    jc, tc0, jparams, tparams = _setup(arch, quant)
+    k, S = jc.moe.top_k, 11
+    impls = ("dequant", "kernel") if quant else ("dense",)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, jc.vocab, (2, S)).astype(np.int32)
+    lengths = np.array([S, 6], np.int32)  # slot 1 is right-padded
+    nxt = rng.integers(0, jc.vocab, (2, 1)).astype(np.int32)
+    jlog = {c: [] for c in ("fwd", "pre", "dec")}
+    fwd = lambda p, t: JT.forward(p, t, jc)  # noqa: E731
+    pre = lambda p, t, c, lengths: JT.prefill(p, t, c, jc, lengths=lengths)  # noqa: E731
+    dec = lambda p, t, c: JT.decode_step(p, t, c, jc)  # noqa: E731
+    with _moe_inputs(JM, jlog["fwd"]):
+        jl_fwd, jaux = _jit(fwd, jparams, jnp.asarray(toks))
+    jcache = JT.init_caches(jc, 2, 24)
+    with _moe_inputs(JM, jlog["pre"]):
+        jl_pre, jcache = _jit(pre, jparams, jnp.asarray(toks), jcache,
+                              lengths=jnp.asarray(lengths))
+    with _moe_inputs(JM, jlog["dec"]):
+        jl_dec, _ = _jit(dec, jparams, jnp.asarray(nxt), jcache)
+    n_moe = jc.n_layers - jc.moe.first_dense_layers
+    assert [len(v) for v in jlog.values()] == [n_moe] * 3
+    for impl in impls:
+        tc = _impl(tc0, impl)
+        tlog = {c: [] for c in jlog}
+        with _moe_inputs(TM, tlog["fwd"]):
+            tl, aux = TT.forward(tparams, torch.from_numpy(toks), tc)
+        first = _flips(jlog["fwd"], tlog["fwd"], k).get(0, 2 * S)
+        _close_rows(tl, jl_fwd, np.arange(first))
+        if first == 2 * S:
+            assert abs(float(aux["moe_drop_frac"]) - float(jaux["moe_drop_frac"])) <= 1e-6
+        np.testing.assert_allclose(float(aux["moe_load_balance"]),
+                                   float(jaux["moe_load_balance"]), rtol=1e-2)
+        tcache = TT.init_caches(tc, 2, 24, device="cpu")
+        assert len(tcache["dense"]) == len(jcache["dense"]) == jc.moe.first_dense_layers
+        with _moe_inputs(TM, tlog["pre"]):
+            tl, tcache = TT.prefill(tparams, torch.from_numpy(toks), tcache, tc,
+                                    lengths=torch.from_numpy(lengths))
+        first = _flips(jlog["pre"], tlog["pre"], k, seq=S)
+        last = np.arange(2) * S + lengths - 1  # each slot's last real row
+        slots = [b for b in range(2) if first.get(b, last[b] + 1) > last[b]]
+        _close_rows(tl[:, 0], jl_pre[:, 0], slots)
+        assert [c.pos.tolist() for c in tcache["dense"] + tcache["scan"]] == \
+            [[S, 6]] * tc.n_layers
+        with _moe_inputs(TM, tlog["dec"]):
+            tl, tcache = TT.decode_step(tparams, torch.from_numpy(nxt), tcache, tc)
+        # a slot whose prefill took another expert decodes from another cache
+        first = _flips(jlog["dec"], tlog["dec"], k, seq=1)
+        _close_rows(tl[:, 0], jl_dec[:, 0], [b for b in slots if b not in first])
+        assert [c.pos.tolist() for c in tcache["dense"] + tcache["scan"]] == \
+            [[S + 1, 7]] * tc.n_layers
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "quantized"])
+def test_vit_prefix_matches_jax(quant):
+    """internvl2-26b: the projected patch prefix (``vproj``, dequantized on
+    every impl: no kernel launch) ahead of the tokens; forward's logits
+    cover the tokens only; prefill writes prefix + prompt to the cache
+    (positions ``lengths + n_prefix``); decode continues from there."""
+    jc, tc0, jparams, tparams = _setup("internvl2-26b", quant)
+    rng = np.random.default_rng(11)
+    P = jc.frontend_tokens
+    fe = rng.standard_normal((2, P, jc.frontend_dim)).astype(np.float32)
+    toks = rng.integers(0, jc.vocab, (2, 9)).astype(np.int32)
+    lengths = np.array([9, 5], np.int32)
+    nxt = rng.integers(0, jc.vocab, (2, 1)).astype(np.int32)
+    jfe = jnp.asarray(fe, jnp.bfloat16)
+    fwd = lambda p, t, frontend_embeds=None: JT.forward(  # noqa: E731
+        p, t, jc, frontend_embeds=frontend_embeds)
+    jl_fwd, _ = _jit(fwd, jparams, jnp.asarray(toks), frontend_embeds=jfe)
+    jcache = JT.init_caches(jc, 2, 32)
+    jl_pre, jcache = _jit(lambda p, t, c, **kw: JT.prefill(p, t, c, jc, **kw), jparams,
+                          jnp.asarray(toks), jcache, lengths=jnp.asarray(lengths),
+                          frontend_embeds=jfe)
+    jl_dec, _ = _jit(lambda p, t, c: JT.decode_step(p, t, c, jc), jparams,
+                     jnp.asarray(nxt), jcache)
+    tfe = torch.from_numpy(fe).bfloat16()
+    for impl in (("dequant", "kernel") if quant else ("dense",)):
+        tc = _impl(tc0, impl)
+        tl, _ = TT.forward(tparams, torch.from_numpy(toks), tc, frontend_embeds=tfe)
+        assert tl.shape == (2, 9, tc.vocab)
+        _close(tl, jl_fwd)
+        tcache = TT.init_caches(tc, 2, 32, device="cpu")
+        tl, tcache = TT.prefill(tparams, torch.from_numpy(toks), tcache, tc,
+                                lengths=torch.from_numpy(lengths), frontend_embeds=tfe)
+        _close(tl, jl_pre)
+        assert [c.pos.tolist() for c in tcache["scan"]] == [[9 + P, 5 + P]] * tc.n_layers
+        tl, tcache = TT.decode_step(tparams, torch.from_numpy(nxt), tcache, tc)
+        _close(tl, jl_dec)
+        assert tcache["scan"][0].pos.tolist() == [10 + P, 6 + P]
+    # without frontend_embeds the VLM is a text LM
+    jl, _ = _jit(fwd, jparams, jnp.asarray(toks))
+    _close(TT.forward(tparams, torch.from_numpy(toks), tc0)[0], jl)
+    spec = tapi.input_specs(tc0, tconfigs.get_shape("prefill_32k"))
+    want = japi.input_specs(jc, jconfigs.get_shape("prefill_32k"))
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1]) for k, v in spec.items()} == \
+        {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()}
+    assert spec["frontend_embeds"].device.type == "meta"
+
+
 def test_tied_head_int8_cache_and_loss():
     """A tied head (the embedding's transpose, dense) and the int8 KV cache
     (``kv_bits=8``) through prefill + decode; ``lm_loss`` equals JAX's."""
@@ -226,10 +434,16 @@ def test_tied_head_int8_cache_and_loss():
 
 
 def test_model_surface_refuses_later_slices():
+    """What still raises: the audio frontend (item 8) and every mesh path
+    (item 10); the MoE and vit surfaces are served."""
     tc = tconfigs.get_config("qwen3-32b", smoke=True)
-    vit = dataclasses.replace(tc, frontend="vit")
+    audio = dataclasses.replace(tc, family="audio", frontend="audio")
     with pytest.raises(NotImplementedError, match="item 8"):
-        TT.init_params(vit, torch.Generator().manual_seed(0))
+        tapi.frontend_spec(audio, 2)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tapi.input_specs(audio, tconfigs.get_shape("train_4k"))
+    vit = dataclasses.replace(tc, frontend="vit", frontend_tokens=3, frontend_dim=8)
+    assert "vproj" in TT.init_params(vit, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="item 10"):
         tcommon.ShardCtx(active=True)
     with pytest.raises(NotImplementedError, match="item 10"):
