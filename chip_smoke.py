@@ -115,8 +115,29 @@ Phases (every one unguarded: any failure exits non-zero):
     ``kernel`` and ``dequant``: cache positions 320 / 296, 29 K1 launches a
     model call (``vproj`` dequantizes), logits within ``LM_LOGIT_TOL``, K5
     on the prefill's attention operands;
-11. one ``{"kernels": [...]}`` JSON line;
-12. last line: ``{"ok": true, "device": {...}}``.
+11. the recurrent families at full width and full depth, 16 bins int4,
+    weights drawn and quantized on the card: (a) mamba2-130m (24 SSD
+    layers, d_model 768, d_inner 1536, 24 heads of 64, d_state 128, vocab
+    50280) and (b) recurrentgemma-2b (26 layers: 8 groups of (R, R, A) and
+    a 2-layer recurrent tail, d_model 2560, 10 query heads over one KV
+    head of 256, d_ff 7680, vocab 256000, a 2048-slot local-attention
+    ring), each serving the qwen3 traffic and a 2-token prompt (the
+    hybrid also a 2040-token prompt whose 16 new tokens cross the ring)
+    through ``Engine`` at the exact prompt length on ``kernel`` (exactly
+    49 / 147 K1 launches a model call, and 36 gate dequantizations for
+    the hybrid) and ``dequant``; teacher-forced logits, each prompt alone,
+    bitwise on a second kernel run and, against ``dequant``, within the
+    oracle's own noise floor measured in the same run (``dequant`` with
+    every embedding moved by up to one bf16 ulp: at full depth it exceeds
+    ``LM_LOGIT_TOL``); the ring prompt's decode against ``forward`` at the
+    same positions (the error after the wrap at most 4× the error before
+    it); K5 on the ring prompt's prefill attention operands (G 10, hd
+    256); a 4-slot decode step and a 4 × 384 prefill timed on each impl
+    (wall, host, device and the largest kernels from a ``torch.profiler``
+    trace); K1 at the new shapes warm and cold beside ``torch.matmul``
+    and the bound;
+12. one ``{"kernels": [...]}`` JSON line;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -203,6 +224,11 @@ VLM_LAYERS = 4  # of internvl2-26b's 48
 VLM_PROMPTS = (64, 40)  # right-padded behind 256 patch tokens each
 VLM_DECODE = 8
 MOE_TIME_B, MOE_TIME_S = LM_SLOTS, 384  # the timed prefill: one full bucket
+# phase 11: the recurrent families at full width and full depth
+SSM_K1, HYBRID_K1, HYBRID_GATES = 49, 147, 36  # a model call (recurrent_per_call)
+REC_PROMPTS = LM_PROMPTS + (2,)  # the qwen3 traffic and a 2-token prompt
+RING_PROMPT = 2040  # + 16 new tokens: past recurrentgemma-2b's 2048-slot ring
+RING_MAX_SEQ = RING_PROMPT + LM_NEW  # so the ring is min(2048, max_seq) = 2048
 
 
 def log(*a) -> None:
@@ -653,7 +679,7 @@ def lm_config():
         enabled=True, bins=16, impl="kernel")
 
 
-def serve_lm(cfg, params, prompts, impl: str):
+def serve_lm(cfg, params, prompts, impl: str, max_seq: int = LM_MAX_SEQ):
     """Serve ``prompts`` through the Engine on ``impl`` with staggered
     submits: two at tick 0, then one more every second tick.  Returns the
     engine, the requests and the launch counts of the run."""
@@ -663,7 +689,7 @@ def serve_lm(cfg, params, prompts, impl: str):
     from repro_torch.serve.engine import Engine
 
     eng = Engine(cfg.with_quant(impl=impl), params, batch_slots=LM_SLOTS,
-                 max_seq=LM_MAX_SEQ)
+                 max_seq=max_seq)
     torch.cuda.synchronize()
     pm.reset_launches()
     t0 = time.perf_counter()
@@ -1500,9 +1526,14 @@ def time_step(fn, reps: int = 3) -> dict:
             if e.device_type == DeviceType.CUDA]
     dev = sum(t for _, t in kern) / 1e3
     k1 = sum(t for n, t in kern if any(k in n for k in K1_KERNEL_NAMES)) / 1e3
+    by_name: dict = {}
+    for n, t in kern:
+        ms, count = by_name.get(n, (0.0, 0))
+        by_name[n] = (ms + t / 1e3, count + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_ms": float(np.median(wall)) * 1e3, "host_ms": float(np.median(host)) * 1e3,
             "device_ms": dev if kern else None, "k1_ms": k1 if kern else None,
-            "kernels": len(kern)}
+            "kernels": len(kern), "top": [(n[:70], ms, c) for n, (ms, c) in top]}
 
 
 def fmt_step(t: dict) -> str:
@@ -1555,11 +1586,11 @@ def build_lm(cfg, gen, phase: str, full_layers: int) -> dict:
     """Seeded weights drawn on the card and quantized there, logged."""
     import torch
 
-    from repro_torch.models import transformer as TT
+    from repro_torch.models import api
     from repro_torch.models.common import param_count, quantize_params, weight_bytes
 
     t0 = time.perf_counter()
-    dense = TT.init_params(cfg, gen)
+    dense = api.get_model(cfg).init_params(cfg, gen)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1577,8 +1608,14 @@ def build_lm(cfg, gen, phase: str, full_layers: int) -> dict:
            f"layer(s) dense" if cfg.moe else "")
         + (f", vit prefix {cfg.frontend_tokens} x {cfg.frontend_dim}" if
            cfg.frontend == "vit" else "")
-        + f"), reduced to {cfg.n_layers} of its {full_layers} layers, "
-        f"{param_count(params) / 1e9:.3f} B params; weights drawn in {t_init:.2f} s, "
+        + (f", SSD d_inner {cfg.ssm.expand * cfg.d_model}, heads of {cfg.ssm.head_dim}, "
+           f"d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}" if cfg.ssm else "")
+        + (f", pattern {cfg.hybrid.pattern}, lru width {cfg.hybrid.lru_width}, local "
+           f"window {cfg.hybrid.local_window}" if cfg.hybrid else "")
+        + (f"), {cfg.n_layers} of its {full_layers} layers (full depth), "
+           if cfg.n_layers == full_layers else
+           f"), reduced to {cfg.n_layers} of its {full_layers} layers, ")
+        + f"{param_count(params) / 1e9:.3f} B params; weights drawn in {t_init:.2f} s, "
         f"quantized on the card in {t_quant:.2f} s ({cfg.quant.bins} bins, int4 packed"
         + (", each expert's matrices their own dictionaries" if cfg.moe else "")
         + f"); weight bytes dense bf16 "
@@ -1850,6 +1887,257 @@ def vlm_phase(gen, errs: dict, card: str) -> dict:
     return {"launches": launches, "routes": routes["kernel"], "k5": k5}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def recurrent_per_call(cfg) -> tuple:
+    """(K1 launches, gate dequantizations) of one model call, from the
+    code: mamba2's ``in_proj`` and ``out_proj`` a layer; the hybrid's
+    ``rec_in``, ``rec_out`` and the MLP's three a recurrent layer, whose
+    ``w_a`` and ``w_x`` dequantize, and the four attention matrices and the
+    MLP's three an attention layer; the head."""
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers + 1, 0
+    pat = cfg.hybrid.pattern
+    n_attn = sum(pat[i % len(pat)] == "attention" for i in range(cfg.n_layers))
+    n_rec = cfg.n_layers - n_attn
+    return 5 * n_rec + 7 * n_attn + 1, 2 * n_rec
+
+
+class GateSpy:
+    """Counts, while active, the ``dequant`` products of weight-shared
+    matrices (under ``kernel``: the RG-LRU gates, ``nn/rglru.py::_gates``)."""
+
+    def __enter__(self):
+        from repro_torch.core import params as P
+        from repro_torch.nn import layers as L
+
+        self.mod, self.inner, self.n = L, L.linear, 0
+
+        def spy(x, w, impl="dense", **kw):
+            self.n += impl == "dequant" and P.is_quantized(w)
+            return self.inner(x, w, impl, **kw)
+
+        L.linear = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.linear = self.inner
+
+
+def teacher_forced_each(cfg, params, prompts, tokens, impl: str, max_seq: int) -> list:
+    """Per prompt, alone at its exact length (these families take no
+    right-padded prompt): the prefill's logits and those of the decode
+    steps fed the given tokens (the kernel run's), as a list of (1, V) f32
+    tensors a prompt."""
+    import torch
+
+    from repro_torch.models import api
+
+    m, c = api.get_model(cfg), cfg.with_quant(impl=impl)
+    out = []
+    for p, toks in zip(prompts, tokens):
+        caches = m.init_caches(c, 1, max_seq, device="cuda")
+        logits, caches = m.prefill(params, torch.from_numpy(np.asarray(p, np.int32)[None])
+                                   .cuda(), caches, c)
+        steps = [logits[:, 0].float()]
+        for t in toks[:LM_NEW - 1]:
+            nxt = torch.tensor([[t]], dtype=torch.int32, device="cuda")
+            logits, caches = m.decode_step(params, nxt, caches, c)
+            steps.append(logits[:, 0].float())
+        out.append(steps)
+    torch.cuda.synchronize()
+    return out
+
+
+def recurrent_phase(arch: str, full_layers: int, gen, errs: dict, card: str) -> dict:
+    """Phase 11(a) mamba2-130m / 11(b) recurrentgemma-2b at full width and
+    depth: served on ``kernel`` and ``dequant`` with exact K1 launch counts,
+    teacher-forced logits held, the ring wrap (hybrid), K5 on the hybrid's
+    prefill operands, steps timed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.models import api
+
+    hybrid = arch == "recurrentgemma-2b"
+    tag = "11(b)" if hybrid else "11(a)"
+    cfg = get_config(arch).with_quant(enabled=True, bins=16, impl="kernel")
+    model = api.get_model(cfg)
+    params = build_lm(cfg, gen, tag, full_layers)
+    per_call, gates = recurrent_per_call(cfg)
+    want_k1, want_gates = (HYBRID_K1, HYBRID_GATES) if hybrid else (SSM_K1, 0)
+    if (per_call, gates) != (want_k1, want_gates):
+        raise AssertionError(f"{arch}: {per_call} K1 launches and {gates} gate "
+                             f"dequantizations a model call, not {want_k1} / {want_gates}")
+    rng = np.random.default_rng(SEED + 2)
+    lens = REC_PROMPTS + ((RING_PROMPT,) if hybrid else ())
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in lens]
+    max_seq = RING_MAX_SEQ if hybrid else LM_MAX_SEQ
+    runs, failed = {}, []
+    for impl in ("kernel", "dequant"):
+        with GateSpy() as spy:
+            eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params, prompts,
+                                                                     impl, max_seq)
+        roll = eng.metrics.rollup()
+        calls = eng.calls["prefill"] + eng.calls["decode"]
+        want = {k: per_call * calls if (impl == "kernel" and k == "pasm_matmul") else 0
+                for k in ALL_KERNELS}
+        log(f"  {impl:<8} {len(reqs)} requests (prompts {lens}), {eng.tick} ticks, model "
+            f"calls {eng.calls}, launches {counts} ({per_call} a model call), K1 by route "
+            f"{routes}, gate dequantizations {spy.n} ({gates} a call on kernel), submits "
+            f"while slots were live {live_submits}, {wall:.2f} s host clock incl. first "
+            f"calls, {roll['tok_s']:.1f} tok/s ({card})")
+        if counts != want or (impl == "kernel" and (
+                sum(routes.values()) != per_call * calls or spy.n != gates * calls)):
+            raise AssertionError(f"{arch} {impl}: expected launches {want} and "
+                                 f"{gates * calls} gate dequantizations, got {counts}, "
+                                 f"{spy.n}, routes {routes}")
+        if roll.get("n_degraded", 0) or not live_submits:
+            raise AssertionError(f"{arch} {impl}: degraded or no continuous admission")
+        if not all(r.done and len(r.out) == LM_NEW for r in reqs):
+            raise AssertionError(f"{arch} {impl}: a request was not served {LM_NEW} tokens")
+        runs[impl] = (counts, [r.out for r in reqs], routes)
+    ko, do = runs["kernel"][1], runs["dequant"][1]
+    agree = float(np.mean([a == b for x, y in zip(ko, do) for a, b in zip(x, y)]))
+    log(f"  {len(reqs)}/{len(prompts)} served on both; greedy tokens agreeing, kernel vs "
+        f"dequant: {agree:.4f} of {len(ko) * LM_NEW}")
+
+    # teacher-forced on the kernel run's tokens, each prompt alone; the
+    # hybrid's K5 operands recorded at the ring prompt's prefill (S <= 2048:
+    # the local window masks nothing there)
+    with AttnSpy() as attn:
+        lk = teacher_forced_each(cfg, params, prompts, ko, "kernel", max_seq)
+    lk2 = teacher_forced_each(cfg, params, prompts, ko, "kernel", max_seq)
+    if not all(torch.equal(a, b) for x, y in zip(lk, lk2) for a, b in zip(x, y)):
+        raise AssertionError(f"{arch} logits: a second kernel run differs bitwise")
+    log(f"  teacher-forced logits of a second kernel run: bitwise equal at all "
+        f"{sum(map(len, lk))} prompt-steps")
+    ld = teacher_forced_each(cfg, params, prompts, ko, "dequant", max_seq)
+    # the oracle's own noise: dequant against itself with every embedding
+    # moved by up to one bf16 ulp (2^-8 of itself, a seeded sign or 0)
+    emb = params["embed"]
+    params["embed"] = emb * (1 + 2.0 ** -8 * torch.randint(
+        -1, 2, emb.shape, generator=gen, device="cuda", dtype=torch.int8).float())
+    lp = teacher_forced_each(cfg, params, prompts, ko, "dequant", max_seq)
+    params["embed"] = emb
+
+    def rel(a, b):  # max |Δ| over a prompt's steps, over its max |logit|
+        return max(float((x - y).abs().max()) for x, y in zip(a, b)) \
+            / max(float(t.abs().max()) for t in b)
+
+    dk = [rel(a, b) for a, b in zip(lk, ld)]
+    floor = [rel(a, b) for a, b in zip(lp, ld)]
+    top = max(float(t.abs().max()) for b in ld for t in b)
+    log(f"  teacher-forced logits, {LM_NEW} steps x {len(prompts)} prompts, max |Δ| "
+        f"over max |logit| ({top:.3f} at most): kernel vs dequant {max(dk):.4f} (per "
+        f"prompt {[round(x, 4) for x in dk]}); the noise floor, dequant against itself "
+        f"with the embeddings moved by up to one bf16 ulp, {max(floor):.4f} (per prompt "
+        f"{[round(x, 4) for x in floor]}); held: kernel vs dequant <= the floor "
+        f"(LM_LOGIT_TOL {LM_LOGIT_TOL} {'met' if max(dk) <= LM_LOGIT_TOL else 'not met'})")
+    if max(dk) > max(floor):
+        failed.append(f"kernel vs dequant logits {max(dk):.4f} of max |logit|, over the "
+                      f"noise floor {max(floor):.4f}")
+    k5 = 0
+    if hybrid:
+        # the ring prompt: decode past the 2048-slot ring vs forward at the
+        # same positions (kernel), the error after the wrap against before
+        i = lens.index(RING_PROMPT)
+        seq = np.concatenate([prompts[i], np.asarray(ko[i][:LM_NEW - 1])]).astype(np.int32)
+        full, _ = model.forward(params, torch.from_numpy(seq[None]).cuda(), cfg)
+        pos = np.arange(RING_PROMPT - 1, RING_PROMPT - 1 + LM_NEW)
+        errs_ring = [float((s[0] - full[0, p].float()).abs().max()) for s, p in zip(lk[i], pos)]
+        top = float(full[0, pos].float().abs().max())
+        del full
+        win = cfg.hybrid.local_window
+        pre = max(e for e, p in zip(errs_ring, pos) if p < win)
+        post = max(e for e, p in zip(errs_ring, pos) if p >= win)
+        log(f"  ring: the {RING_PROMPT}-token prompt decoded to position {pos[-1]} through "
+            f"the {win}-slot ring, against forward at positions {pos[0]}..{pos[-1]}: max "
+            f"|Δ| {pre:.4e} before the wrap, {post:.4e} after (|logit| max {top:.3f}; "
+            f"after <= max(4 x before, {LM_LOGIT_TOL} of max))")
+        if post > max(4 * pre, LM_LOGIT_TOL * top):
+            failed.append(f"ring wrap: {post:.4e} after vs {pre:.4e} before")
+        # K5 on the ring prompt's prefill attention operands (8 layers)
+        cap = [c for c in attn.captured if c[0].shape[1] == RING_PROMPT]
+        if len(cap) != 8:
+            raise AssertionError(f"{len(cap)} attention calls at the ring prompt's prefill")
+        k5 = held_k5(cap, cfg.name, errs)
+    del attn, lk, lk2, ld, lp
+
+    # timings: one decode step (4 slots) and one 4 x 384 prefill, each impl
+    rows = {}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (MOE_TIME_B, MOE_TIME_S))
+                            .astype(np.int32)).cuda()
+    for impl in ("kernel", "dequant"):
+        c = cfg.with_quant(impl=impl)
+        caches = model.init_caches(c, MOE_TIME_B, LM_MAX_SEQ, device="cuda")
+        pre_fn = lambda: model.prefill(params, toks, caches, c)  # noqa: E731
+        _, filled = pre_fn()
+        nxt = toks[:, -1:]
+        dec_fn = lambda: model.decode_step(params, nxt, filled, c)  # noqa: E731
+        for name, fn in (("decode", dec_fn), ("prefill", pre_fn)):
+            row = rows[(impl, name)] = time_step(fn)
+            extra = ""
+            if impl == "kernel":
+                k1 = k1_calls_of(fn)
+                if len(k1) != per_call:
+                    raise AssertionError(f"{arch} {name}: {len(k1)} K1 calls, not {per_call}")
+                rep = time_step(k1_replay(k1))
+                row["k1_host_ms"] = rep["host_ms"]
+                extra = (f"; its {per_call} K1 calls replayed alone: host "
+                         f"{rep['host_ms']:.3f} ms ({rep['host_ms'] / per_call * 1e3:.1f} "
+                         f"µs a call), wall {rep['wall_ms']:.3f} ms")
+                del k1
+            log(f"  {name:<7} step ({MOE_TIME_B} x {1 if name == 'decode' else MOE_TIME_S}"
+                f" tokens) on {impl:<7}: {fmt_step(row)}{extra} [{card}]")
+            log("      the step's largest device times (ms, launches): " + "; ".join(
+                f"{n} {ms:.3f} x{c}" for n, ms, c in row["top"]))
+        del caches, filled
+    # K1 at this family's shapes, warm and cold, beside torch.matmul
+    shapes = ([("in_proj", params["layers"][0]["in_proj"]),
+               ("out_proj", params["layers"][0]["out_proj"]),
+               ("lm_head", params["lm_head"])] if not hybrid else
+              [("rec_in", params["tail"][0]["rec_in"]),
+               ("w2", params["tail"][0]["mlp"]["w2"]),
+               ("wk", params["groups"][0]["l2"]["attn"]["wk"]),
+               ("lm_head", params["lm_head"])])
+    for name, leaf in shapes:
+        t = leaf.gemm_tensor()
+        K, N = t.shape
+        wd = leaf.dense_matrix(torch.bfloat16)
+        for M in (4, 384) if name != "lm_head" else (1, 4):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            k_fn = lambda: ops.pasm_matmul(x, t)  # noqa: E731
+            l_fn = lambda: torch.matmul(x, wd)  # noqa: E731
+            e, _ = check_k1_bf16(k_fn(), x, t, what=f"K1 {arch} {name} M{M}")
+            errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
+            ms, host = time_ms_host(k_fn)
+            ms_c, lib, lib_c = time_cold_ms(k_fn), time_ms(l_fn), time_cold_ms(l_fn)
+            ops_ms = 2 * M * K * N / (BF16_TFLOPS * 1e12) * 1e3
+            bytes_ms = (M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4) \
+                / (HBM_TBPS * 1e12) * 1e3
+            route = pm.k1_plan(M, K, N, x.dtype, packed=t.packed,
+                               groups=t.codebook.shape[0]).route
+            log(f"    K1 {name} K{K} N{N} M{M:<4} route {route:<6}: {ms:.4f} ms warm / "
+                f"{ms_c:.4f} cold (bf16 torch.matmul {lib:.4f} / {lib_c:.4f}), bound "
+                f"{max(ops_ms, bytes_ms):.4f} by "
+                f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, host {host:.1f} µs "
+                f"[{card}]")
+            del x
+        del wd
+    del params
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{arch}: " + "; ".join(failed))
+    return {"launches": runs["kernel"][0]["pasm_matmul"], "routes": runs["kernel"][2],
+            "k5": k5, "times": rows}
+
+
 def main() -> int:
     import torch
 
@@ -2088,7 +2376,11 @@ def main() -> int:
     moe = moe_phase(gen, errs, card)
     vlm = vlm_phase(gen, errs, card)
 
-    # 11. the kernels line -----------------------------------------------------
+    # 11. the recurrent families at full width and full depth --------------------
+    ssm = recurrent_phase("mamba2-130m", 24, gen, errs, card)
+    hyb = recurrent_phase("recurrentgemma-2b", 26, gen, errs, card)
+
+    # 12. the kernels line -----------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -2097,11 +2389,12 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention.py:79",
     }
     launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"]
-                + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"],
+                + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"]
+                + ssm["launches"] + hyb["launches"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"],
                 "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"],
-                "flash_attention": lm["k5"] + moe["k5"] + vlm["k5"]}
+                "flash_attention": lm["k5"] + moe["k5"] + vlm["k5"] + hyb["k5"]}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2120,7 +2413,7 @@ def main() -> int:
     for r in ("stream", "mma"):
         routes["pasm_matmul"][r] = dict(
             k5_rows["k1"][r], launches=lm["routes"][r] + moe["routes"][r] + vlm["routes"][r]
-            + (TRAIN_K1 if r == "mma" else 0),
+            + ssm["routes"][r] + hyb["routes"][r] + (TRAIN_K1 if r == "mma" else 0),
             source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
         dt: dict(k5_rows[dt], launches=launches["flash_attention"] if dt == "bfloat16" else 0,
@@ -2154,9 +2447,11 @@ def main() -> int:
         f"at M = 4 / 384 summed; "
         f"launches are from the serving runs (K1: AlexNet {counts['kernel']['pasm_matmul']} "
         f"+ qwen3 {lm['lm']['pasm_matmul']} + deepseek-moe-16b {moe['launches']} + "
-        f"internvl2-26b {vlm['launches']}; K2, K3), the stage run (K4), the "
+        f"internvl2-26b {vlm['launches']} + mamba2-130m {ssm['launches']} + "
+        f"recurrentgemma-2b {hyb['launches']}; K2, K3), the stage run (K4), the "
         f"served attention (K5: qwen3 {lm['k5']}, deepseek "
-        f"{moe['k5']}, internvl2 {vlm['k5']}) and training (K1: one qwen3 step {TRAIN_K1} + the "
+        f"{moe['k5']}, internvl2 {vlm['k5']}, recurrentgemma {hyb['k5']}) and training "
+        f"(K1: one qwen3 step {TRAIN_K1} + the "
         f"frozen QAT AlexNet {train['qat']['k1']}; K2: {train['qat']['k2']}); "
         f"max_abs_err is the largest over every forward check [{card}]")
     log(f"train step at full width: kernel {train['kernel']['ms']:.1f} ms, dequant "
@@ -2167,6 +2462,9 @@ def main() -> int:
     for (impl, name), t in moe["times"].items():
         log(f"deepseek-moe-16b ({MOE_LAYERS} of 28 layers) {name} on {impl}: "
             f"{fmt_step(t)} [{card}]")
+    for arch, r in (("mamba2-130m", ssm), ("recurrentgemma-2b", hyb)):
+        for (impl, name), t in r["times"].items():
+            log(f"{arch} (full depth) {name} on {impl}: {fmt_step(t)} [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

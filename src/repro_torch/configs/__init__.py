@@ -1,9 +1,10 @@
 """Model configurations: the LM architecture registry and the AlexNet CNN.
 
 Port of ``repro.configs``.  :func:`get_config` resolves ``--arch <id>`` for
-every entry point.  The registry names all ten archs of the JAX package; the
-transformer families (dense, MoE and the vit-prefixed VLM) are ported, and
-an arch whose family is not ported yet raises ``NotImplementedError``
+every entry point.  The registry names all ten archs of the JAX package;
+the transformer families (dense, MoE and the vit-prefixed VLM), the SSM
+family and the RG-LRU hybrid are ported, and an arch whose family is not
+ported yet (the audio encoder-decoder) raises ``NotImplementedError``
 naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
@@ -30,12 +31,13 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
-# the config modules ported so far (the transformer families)
+# the config modules ported so far (all but the audio family)
 _PORTED = {"qwen3-32b", "nemotron-4-340b", "phi3-medium-14b", "stablelm-3b",
-           "deepseek-moe-16b", "kimi-k2-1t-a32b", "internvl2-26b"}
+           "deepseek-moe-16b", "kimi-k2-1t-a32b", "internvl2-26b",
+           "mamba2-130m", "recurrentgemma-2b"}
 
 NOT_PORTED_FAMILY = (
-    "is not ported yet: the SSM, hybrid and audio families come with "
+    "is not ported yet: the audio family (encoder-decoder) comes with "
     "ROADMAP Queue 1 item 8 (LM families)"
 )
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["matmul_f32"]
+__all__ = ["matmul_f32", "einsum_f32"]
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -19,5 +19,15 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def einsum_f32(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with TF32 disabled for the duration of the product."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.einsum(eq, *operands)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev

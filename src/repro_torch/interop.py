@@ -16,8 +16,10 @@ them here:
   array and every ``PasmParams`` leaf a ``{"kind", "shape", "bins",
   "pad_k", "w", "idx", "codebook", "bias"}`` dict, per-layer leaves keeping
   their leading layer axis → the port's tree, whose ``"layers"`` is a list
-  of per-layer dicts.  The MoE family's ``"dense_layers"`` is already a
-  list of per-layer dicts (as in JAX) and stays one; a stacked expert leaf
+  of per-layer dicts and whose ``"groups"`` (the hybrid's scanned (R, R,
+  A) groups) a list of per-group dicts.  The MoE family's
+  ``"dense_layers"`` and the hybrid's ``"tail"`` are already lists of
+  per-layer dicts (as in JAX) and stay lists; a stacked expert leaf
   ``(L, E, K, N)`` becomes, per layer, a ``PasmParams`` (or array) with a
   leading E, each expert's dictionaries its own;
 * :func:`cnn_qat_tree_from_numpy` — the CNN QAT tree ``{"params": cnn
@@ -116,11 +118,15 @@ def _n_layers(tree) -> int:
     return int(np.shape(tree)[0])
 
 
+# the keys whose leaves carry a leading layer (or group) axis in JAX
+_STACKED = ("layers", "groups")
+
+
 def lm_params_from_numpy(tree: dict, *, device=None) -> dict:
     dev = resolve_device(device)
     out = {}
     for k, v in tree.items():
-        if k == "layers":
+        if k in _STACKED:
             out[k] = [_lm_leaf(v, dev, i) for i in range(_n_layers(v))]
         else:
             out[k] = _lm_leaf(v, dev, None)

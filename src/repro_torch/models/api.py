@@ -1,8 +1,8 @@
 """Model API: family dispatch, input specs, loss — one surface for all archs.
 
-Port of ``repro.models.api``.  The transformer families (dense, MoE, VLM)
-and the CNN are ported; the SSM, hybrid and audio families raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 8.  Input specs are
+Port of ``repro.models.api``.  The transformer families (dense, MoE, VLM),
+the SSM family, the RG-LRU hybrid and the CNN are ported; the audio family
+raises ``NotImplementedError`` naming ROADMAP Queue 1 item 8.  Input specs are
 ``meta`` tensors: a shape and a dtype, no storage (the JAX package's
 ``jax.ShapeDtypeStruct``).
 """
@@ -26,6 +26,10 @@ def get_model(cfg):
     (a ``CNNConfig``) exposes ``init_params``/``quantize``/``forward``."""
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as m
+    elif cfg.family == "ssm":
+        from repro_torch.models import ssm_lm as m
+    elif cfg.family == "hybrid":
+        from repro_torch.models import hybrid as m
     elif cfg.family == "cnn":
         from repro_torch.models import cnn as m
     elif cfg.family in _FAMILIES:

@@ -1,0 +1,378 @@
+"""RecurrentGemma-style hybrid: RG-LRU recurrent blocks + local attention.
+
+Port of ``repro.models.hybrid``.  Layer pattern (recurrent, recurrent,
+attention) tiled over depth (recurrentgemma-2b: 26 layers = 8 groups of 3
++ a 2-layer recurrent tail).  ``"groups"`` is a list of per-group dicts
+``{"l0", "l1", "l2"}`` and ``"tail"`` a list of recurrent layers, in the
+parameters and in the caches.  Local attention decodes against a ring
+buffer of ``min(local_window, seq)`` slots, each slot recording the
+absolute position it holds (``slot_pos``, −1 when empty), so decode holds
+O(window) state.  Every quantized linear goes through
+:func:`repro_torch.nn.layers.linear` (K1 on the card under ``kernel``)
+except the RG-LRU gates, which dequantize (:mod:`repro_torch.nn.rglru`).
+The conv window carried into decode is left-padded with zeros, so a
+prompt shorter than ``conv_width − 1`` tokens decodes (the JAX package's
+``prefill`` cannot take one).  Prefill refuses right-padded prompts: the
+engine serves this family at the exact prompt length.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import params as _params
+from repro_torch.core._f32 import matmul_f32
+from repro_torch.models.common import Initializer, ShardCtx, map_leaves, maybe_scan
+from repro_torch.nn import attention as A
+from repro_torch.nn import layers as L
+from repro_torch.nn import rglru as RG
+
+__all__ = ["init_params", "forward", "init_caches", "prefill", "decode_step"]
+
+
+def _pattern(cfg: ArchConfig) -> tuple:
+    pat = tuple(cfg.hybrid.pattern)
+    n_groups = cfg.n_layers // len(pat)
+    tail = cfg.n_layers - n_groups * len(pat)
+    return pat, n_groups, tail
+
+
+def _width(cfg: ArchConfig) -> int:
+    return cfg.hybrid.lru_width or cfg.d_model
+
+
+def _init_mlp(cfg: ArchConfig, ini: Initializer) -> dict:
+    D, F_ = cfg.d_model, cfg.d_ff
+    return {"w1": ini.dense((D, F_)), "w3": ini.dense((D, F_)),
+            "w2": ini.dense((F_, D), fan_in=F_)}
+
+
+def _init_recurrent(cfg: ArchConfig, ini: Initializer) -> dict:
+    D, W = cfg.d_model, _width(cfg)
+    dev = ini.gen.device
+    return {
+        "rec_norm": torch.zeros((D,), device=dev),
+        "rec_in": ini.dense((D, 2 * W)),  # [lru branch, gate branch]
+        "conv_w": torch.randn((cfg.hybrid.conv_width, W), generator=ini.gen,
+                              device=dev) * 0.1,
+        "conv_b": torch.zeros((W,), device=dev),
+        "w_a": ini.dense((W, W)),
+        "b_a": torch.zeros((W,), device=dev),
+        "w_x": ini.dense((W, W)),
+        "b_x": torch.zeros((W,), device=dev),
+        "lam": torch.linspace(0.5, 4.0, W, device=dev),  # decay ∈ (~0.6, ~0.999)
+        "rec_out": ini.dense((W, D), fan_in=W),
+        "ffn_norm": torch.zeros((D,), device=dev),
+        "mlp": _init_mlp(cfg, ini),
+    }
+
+
+def _init_attention(cfg: ArchConfig, ini: Initializer) -> dict:
+    D, hd = cfg.d_model, cfg.hd
+    dev = ini.gen.device
+    return {
+        "attn_norm": torch.zeros((D,), device=dev),
+        "attn": {
+            "wq": ini.dense((D, cfg.n_heads * hd)),
+            "wk": ini.dense((D, cfg.n_kv_heads * hd)),
+            "wv": ini.dense((D, cfg.n_kv_heads * hd)),
+            "wo": ini.dense((cfg.n_heads * hd, D)),
+        },
+        "ffn_norm": torch.zeros((D,), device=dev),
+        "mlp": _init_mlp(cfg, ini),
+    }
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> dict:
+    """Seeded random weights on the generator's device (the JAX package's
+    init laws)."""
+    ini = Initializer(gen)
+    pat, n_groups, tail = _pattern(cfg)
+    dev = gen.device
+
+    def group():
+        return {f"l{i}": _init_recurrent(cfg, ini) if kind == "recurrent"
+                else _init_attention(cfg, ini) for i, kind in enumerate(pat)}
+
+    params = {
+        "embed": torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev) * 0.02,
+        "groups": [group() for _ in range(n_groups)],
+        "tail": [_init_recurrent(cfg, ini) for _ in range(tail)],
+        "final_norm": torch.zeros((cfg.d_model,), device=dev),
+        "lm_head": ini.dense((cfg.d_model, cfg.vocab)),
+    }
+    if dtype != torch.float32:
+        params = map_leaves(lambda _, x: x.to(dtype), params)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# block forwards (full sequence)
+# ---------------------------------------------------------------------------
+
+
+def _mlp(x, p, impl: str):
+    return L.linear(L.swiglu(L.linear(x, p["w1"], impl), L.linear(x, p["w3"], impl)),
+                    p["w2"], impl)
+
+
+def _ffn(x, p, cfg: ArchConfig, impl: str):
+    return x + _mlp(L.rms_norm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"], impl)
+
+
+def _gate(y, gate):
+    """``y · gelu(gate)`` in f32, rounded once to ``y``'s dtype: the JAX
+    package's product as XLA fuses it under ``jit`` (a bf16 product of a
+    bf16 gelu moves the logits by several % of their max, through the
+    RG-LRU gates of the next layers)."""
+    return (y.float() * F.gelu(gate.float(), approximate="tanh")).to(y.dtype)
+
+
+def _recurrent_fwd(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
+    """Returns ``(x, (h_last, conv window))``: the states decode continues
+    from."""
+    W = _width(cfg)
+    branches = L.linear(L.rms_norm(x, p["rec_norm"], cfg.norm_eps), p["rec_in"], impl)
+    lru_in, gate = sctx.act_btf(branches[..., :W]), branches[..., W:]
+    y, h_last = RG.rg_lru_scan(RG.causal_conv1d(lru_in, p["conv_w"], p["conv_b"]), p)
+    x = x + L.linear(_gate(y, gate), p["rec_out"], impl)
+    return sctx.act_btd(_ffn(x, p, cfg, impl)), \
+        (h_last, RG.conv_window(lru_in, cfg.hybrid.conv_width))
+
+
+def _attention_fwd(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str, cos, sin) -> tuple:
+    """Returns ``(x, (k, v))``: the roped keys and values, for the ring."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    ap = p["attn"]
+    q = L.linear(xn, ap["wq"], impl).reshape(B, S, cfg.n_heads, hd)
+    k = L.linear(xn, ap["wk"], impl).reshape(B, S, cfg.n_kv_heads, hd)
+    v = L.linear(xn, ap["wv"], impl).reshape(B, S, cfg.n_kv_heads, hd)
+    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    o = A.gqa_attention(sctx.act_bthd(q), k, v, causal=True,
+                        window=cfg.hybrid.local_window, chunk=min(1024, S))
+    x = x + L.linear(o.reshape(B, S, -1), ap["wo"], impl)
+    return sctx.act_btd(_ffn(x, p, cfg, impl)), (k, v)
+
+
+def _group_fwd(x, gp, cfg: ArchConfig, sctx: ShardCtx, impl: str, cos, sin) -> tuple:
+    """One (R, R, A) group; returns ``(x, [each layer's states])``."""
+    pat, _, _ = _pattern(cfg)
+    states = []
+    for i, kind in enumerate(pat):
+        if kind == "recurrent":
+            x, st = _recurrent_fwd(x, gp[f"l{i}"], cfg, sctx, impl)
+        else:
+            x, st = _attention_fwd(x, gp[f"l{i}"], cfg, sctx, impl, cos, sin)
+        states.append(st)
+    return x, states
+
+
+def _impl(cfg: ArchConfig) -> str:
+    return cfg.quant.impl if cfg.quant.enabled else "dense"
+
+
+# the activations' dtype, bf16 as in the JAX package
+_ACT = torch.bfloat16
+
+
+def _embed(params, tokens, sctx: ShardCtx):
+    return sctx.act_btd(_params.embed_lookup(params["embed"], tokens).to(_ACT))
+
+
+def _head(params, x, cfg: ArchConfig, impl: str):
+    return L.linear(L.rms_norm(x, params["final_norm"], cfg.norm_eps), params["lm_head"], impl)
+
+
+def _rope_seq(S: int, cfg: ArchConfig, device) -> tuple:
+    cos, sin = L.rope(torch.arange(S, device=device), cfg.hd, cfg.rope_theta)
+    return cos[None], sin[None]
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+            sctx: ShardCtx = ShardCtx(), *, frontend_embeds=None) -> tuple:
+    """Full forward (training / prefill-style).  Returns ``(logits, {})``.
+    With ``cfg.remat`` a differentiated call recomputes each group in the
+    backward."""
+    del frontend_embeds
+    x = _embed(params, tokens, sctx)
+    cos, sin = _rope_seq(x.shape[1], cfg, x.device)
+    impl = _impl(cfg)
+
+    def group(h, gp):
+        return _group_fwd(h, gp, cfg, sctx, impl, cos, sin)[0]
+
+    def body(h, gp):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(group, h, gp, use_reentrant=False), None
+        return group(h, gp), None
+
+    x, _ = maybe_scan(body, x, params["groups"], cfg.scan_layers)
+    for p in params["tail"]:
+        x, _ = _recurrent_fwd(x, p, cfg, sctx, impl)
+    return _head(params, x, cfg, impl), {}
+
+
+# ---------------------------------------------------------------------------
+# decode: ring-buffer local-attention cache + LRU/conv states
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
+                device=None) -> dict:
+    """Per recurrent layer the LRU state and conv window; per attention
+    layer a ring of ``min(local_window, seq)`` slots; on ``device``
+    (default the card; ``"meta"`` for shapes only)."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
+    pat, n_groups, tail = _pattern(cfg)
+    W = _width(cfg)
+    win = min(cfg.hybrid.local_window, seq)
+
+    def rec():
+        return {"h": torch.zeros((batch, W), dtype=torch.float32, device=dev),
+                "conv": torch.zeros((batch, cfg.hybrid.conv_width - 1, W), dtype=dtype,
+                                    device=dev)}
+
+    def attn():
+        return {
+            "k": torch.zeros((batch, win, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=dev),
+            "v": torch.zeros((batch, win, cfg.n_kv_heads, cfg.hd), dtype=dtype, device=dev),
+            # absolute position per ring slot, per batch row (-1 = empty)
+            "slot_pos": torch.full((batch, win), -1, dtype=torch.int32, device=dev),
+        }
+
+    return {
+        "groups": [{f"l{i}": rec() if kind == "recurrent" else attn()
+                    for i, kind in enumerate(pat)} for _ in range(n_groups)],
+        "tail": [rec() for _ in range(tail)],
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),  # per slot
+    }
+
+
+def _recurrent_step(x, p, cfg: ArchConfig, impl: str, cache: dict) -> tuple:
+    W = _width(cfg)
+    branches = L.linear(L.rms_norm(x, p["rec_norm"], cfg.norm_eps), p["rec_in"], impl)
+    lru_in, gate = branches[..., :W], branches[..., W:]
+    c_out, new_win = RG.conv1d_decode_step(lru_in, p["conv_w"], p["conv_b"], cache["conv"])
+    y, h_new = RG.rg_lru_decode_step(c_out, p, cache["h"])
+    x = x + L.linear(_gate(y, gate), p["rec_out"], impl)
+    return _ffn(x, p, cfg, impl), {"h": h_new, "conv": new_win}
+
+
+def _attention_step(x, p, cfg: ArchConfig, impl: str, cache: dict, pos, cos, sin) -> tuple:
+    """x: (B, D) one token.  Each batch row writes its own ring slot, then
+    attends over the slots holding its last ``win`` positions."""
+    B = x.shape[0]
+    hd, KV = cfg.hd, cfg.n_kv_heads
+    win = cache["k"].shape[1]
+    xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    ap = p["attn"]
+    q = L.linear(xn, ap["wq"], impl).reshape(B, 1, cfg.n_heads, hd)
+    k = L.linear(xn, ap["wk"], impl).reshape(B, 1, KV, hd)
+    v = L.linear(xn, ap["wv"], impl).reshape(B, 1, KV, hd)
+    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    at = (torch.arange(B, device=x.device), (pos % win).long())
+    ck = cache["k"].index_put(at, k[:, 0].to(cache["k"].dtype))
+    cv = cache["v"].index_put(at, v[:, 0].to(cache["v"].dtype))
+    spos = cache["slot_pos"].index_put(at, pos.to(torch.int32))
+    # masked attention over the ring buffer (invalid / out-of-window masked)
+    qg = q.reshape(B, KV, cfg.n_heads // KV, hd).float()
+    s = matmul_f32(qg, ck.permute(0, 2, 3, 1).float()) * hd ** -0.5  # (B,KV,G,win)
+    valid = (spos >= 0) & (spos >= pos[:, None] - win + 1) & (spos <= pos[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full((), -1e30, device=x.device))
+    pw = torch.softmax(s, dim=-1)
+    o = matmul_f32(pw.to(cv.dtype).float(), cv.permute(0, 2, 1, 3).float())  # (B,KV,G,hd)
+    o = o.reshape(B, cfg.n_heads * hd).to(x.dtype)
+    x = x + L.linear(o, ap["wo"], impl)
+    return _ffn(x, p, cfg, impl), {"k": ck, "v": cv, "slot_pos": spos}
+
+
+def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
+                sctx: ShardCtx = ShardCtx()) -> tuple:
+    """One autoregressive step.  ``tokens (B, 1)``; returns ``(logits (B, 1,
+    V), caches)``; RoPE and the ring slot take each slot's own position."""
+    pat, _, _ = _pattern(cfg)
+    pos = caches["pos"]
+    x = _embed(params, tokens, sctx)[:, 0]
+    cos, sin = L.rope(pos, cfg.hd, cfg.rope_theta)
+    cos, sin = cos[:, None], sin[:, None]  # (B, 1, hd/2): per-slot rope
+    impl = _impl(cfg)
+
+    def body(h, inp):
+        gp, gc = inp
+        new_gc = {}
+        for i, kind in enumerate(pat):
+            key = f"l{i}"
+            if kind == "recurrent":
+                h, new_gc[key] = _recurrent_step(h, gp[key], cfg, impl, gc[key])
+            else:
+                h, new_gc[key] = _attention_step(h, gp[key], cfg, impl, gc[key], pos,
+                                                 cos, sin)
+        return h, new_gc
+
+    x, new_groups = maybe_scan(body, x, list(zip(params["groups"], caches["groups"])),
+                               cfg.scan_layers)
+    new_tail = []
+    for p, c in zip(params["tail"], caches["tail"]):
+        x, nc = _recurrent_step(x, p, cfg, impl, c)
+        new_tail.append(nc)
+    logits = _head(params, x, cfg, impl)[:, None, :]
+    return logits, {"groups": new_groups or [], "tail": new_tail, "pos": pos + 1}
+
+
+def _fill_rec(state, cache: dict) -> dict:
+    h_last, win = state
+    return {"h": h_last, "conv": win.to(cache["conv"].dtype)}
+
+
+def _fill_attn(kv, cache: dict) -> dict:
+    """Write the last ``win`` positions of a prompt into the ring buffer."""
+    k, v = kv
+    S, win = k.shape[1], cache["k"].shape[1]
+    n = min(S, win)
+    pos = torch.arange(S - n, S, device=k.device)
+    slots = pos % win
+    ck, cv, spos = cache["k"].clone(), cache["v"].clone(), cache["slot_pos"].clone()
+    ck[:, slots] = k[:, -n:].to(ck.dtype)
+    cv[:, slots] = v[:, -n:].to(cv.dtype)
+    spos[:, slots] = pos.to(spos.dtype)
+    return {"k": ck, "v": cv, "slot_pos": spos}
+
+
+def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
+            sctx: ShardCtx = ShardCtx(), **kw) -> tuple:
+    """Prompt pass: the full-sequence forward, keeping the decode states.
+    Returns ``(logits of the last position (B, 1, V), caches)``.
+
+    Right-padded prompts (``lengths=``) are NOT supported: the RG-LRU scan
+    folds every input token into recurrent state, so pad tokens would
+    corrupt it.  Serve hybrid slots with exact-length prompts (bucket
+    granularity 1).
+    """
+    if kw.get("lengths") is not None:
+        raise ValueError("hybrid.prefill: padded prompts (lengths=) unsupported — "
+                         "the RG-LRU scan would absorb pad tokens into state")
+    pat, _, _ = _pattern(cfg)
+    x = _embed(params, tokens, sctx)
+    S = x.shape[1]
+    cos, sin = _rope_seq(S, cfg, x.device)
+    impl = _impl(cfg)
+
+    def body(h, inp):
+        gp, gc = inp
+        h, states = _group_fwd(h, gp, cfg, sctx, impl, cos, sin)
+        return h, {f"l{i}": (_fill_rec if kind == "recurrent" else _fill_attn)(
+            st, gc[f"l{i}"]) for i, (kind, st) in enumerate(zip(pat, states))}
+
+    x, new_groups = maybe_scan(body, x, list(zip(params["groups"], caches["groups"])),
+                               cfg.scan_layers)
+    new_tail = []
+    for p, c in zip(params["tail"], caches["tail"]):
+        x, st = _recurrent_fwd(x, p, cfg, sctx, impl)
+        new_tail.append(_fill_rec(st, c))
+    logits = _head(params, x[:, -1:], cfg, impl)
+    return logits, {"groups": new_groups or [], "tail": new_tail, "pos": caches["pos"] + S}

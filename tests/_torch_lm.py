@@ -1,4 +1,6 @@
 """Shared by the LM parity tests: carry a JAX params tree into the port."""
+import contextlib
+
 import numpy as np
 
 from repro.core.params import PasmParams
@@ -42,17 +44,23 @@ def jax_flat(tree):
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+# the port's per-layer (per-group) lists that JAX stacks on a leading axis
+_STACKED = ("layers", "groups")
+
+
 def port_flat(tree):
     """A port tree keyed as :func:`jax_flat` keys the JAX one: the
-    per-layer ``"layers"`` lists are stacked on a leading axis."""
+    per-layer ``"layers"`` and per-group ``"groups"`` lists are stacked on
+    a leading axis."""
     import torch
 
     from repro_torch.tree import flatten_with_path
 
     out, stacked = {}, set()
     for path, leaf in flatten_with_path(tree):
-        if "layers" in path:
-            i = path.index("layers")
+        key = next((k for k in _STACKED if k in path), None)
+        if key is not None:
+            i = path.index(key)
             path = path[: i + 1] + path[i + 2:]
             stacked.add("/".join(path))
         a = leaf.detach().cpu()
@@ -88,3 +96,26 @@ def assert_update_close(port_state, jax_state, tol, *, g_floor, p_tol=1e-5):
             np.testing.assert_allclose(g, w, rtol=0,
                                        atol=tol * float(np.abs(w).max(initial=0)),
                                        err_msg=k)
+
+
+@contextlib.contextmanager
+def f32_activations(jax_model, port_model):
+    """Run both packages' model module with f32 activations where they
+    cast to bf16 (the JAX module's ``jnp.bfloat16``, the port's ``_ACT``):
+    the same algorithm without bf16 rounding, to be held to f32 noise.
+    Pass the caches in f32 too.  JAX functions must be traced inside."""
+    import jax.numpy as jnp
+    import torch
+
+    class _F32:
+        bfloat16 = jnp.float32
+
+        def __getattr__(self, name):
+            return getattr(jnp, name)
+
+    jnp_, act = jax_model.jnp, port_model._ACT
+    jax_model.jnp, port_model._ACT = _F32(), torch.float32
+    try:
+        yield
+    finally:
+        jax_model.jnp, port_model._ACT = jnp_, act

@@ -863,3 +863,50 @@ def test_moe_ffn_runs_k1_per_expert(cuda, T):
         want = want.float().to(cuda)
         torch.testing.assert_close(y.float(), want, rtol=0,
                                    atol=2.0 ** -7 * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: K1 at their shapes, K5 at the hybrid's heads
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M", [1, 4, 384])
+@pytest.mark.parametrize("K,N", [
+    (768, 3352),      # mamba2-130m in_proj: a ragged last block on both routes
+    (768, 50280),     # mamba2-130m lm_head
+    (7680, 2560),     # recurrentgemma-2b w2: the split-K reduction
+    (2560, 256000),   # recurrentgemma-2b lm_head, the widest head
+])
+def test_k1_bf16_recurrent_shapes_match_plain(cuda, M, K, N):
+    route = "stream" if M <= pm.STREAM_MAX_M else "mma"
+    x, idx, cb, bias = _k1_operands(cuda, M, K, N, 1, True)
+    before = dict(pm.k1_routes)
+    y = pm.pasm_matmul_kernel_call(x, idx, cb, None, packed=True)
+    assert pm.k1_routes[route] == before[route] + 1 and y.shape == (M, N)
+    _assert_k1_bf16_close(y, x, idx, cb, None, True, False)
+    assert torch.equal(y, pm.pasm_matmul_kernel_call(x, idx, cb, None, packed=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_hybrid_heads_match_plain_and_gqa(cuda, dtype):
+    """recurrentgemma-2b's attention: 10 query heads over one KV head (G =
+    10, not a power of two) at hd 256, causal, with a window no shorter
+    than S (the prefill's local mask then masks nothing)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.nn import attention as A
+
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((1, 300, 10, 256), (1, 300, 1, 256), (1, 300, 1, 256)))
+    qg = q.permute(0, 2, 1, 3).reshape(1, 10, 300, 256).contiguous()
+    kg, vg = k[:, :, 0].contiguous(), v[:, :, 0].contiguous()
+    before = pm.launches["flash_attention"]
+    y = fa.flash_attention_kernel_call(qg, kg, vg, causal=True)
+    assert pm.launches["flash_attention"] == before + 1
+    _assert_k5_close(y, qg, kg, vg, causal=True, sk_orig=300)
+    o = ops.flash_attention(q, k, v, causal=True)
+    want = A.gqa_attention(q, k, v, causal=True, window=2048, chunk=128)
+    torch.cuda.synchronize()
+    t = 1e-5 if dtype == torch.float32 else fa.BF16_TOL
+    torch.testing.assert_close(o.float(), want.float(), rtol=t,
+                               atol=t * float(v.float().abs().max()))

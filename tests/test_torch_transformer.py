@@ -47,7 +47,8 @@ from repro_torch.nn import moe as TM
 
 ARCHS = ("qwen3-32b", "stablelm-3b", "nemotron-4-340b")
 MOE_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
-PORTED = ARCHS + MOE_ARCHS + ("phi3-medium-14b", "internvl2-26b")
+PORTED = ARCHS + MOE_ARCHS + ("phi3-medium-14b", "internvl2-26b", "mamba2-130m",
+                               "recurrentgemma-2b")
 LOGIT_TOL = 0.025  # of max |logit|: bf16 rounding in two frameworks (above)
 # a routing near-tie: an expert within 2^-5 of the k-th largest probability
 # (the bf16 ulps above move router probabilities by about 1e-3 of themselves)
@@ -111,12 +112,11 @@ def test_configs_equal_jax():
             assert (c.n_params(), c.n_active_params()) == (j.n_params(), j.n_active_params())
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert tconfigs.all_cells() == jconfigs.all_cells()
-    assert set(tconfigs.ARCH_IDS) - set(PORTED) == {
-        "mamba2-130m", "recurrentgemma-2b", "whisper-tiny"}
+    assert set(tconfigs.ARCH_IDS) - set(PORTED) == {"whisper-tiny"}
     for arch in set(tconfigs.ARCH_IDS) - set(PORTED):
         with pytest.raises(NotImplementedError, match="item 8"):
             tconfigs.get_config(arch)
-    for family in ("ssm", "hybrid", "audio"):
+    for family in ("audio",):
         later = dataclasses.replace(tconfigs.get_config("qwen3-32b", smoke=True),
                                     family=family)
         with pytest.raises(NotImplementedError, match="item 8"):
