@@ -136,8 +136,32 @@ Phases (every one unguarded: any failure exits non-zero):
     (wall, host, device and the largest kernels from a ``torch.profiler``
     trace); K1 at the new shapes warm and cold beside ``torch.matmul``
     and the bound;
-12. one ``{"kernels": [...]}`` JSON line;
-13. last line: ``{"ok": true, "device": {...}}``.
+12. the encoder-decoder family at full width and full depth: whisper-tiny
+    (4 encoder and 4 decoder layers, d_model 384, 6 heads of 64, d_ff
+    1536, vocab 51865, 1500 encoder frames from a (B, 80, 3000) log-mel
+    stem of two k 1×3 convs, the second at stride 2; 33000 learned decoder
+    positions), its linears 16 bins int4 and its stem 16 bins
+    (``quantize_frontend``), weights drawn and quantized on the card: (a)
+    the qwen3 traffic served through ``Engine`` on ``kernel`` (exactly 66
+    K1 launches a prefill call: the stem's 2 on ``simt``, 24 encoder, 40
+    decoder; 32 a decode call) and ``dequant``, every request encoded from
+    silence as the JAX engine does; teacher-forced logits, each prompt
+    alone, bitwise on a second kernel run and within ``LM_LOGIT_TOL`` of
+    ``dequant`` (or the oracle's own one-ulp noise floor, measured in the
+    run, where that is larger); (b) a seeded random mel (2, 80, 3000)
+    through ``prefill`` with right-padded prompts and 8 decode steps, the
+    same counts and tolerance; (c) the stem's dictionaries at batch 4 on
+    K1-K4 against their plain versions and through ``conv2d`` on the four
+    kernel engines against ``einsum`` (K1 ≡ K2, K3 ≡ K4 bitwise); (d) K5
+    on (a)'s and (b)'s prefill attention operands with their own causal
+    flags (the encoder's non-causal self-attention at S = 1500, the
+    decoder's non-causal cross-attention onto 1500 keys, its causal
+    self-attention); (e) a 4-slot decode step and a 4 × 384 prefill timed
+    on each impl, K1 at the stem (f32, beside ``torch.matmul`` and
+    ``F.conv2d``) and at ``wq``/``w1``/``w2``/cross ``wk`` for M = 4 and
+    1500, and K5 bf16 at the encoder's shape beside SDPA and the bound;
+13. one ``{"kernels": [...]}`` JSON line;
+14. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -229,6 +253,10 @@ SSM_K1, HYBRID_K1, HYBRID_GATES = 49, 147, 36  # a model call (recurrent_per_cal
 REC_PROMPTS = LM_PROMPTS + (2,)  # the qwen3 traffic and a 2-token prompt
 RING_PROMPT = 2040  # + 16 new tokens: past recurrentgemma-2b's 2048-slot ring
 RING_MAX_SEQ = RING_PROMPT + LM_NEW  # so the ring is min(2048, max_seq) = 2048
+# phase 12: whisper-tiny at full width and full depth
+WHISPER_K1 = (66, 32)  # K1 launches of a prefill / a decode call (whisper_per_call)
+WHISPER_MEL_B, WHISPER_PROMPTS, WHISPER_DECODE = 2, (64, 40), 8  # (b): a real mel
+WHISPER_STEM_B = 4  # (c): the stem alone on K1-K4
 
 
 def log(*a) -> None:
@@ -592,13 +620,14 @@ def check_close(got, want, rtol: float, atol_scale=0.0,
 
 
 def regroup(q, k, v):
-    """ops.flash_attention's layout: (B,S,H,hd) → (B·KV, G, S, hd) and
-    (B·KV, S, hd), for calling K5 and its plain version directly."""
+    """ops.flash_attention's layout: (B,Sq,H,hd) → (B·KV, G, Sq, hd) and
+    (B,Sk,KV,hd) → (B·KV, Sk, hd), for calling K5 and its plain version
+    directly."""
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    KV, Sk = k.shape[2], k.shape[1]
     qg = q.reshape(B, S, KV, H // KV, hd).permute(0, 2, 3, 1, 4).reshape(B * KV, H // KV, S, hd)
-    kg = k.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
-    vg = v.permute(0, 2, 1, 3).reshape(B * KV, S, hd)
+    kg = k.permute(0, 2, 1, 3).reshape(B * KV, Sk, hd)
+    vg = v.permute(0, 2, 1, 3).reshape(B * KV, Sk, hd)
     return qg.contiguous(), kg.contiguous(), vg.contiguous()
 
 
@@ -633,7 +662,7 @@ def check_k5(q, k, v, causal: bool, name: str, errs: dict) -> str:
     errs["flash_attention"] = max(errs["flash_attention"], e)
     S = q.shape[1]
     o = ops.flash_attention(q, k, v, causal=causal)
-    g = A.gqa_attention(q, k, v, causal=causal, chunk=max(4, S // 3))
+    g = A.gqa_attention(q, k, v, causal=causal, chunk=max(4, k.shape[1] // 3))
     torch.cuda.synchronize()
     if not torch.equal(o, y.reshape(q.shape[0], k.shape[2], -1, S, q.shape[3])
                        .permute(0, 3, 1, 2, 4).reshape(q.shape)):
@@ -1612,6 +1641,9 @@ def build_lm(cfg, gen, phase: str, full_layers: int) -> dict:
            f"d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}" if cfg.ssm else "")
         + (f", pattern {cfg.hybrid.pattern}, lru width {cfg.hybrid.lru_width}, local "
            f"window {cfg.hybrid.local_window}" if cfg.hybrid else "")
+        + (f", {cfg.encoder_layers} encoder layers over {cfg.frontend_tokens} frames from "
+           f"a {cfg.n_mels} x {2 * cfg.frontend_tokens} mel stem, {cfg.max_seq} decoder "
+           f"positions" if cfg.encoder_layers else "")
         + (f"), {cfg.n_layers} of its {full_layers} layers (full depth), "
            if cfg.n_layers == full_layers else
            f"), reduced to {cfg.n_layers} of its {full_layers} layers, ")
@@ -1625,8 +1657,9 @@ def build_lm(cfg, gen, phase: str, full_layers: int) -> dict:
 
 def held_k5(captured, name: str, errs: dict) -> int:
     """K5 through ops.flash_attention on recorded prefill attention
-    operands, counted, each held against gqa_attention and K5's plain
-    version; returns the launches."""
+    operands ``(q, k, v, causal)``, counted, each held against
+    gqa_attention and K5's plain version with its own causal flag; returns
+    the launches."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1634,23 +1667,27 @@ def held_k5(captured, name: str, errs: dict) -> int:
 
     torch.cuda.synchronize()
     pm.reset_launches()
-    for q, k, v in captured:
-        ops.flash_attention(q, k, v, causal=True)
+    for q, k, v, causal in captured:
+        ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     counts = dict(pm.launches)
     if counts != {k: len(captured) if k == "flash_attention" else 0 for k in ALL_KERNELS}:
         raise AssertionError(f"K5 on {name}'s attention: launches {counts}")
     q, k = captured[0][:2]
+    n_causal = sum(c[3] for c in captured)
     log(f"  K5 through ops.flash_attention on {name}'s prefill attention operands "
-        f"({len(captured)} calls, B{q.shape[0]} S{q.shape[1]} H{q.shape[2]}/{k.shape[2]} "
-        f"hd{q.shape[3]} {q.dtype}): launches {counts}")
-    for i, (q, k, v) in enumerate(captured):
-        log(f"    call {i}: " + check_k5(q, k, v, True, f"{name} call {i}", errs))
+        f"({len(captured)} calls, {n_causal} causal; first B{q.shape[0]} Sq{q.shape[1]} "
+        f"Sk{k.shape[1]} H{q.shape[2]}/{k.shape[2]} hd{q.shape[3]} {q.dtype}): "
+        f"launches {counts}")
+    for i, (q, k, v, causal) in enumerate(captured):
+        log(f"    call {i} (Sq{q.shape[1]} Sk{k.shape[1]} causal={causal}): "
+            + check_k5(q, k, v, causal, f"{name} call {i}", errs))
     return counts["flash_attention"]
 
 
 class AttnSpy:
-    """Records what the transformer hands ``gqa_attention`` while active."""
+    """Records what a model hands ``gqa_attention`` while active: ``(q, k,
+    v, causal)`` a call."""
 
     def __enter__(self):
         from repro_torch.nn import attention as A
@@ -1658,7 +1695,7 @@ class AttnSpy:
         self.mod, self.inner, self.captured = A, A.gqa_attention, []
 
         def spy(q, k, v, **kw):
-            self.captured.append((q, k, v))
+            self.captured.append((q, k, v, kw.get("causal", True)))
             return self.inner(q, k, v, **kw)
 
         A.gqa_attention = spy
@@ -2138,6 +2175,328 @@ def recurrent_phase(arch: str, full_layers: int, gen, errs: dict, card: str) -> 
             "k5": k5, "times": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the encoder-decoder family at full width and full depth
+# ---------------------------------------------------------------------------
+
+
+def whisper_per_call(cfg) -> tuple:
+    """K1 launches of (a prefill call, a decode call), from the code: at
+    prefill the two stem convs (f32, ``simt``), each encoder layer's four
+    attention and two MLP matrices, and each decoder layer's four
+    self-attention, four cross-attention (``wk``/``wv`` on the encoder's
+    output) and two MLP matrices; at decode each decoder layer's four
+    self-attention matrices, the cross ``wq`` and ``wo`` (the cross K/V are
+    cached) and the MLP's two.  The tied head is a dense product."""
+    return 2 + 6 * cfg.encoder_layers + 10 * cfg.n_layers, 8 * cfg.n_layers
+
+
+def whisper_stem_check(cfg, params, gen, errs: dict) -> list:
+    """Phase 12(c): the served stem's dictionaries at B = WHISPER_STEM_B on
+    K1-K4 against their plain versions (``check_case``: K1 ≡ K2, K3 ≡ K4
+    bitwise, rows ⊥ M) and through ``conv2d`` on the four kernel engines
+    against ``einsum``; returns the two stem cases (conv2's image is
+    conv1's GELU output)."""
+    import torch
+
+    from repro_torch.core import conv as cv
+    from repro_torch.models import encdec as TE
+    from repro_torch.nn import layers as L
+
+    convs = TE._stem_convs(cfg)
+    mel = torch.randn((WHISPER_STEM_B, cfg.n_mels, 2 * cfg.frontend_tokens),
+                      generator=gen, device="cuda")
+    img = mel[:, :, None, :]
+    cases = []
+    for name, conv in zip(("conv1", "conv2"), convs):
+        p = params["frontend"][name]
+        case = Case(f"whisper {name} {conv.c_in}x1x{img.shape[-1]} s{conv.stride}",
+                    conv, 1, p, img.contiguous())
+        check_case(case, errs)
+        want = cv.conv2d(case.img, p, conv, engine="einsum")
+        got = {e: cv.conv2d(case.img, p, conv, engine=e) for e in
+               ("kernel", "kernel_implicit", "pas_kernel", "pas_kernel_implicit")}
+        torch.cuda.synchronize()
+        es = {e: max_err(y, want) for e, y in got.items()}
+        same = (torch.equal(got["kernel"], got["kernel_implicit"]),
+                torch.equal(got["pas_kernel"], got["pas_kernel_implicit"]))
+        log(f"    conv2d engines vs einsum {tuple(want.shape)}: " + ", ".join(
+            f"{e} {v:.2e}" for e, v in es.items()) + f"; kernel ≡ kernel_implicit "
+            f"{same[0]}, pas_kernel ≡ pas_kernel_implicit {same[1]}")
+        if not all(same):
+            raise AssertionError(f"whisper {name}: an implicit engine differs bitwise")
+        cases.append(case)
+        img = L.gelu_ffn_act(want)
+    return cases
+
+
+def whisper_phase(gen, errs: dict, card: str) -> dict:
+    """Phase 12: whisper-tiny at full width and full depth, served on
+    ``kernel`` and ``dequant`` with exact K1 launch counts, a real mel
+    through prefill and decode, the stem on K1-K4, K5 on the prefill's
+    attention operands (non-causal included), steps and kernels timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import conv as cv
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.models import encdec as TE
+
+    cfg = get_config("whisper-tiny").with_quant(enabled=True, bins=16, impl="kernel")
+    params = build_lm(cfg, gen, "12", cfg.n_layers)
+    t0 = time.perf_counter()
+    params = TE.quantize_frontend(params, bins=cfg.quant.bins)
+    torch.cuda.synchronize()
+    stem = params["frontend"]
+    log(f"  mel stem weight-shared on the card in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{n} {p.kind} {p.bins} bins, kernel {p.kshape}" for n, p in stem.items()))
+    per_pre, per_dec = whisper_per_call(cfg)
+    if (per_pre, per_dec) != WHISPER_K1:
+        raise AssertionError(f"whisper-tiny: {per_pre} / {per_dec} K1 launches a prefill / "
+                             f"decode call, not {WHISPER_K1}")
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in LM_PROMPTS]
+    failed, runs = [], {}
+
+    # (a) the qwen3 traffic served: every request encodes silence
+    for impl in ("kernel", "dequant"):
+        eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params, prompts, impl)
+        roll = eng.metrics.rollup()
+        n_pre, n_dec = eng.calls["prefill"], eng.calls["decode"]
+        on = impl == "kernel"
+        want = {k: per_pre * n_pre + per_dec * n_dec if (on and k == "pasm_matmul") else 0
+                for k in ALL_KERNELS}
+        log(f"  {impl:<8} {len(reqs)} requests, {eng.tick} ticks, model calls {eng.calls}, "
+            f"launches {counts} ({per_pre} a prefill call, {per_dec} a decode call), K1 "
+            f"by route {routes}, submits while slots were live {live_submits}, "
+            f"{wall:.2f} s host clock incl. first calls, {roll['tok_s']:.1f} tok/s ({card})")
+        if counts != want or (on and routes["simt"] != 2 * n_pre):
+            raise AssertionError(f"whisper-tiny {impl}: expected launches {want} "
+                                 f"({2 * n_pre} simt), got {counts}, routes {routes}")
+        if roll.get("n_degraded", 0) or not live_submits:
+            raise AssertionError(f"whisper-tiny {impl}: degraded or no continuous admission")
+        if not all(r.done and len(r.out) == LM_NEW for r in reqs):
+            raise AssertionError(f"whisper-tiny {impl}: a request was not served "
+                                 f"{LM_NEW} tokens")
+        runs[impl] = (counts, [r.out for r in reqs], routes)
+    ko, do = runs["kernel"][1], runs["dequant"][1]
+    agree = float(np.mean([a == b for x, y in zip(ko, do) for a, b in zip(x, y)]))
+    log(f"  greedy tokens agreeing, kernel vs dequant: {agree:.4f} of {len(ko) * LM_NEW}")
+
+    # teacher-forced on the kernel run's tokens, each prompt alone; the
+    # kernel run records each prefill's attention operands (12 calls a
+    # prompt: 4 encoder, 4 decoder self, 4 cross)
+    with AttnSpy() as attn:
+        lk = teacher_forced_each(cfg, params, prompts, ko, "kernel", LM_MAX_SEQ)
+    lk2 = teacher_forced_each(cfg, params, prompts, ko, "kernel", LM_MAX_SEQ)
+    if not all(torch.equal(a, b) for x, y in zip(lk, lk2) for a, b in zip(x, y)):
+        raise AssertionError("whisper-tiny logits: a second kernel run differs bitwise")
+    ld = teacher_forced_each(cfg, params, prompts, ko, "dequant", LM_MAX_SEQ)
+    emb = params["embed"]  # the oracle's one-ulp noise floor, as in phase 11
+    params["embed"] = emb * (1 + 2.0 ** -8 * torch.randint(
+        -1, 2, emb.shape, generator=gen, device="cuda", dtype=torch.int8).float())
+    lp = teacher_forced_each(cfg, params, prompts, ko, "dequant", LM_MAX_SEQ)
+    params["embed"] = emb
+
+    def rel(a, b):  # max |Δ| over a prompt's steps, over its max |logit|
+        return max(float((x - y).abs().max()) for x, y in zip(a, b)) \
+            / max(float(t.abs().max()) for t in b)
+
+    dk = [rel(a, b) for a, b in zip(lk, ld)]
+    floor = [rel(a, b) for a, b in zip(lp, ld)]
+    hold = max(LM_LOGIT_TOL, max(floor))
+    log(f"  teacher-forced logits, {LM_NEW} steps x {len(prompts)} prompts (a second "
+        f"kernel run bitwise equal): kernel vs dequant {max(dk):.4f} of max |logit| (per "
+        f"prompt {[round(x, 4) for x in dk]}); the noise floor (dequant with the "
+        f"embeddings moved by up to one bf16 ulp) {max(floor):.4f}; held to "
+        f"{hold:.4f} = max(LM_LOGIT_TOL {LM_LOGIT_TOL}, the floor)")
+    if max(dk) > hold:
+        failed.append(f"kernel vs dequant logits {max(dk):.4f} of max |logit|, over {hold:.4f}")
+    per_prompt = len(attn.captured) // len(prompts)
+    if len(attn.captured) != 12 * len(prompts) or per_prompt != 3 * cfg.n_layers:
+        raise AssertionError(f"{len(attn.captured)} prefill attention calls recorded")
+    i = LM_PROMPTS.index(max(LM_PROMPTS))
+    cap = attn.captured[i * per_prompt:(i + 1) * per_prompt]
+    del attn, lk, lk2, ld, lp
+
+    # (b) a seeded random mel: one right-padded prefill of 2 prompts and
+    # WHISPER_DECODE steps, the kernel run's greedy tokens feeding both
+    mel = torch.randn((WHISPER_MEL_B, cfg.n_mels, 2 * cfg.frontend_tokens),
+                      generator=gen, device="cuda").to(torch.bfloat16)
+    toks, lengths = padded([rng.integers(0, cfg.vocab, size=n) for n in WHISPER_PROMPTS])
+    logits, tokens, b_launches, b_routes = {}, None, 0, {}
+    for impl in ("kernel", "dequant"):
+        c = cfg.with_quant(impl=impl)
+        caches = TE.init_caches(c, WHISPER_MEL_B, LM_MAX_SEQ, device="cuda")
+        torch.cuda.synchronize()
+        pm.reset_launches()
+        with AttnSpy() as attn:
+            out, caches = TE.prefill(params, toks, caches, c, lengths=lengths,
+                                     frontend_embeds=mel)
+        steps = [out.float()]
+        if tokens is None:
+            tokens = [out.argmax(-1)]
+        for j in range(WHISPER_DECODE):
+            if impl == "kernel" and j:
+                tokens.append(steps[-1].argmax(-1))
+            out, caches = TE.decode_step(params, tokens[j].to(torch.int32), caches, c)
+            steps.append(out.float())
+        torch.cuda.synchronize()
+        counts = dict(pm.launches)
+        want = {k: per_pre + per_dec * WHISPER_DECODE if (impl == "kernel" and
+                                                           k == "pasm_matmul") else 0
+                for k in ALL_KERNELS}
+        pos = [x["self"].pos.tolist() for x in caches]
+        log(f"  {impl:<8} a seeded mel {tuple(mel.shape)}, prompts {WHISPER_PROMPTS} "
+            f"right-padded, + {WHISPER_DECODE} decode steps: positions {pos[0]}, launches "
+            f"{counts}, K1 by route {dict(pm.k1_routes)}")
+        if counts != want or pos != [[n + WHISPER_DECODE for n in WHISPER_PROMPTS]] * cfg.n_layers:
+            raise AssertionError(f"whisper-tiny mel {impl}: launches {counts} (want {want}), "
+                                 f"positions {pos}")
+        if not all(bool(torch.isfinite(s).all()) for s in steps):
+            raise AssertionError(f"whisper-tiny mel {impl}: non-finite logits")
+        logits[impl] = steps
+        if impl == "kernel":
+            cap += attn.captured
+            b_launches, b_routes = counts["pasm_matmul"], dict(pm.k1_routes)
+    rb = max(float((a - b).abs().max()) for a, b in zip(logits["kernel"], logits["dequant"])) \
+        / max(float(b.abs().max()) for b in logits["dequant"])
+    log(f"  mel logits, kernel vs dequant, {len(logits['kernel'])} steps x "
+        f"{WHISPER_MEL_B}: {rb:.4f} of max |logit| (held to {hold:.4f})")
+    if rb > hold:
+        failed.append(f"mel logits {rb:.4f} of max |logit|, over {hold:.4f}")
+    del logits, caches
+
+    # (c) the stem alone on K1-K4; (d) K5 on (a)'s and (b)'s prefill operands
+    log(f"  the stem at batch {WHISPER_STEM_B} on K1-K4 (|Δ| <= {TOL} + {TOL}·|plain|):")
+    stem_cases = whisper_stem_check(cfg, params, gen, errs)
+    k5 = held_k5(cap, cfg.name, errs)
+    del cap
+
+    # (e) timings: a 4-slot decode step and a 4 x 384 prefill on each impl
+    rows = {}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (MOE_TIME_B, MOE_TIME_S))
+                            .astype(np.int32)).cuda()
+    for impl in ("kernel", "dequant"):
+        c = cfg.with_quant(impl=impl)
+        caches = TE.init_caches(c, MOE_TIME_B, LM_MAX_SEQ, device="cuda")
+        pre_fn = lambda: TE.prefill(params, toks, caches, c)  # noqa: E731
+        _, filled = pre_fn()
+        nxt = toks[:, -1:]
+        dec_fn = lambda: TE.decode_step(params, nxt, filled, c)  # noqa: E731
+        for name, fn, per_call in (("decode", dec_fn, per_dec), ("prefill", pre_fn, per_pre)):
+            row = rows[(impl, name)] = time_step(fn)
+            extra = ""
+            if impl == "kernel":
+                k1 = k1_calls_of(fn)
+                if len(k1) != per_call:
+                    raise AssertionError(f"whisper-tiny {name}: {len(k1)} K1 calls, "
+                                         f"not {per_call}")
+                rep = time_step(k1_replay(k1))
+                row["k1_host_ms"] = rep["host_ms"]
+                extra = (f"; its {per_call} K1 calls replayed alone: host "
+                         f"{rep['host_ms']:.3f} ms ({rep['host_ms'] / per_call * 1e3:.1f} "
+                         f"µs a call), wall {rep['wall_ms']:.3f} ms")
+                del k1
+            log(f"  {name:<7} step ({MOE_TIME_B} x {1 if name == 'decode' else MOE_TIME_S}"
+                f" tokens{'' if name == 'decode' else ', four 1500-frame encodes'}) on "
+                f"{impl:<7}: {fmt_step(row)}{extra} [{card}]")
+            log("      the step's largest device times (ms, launches): " + "; ".join(
+                f"{n} {ms:.3f} x{c_}" for n, ms, c_ in row["top"]))
+        del caches, filled
+
+    # K1 at the stem (f32, simt) beside torch.matmul and F.conv2d (TF32 off)
+    log(f"  K1 at whisper's shapes: warm / cold ms (L2 flushed), library warm / cold, "
+        f"bound [{card}]")
+    for case in stem_cases:
+        t = case.params.gemm_tensor(case.conv.layout)
+        x = case.patches()
+        M, K = x.shape
+        N = t.shape[1]
+        w = case.params.dense_operand(case.conv.layout)
+        kern4 = case.params.codebook[case.params.idx.long()]
+        _, lo, hi = cv._axis_geometry(case.img.shape[-1], case.conv.kx, case.conv.stride,
+                                      case.conv.padding)  # SAME: 0 / 1 at stride 2
+        img = F.pad(case.img, (lo, hi))
+        bias = case.params.bias
+        k_fn = lambda: ops.pasm_matmul(x, t, bias=bias)  # noqa: E731
+        l_fn = lambda: torch.matmul(x, w)  # noqa: E731
+        c_fn = lambda: F.conv2d(img, kern4, bias, stride=case.conv.stride)  # noqa: E731
+        e = max_err(k_fn(), pm.pasm_matmul_plain(x, t.idx, t.codebook, bias,
+                                                 packed=t.packed))
+        errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
+        ms, host = time_ms_host(k_fn)
+        ms_c, lib, lib_c, conv_ms = time_cold_ms(k_fn), time_ms(l_fn), time_cold_ms(l_fn), \
+            time_ms(c_fn)
+        ops_ms = 2 * M * K * N / (F32_TFLOPS * 1e12) * 1e3
+        bytes_ms = (M * K * 4 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4) \
+            / (HBM_TBPS * 1e12) * 1e3
+        plan = pm.simt_plan(M, K, N, 1)
+        log(f"    K1 {case.name} M{M} K{K} N{N} f32, route simt (tile {plan.tile}x"
+            f"{plan.cols}, splits {plan.splits}, {plan.blocks} blocks): {ms:.4f} / "
+            f"{ms_c:.4f} ms (torch.matmul {lib:.4f} / {lib_c:.4f}, F.conv2d {conv_ms:.4f}), "
+            f"bound {max(ops_ms, bytes_ms):.4f} by "
+            f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, host {host:.1f} µs, "
+            f"max |Δ| vs plain {e:.2e}")
+        del x, w, img
+    lp0, dp0 = params["enc_layers"][0], params["dec_layers"][0]
+    for name, leaf in (("wq", lp0["attn"]["wq"]), ("w1", lp0["mlp"]["w1"]),
+                       ("w2", lp0["mlp"]["w2"]), ("cross wk", dp0["cross"]["wk"])):
+        t = leaf.gemm_tensor()
+        K, N = t.shape
+        wd = leaf.dense_matrix(torch.bfloat16)
+        for M in (4, cfg.frontend_tokens):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+            k_fn = lambda: ops.pasm_matmul(x, t)  # noqa: E731
+            l_fn = lambda: torch.matmul(x, wd)  # noqa: E731
+            e, _ = check_k1_bf16(k_fn(), x, t, what=f"K1 whisper {name} M{M}")
+            errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
+            ms, host = time_ms_host(k_fn)
+            ms_c, lib, lib_c = time_cold_ms(k_fn), time_ms(l_fn), time_cold_ms(l_fn)
+            ops_ms = 2 * M * K * N / (BF16_TFLOPS * 1e12) * 1e3
+            bytes_ms = (M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4) \
+                / (HBM_TBPS * 1e12) * 1e3
+            route = pm.k1_plan(M, K, N, x.dtype, packed=t.packed,
+                               groups=t.codebook.shape[0]).route
+            log(f"    K1 {name:<8} K{K} N{N} M{M:<4} bf16, route {route:<6}: {ms:.4f} / "
+                f"{ms_c:.4f} ms (bf16 torch.matmul {lib:.4f} / {lib_c:.4f}), bound "
+                f"{max(ops_ms, bytes_ms):.4f} by "
+                f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, host {host:.1f} µs")
+            del x
+        del wd
+
+    # K5 bf16 at the encoder's attention: B 1, S 1500, 6/6 heads, hd 64
+    S, H, hd = cfg.frontend_tokens, cfg.n_heads, cfg.hd
+    q, k, v = (torch.randn((1, S, H, hd), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    qg, kg, vg = regroup(q, k, v)
+    qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    k_fn = lambda: fa.flash_attention_kernel_call(qg, kg, vg, causal=False)  # noqa: E731
+    p_fn = lambda: fa.flash_attention_plain(qg, kg, vg, causal=False)  # noqa: E731
+    l_fn = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+    e = check_close(k_fn(), p_fn(), K5_TOL["bfloat16"],
+                    K5_TOL["bfloat16"] * k5_pv_scale(qg, kg, vg, False), what="K5 whisper")
+    errs["flash_attention"] = max(errs["flash_attention"], e)
+    ms, plain_ms, lib_ms = time_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
+    flops = 4 * H * S * S * hd  # QKᵀ and PV over every (query, key) pair
+    ops_ms = flops / (BF16_TFLOPS * 1e12) * 1e3
+    bytes_ms = 4 * S * H * hd * 2 / (HBM_TBPS * 1e12) * 1e3
+    log(f"  K5 B1 S{S} H{H}/{H} hd{hd} non-causal bf16: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f}, library (SDPA) {lib_ms:.4f}, bound {max(ops_ms, bytes_ms):.4f} by "
+        f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, {flops / ms / 1e9:.1f} "
+        f"TFLOP/s, max |Δ| vs plain {e:.2e} [{card}]")
+    del params, q, k, v, qg, kg, vg, qh, kh, vh
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("whisper-tiny: " + "; ".join(failed))
+    routes = {r: n + b_routes.get(r, 0) for r, n in runs["kernel"][2].items()}
+    return {"launches": runs["kernel"][0]["pasm_matmul"] + b_launches, "routes": routes,
+            "k5": k5, "times": rows}
+
+
 def main() -> int:
     import torch
 
@@ -2380,7 +2739,10 @@ def main() -> int:
     ssm = recurrent_phase("mamba2-130m", 24, gen, errs, card)
     hyb = recurrent_phase("recurrentgemma-2b", 26, gen, errs, card)
 
-    # 12. the kernels line -----------------------------------------------------
+    # 12. the encoder-decoder family at full width and full depth --------------
+    wsp = whisper_phase(gen, errs, card)
+
+    # 13. the kernels line -----------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -2390,11 +2752,11 @@ def main() -> int:
     }
     launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"]
                 + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"]
-                + ssm["launches"] + hyb["launches"],
+                + ssm["launches"] + hyb["launches"] + wsp["launches"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"],
                 "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"],
-                "flash_attention": lm["k5"] + moe["k5"] + vlm["k5"] + hyb["k5"]}
+                "flash_attention": lm["k5"] + moe["k5"] + vlm["k5"] + hyb["k5"] + wsp["k5"]}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
     csrc = "src/repro_torch/kernels/csrc/"
@@ -2402,18 +2764,20 @@ def main() -> int:
     # each kernel's routes with their launches on the main paths and times:
     # K1 simt at the AlexNet sums, stream / mma at the LM's M = 4 / 384 sums
     # (warm, plus cold), K5 bf16 and f32 at the qwen3 prefill shape; the
-    # served LMs' launches: qwen3, deepseek-moe-16b and internvl2-26b
+    # served LMs' launches: qwen3, deepseek-moe-16b, internvl2-26b, the
+    # recurrent families and whisper-tiny (its stem on simt)
     routes = {k: {"simt": {"source": csrc + k + ".cu", "launches": launches[k]}}
               for k in KERNELS}
     routes["pasm_matmul"]["simt"]["launches"] = (counts["kernel"]["pasm_matmul"]
-                                                 + train["qat"]["k1"])
+                                                 + train["qat"]["k1"] + wsp["routes"]["simt"])
     routes["pasm_matmul"]["simt"].update(
         {k: tot["pasm_matmul"][k] for k in timed if k != "bound_by"},
         bound_by="operations")
     for r in ("stream", "mma"):
         routes["pasm_matmul"][r] = dict(
             k5_rows["k1"][r], launches=lm["routes"][r] + moe["routes"][r] + vlm["routes"][r]
-            + ssm["routes"][r] + hyb["routes"][r] + (TRAIN_K1 if r == "mma" else 0),
+            + ssm["routes"][r] + hyb["routes"][r] + wsp["routes"][r]
+            + (TRAIN_K1 if r == "mma" else 0),
             source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
         dt: dict(k5_rows[dt], launches=launches["flash_attention"] if dt == "bfloat16" else 0,
@@ -2448,9 +2812,11 @@ def main() -> int:
         f"launches are from the serving runs (K1: AlexNet {counts['kernel']['pasm_matmul']} "
         f"+ qwen3 {lm['lm']['pasm_matmul']} + deepseek-moe-16b {moe['launches']} + "
         f"internvl2-26b {vlm['launches']} + mamba2-130m {ssm['launches']} + "
-        f"recurrentgemma-2b {hyb['launches']}; K2, K3), the stage run (K4), the "
+        f"recurrentgemma-2b {hyb['launches']} + whisper-tiny {wsp['launches']} (its "
+        f"stem {wsp['routes']['simt']} on simt); K2, K3), the stage run (K4), the "
         f"served attention (K5: qwen3 {lm['k5']}, deepseek "
-        f"{moe['k5']}, internvl2 {vlm['k5']}, recurrentgemma {hyb['k5']}) and training "
+        f"{moe['k5']}, internvl2 {vlm['k5']}, recurrentgemma {hyb['k5']}, whisper-tiny "
+        f"{wsp['k5']}) and training "
         f"(K1: one qwen3 step {TRAIN_K1} + the "
         f"frozen QAT AlexNet {train['qat']['k1']}; K2: {train['qat']['k2']}); "
         f"max_abs_err is the largest over every forward check [{card}]")
@@ -2462,7 +2828,7 @@ def main() -> int:
     for (impl, name), t in moe["times"].items():
         log(f"deepseek-moe-16b ({MOE_LAYERS} of 28 layers) {name} on {impl}: "
             f"{fmt_step(t)} [{card}]")
-    for arch, r in (("mamba2-130m", ssm), ("recurrentgemma-2b", hyb)):
+    for arch, r in (("mamba2-130m", ssm), ("recurrentgemma-2b", hyb), ("whisper-tiny", wsp)):
         for (impl, name), t in r["times"].items():
             log(f"{arch} (full depth) {name} on {impl}: {fmt_step(t)} [{card}]")
     print(json.dumps({"kernels": kernels}))

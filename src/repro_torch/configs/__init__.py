@@ -1,11 +1,10 @@
 """Model configurations: the LM architecture registry and the AlexNet CNN.
 
 Port of ``repro.configs``.  :func:`get_config` resolves ``--arch <id>`` for
-every entry point.  The registry names all ten archs of the JAX package;
-the transformer families (dense, MoE and the vit-prefixed VLM), the SSM
-family and the RG-LRU hybrid are ported, and an arch whose family is not
-ported yet (the audio encoder-decoder) raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+every entry point.  The registry names all ten archs of the JAX package,
+every family ported: the transformer families (dense, MoE and the
+vit-prefixed VLM), the SSM family, the RG-LRU hybrid and the audio
+encoder-decoder.
 """
 from __future__ import annotations
 
@@ -14,7 +13,7 @@ import importlib
 from repro_torch.configs.base import SHAPES, ArchConfig, PASMQuant, ShapeSpec  # noqa: F401
 
 __all__ = ["ARCH_IDS", "CNN_IDS", "get_config", "get_shape", "get_cnn_config",
-           "cell_supported", "all_cells", "NOT_PORTED_FAMILY"]
+           "cell_supported", "all_cells"]
 
 _MODULES = {
     "qwen3-32b": "qwen3_32b",
@@ -31,22 +30,10 @@ _MODULES = {
 
 ARCH_IDS = tuple(_MODULES)
 
-# the config modules ported so far (all but the audio family)
-_PORTED = {"qwen3-32b", "nemotron-4-340b", "phi3-medium-14b", "stablelm-3b",
-           "deepseek-moe-16b", "kimi-k2-1t-a32b", "internvl2-26b",
-           "mamba2-130m", "recurrentgemma-2b"}
-
-NOT_PORTED_FAMILY = (
-    "is not ported yet: the audio family (encoder-decoder) comes with "
-    "ROADMAP Queue 1 item 8 (LM families)"
-)
-
 
 def get_config(arch: str, *, smoke: bool = False) -> ArchConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in _PORTED:
-        raise NotImplementedError(f"arch {arch!r} {NOT_PORTED_FAMILY}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.smoke_config() if smoke else mod.config()
 

@@ -320,7 +320,8 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
                 "the PAS formulation is paper-faithful single-dictionary; "
                 "grouped codebooks need impl='kernel' or 'dequant'"
             )
-        return _kops.pas_matmul(x, t, bias=bias, relu=relu).to(x.dtype)
+        # K3 sums f32 activations into its bins: a bf16 x widens exactly
+        return _kops.pas_matmul(x.float(), t, bias=bias, relu=relu).to(x.dtype)
     return _kops.pasm_matmul(x, t, bias=bias, relu=relu).to(x.dtype)
 
 

@@ -21,7 +21,11 @@ them here:
   ``"dense_layers"`` and the hybrid's ``"tail"`` are already lists of
   per-layer dicts (as in JAX) and stay lists; a stacked expert leaf
   ``(L, E, K, N)`` becomes, per layer, a ``PasmParams`` (or array) with a
-  leading E, each expert's dictionaries its own;
+  leading E, each expert's dictionaries its own.  The encdec family's
+  ``"enc_layers"`` and ``"dec_layers"`` stacks become per-layer lists
+  too, and its mel stem's ``ConvParams`` (a field dict with a ``"kshape"``,
+  from ``quantize_frontend``) goes through :func:`conv_params_from_numpy`;
+  an unquantized stem stays a plain ``{"kernel", "bias"}`` dict;
 * :func:`cnn_qat_tree_from_numpy` — the CNN QAT tree ``{"params": cnn
   tree, "codebooks": [(bins,) arrays]}`` → the tree
   :func:`repro_torch.train.step.make_cnn_train_step` trains;
@@ -96,6 +100,8 @@ def _lm_leaf(x, dev: torch.device, layer: Optional[int]):
     def pick(a):  # a 0-d array is an optimizer moment's placeholder: shared
         return a if layer is None or a is None or np.ndim(a) == 0 else a[layer]
 
+    if isinstance(x, dict) and "kshape" in x:  # a ConvParams: the mel stem
+        return conv_params_from_numpy(x, device=dev)
     if isinstance(x, dict) and "kind" in x:
         arrays = {f: _t(pick(x.get(f)), dev) for f in _PASM_FIELDS}
         return PasmParams(**arrays, kind=x["kind"],
@@ -119,7 +125,7 @@ def _n_layers(tree) -> int:
 
 
 # the keys whose leaves carry a leading layer (or group) axis in JAX
-_STACKED = ("layers", "groups")
+_STACKED = ("layers", "groups", "enc_layers", "dec_layers")
 
 
 def lm_params_from_numpy(tree: dict, *, device=None) -> dict:

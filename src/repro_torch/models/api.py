@@ -1,10 +1,9 @@
 """Model API: family dispatch, input specs, loss — one surface for all archs.
 
-Port of ``repro.models.api``.  The transformer families (dense, MoE, VLM),
-the SSM family, the RG-LRU hybrid and the CNN are ported; the audio family
-raises ``NotImplementedError`` naming ROADMAP Queue 1 item 8.  Input specs are
-``meta`` tensors: a shape and a dtype, no storage (the JAX package's
-``jax.ShapeDtypeStruct``).
+Port of ``repro.models.api``: the transformer families (dense, MoE, VLM),
+the SSM family, the RG-LRU hybrid, the audio encoder-decoder and the CNN.
+Input specs are ``meta`` tensors: a shape and a dtype, no storage (the JAX
+package's ``jax.ShapeDtypeStruct``).
 """
 from __future__ import annotations
 
@@ -12,12 +11,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs import NOT_PORTED_FAMILY
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 
 __all__ = ["get_model", "cache_len", "frontend_spec", "input_specs", "lm_loss"]
-
-_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio", "cnn")
 
 
 def get_model(cfg):
@@ -30,10 +26,10 @@ def get_model(cfg):
         from repro_torch.models import ssm_lm as m
     elif cfg.family == "hybrid":
         from repro_torch.models import hybrid as m
+    elif cfg.family == "audio":
+        from repro_torch.models import encdec as m
     elif cfg.family == "cnn":
         from repro_torch.models import cnn as m
-    elif cfg.family in _FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} {NOT_PORTED_FAMILY}")
     else:
         raise ValueError(f"unknown family {cfg.family}")
     return m
@@ -50,14 +46,15 @@ def _spec(shape: tuple, dtype) -> torch.Tensor:
 
 
 def frontend_spec(cfg: ArchConfig, batch: int) -> Optional[torch.Tensor]:
-    """The modality frontend's input: vit patch embeddings (stub), bf16
-    ``(B, frontend_tokens, frontend_dim)``; None without a frontend.  The
-    audio frontend (log-mel frames) belongs to the encdec family, not
-    ported yet."""
+    """The modality frontend's input, bf16: vit patch embeddings (stub)
+    ``(B, frontend_tokens, frontend_dim)``, or log-mel frames ``(B, n_mels,
+    2·frontend_tokens)`` into the stride-2 conv stem (encdec halves the time
+    axis onto the ``frontend_tokens``-long encoder sequence); None without
+    a frontend."""
     if cfg.frontend == "vit":
         return _spec((batch, cfg.frontend_tokens, cfg.frontend_dim), torch.bfloat16)
     if cfg.frontend == "audio":
-        raise NotImplementedError(f"the audio frontend {NOT_PORTED_FAMILY}")
+        return _spec((batch, cfg.n_mels, 2 * cfg.frontend_tokens), torch.bfloat16)
     return None
 
 

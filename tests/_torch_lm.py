@@ -3,16 +3,24 @@ import contextlib
 
 import numpy as np
 
+from repro.core.conv import ConvParams
 from repro.core.params import PasmParams
 from repro_torch.interop import lm_params_from_numpy
 
 _FIELDS = ("w", "idx", "codebook", "bias")
+_CONV_FIELDS = ("kernel", "idx", "codebook", "bias")
 
 
 def tree_to_numpy(t):
-    """The JAX transformer's params tree as numpy: dense leaves as arrays,
-    ``PasmParams`` leaves as field dicts (leading layer axis kept), lists
-    (the MoE family's ``dense_layers``) as lists."""
+    """The JAX LM params tree as numpy: dense leaves as arrays,
+    ``PasmParams`` leaves as field dicts (leading layer axis kept),
+    ``ConvParams`` (the encdec mel stem) as field dicts with their
+    ``kshape``, lists (the MoE family's ``dense_layers``) as lists."""
+    if isinstance(t, ConvParams):
+        d = {f: None if getattr(t, f) is None else np.asarray(getattr(t, f))
+             for f in _CONV_FIELDS}
+        return {"kind": t.kind, "kshape": t.kshape, "bins": t.bins,
+                "order": t.order, "pad_k": t.pad_k, **d}
     if isinstance(t, PasmParams):
         d = {f: None if getattr(t, f) is None else np.asarray(getattr(t, f))
              for f in _FIELDS}
@@ -45,13 +53,13 @@ def jax_flat(tree):
 
 
 # the port's per-layer (per-group) lists that JAX stacks on a leading axis
-_STACKED = ("layers", "groups")
+_STACKED = ("layers", "groups", "enc_layers", "dec_layers")
 
 
 def port_flat(tree):
     """A port tree keyed as :func:`jax_flat` keys the JAX one: the
-    per-layer ``"layers"`` and per-group ``"groups"`` lists are stacked on
-    a leading axis."""
+    per-layer (``"layers"``, ``"enc_layers"``, ``"dec_layers"``) and
+    per-group (``"groups"``) lists are stacked on a leading axis."""
     import torch
 
     from repro_torch.tree import flatten_with_path

@@ -910,3 +910,77 @@ def test_k5_hybrid_heads_match_plain_and_gqa(cuda, dtype):
     t = 1e-5 if dtype == torch.float32 else fa.BF16_TOL
     torch.testing.assert_close(o.float(), want.float(), rtol=t,
                                atol=t * float(v.float().abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# whisper-tiny: the mel stem on K1-K4, K5 non-causal at the encoder's length
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("c_in,stride", [(80, 1), (384, 2)], ids=["conv1", "conv2"])
+def test_whisper_stem_on_the_four_kernels(cuda, c_in, stride):
+    """whisper-tiny's stem convs (k 1×3 on a 1-pixel-high image of 3000
+    frames, SAME; conv2 at stride 2 pads 0 left and 1 right) on K1, K2, K3
+    and K4 against the einsum engine; K1 ≡ K2 and K3 ≡ K4 bitwise."""
+    conv = cv.Conv2D(k=(1, 3), c_in=c_in, c_out=384, stride=stride, padding="same")
+    p = _params((384, c_in, 1, 3), 16, 1, False, "NCHW", cuda, seed=c_in)
+    g = torch.Generator(device=cuda).manual_seed(stride)
+    x = torch.randn((2, c_in, 1, 3000), generator=g, device=cuda)
+    want = cv.conv2d(x, p, conv, engine="einsum")
+    assert want.shape == (2, 384, 1, 3000 // stride)
+    got = {}
+    for engine, key in (("kernel", "pasm_matmul"), ("kernel_implicit", "pasm_conv"),
+                        ("pas_kernel", "pas_matmul"), ("pas_kernel_implicit", "pas_conv")):
+        before = pm.launches[key]
+        got[engine] = cv.conv2d(x, p, conv, engine=engine)
+        assert pm.launches[key] == before + 1, engine
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[engine], want, **TOL)
+    assert torch.equal(got["kernel"], got["kernel_implicit"])
+    assert torch.equal(got["pas_kernel"], got["pas_kernel_implicit"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq", [1, 17, 1500])
+def test_k5_noncausal_at_the_encoder_length(cuda, dtype, Sq):
+    """whisper-tiny's attention: 6 heads of hd 64 (G = 1), non-causal,
+    against 1500 keys (the encoder's self-attention at Sq = 1500, the
+    decoder's cross-attention at a prompt's length): the ragged last key
+    tile is masked past 1500."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    q = torch.randn((6, 1, Sq, 64), generator=g, device=cuda).to(dtype)
+    k = torch.randn((6, 1500, 64), generator=g, device=cuda).to(dtype)
+    v = torch.randn((6, 1500, 64), generator=g, device=cuda).to(dtype)
+    before = pm.launches["flash_attention"]
+    y = fa.flash_attention_kernel_call(q, k, v, causal=False)
+    assert pm.launches["flash_attention"] == before + 1 and y.shape == q.shape
+    _assert_k5_close(y, q, k, v, causal=False, sk_orig=1500)
+
+
+def test_whisper_forward_on_the_card(cuda):
+    """The whisper-tiny smoke config, its linears and stem weight-shared,
+    on a seeded mel: ``kernel`` (K1 at every linear and both stem convs:
+    34 launches) against ``dequant`` within 2.5 % of max |logit|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as TE
+    from repro_torch.models.common import quantize_params
+
+    cfg = get_config("whisper-tiny", smoke=True).with_quant(
+        enabled=True, impl="kernel", min_weight_elems=1024)
+    params = TE.quantize_frontend(quantize_params(
+        TE.init_params(cfg, torch.Generator(device=cuda).manual_seed(0)), cfg))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mel = torch.randn((2, cfg.n_mels, 2 * cfg.frontend_tokens), generator=g, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 9), generator=g, device=cuda, dtype=torch.int32)
+    pm.reset_launches()
+    lk, _ = TE.forward(params, toks, cfg, frontend_embeds=mel)
+    torch.cuda.synchronize()
+    per_layer = 6 * cfg.encoder_layers + 10 * cfg.n_layers
+    assert pm.launches["pasm_matmul"] == 2 + per_layer
+    ld, _ = TE.forward(params, toks, cfg.with_quant(impl="dequant"), frontend_embeds=mel)
+    assert lk.shape == ld.shape == (2, 9, cfg.vocab)
+    d = (lk.float() - ld.float()).abs().max()
+    assert bool(torch.isfinite(lk.float()).all()) and float(d) <= 0.025 * float(
+        ld.float().abs().max())

@@ -25,18 +25,20 @@ from repro.serve import scheduler as jsched
 from repro.serve.engine import Engine as JEngine
 from repro_torch.configs import get_cnn_config, get_config
 from repro_torch.launch import serve as tlaunch
+from repro_torch.models import api as tapi
 from repro_torch.models import cnn, transformer as TT
 from repro_torch.models.common import quantize_params
 from repro_torch.serve import faults as tfaults
 from repro_torch.serve import scheduler as tsched
 from repro_torch.serve.batcher import CnnBatcher, MixedBatcher
 from repro_torch.serve.engine import Engine
+from repro_torch.tree import tree_leaves
 
 
 @functools.lru_cache(maxsize=None)
 def _setup(arch="stablelm-3b"):
     cfg = get_config(arch, smoke=True)
-    return cfg, TT.init_params(cfg, torch.Generator().manual_seed(0))
+    return cfg, tapi.get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0))
 
 
 def _solo_out(cfg, params, prompt, max_new, *, slots=3, max_seq=48):
@@ -222,6 +224,60 @@ def test_moe_and_vlm_engine_tokens_match_jax_engine(arch):
                          "--max-new", "2", "--max-seq", "32"]) == 0
 
 
+def test_encdec_engine_tokens_match_jax_engine():
+    """whisper-tiny served as the JAX ``Engine`` serves it (every request
+    encoded from silence, the cross K/V grafted slot by slot with the self
+    cache), its layers weight-shared on ``kernel`` (K1's plain version)
+    against the JAX engine on ``dequant``: the same token streams, each up
+    to its first difference, where the two candidates must be a greedy
+    near-tie in both packages (within one bf16 ulp, from a prefill of the
+    common prefix); and the launcher serves it on the CPU."""
+    from repro.models import common as jcommon
+    from repro.models import encdec as JE
+    from repro_torch.models import encdec as TE
+
+    q = dict(enabled=True, min_weight_elems=1024)
+    jc = jget("whisper-tiny", smoke=True).with_quant(impl="dequant", **q)
+    jparams = jax.jit(lambda k: jcommon.quantize_params(JE.init_params(jc, k), jc))(
+        jax.random.PRNGKey(0))
+    cfg = get_config("whisper-tiny", smoke=True).with_quant(impl="kernel", **q)
+    params = port_params(jparams)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)) for n in (5, 9, 3, 12)]
+    outs = []
+    for eng in (JEngine(jc, jparams, batch_slots=2, max_seq=48),
+                Engine(cfg, params, batch_slots=2, max_seq=48)):
+        reqs = [eng.submit(p, max_new=6) for p in prompts[:2]]
+        eng.step()
+        reqs += [eng.submit(p, max_new=6) for p in prompts[2:]]
+        eng.run_until_drained()
+        outs.append([r.out for r in reqs])
+    jo, to = outs
+    assert [len(o) for o in to] == [len(o) for o in jo] == [6] * len(prompts)
+    assert eng.calls["prefill"] == len(prompts)
+    # the batched cache: per layer the cross K/V of every slot, filled
+    assert len(eng.caches) == cfg.n_layers
+    assert eng.caches[0]["cross"]["k"].shape == (2, cfg.frontend_tokens, cfg.n_kv_heads,
+                                                 cfg.hd)
+    assert all(bool(c["cross"]["k"].abs().amax(dim=(1, 2, 3)).gt(0).all())
+               for c in eng.caches)
+    for prompt, t, j in zip(prompts, to, jo):
+        diff = [i for i, (a, b) in enumerate(zip(t, j)) if a != b]
+        if not diff:
+            continue
+        i = diff[0]
+        seq = np.concatenate([prompt, np.asarray(j[:i])]).astype(np.int32)[None]
+        jl, _ = jax.jit(lambda p, s, c: JE.prefill(p, s, c, jc))(
+            jparams, jnp.asarray(seq), JE.init_caches(jc, 1, 48))
+        tl, _ = TE.prefill(params, torch.from_numpy(seq),
+                           TE.init_caches(cfg, 1, 48, device="cpu"), cfg)
+        for lg in (np.asarray(jl.astype(jnp.float32))[0, -1], tl.float().numpy()[0, -1]):
+            a, b = float(lg[t[i]]), float(lg[j[i]])
+            assert abs(a - b) <= _bf16_ulp(max(abs(a), abs(b))), (i, t, j, a, b)
+    assert tlaunch.main(["--arch", "whisper-tiny", "--smoke", "--device", "cpu",
+                         "--requests", "2", "--max-new", "2", "--max-seq", "32"]) == 0
+
+
 def _quantized(impl="kernel"):
     cfg, params = _setup()
     qcfg = cfg.with_quant(enabled=True, bins=16, impl=impl, min_weight_elems=1024)
@@ -298,6 +354,65 @@ def test_chaos_unaffected_requests_bit_identical():
     assert [r.out for r in hit] == [r.out for r in clean]
     assert roll["n_quarantined"] == 1 and roll["n_retried"] == 2
     assert roll["n_faults_decode"] == 1 and not eng.sched.quarantined
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "whisper-tiny"])
+def test_chaos_terminal_faults_leave_others_bit_identical(arch):
+    """DESIGN.md §2.4, the JAX package's chaos invariant for the padded
+    families: with no retries a NaN-poisoned slot fails ``numeric`` with
+    its partial output kept, a failed first prefill fails ``error`` with
+    none, a transient decode fault replays its tick, the engine drains, and
+    every unaffected request equals the fault-free run's bit for bit."""
+    cfg, params = _setup(arch)
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 7, 4, 6)]
+    ref = Engine(cfg, params, batch_slots=3, max_seq=48)
+    ref_reqs = [ref.submit(p, max_new=8) for p in prompts]
+    ref.run_until_drained()
+    assert all(r.done for r in ref_reqs)
+    plan = tfaults.FaultPlan([tfaults.FaultSpec("nan", tick=3, slot=1),
+                              tfaults.FaultSpec("prefill", uid=4, nth=1),
+                              tfaults.FaultSpec("decode", tick=2)])
+    eng = Engine(cfg, params, batch_slots=3, max_seq=48, faults=plan, max_retries=0)
+    reqs = [eng.submit(p, max_new=8) for p in prompts]
+    eng.run_until_drained()
+    roll = eng.metrics.rollup()
+    assert roll["n_stuck"] == 0
+    r_nan, r_err = reqs[1], reqs[3]
+    assert r_nan.status == "failed:numeric" and 0 < len(r_nan.out) < 8
+    assert r_err.status == "failed:error" and r_err.out == []
+    assert roll["n_quarantined"] == 1 and roll["failed_numeric_n"] == 1
+    assert roll["failed_error_n"] == 1 and roll["n_faults_decode"] == 1
+    for got, want in ((reqs[0], ref_reqs[0]), (reqs[2], ref_reqs[2])):
+        assert got.done and got.out == want.out
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "whisper-tiny"])
+def test_quarantine_then_reuse_never_leaks_kv(arch):
+    """DESIGN.md §2.4: a slot whose occupant was NaN-poisoned is scrubbed
+    from the fresh template (the self cache and, for the encdec family, the
+    cross K/V) before reuse, and its next occupant equals a solo run bit
+    for bit."""
+    cfg, params = _setup(arch)
+    rng = np.random.default_rng(37)
+    victim_p = rng.integers(0, cfg.vocab, size=6)
+    probe_p = rng.integers(0, cfg.vocab, size=5)
+    want = _solo_out(cfg, params, probe_p, 6, slots=1)
+    plan = tfaults.FaultPlan([tfaults.FaultSpec("nan", tick=2, slot=0)])
+    eng = Engine(cfg, params, batch_slots=1, max_seq=48, faults=plan, max_retries=0)
+    victim = eng.submit(victim_p, max_new=6)
+    eng.step()  # tick 1: admit the victim
+    eng.step()  # tick 2: decode, poisoned, quarantined
+    assert victim.status == "failed:numeric"
+    assert eng.sched.quarantined == {0} and eng.sched.free_slots == []
+    eng._scrub_quarantined()  # what the next tick's admission does first
+    fresh = tapi.get_model(cfg).init_caches(cfg, 1, 48, device="cpu")
+    assert all(torch.equal(got, tmpl)  # the whole slot is the template again
+               for got, tmpl in zip(tree_leaves(eng.caches), tree_leaves(fresh)))
+    probe = eng.submit(probe_p, max_new=6)
+    eng.run_until_drained()
+    assert eng.sched.quarantined == set()
+    assert probe.done and probe.slot == 0 and probe.out == want
 
 
 def test_mixed_batcher_and_launcher_on_cpu(capsys):

@@ -279,7 +279,8 @@ def _undo_stacked_decay(new, old, lr: float, wd: float):
     Queue 3).  The decoupled decay moved such a leaf by ``-lr·wd·p``."""
     def fix(path, n, o):
         keys = {getattr(k, "key", None) for k in path}
-        if keys & {"layers", "groups"} and getattr(n, "ndim", 0) == 2 and \
+        if keys & {"layers", "groups", "enc_layers", "dec_layers"} and \
+                getattr(n, "ndim", 0) == 2 and \
                 jnp.issubdtype(n.dtype, jnp.floating):
             return n + lr * wd * o
         return n
@@ -343,6 +344,50 @@ def test_recurrent_train_step_matches_jax(arch):
         if f32 or not hybrid:
             jp = _undo_stacked_decay(jp, jparams, float(jm["lr"]), ocfg_j.weight_decay)
             assert_update_close((tp, to), (jp, jo), 2 * tol, g_floor=4 * tol)
+
+
+def test_encdec_train_step_matches_jax():
+    """One whisper-tiny smoke train step (the encoder's and decoder's
+    linears weight-shared on K1's plain version, the mel stem dense and
+    trained; the batch carries no mel, so both encode silence) from the
+    same state as the JAX step on ``dequant``: the loss within 1e-3, every
+    grad and the update within the LM tolerance — the stem's and the
+    encoder's included, which reach the loss only through the
+    cross-attention."""
+    q = dict(enabled=True, min_weight_elems=1024)
+    jcfg = jget_config("whisper-tiny", smoke=True).with_quant(impl="dequant", **q)
+    tcfg = get_config("whisper-tiny", smoke=True).with_quant(impl="kernel", **q)
+    jmodel = japi.get_model(jcfg)
+    jparams = jax.jit(lambda k: jquantize(jmodel.init_params(jcfg, k), jcfg))(
+        jax.random.PRNGKey(0))
+    tparams = port_params(jparams)
+    assert tparams["enc_layers"][0]["mlp"]["w1"].idx is not None
+    toks = np.asarray(jpipe.synthetic_batch(
+        jpipe.DataConfig(seed=3, vocab=jcfg.vocab, seq_len=16, global_batch=2), 0)["tokens"])
+    (x, y), = _batches(toks, 1)
+    js = jopt.init_opt_state(jparams)
+    ts = interop.opt_state_from_numpy(
+        {"step": np.asarray(js.step), "mu": tree_to_numpy(js.mu),
+         "nu": tree_to_numpy(js.nu)}, interop.lm_params_from_numpy, device="cpu")
+    ocfg_j, ocfg_t = jopt.AdamWConfig(**OCFG), opt.AdamWConfig(**OCFG)
+    jb = {"tokens": jnp.asarray(x), "labels": jnp.asarray(y)}
+    tb = {"tokens": _t(x), "labels": _t(y)}
+    jp, jo, jm, jgrads = _jax_step(jcfg, ocfg_j)(jparams, js, jb)
+    loss, aux, grads = tstep.loss_and_grads(tparams, tb, tcfg)
+    tp, to, tm = tstep.make_train_step(tcfg, ocfg_t)(tparams, ts, tb)
+    assert aux == {} and int(tm["skipped"]) == int(jm["skipped"]) == 0
+    np.testing.assert_allclose(float(loss), float(jm["loss"]), rtol=1e-3)
+    got, want = port_flat(grads), jax_flat(jgrads)
+    assert set(got) == {k for k in want if not k.endswith("/idx")}
+    # silence zeroes the stem's inputs, so its kernels get no gradient and
+    # its biases all of it, through the encoder and the cross-attention
+    assert float(np.abs(got["frontend/conv1/kernel"]).max()) == 0
+    assert float(np.abs(got["frontend/conv1/bias"]).max()) > 0
+    for k, g in got.items():
+        np.testing.assert_allclose(g, want[k], rtol=0,
+                                   atol=LM_TOL * float(np.abs(want[k]).max()), err_msg=k)
+    jp = _undo_stacked_decay(jp, jparams, float(jm["lr"]), ocfg_j.weight_decay)
+    assert_update_close((tp, to), (jp, jo), 2 * LM_TOL, g_floor=4 * LM_TOL)
 
 
 def test_remat_reruns_each_layer_in_the_backward(monkeypatch):

@@ -48,7 +48,7 @@ from repro_torch.nn import moe as TM
 ARCHS = ("qwen3-32b", "stablelm-3b", "nemotron-4-340b")
 MOE_ARCHS = ("deepseek-moe-16b", "kimi-k2-1t-a32b")
 PORTED = ARCHS + MOE_ARCHS + ("phi3-medium-14b", "internvl2-26b", "mamba2-130m",
-                               "recurrentgemma-2b")
+                               "recurrentgemma-2b", "whisper-tiny")
 LOGIT_TOL = 0.025  # of max |logit|: bf16 rounding in two frameworks (above)
 # a routing near-tie: an expert within 2^-5 of the k-th largest probability
 # (the bf16 ulps above move router probabilities by about 1e-3 of themselves)
@@ -112,15 +112,15 @@ def test_configs_equal_jax():
             assert (c.n_params(), c.n_active_params()) == (j.n_params(), j.n_active_params())
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
     assert tconfigs.all_cells() == jconfigs.all_cells()
-    assert set(tconfigs.ARCH_IDS) - set(PORTED) == {"whisper-tiny"}
-    for arch in set(tconfigs.ARCH_IDS) - set(PORTED):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tconfigs.get_config(arch)
+    # every arch of the JAX package is ported: the audio family too
+    assert set(tconfigs.ARCH_IDS) == set(PORTED)
+    from repro_torch.models import encdec as TE
+
     for family in ("audio",):
-        later = dataclasses.replace(tconfigs.get_config("qwen3-32b", smoke=True),
+        audio = dataclasses.replace(tconfigs.get_config("qwen3-32b", smoke=True),
                                     family=family)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tapi.get_model(later)
+        assert tapi.get_model(audio) is TE
+        assert japi.get_model(audio).__name__ == "repro.models.encdec"
     with pytest.raises(KeyError):
         tconfigs.get_config("gpt-2")
     for arch in ("stablelm-3b", "deepseek-moe-16b", "kimi-k2-1t-a32b", "internvl2-26b"):
@@ -434,14 +434,19 @@ def test_tied_head_int8_cache_and_loss():
 
 
 def test_model_surface_refuses_later_slices():
-    """What still raises: the audio frontend (item 8) and every mesh path
-    (item 10); the MoE and vit surfaces are served."""
+    """What still raises: every mesh path (item 10); the MoE, vit and audio
+    surfaces are served (the audio frontend's log-mel spec equals JAX's)."""
     tc = tconfigs.get_config("qwen3-32b", smoke=True)
     audio = dataclasses.replace(tc, family="audio", frontend="audio")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.frontend_spec(audio, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tapi.input_specs(audio, tconfigs.get_shape("train_4k"))
+    spec = tapi.frontend_spec(audio, 2)
+    assert tuple(spec.shape) == (2, audio.n_mels, 2 * audio.frontend_tokens)
+    assert spec.dtype == torch.bfloat16 and spec.device.type == "meta"
+    specs = tapi.input_specs(audio, tconfigs.get_shape("train_4k"))
+    jaudio = dataclasses.replace(jconfigs.get_config("qwen3-32b", smoke=True),
+                                 family="audio", frontend="audio")
+    jspecs = japi.input_specs(jaudio, jconfigs.get_shape("train_4k"))
+    assert {k: tuple(v.shape) for k, v in specs.items()} == \
+        {k: tuple(v.shape) for k, v in jspecs.items()}
     vit = dataclasses.replace(tc, frontend="vit", frontend_tokens=3, frontend_dim=8)
     assert "vproj" in TT.init_params(vit, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="item 10"):
