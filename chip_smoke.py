@@ -160,8 +160,21 @@ Phases (every one unguarded: any failure exits non-zero):
     on each impl, K1 at the stem (f32, beside ``torch.matmul`` and
     ``F.conv2d``) and at ``wq``/``w1``/``w2``/cross ``wk`` for M = 4 and
     1500, and K5 bf16 at the encoder's shape beside SDPA and the bound;
-13. one ``{"kernels": [...]}`` JSON line;
-14. last line: ``{"ok": true, "device": {...}}``.
+13. the sharded CNN at full width: the AlexNet of phase 4 through
+    ``cnn.quantize(mesh=)`` and ``cnn.forward(mesh=)`` (a ``("data",
+    "model")`` mesh of ``launch/mesh.py``): (a) world size 1 on NCCL, mesh
+    (1, 1), at batch 32 on ``kernel``, ``kernel_implicit``, ``pas_kernel``,
+    ``pas_kernel_implicit`` and ``einsum``, each bitwise the unsharded
+    forward, its K1–K4 launches counted, both timed (the phase-5 method);
+    (b) two ranks spawned on gloo, both on the one card, meshes (2, 1) and
+    (1, 2) at batch 32 and (2, 1) at batch 6 (an uneven remainder): each
+    rank's weight bytes (at (1, 2) half of every idx and of the head), the
+    five stages through ``conv2d(mesh=)`` on K1–K4 bitwise (a)'s single-device
+    stages at (a)'s split-K counts (recorded, printed), the logits bitwise
+    (a)'s or within ``TOL``, launches counted, the forward timed; a rank
+    that fails or outlives ``SHARD_RANK_TIMEOUT_S`` fails the run;
+14. one ``{"kernels": [...]}`` JSON line;
+15. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -257,6 +270,14 @@ RING_MAX_SEQ = RING_PROMPT + LM_NEW  # so the ring is min(2048, max_seq) = 2048
 WHISPER_K1 = (66, 32)  # K1 launches of a prefill / a decode call (whisper_per_call)
 WHISPER_MEL_B, WHISPER_PROMPTS, WHISPER_DECODE = 2, (64, 40), 8  # (b): a real mel
 WHISPER_STEM_B = 4  # (c): the stem alone on K1-K4
+# phase 13: the sharded CNN at full width
+SHARD_BATCH = 32
+SHARD_RUNS = (((2, 1), 32), ((1, 2), 32), ((2, 1), 6))  # (b): mesh, batch
+SHARD_ENGINES = ("kernel", "kernel_implicit", "pas_kernel", "pas_kernel_implicit")
+SHARD_TIME_REPS = 5
+SHARD_TIME_BUDGET_S = 0.02  # (a): a few forwards a window, behind one spin
+SHARD_RANK_TIMEOUT_S = 300  # both ranks of (b), every check
+SHARD_COLLECTIVE_TIMEOUT_S = 120
 
 
 def log(*a) -> None:
@@ -2497,6 +2518,333 @@ def whisper_phase(gen, errs: dict, card: str) -> dict:
             "k5": k5, "times": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sharded CNN at full width
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def cnn_forward(params, images, cfg, engine: str, mesh=None):
+    """``cnn.forward`` on ``engine`` (``pas_kernel_implicit``, K4, is not a
+    ``CNNConfig`` impl: it runs through the forward's own stack)."""
+    from repro_torch.models import cnn
+
+    if engine == "pas_kernel_implicit":
+        return cnn._stack(params, images, cfg, engine, cfg.pool_impl, mesh)
+    return cnn.forward(params, images, dataclasses.replace(cfg, impl=engine),
+                       mesh=mesh)
+
+
+def stage_outputs(params, images, cfg, engine: str) -> list:
+    """The five conv stages' outputs on one device (each stage's input is
+    the previous one's output)."""
+    from repro_torch.core import conv as cv
+    from repro_torch.models import cnn
+
+    outs, h = [], images
+    for p, (conv, pool) in zip(params["conv"], cnn.stages(cfg)):
+        h = cv.conv2d(h, p, conv, engine=engine, pool=pool, pool_impl=cfg.pool_impl)
+        outs.append(h)
+    return outs
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def same_or_close(got, want) -> tuple:
+    """(bitwise, max |Δ|); raises past ``TOL + TOL·|want|``."""
+    import torch
+
+    if torch.equal(got, want):
+        return True, 0.0
+    return False, max_err(got, want)
+
+
+def record_plans():
+    """Wrap K1/K2's and K3/K4's plan functions to record each launch's
+    ``(K, local N, split count)``; returns (the list, a restore callable)."""
+    from repro_torch.kernels import pas_histogram as ph
+    from repro_torch.kernels import pasm_matmul as pm
+
+    rec, simt, pas = [], pm.simt_plan, ph.pas_plan
+
+    def rec_simt(M, K, N, pool=1, *, whole=None):
+        p = simt(M, K, N, pool, whole=whole)
+        rec.append((K, N, p.splits))
+        return p
+
+    def rec_pas(M, K, N, B, pool=1, *, whole=None):
+        p = pas(M, K, N, B, pool, whole=whole)
+        rec.append((K, N, p.splits))
+        return p
+
+    pm.simt_plan, ph.pas_plan = rec_simt, rec_pas
+
+    def restore():
+        pm.simt_plan, ph.pas_plan = simt, pas
+
+    return rec, restore
+
+
+def shard_rank(rank: int, world: int, port: int, data_dir: str) -> None:
+    """One rank of phase 13(b): gloo on the card every rank shares, the
+    five stages on K1–K4 and the forward on each mesh, each held to the
+    single-device results of 13(a) in ``data_dir/ref.pt``; a JSON report
+    (or the traceback) to ``data_dir/rank<r>.json``."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    report = {"lines": [], "launches": dict.fromkeys(KERNELS, 0), "ok": False}
+    out = Path(data_dir) / f"rank{rank}.json"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARD_COLLECTIVE_TIMEOUT_S))
+    try:
+        shard_rank_checks(rank, torch.load(Path(data_dir) / "ref.pt",
+                                           map_location="cuda:0", weights_only=False),
+                          report)
+        report["ok"] = True
+    except Exception:  # reported by the parent, which fails the run
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        out.write_text(json.dumps(report))
+        dist.destroy_process_group()
+
+
+def gloo_on_cuda(rank: int) -> str:
+    """Which collectives gloo takes on CUDA tensors on this machine's torch
+    (the mesh's ``all_gather`` is the one the sharded path needs)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.full((2,), float(rank + 1), device="cuda")
+    world = dist.get_world_size()
+    calls = {
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t)
+                                               for _ in range(world)], t),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(2 * world, device="cuda"), t),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+    }
+    took, refused = [], []
+    for name, call in calls.items():
+        try:
+            call()
+            took.append(name)
+        except (RuntimeError, ValueError) as e:
+            refused.append(f"{name} ({type(e).__name__})")
+    torch.cuda.synchronize()
+    return f"takes {took}, refuses {refused or 'none'}"
+
+
+def shard_rank_checks(rank: int, ref: dict, report: dict) -> None:
+    import torch
+
+    from repro_torch.configs import alexnet_conv
+    from repro_torch.core import conv as cv
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import cnn
+    from repro_torch.tree import flatten_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    cfg = alexnet_conv.config()
+    full = tree_bytes(ref["qparams"])
+    say = report["lines"].append
+    say(f"rank {rank}: gloo on CUDA tensors (torch {torch.__version__}) "
+        f"{gloo_on_cuda(rank)}")
+    for shape, batch in SHARD_RUNS:
+        mesh = make_conv_mesh(shape, device="cuda")
+        qpm = cnn.quantize(ref["params"], cfg, mesh=mesh)
+        placed = cnn._place(ref["qparams"], mesh)
+        for (pa, la), (_, lb) in zip(flatten_with_path(qpm), flatten_with_path(placed)):
+            if not torch.equal(la, lb):
+                raise AssertionError(f"{shape}: quantize(mesh=) differs at {pa}")
+        mine = tree_bytes(qpm)
+        idx = [tuple(p.idx.shape) for p in qpm["conv"]]
+        say(f"rank {rank} mesh {shape} batch {batch}: weight bytes {mine} of {full} "
+            f"({mine / full:.3f}), idx blocks {idx}, head {tuple(qpm['head']['w'].shape)}")
+        imgs = ref[f"imgs{batch}"]
+        for eng in SHARD_ENGINES:
+            rec, restore = record_plans()
+            try:
+                h, parts = imgs, []
+                for i, (p, (conv, pool)) in enumerate(zip(qpm["conv"], cnn.stages(cfg))):
+                    rec.clear()
+                    y = cv.conv2d(h, p, conv, engine=eng, mesh=mesh, pool=pool,
+                                  pool_impl=cfg.pool_impl)
+                    want = ref[f"stages{batch}"][eng][i]
+                    torch.cuda.synchronize()
+                    if not torch.equal(y, want):
+                        raise AssertionError(
+                            f"{shape} {eng} conv{i + 1}: not bitwise one device's "
+                            f"(max |Δ| {float((y - want).abs().max()):.3e})")
+                    (K, n, splits), = rec
+                    one = ref[f"plans{batch}"][eng][i]
+                    if splits != one:
+                        raise AssertionError(f"{shape} {eng} conv{i + 1}: {splits} "
+                                             f"splits, one device {one}")
+                    parts.append(f"conv{i + 1} K{K} N{n}/{conv.c_out} {splits}")
+                    h = want
+            finally:
+                restore()
+            pm.reset_launches()
+            got = cnn_forward(qpm, imgs, cfg, eng, mesh)
+            torch.cuda.synchronize()
+            counts = {k: pm.launches[k] for k in KERNELS}
+            for k in KERNELS:
+                report["launches"][k] += counts[k]
+            bitwise, err = same_or_close(got, ref[f"logits{batch}"][eng])
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            cnn_forward(qpm, imgs, cfg, eng, mesh)
+            start.record()
+            for _ in range(SHARD_TIME_REPS):
+                cnn_forward(qpm, imgs, cfg, eng, mesh)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / SHARD_TIME_REPS
+            say(f"  rank {rank} {shape} B{batch} {eng:<19} stages bitwise one device's, "
+                f"splits (one device's): {', '.join(parts)}; logits "
+                f"{'bitwise' if bitwise else f'max |Δ| {err:.2e}'}; launches "
+                f"{ {k: v for k, v in counts.items() if v} }; forward {ms:.3f} ms")
+
+
+def shard_phase(cfg, params, qparams, gen, card: str) -> dict:
+    """Phase 13: the full-width AlexNet through ``cnn.quantize(mesh=)`` and
+    ``cnn.forward(mesh=)``: (a) world size 1 on NCCL, mesh (1, 1), every
+    engine bitwise the unsharded forward, launches counted, both timed;
+    (b) two ranks on gloo sharing the card, meshes (2, 1) and (1, 2) at
+    batch 32 and (2, 1) at batch 6, each stage bitwise (a)'s on K1–K4 at
+    (a)'s split-K counts, the logits bitwise or within ``TOL``."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import cnn
+    from repro_torch.tree import flatten_with_path
+
+    log(f"phase 13: the sharded CNN, {cfg.name} {cfg.in_chw} at full width")
+    imgs = {b: torch.randn((b, *cfg.in_chw), generator=gen, device="cuda")
+            for b in sorted({b for _, b in SHARD_RUNS} | {SHARD_BATCH})}
+    launches = dict.fromkeys(KERNELS, 0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_conv_mesh((1, 1), device="cuda")
+        qpm = cnn.quantize(params, cfg, mesh=mesh)
+        for (pa, la), (_, lb) in zip(flatten_with_path(qpm), flatten_with_path(qparams)):
+            if not torch.equal(la, lb):
+                raise AssertionError(f"quantize(mesh=(1, 1)) differs at {pa}")
+        x = imgs[SHARD_BATCH]
+        for eng in SHARD_ENGINES + ("einsum",):
+            want = cnn_forward(qparams, x, cfg, eng)
+            torch.cuda.synchronize()
+            pm.reset_launches()
+            got = cnn_forward(qpm, x, cfg, eng, mesh)
+            torch.cuda.synchronize()
+            counts = {k: pm.launches[k] for k in KERNELS}
+            for k in KERNELS:
+                launches[k] += counts[k]
+            if not torch.equal(got, want):
+                raise AssertionError(f"(1, 1) {eng}: logits not bitwise the unsharded")
+            # in turns (one device, mesh, mesh, one device), each window short
+            # enough that the spin covers its host time: the einsum forward
+            # enqueues more than the card runs
+            one = lambda: cnn_forward(qparams, x, cfg, eng)  # noqa: E731,B023
+            shd = lambda: cnn_forward(qpm, x, cfg, eng, mesh)  # noqa: E731,B023
+            t = [time_ms(f, SHARD_TIME_BUDGET_S) for f in (one, shd, shd, one)]
+            ms1, msm = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            log(f"  (a) NCCL world 1, mesh (1, 1), B{SHARD_BATCH} {eng:<19} logits "
+                f"bitwise the unsharded forward; launches "
+                f"{ {k: v for k, v in counts.items() if v} }; forward {msm:.4f} ms "
+                f"({t[1]:.4f}, {t[2]:.4f}), unsharded {ms1:.4f} ms ({t[0]:.4f}, "
+                f"{t[3]:.4f}): {(msm / ms1 - 1) * 100:+.2f} % [{card}]")
+    finally:
+        dist.destroy_process_group()
+
+    # the single-device results every rank of (b) is held to
+    data = ROOT / "build" / "phase13"
+    data.mkdir(parents=True, exist_ok=True)
+    ref = {"params": params, "qparams": qparams}
+    for b, x in imgs.items():
+        ref[f"imgs{b}"] = x
+        ref[f"stages{b}"], ref[f"plans{b}"] = {}, {}
+        for eng in SHARD_ENGINES:
+            rec, restore = record_plans()
+            try:
+                ref[f"stages{b}"][eng] = stage_outputs(qparams, x, cfg, eng)
+            finally:
+                restore()
+            ref[f"plans{b}"][eng] = [splits for _, _, splits in rec]
+        ref[f"logits{b}"] = {e: cnn_forward(qparams, x, cfg, e) for e in SHARD_ENGINES}
+    torch.cuda.synchronize()
+    torch.save(ref, data / "ref.pt")
+    for f in data.glob("rank*.json"):
+        f.unlink()
+
+    world = 2
+    log(f"  (b) {world} ranks on gloo sharing the card (spawned), meshes "
+        f"{[s for s, _ in SHARD_RUNS]} at batches {[b for _, b in SHARD_RUNS]}")
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(shard_rank, args=(world, free_port(), str(data)),
+                              nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_RANK_TIMEOUT_S
+    failure = None
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                failure = f"a rank did not finish within {SHARD_RANK_TIMEOUT_S} s"
+                break
+    except Exception as e:  # a rank raised: its report holds the traceback
+        failure = f"a rank failed: {type(e).__name__}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    reports = []
+    for r in range(world):
+        f = data / f"rank{r}.json"
+        reports.append(json.loads(f.read_text()) if f.exists()
+                       else {"ok": False, "lines": [], "error": "no report"})
+    for r, rep in enumerate(reports):
+        for line in rep["lines"]:
+            log("  " + line)
+        if not rep["ok"]:
+            log(f"  rank {r} failed:\n{rep.get('error', '')}")
+            failure = failure or f"rank {r} failed"
+    if failure:
+        raise AssertionError(f"phase 13(b): {failure}")
+    for rep in reports:
+        for k in KERNELS:
+            launches[k] += rep["launches"][k]
+    log(f"  (b) both ranks passed in {time.perf_counter() - t0:.1f} s; two ranks "
+        f"share one card, so their times are no speedup [{card}]")
+    del ref
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2742,7 +3090,10 @@ def main() -> int:
     # 12. the encoder-decoder family at full width and full depth --------------
     wsp = whisper_phase(gen, errs, card)
 
-    # 13. the kernels line -----------------------------------------------------
+    # 13. the sharded CNN at full width --------------------------------------------
+    shd = shard_phase(cfg, params, qparams, gen, card)
+
+    # 14. the kernels line -----------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -2750,12 +3101,14 @@ def main() -> int:
         "pas_conv": "src/repro/kernels/pas_histogram.py:184",
         "flash_attention": "src/repro/kernels/flash_attention.py:79",
     }
+    sl = shd["launches"]
     launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"]
                 + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"]
-                + ssm["launches"] + hyb["launches"] + wsp["launches"],
-                "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"],
-                "pas_matmul": counts["pas_kernel"]["pas_matmul"],
-                "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"],
+                + ssm["launches"] + hyb["launches"] + wsp["launches"] + sl["pasm_matmul"],
+                "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"]
+                + sl["pasm_conv"],
+                "pas_matmul": counts["pas_kernel"]["pas_matmul"] + sl["pas_matmul"],
+                "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"] + sl["pas_conv"],
                 "flash_attention": lm["k5"] + moe["k5"] + vlm["k5"] + hyb["k5"] + wsp["k5"]}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
@@ -2769,7 +3122,8 @@ def main() -> int:
     routes = {k: {"simt": {"source": csrc + k + ".cu", "launches": launches[k]}}
               for k in KERNELS}
     routes["pasm_matmul"]["simt"]["launches"] = (counts["kernel"]["pasm_matmul"]
-                                                 + train["qat"]["k1"] + wsp["routes"]["simt"])
+                                                 + train["qat"]["k1"] + wsp["routes"]["simt"]
+                                                 + sl["pasm_matmul"])
     routes["pasm_matmul"]["simt"].update(
         {k: tot["pasm_matmul"][k] for k in timed if k != "bound_by"},
         bound_by="operations")
@@ -2814,6 +3168,7 @@ def main() -> int:
         f"internvl2-26b {vlm['launches']} + mamba2-130m {ssm['launches']} + "
         f"recurrentgemma-2b {hyb['launches']} + whisper-tiny {wsp['launches']} (its "
         f"stem {wsp['routes']['simt']} on simt); K2, K3), the stage run (K4), the "
+        f"sharded AlexNet of phase 13 (K1-K4 {sl}, both of its ranks counted), the "
         f"served attention (K5: qwen3 {lm['k5']}, deepseek "
         f"{moe['k5']}, internvl2 {vlm['k5']}, recurrentgemma {hyb['k5']}, whisper-tiny "
         f"{wsp['k5']}) and training "

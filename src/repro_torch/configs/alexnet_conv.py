@@ -16,8 +16,8 @@ from repro_torch.core.conv import Conv2D
 __all__ = ["PaperAccel", "PAPER_SPEC", "PAPER_BINS", "PAPER_BITWIDTHS",
            "CNNConfig", "config", "smoke_config", "SINGLE_POD"]
 
-# the production single-pod mesh shape (data, model) the JAX package shards
-# the full config over; the port records it and does not consume it yet
+# the production single-pod mesh shape (data, model) the full config shards
+# over (models/cnn.py::conv_mesh: one process a rank)
 SINGLE_POD = (16, 16)
 
 
@@ -63,8 +63,8 @@ class CNNConfig:
     # schedule; unused by the port
     vmem_budget: Optional[int] = None
     pool_impl: str = "auto"  # conv2d(pool_impl=) policy for the stage pools
-    # (n_data, n_model) mesh the stack shards over in the JAX package; a
-    # plain tuple the port does not consume yet (ROADMAP Queue 1 item 10)
+    # (n_data, n_model) for launch.mesh.make_conv_mesh (cnn.conv_mesh): the
+    # mesh the stack shards over (conv2d(mesh=)); None = every rank on data
     mesh_shape: Optional[tuple] = None
     family: str = "cnn"
 

@@ -28,8 +28,9 @@ Port of ``repro.core.conv``.  Two types and one entry point:
                        the post-pass multiply
   ===================  =======================================================
 
-  The three PAS engines take one dictionary per layer.  ``mesh=`` belongs
-  to a later slice and raises ``NotImplementedError``.
+  The three PAS engines take one dictionary per layer.  ``mesh=`` runs the
+  layer sharded (:func:`conv2d`), bitwise the single-device call;
+  :func:`conv2d_shard` is its per-rank body.
 
 Convolution lowers onto the GEMM via im2col in the layout's column order —
 NCHW in the paper's ``(c, ky, kx)`` order, NHWC channels-minor
@@ -46,12 +47,15 @@ import torch.nn.functional as F
 
 from repro_torch.core import pasm as _pasm
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.core.params import NOT_PORTED_MESH, PasmParams
+from repro_torch.core.params import PasmParams
 
 __all__ = [
     "Conv2D",
     "ConvParams",
     "conv2d",
+    "conv2d_shard",
+    "shard_batch",
+    "gather_batch",
     "conv_out_hw",
     "conv_geom",
     "conv_plan",
@@ -479,11 +483,11 @@ def conv_plan(params: ConvParams, conv: Conv2D, ih: int, iw: int, *,
     """The ``(engine, fused_pool)`` pair :func:`conv2d` would dispatch.
 
     ``vmem_budget`` is kept for signature parity with the JAX package; the
-    port has no VMEM schedule, so it never changes the plan.
+    port has no VMEM schedule, so it never changes the plan.  Neither does
+    ``mesh``: every engine fuses the pool under a mesh, as on one device
+    (``conv2d`` pads the batch so window-major rows split in whole windows).
     """
-    del vmem_budget
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+    del vmem_budget, mesh
     eng = _resolve_engine(engine, params, not batched, conv, ih, iw)
     fused = (pool > 1 and pool_impl != "unfused"
              and _pool_fusible(eng, conv, ih, iw, pool))
@@ -499,6 +503,53 @@ def _pool_order_patches(patches: torch.Tensor, batch: int, oh: int, ow: int,
     pm = patches.reshape(batch, oh, ow, K)[:, : ohp * pool, : owp * pool]
     pm = pm.reshape(batch, ohp, pool, owp, pool, K).permute(0, 1, 3, 2, 4, 5)
     return pm.reshape(batch * ohp * owp * pool * pool, K)
+
+
+def _dispatch(x: torch.Tensor, params: ConvParams, conv: Conv2D, engine: str,
+              pool, pool_impl: str, mesh) -> tuple:
+    """:func:`conv2d`'s checks and plan: ``(xb, squeeze, engine, fused_pool,
+    pool)``, ``xb`` the batched input."""
+    if pool_impl not in POOL_IMPLS:
+        raise ValueError(f"pool_impl must be one of {POOL_IMPLS}, got {pool_impl!r}")
+    if int(pool) != pool or pool < 1:
+        raise ValueError(f"pool must be a positive integer window, got {pool!r}")
+    pool = int(pool)
+    xb, squeeze = _batched4(x)
+    nhwc = conv.layout == "NHWC"
+    c_axis = -1 if nhwc else 1
+    if xb.shape[c_axis] != conv.c_in:
+        raise ValueError(
+            f"input {tuple(x.shape)} has {xb.shape[c_axis]} channels on the "
+            f"{conv.layout} channel axis; spec says c_in={conv.c_in}"
+        )
+    if params.kshape != (conv.c_out, conv.c_in, conv.ky, conv.kx):
+        raise ValueError(
+            f"params kshape {params.kshape} does not match spec "
+            f"{(conv.c_out, conv.c_in, conv.ky, conv.kx)}"
+        )
+    ih, iw = (xb.shape[1], xb.shape[2]) if nhwc else (xb.shape[2], xb.shape[3])
+    eng, fuse_pool = conv_plan(
+        params, conv, ih, iw, engine=engine, pool=pool, pool_impl=pool_impl,
+        mesh=mesh, batched=not squeeze,
+    )
+    if pool_impl == "fused" and pool > 1 and not fuse_pool:
+        raise ValueError(
+            f"pool_impl='fused' but engine {eng!r} cannot fuse pool={pool} "
+            "here (einsum, sub-window outputs and oversize windows all need "
+            "the max_pool2d fallback — pool_impl='auto' picks it automatically)"
+        )
+    if mesh is not None:
+        if squeeze:
+            raise ValueError(
+                "mesh= shards the batch over the 'data' axis; pass a batched "
+                "4-D input"
+            )
+        if eng == "pas_einsum":
+            raise ValueError(
+                "pas_einsum is the single-device reference port; mesh= runs "
+                "on einsum or the kernel engines"
+            )
+    return xb, squeeze, eng, fuse_pool, pool
 
 
 def conv2d(
@@ -522,38 +573,93 @@ def conv2d(
     kernel epilogue where possible, ``"fused"`` demands that, ``"unfused"``
     runs :func:`max_pool2d` after.  ``vmem_budget`` is kept for signature
     parity and unused by the port.
+
+    ``mesh=`` (a ``("data", "model")``
+    :class:`~repro_torch.launch.mesh.Mesh`; every rank calls with the same
+    global ``x``) runs the layer sharded: the batch over ``data`` (an
+    uneven remainder is zero-padded in and sliced off), the output channels
+    over ``model`` when they divide it.  ``params`` are the global weights
+    or this rank's ``model`` block (``cnn.quantize(mesh=)``).  Every rank
+    returns the global output, bitwise the single-device call's on every
+    engine but ``pas_einsum``, which refuses a mesh.
     """
-    if pool_impl not in POOL_IMPLS:
-        raise ValueError(f"pool_impl must be one of {POOL_IMPLS}, got {pool_impl!r}")
-    if int(pool) != pool or pool < 1:
-        raise ValueError(f"pool must be a positive integer window, got {pool!r}")
-    pool = int(pool)
-    xb, squeeze = _batched4(x)
-    nhwc = conv.layout == "NHWC"
-    c_axis = -1 if nhwc else 1
-    if xb.shape[c_axis] != conv.c_in:
-        raise ValueError(
-            f"input {tuple(x.shape)} has {xb.shape[c_axis]} channels on the "
-            f"{conv.layout} channel axis; spec says c_in={conv.c_in}"
-        )
-    if params.kshape != (conv.c_out, conv.c_in, conv.ky, conv.kx):
-        raise ValueError(
-            f"params kshape {params.kshape} does not match spec "
-            f"{(conv.c_out, conv.c_in, conv.ky, conv.kx)}"
-        )
-    ih, iw = (xb.shape[1], xb.shape[2]) if nhwc else (xb.shape[2], xb.shape[3])
-    eng, fuse_pool = conv_plan(
-        params, conv, ih, iw, engine=engine, pool=pool, pool_impl=pool_impl,
-        vmem_budget=vmem_budget, mesh=mesh, batched=not squeeze,
-    )
+    del vmem_budget
+    xb, squeeze, eng, fuse_pool, pool = _dispatch(x, params, conv, engine,
+                                                  pool, pool_impl, mesh)
+    if mesh is None:
+        return _conv2d(xb, params, conv, eng, fuse_pool, pool, squeeze)
+    y = _conv2d(shard_batch(xb, mesh), params, conv, eng, fuse_pool, pool,
+                False, mesh)
+    return gather_batch(y, mesh, xb.shape[0])
+
+
+def shard_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's ``data`` block of a global image batch, an uneven
+    remainder zero-padded in first (the sharded stack's input)."""
+    from repro_torch.launch.mesh import data_model_sizes
+    from repro_torch.models.sharding import (
+        conv_batch_pad, conv_input_pspecs, local_shard)
+
+    if x.ndim != 4:
+        raise ValueError("mesh= shards the batch over the 'data' axis; pass a "
+                         "batched 4-D input")
+    pad_b = conv_batch_pad(x.shape[0], data_model_sizes(mesh)[0])
+    if pad_b:
+        x = F.pad(x, (0, 0) * 3 + (0, pad_b))
+    return local_shard(x, conv_input_pspecs(), mesh)
+
+
+def gather_batch(y: torch.Tensor, mesh, batch: int) -> torch.Tensor:
+    """Every rank's ``data`` block of an output gathered, the pad images of
+    :func:`shard_batch` sliced off: the global result on every rank."""
+    from repro_torch.launch.mesh import all_gather
+    from repro_torch.models.sharding import DATA
+
+    return all_gather(y, mesh, DATA, dim=0)[:batch]
+
+
+def conv2d_shard(
+    x: torch.Tensor,
+    params: ConvParams,
+    conv: Conv2D,
+    *,
+    mesh,
+    engine: str = "auto",
+    pool: int = 1,
+    pool_impl: str = "auto",
+) -> torch.Tensor:
+    """One rank's part of :func:`conv2d` under ``mesh``: ``x`` is this
+    rank's ``data`` block of the batch, and so is the result (every output
+    channel: the ``model`` blocks are gathered).  ``models/cnn.py::forward``
+    runs its stages through this, so activations stay ``data``-local from
+    layer to layer and the batch is gathered once, at the head."""
+    xb, _, eng, fuse_pool, pool = _dispatch(x, params, conv, engine, pool,
+                                            pool_impl, mesh)
+    return _conv2d(xb, params, conv, eng, fuse_pool, pool, False, mesh)
+
+
+def _einsum_sharded(patches: torch.Tensor, w: torch.Tensor, bias, relu: bool,
+                    mesh, n_cols: int) -> torch.Tensor:
+    """The plain reference engine under a mesh (the dense-params path):
+    this rank's rows, N over ``model`` when it divides — the kernel
+    engines' axis mapping, through the same dispatch."""
+    from repro_torch.kernels.ops import shard_gemm
+    from repro_torch.kernels.ref import apply_epilogue
+
+    return shard_gemm(
+        mesh, n_cols,
+        lambda pt, wl, _cb, bl, _whole: apply_epilogue(matmul_f32(pt, wl), bl, relu),
+        patches, w, None, bias, local_rows=True)
+
+
+def _conv2d(xb: torch.Tensor, params: ConvParams, conv: Conv2D, eng: str,
+            fuse_pool: bool, pool: int, squeeze: bool, mesh=None) -> torch.Tensor:
+    """The dispatched layer on a batch: under ``mesh``, this rank's rows."""
     bias = params.bias if conv.bias else None
-    if pool_impl == "fused" and pool > 1 and not fuse_pool:
-        raise ValueError(
-            f"pool_impl='fused' but engine {eng!r} cannot fuse pool={pool} "
-            "here (einsum, sub-window outputs and oversize windows all need "
-            "the max_pool2d fallback — pool_impl='auto' picks it automatically)"
-        )
     batch = xb.shape[0]
+    nhwc = conv.layout == "NHWC"
+    ih, iw = (xb.shape[1], xb.shape[2]) if nhwc else (xb.shape[2], xb.shape[3])
+    shard = dict(mesh=mesh, local_rows=True)
 
     if eng in ("kernel_implicit", "pas_kernel_implicit"):
         from repro_torch.kernels import ops as _kops
@@ -561,7 +667,7 @@ def conv2d(
         geom = conv_geom(conv, ih, iw, pool=pool if fuse_pool else 1)
         f = _kops.pasm_conv2d if eng == "kernel_implicit" else _kops.pas_conv2d
         y = f(xb, params.gemm_tensor(conv.layout), geom, bias=bias,
-              relu=conv.relu)
+              relu=conv.relu, **shard)
         y = y.reshape(-1, conv.c_out)  # (B, P, M) → (B·P, M)
         if fuse_pool:
             return _col2im(y, conv, batch, geom.ohp, geom.owp, squeeze)
@@ -576,8 +682,15 @@ def conv2d(
     if eng == "einsum":
         from repro_torch.kernels.ref import apply_epilogue
 
+        # the product in the promoted dtype, as jnp's ``patches @ w``: bf16
+        # images against an f32 dictionary multiply in f32
         w = params.dense_operand(conv.layout)
-        y = apply_epilogue(matmul_f32(patches, w.to(patches.dtype)), bias, conv.relu)
+        dt = torch.promote_types(patches.dtype, w.dtype)
+        patches, w = patches.to(dt), w.to(dt)
+        if mesh is not None:
+            y = _einsum_sharded(patches, w, bias, conv.relu, mesh, conv.c_out)
+        else:
+            y = apply_epilogue(matmul_f32(patches, w), bias, conv.relu)
     elif eng == "pas_einsum":
         from repro_torch.kernels.ref import apply_epilogue
 
@@ -588,7 +701,7 @@ def conv2d(
 
         f = _kops.pasm_matmul if eng == "kernel" else _kops.pas_matmul
         y = f(patches, params.gemm_tensor(conv.layout), bias=bias,
-              relu=conv.relu, pool=pool if fuse_pool else 1)
+              relu=conv.relu, pool=pool if fuse_pool else 1, **shard)
     if fuse_pool:
         return _col2im(y, conv, batch, oh // pool, ow // pool, squeeze)
     out = _col2im(y, conv, batch, oh, ow, squeeze)
@@ -602,7 +715,9 @@ def _pas_einsum(patches: torch.Tensor, params: ConvParams,
     ``patches`` already carry the §3 ``pad_k`` zero columns.  Per output
     pixel and channel: PAS bins from a one-hot histogram over the patch
     axis, then one multiply per bin (:func:`~repro_torch.kernels.ref.
-    pas_matmul_ref`) — bit-exact on integer inputs.
+    pas_matmul_ref`) — bit-exact on integer inputs.  bf16 or f16 patches
+    run both steps in their dtype, as the JAX reference's einsums do: the
+    bins, the dictionary and the output rounded to it.
     """
     from repro_torch.kernels.ref import pas_matmul_ref
 
@@ -610,7 +725,10 @@ def _pas_einsum(patches: torch.Tensor, params: ConvParams,
         idx = _pasm.logical_idx(params.gemm_tensor(layout))  # (K+pad, M)
     else:
         idx = _flatten_kernel(params.idx, _ORDER[layout])  # (K, M)
-    return pas_matmul_ref(patches, idx, params.codebook.reshape(1, -1))
+    cb = params.codebook.reshape(1, -1)
+    if patches.dtype == torch.float32:
+        return pas_matmul_ref(patches, idx, cb)
+    return pas_matmul_ref(patches, idx, cb.to(patches.dtype)).to(patches.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ __all__ = [
     "dense_weight",
     "dense_stack",
     "NOT_PORTED_MESH",
+    "NOT_PORTED_MESH_TRAIN",
 ]
 
 KINDS = ("dense", "shared", "packed")
@@ -40,10 +41,17 @@ KINDS = ("dense", "shared", "packed")
 # under every impl — quantized params dispatch on it.
 MATMUL_IMPLS = ("dense", "dequant", "kernel", "pas_kernel")
 
-# the ROADMAP items that own what this slice refuses
+# the ROADMAP items that own what the sharded paths still refuse: the CNN
+# stack and the quantized matmul run under mesh=, the LM's tensor and
+# expert parallelism and any sharded backward do not
 NOT_PORTED_MESH = (
-    "mesh= (sharded execution) is not ported yet: ROADMAP Queue 1 item 10 "
-    "(Distribution)"
+    "mesh= on the LM paths (tensor and expert parallelism: an active "
+    "ShardCtx, dense_stack(spec=), the MoE specs) is not ported yet: ROADMAP "
+    "Queue 1 item 12"
+)
+NOT_PORTED_MESH_TRAIN = (
+    "training under mesh= (differentiable collectives, the gradient "
+    "all-reduce over 'data') is not ported yet: ROADMAP Queue 1 item 13"
 )
 
 Weight = Union[torch.Tensor, "PasmParams", _pasm.PASMTensor]
@@ -291,14 +299,15 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
     Quantized params dispatch on ``impl``: ``dequant`` (dictionary gather +
     dense product, the oracle), ``kernel`` (the fused-dequant GEMM, K1, with
     bias/ReLU fused) or ``pas_kernel`` (the paper-faithful two-phase PAS
-    GEMM, K3; single-dictionary only).  ``mesh=`` belongs to a later slice
-    and raises ``NotImplementedError``.  Packed params with a §3 K-pad get
-    their zero activation column appended here.  Output dtype follows ``x``.
+    GEMM, K3; single-dictionary only).  ``mesh=`` (a ``("data", "model")``
+    :class:`~repro_torch.launch.mesh.Mesh`) runs the kernel paths through
+    the sharded dispatch conv uses — rows over ``data``, N over ``model``
+    when divisible, the global result on every rank — bitwise equal to the
+    single-device call.  Packed params with a §3 K-pad get their zero
+    activation column appended here.  Output dtype follows ``x``.
     """
     if impl not in MATMUL_IMPLS:
         raise ValueError(f"impl must be one of {MATMUL_IMPLS}, got {impl!r}")
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
     p = as_params(w)
     if bias is None:
         bias = p.bias
@@ -320,9 +329,10 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
                 "the PAS formulation is paper-faithful single-dictionary; "
                 "grouped codebooks need impl='kernel' or 'dequant'"
             )
-        # K3 sums f32 activations into its bins: a bf16 x widens exactly
-        return _kops.pas_matmul(x.float(), t, bias=bias, relu=relu).to(x.dtype)
-    return _kops.pasm_matmul(x, t, bias=bias, relu=relu).to(x.dtype)
+        y = _kops.pas_matmul(x, t, bias=bias, relu=relu, mesh=mesh)
+    else:
+        y = _kops.pasm_matmul(x, t, bias=bias, relu=relu, mesh=mesh)
+    return y.to(x.dtype)
 
 
 def embed_lookup(w: Weight, tokens: torch.Tensor) -> torch.Tensor:
@@ -352,7 +362,8 @@ def dense_weight(w: Weight, dtype=None) -> torch.Tensor:
 def dense_stack(w: Weight, dtype, constrain=None, spec=None) -> torch.Tensor:
     """Stacked expert weights ``(E, K, N)`` → dense ``dtype``, for the MoE
     einsum path.  ``constrain``/``spec`` re-lay-out the stored weight under
-    a mesh, which belongs to ROADMAP Queue 1 item 10: a ``spec`` raises."""
+    a mesh, which belongs to the LM's expert parallelism (ROADMAP Queue 1
+    item 12): a ``spec`` raises."""
     if spec is not None:
         raise NotImplementedError(NOT_PORTED_MESH)
     return as_params(w).dense_matrix(dtype)

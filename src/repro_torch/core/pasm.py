@@ -94,7 +94,10 @@ def _quantile_init(values: torch.Tensor, bins: int) -> torch.Tensor:
     over any number of values, on one sort (``torch.quantile`` refuses
     inputs above 2**24 elements).  The arithmetic is XLA's: f32 positions
     and weights, and the interpolation contracted into one fused
-    multiply-add, ``fma(hi, w_hi, lo · w_lo)`` (taken in f64 here)."""
+    multiply-add, ``fma(hi, w_hi, lo · w_lo)`` (taken in f64 here).  Any
+    NaN among the values makes every quantile NaN, as ``jnp.quantile``
+    does, so a poisoned weight group gets all-NaN centroids and serves NaN
+    (the sort puts a NaN last)."""
     dev = values.device
     qs = (torch.arange(bins, dtype=torch.float32, device=dev) + 0.5) / bins
     srt = torch.sort(values).values
@@ -106,7 +109,8 @@ def _quantile_init(values: torch.Tensor, bins: int) -> torch.Tensor:
     last = values.numel() - 1
     lo_v = srt[lo.long().clamp(0, last)]
     hi_v = srt[hi.long().clamp(0, last)]
-    return (hi_v.double() * w_hi.double() + (lo_v * w_lo).double()).float()
+    q = (hi_v.double() * w_hi.double() + (lo_v * w_lo).double()).float()
+    return torch.where(torch.isnan(srt[-1]), srt[-1], q)
 
 
 def _assign(values: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

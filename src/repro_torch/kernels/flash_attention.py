@@ -4,10 +4,10 @@
 replaces the TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_kernel_call``
 (``_kernel``): ``q (BKV, G, Sq, hd)`` with the query heads regrouped under
-their KV head, ``k, v (BKV, Sk, hd)``, f32 or bf16; an f32 online softmax
-scaled by ``hd ** -0.5``; keys at or past ``sk_orig`` masked; an optional
-causal mask ``key <= query``; ``acc / max(l, 1e-30)``; output in ``q``'s
-dtype.
+their KV head, ``k, v (BKV, Sk, hd)``, f32 or bf16 (f16 on the f32 route);
+an f32 online softmax scaled by ``hd ** -0.5``; keys at or past
+``sk_orig`` masked; an optional causal mask ``key <= query``;
+``acc / max(l, 1e-30)``; output in ``q``'s dtype.
 
 The TPU kernel kept the whole K/V block resident in VMEM and needed Sq and
 Sk padded to its tiles.  The CUDA kernel streams K/V tiles through shared
@@ -97,8 +97,14 @@ def flash_attention_kernel_call(
     """K5: ``(BKV, G, Sq, hd) × (BKV, Sk, hd)² → (BKV, G, Sq, hd)``.
 
     ``sk_orig`` (default ``Sk``) is the number of real keys: keys at or past
-    it are masked, as the TPU kernel masked its pad keys.
+    it are masked, as the TPU kernel masked its pad keys.  f16 operands run
+    the f32 route on their exact widening, the output rounded back to f16:
+    the JAX kernel computes in f32 from any input dtype.
     """
+    if q.dtype == torch.float16 and k.dtype == v.dtype == q.dtype:
+        return flash_attention_kernel_call(
+            q.float(), k.float(), v.float(), causal=causal,
+            sk_orig=sk_orig).to(torch.float16)
     if q.ndim != 4 or k.ndim != 3 or v.shape != k.shape:
         raise ValueError(f"expected q (BKV,G,Sq,hd), k = v (BKV,Sk,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -107,7 +113,7 @@ def flash_attention_kernel_call(
     if k.shape[0] != BKV or k.shape[2] != hd:
         raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share a dtype in {DTYPES}, got "
+        raise TypeError(f"q, k, v must share a dtype in {DTYPES + (torch.float16,)}, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     kvalid = Sk if sk_orig is None else int(sk_orig)
     if not 0 < kvalid <= Sk:

@@ -34,8 +34,20 @@ memory.  The §3 pack-time ``pad_k`` row is data format, not tile plan, and
 stays.
 
 ``SlabPlan`` / ``conv_slab_plan`` described a TPU VMEM schedule and are not
-ported: K2 gathers from global memory, so any image size runs.  ``mesh=``
-belongs to the distribution slice (ROADMAP Queue 1 item 10) and raises.
+ported: K2 gathers from global memory, so any image size runs.
+
+Every GEMM wrapper also takes ``mesh=``, a ``("data", "model")``
+:class:`~repro_torch.launch.mesh.Mesh`: :func:`shard_gemm`, the JAX
+package's ``shard_map`` dispatch run SPMD.  Rows (the batch) split over
+``data`` and N over ``model`` when it divides; each rank launches the same
+kernel on its block; codebooks are replicated and the bias follows N.
+Every output sums in the single-device order: the kernels plan their
+split-K from the whole call's shape (``whole=``), where the JAX kernels'
+k-tile plan depended on K alone — so sharded outputs are bitwise the
+single-device ones.  A sharded call takes global operands and returns the
+global result on every rank; ``local_rows=True`` keeps the rows this
+rank's (the per-layer call of ``core.conv.conv2d_shard``).  The sharded
+path is forward-only (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -46,7 +58,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import pasm as _pasm
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.core.params import NOT_PORTED_MESH
+from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
 from repro_torch.core.qat import bin_sums
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
@@ -60,14 +72,103 @@ from repro_torch.kernels.pasm_matmul import (
     pasm_matmul_kernel_call,
     pool_plan_exists,
 )
+from repro_torch.launch.mesh import all_gather, data_model_sizes, n_shard_axis
+from repro_torch.models.sharding import DATA, MODEL, P, local_shard
 
 __all__ = ["pasm_matmul", "pas_matmul", "pasm_conv2d", "pas_conv2d",
-           "flash_attention", "ConvGeom", "pool_plan_exists"]
+           "flash_attention", "shard_gemm", "ConvGeom", "pool_plan_exists"]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+# ---------------------------------------------------------------------------
+# the sharded dispatch
+# ---------------------------------------------------------------------------
+
+
+def _n_block(t: torch.Tensor, n_cols: int, mesh) -> torch.Tensor:
+    """This rank's ``model`` block of an N-last operand: ``t`` is the global
+    operand (N = ``n_cols``) or already the block (as ``cnn.quantize(mesh=)``
+    places weights)."""
+    nm = mesh.size(MODEL)
+    if t.shape[-1] == n_cols:
+        return local_shard(t, P(*([None] * (t.ndim - 1)), MODEL), mesh)
+    if t.shape[-1] != n_cols // nm:
+        raise ValueError(f"operand {tuple(t.shape)} is neither N = {n_cols} nor "
+                         f"its {nm}-way model block")
+    return t
+
+
+def shard_gemm(mesh, n_cols: int, local_fn, x: torch.Tensor, w: torch.Tensor,
+               codebook=None, bias=None, *, local_rows: bool = False,
+               whole_lead: Optional[int] = None) -> torch.Tensor:
+    """The one sharded dispatch every ``mesh=`` path routes through (the
+    JAX package's ``shard_map`` ``_shard_gemm``), run SPMD on every rank.
+
+    ``x``'s leading dim splits over ``data``: the global operand (its
+    leading dim a multiple of the axis), or with ``local_rows`` already this
+    rank's block.  ``w`` (N last) and ``bias`` split over ``model`` when
+    :func:`~repro_torch.launch.mesh.n_shard_axis` says so, each the global
+    operand or already this rank's block; ``codebook`` is replicated.
+    ``local_fn(x, w, codebook, bias, whole)`` runs this rank's block with
+    the single-device code, ``whole = (leading dim, N)`` of the global call
+    (``whole_lead`` overrides the leading dim: a padded call's true rows),
+    which the kernels plan from.  The N blocks of the output are
+    all-gathered over ``model`` in coordinate order (JAX's tiled
+    ``all_gather``: the full-N output bitwise), then, unless ``local_rows``,
+    the rows over ``data``, so every rank returns the global result.
+    """
+    nd, _ = data_model_sizes(mesh)
+    ns = n_shard_axis(mesh, n_cols)
+    if not local_rows:
+        x = local_shard(x, P(DATA), mesh)
+    if ns is not None:
+        w = _n_block(w, n_cols, mesh)
+        bias = None if bias is None else _n_block(bias, n_cols, mesh)
+    elif w.shape[-1] != n_cols:
+        raise ValueError(f"operand {tuple(w.shape)} is not N = {n_cols}, which "
+                         "does not divide the model axis: pass it whole")
+    whole = (x.shape[0] * nd if whole_lead is None else whole_lead, n_cols)
+    y = local_fn(x, w, codebook, bias, whole)
+    if ns is not None:
+        y = all_gather(y, mesh, MODEL, dim=-1)
+    return y if local_rows else all_gather(y, mesh, DATA, dim=0)
+
+
+def _shard_rows(mesh, n_cols: int, local_fn, x2, w, codebook, bias, *,
+                pool: int, local_rows: bool) -> torch.Tensor:
+    """K1's and K3's ``mesh=`` rows: window-major pooled rows must split
+    over ``data`` in whole pool windows (``conv2d`` pads the batch so they
+    do); unpooled rows are padded up to the axis and sliced back."""
+    nd, _ = data_model_sizes(mesh)
+    M = x2.shape[0]
+    if pool > 1:
+        if not local_rows and M % (nd * pool * pool):
+            raise ValueError(
+                f"pool= under mesh= needs the window-major rows ({M}) to split "
+                f"over the data axis ({nd}) in whole pool windows; "
+                "conv2d(mesh=) guarantees this by padding the batch first")
+        return shard_gemm(mesh, n_cols, local_fn, x2, w, codebook, bias,
+                          local_rows=local_rows)
+    pad = 0 if local_rows else -M % nd
+    if pad:
+        x2 = F.pad(x2, (0, 0, 0, pad))
+    y = shard_gemm(mesh, n_cols, local_fn, x2, w, codebook, bias,
+                   local_rows=local_rows, whole_lead=None if local_rows else M)
+    return y[:M]
+
+
+def _check_batch(x: torch.Tensor, mesh, local_rows: bool) -> None:
+    nd, _ = data_model_sizes(mesh)
+    if not local_rows and x.shape[0] % nd:
+        raise ValueError(
+            f"batch {x.shape[0]} does not divide the data axis ({nd}); "
+            "pad the batch first (conv2d(mesh=) handles the remainder)")
+
+
+def _no_grad_under_mesh(whole, *ts) -> None:
+    """A sharded call is forward-only: ``dist.all_gather`` carries no
+    gradient, so a backward through it would be silently wrong."""
+    if whole is not None and _needs_grad(*ts):
+        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
 
 
 def _pool_rows(x: torch.Tensor, pool: int) -> None:
@@ -161,6 +262,7 @@ def pasm_matmul(
     gather: str = "take",
     mesh=None,
     pool: int = 1,
+    local_rows: bool = False,
 ) -> torch.Tensor:
     """``x @ t`` on the fused-dequant kernel K1.  x ``(..., K)`` → ``(..., N)`` f32.
 
@@ -168,24 +270,36 @@ def pasm_matmul(
     needs a 2-D ``x`` with **window-major** rows (each consecutive ``pool²``
     rows one window — the explicit conv path's ``_pool_order_patches``
     ordering) and returns the pooled ``(M/pool², N)``.  Differentiable in
-    ``x``, ``t.codebook`` and ``bias`` (:class:`_PasmMatmul`).
+    ``x``, ``t.codebook`` and ``bias`` (:class:`_PasmMatmul`).  ``mesh=``
+    shards rows over ``data`` (padded up to the axis when unpooled; pooled
+    rows must split in whole windows) and N over ``model`` when it divides
+    (:func:`shard_gemm`), bitwise the single-device call.
     """
-    _no_mesh(mesh)
     K, N = t.shape
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     if pool > 1:
         _pool_rows(x, pool)
-        x2 = x.contiguous()
+        x2 = x
     else:
         lead = x.shape[:-1]
-        x2 = x.reshape(-1, K).contiguous()
-    idx, codebook = t.idx.contiguous(), t.codebook.contiguous()
-    if _needs_grad(x2, codebook, bias):
-        y = _PasmMatmul.apply(x2, idx, codebook, bias, t.packed, gather, relu, pool)
+        x2 = x.reshape(-1, K)
+
+    def run(xl, idx, codebook, b, whole=None):
+        xl, idx, codebook = xl.contiguous(), idx.contiguous(), codebook.contiguous()
+        _no_grad_under_mesh(whole, xl, codebook, b)
+        if _needs_grad(xl, codebook, b):
+            return _PasmMatmul.apply(xl, idx, codebook, b, t.packed, gather,
+                                     relu, pool)
+        return pasm_matmul_kernel_call(xl, idx, codebook, b, packed=t.packed,
+                                       relu=relu, pool=pool, gather=gather,
+                                       whole=whole)
+
+    if mesh is None:
+        y = run(x2, t.idx, t.codebook, bias)
     else:
-        y = pasm_matmul_kernel_call(x2, idx, codebook, bias, packed=t.packed,
-                                    relu=relu, pool=pool, gather=gather)
+        y = _shard_rows(mesh, N, run, x2, t.idx, t.codebook, bias, pool=pool,
+                        local_rows=local_rows)
     return y if pool > 1 else y.reshape(*lead, N)
 
 
@@ -197,6 +311,7 @@ def pas_matmul(
     relu: bool = False,
     mesh=None,
     pool: int = 1,
+    local_rows: bool = False,
 ) -> torch.Tensor:
     """Paper-faithful PASM two-phase matmul on K3 (single dictionary).
 
@@ -204,22 +319,31 @@ def pas_matmul(
     (:func:`~repro_torch.core.pasm.logical_idx`): K3 takes one uint8 index
     per weight.  ``bias (N,)`` / ``relu`` ride the post-pass, and
     ``pool > 1`` max-reduces window-major row groups there too (2-D ``x``
-    only — the same contract as :func:`pasm_matmul`).
+    only — the same contract as :func:`pasm_matmul`, ``mesh=`` too; the
+    PAS bins are per-block registers, so they replicate with the kernel).
     """
-    _no_mesh(mesh)
     K, N = t.shape
-    idx = _pasm.logical_idx(t).contiguous()
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
     if pool > 1:
         _pool_rows(x, pool)
-        return pas_matmul_kernel_call(x.contiguous(), idx,
-                                      t.codebook.contiguous(), bias,
-                                      relu=relu, pool=pool)
-    lead = x.shape[:-1]
-    y = pas_matmul_kernel_call(x.reshape(-1, K).contiguous(), idx,
-                               t.codebook.contiguous(), bias, relu=relu)
-    return y.reshape(*lead, N)
+        x2 = x
+    else:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, K)
+
+    def run(xl, idx, codebook, b, whole=None):
+        return pas_matmul_kernel_call(xl.contiguous(), idx.contiguous(),
+                                      codebook.contiguous(), b, relu=relu,
+                                      pool=pool, whole=whole)
+
+    idx = _pasm.logical_idx(t)
+    if mesh is None:
+        y = run(x2, idx, t.codebook, bias)
+    else:
+        y = _shard_rows(mesh, N, run, x2, idx, t.codebook, bias, pool=pool,
+                        local_rows=local_rows)
+    return y if pool > 1 else y.reshape(*lead, N)
 
 
 def _pool_rowmajor(y: torch.Tensor, geom: ConvGeom, batch: int) -> torch.Tensor:
@@ -288,6 +412,7 @@ def pasm_conv2d(
     gather: str = "take",
     mesh=None,
     vmem_budget: Optional[int] = None,
+    local_rows: bool = False,
 ) -> torch.Tensor:
     """Implicit-GEMM conv on K2: unpadded ``(B, img) → (B, P_out, N)``.
 
@@ -297,18 +422,32 @@ def pasm_conv2d(
     conv/ReLU/pool stage is one launch storing only the pooled map.
     Differentiable in ``x``, ``t.codebook`` and ``bias`` (:class:`_PasmConv`:
     the backward materializes the patches and recomputes the pre-pool map).
+    ``mesh=`` shards the batch over ``data`` (it must divide the axis:
+    ``conv2d`` pads the remainder) and N over ``model`` when it divides;
+    pool windows lie inside one image, so the fused pool shards unchanged.
     ``vmem_budget`` is kept for signature parity with the JAX package and is
     unused: K2 has no VMEM schedule to size.
     """
     del vmem_budget
-    _no_mesh(mesh)
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
-    x, idx, codebook = x.contiguous(), t.idx.contiguous(), t.codebook.contiguous()
-    if _needs_grad(x, codebook, bias):
-        return _PasmConv.apply(x, idx, codebook, bias, geom, t.packed, gather, relu)
-    return pasm_conv_kernel_call(x, idx, codebook, bias, geom=geom,
-                                 packed=t.packed, relu=relu, gather=gather)
+
+    def run(xl, idx, codebook, b, whole=None):
+        xl, idx, codebook = xl.contiguous(), idx.contiguous(), codebook.contiguous()
+        _no_grad_under_mesh(whole, xl, codebook, b)
+        if _needs_grad(xl, codebook, b):
+            return _PasmConv.apply(xl, idx, codebook, b, geom, t.packed, gather,
+                                   relu)
+        return pasm_conv_kernel_call(
+            xl, idx, codebook, b, geom=geom, packed=t.packed, relu=relu,
+            gather=gather,
+            whole=None if whole is None else (whole[0] * geom.P_rows, whole[1]))
+
+    if mesh is None:
+        return run(x, t.idx, t.codebook, bias)
+    _check_batch(x, mesh, local_rows)
+    return shard_gemm(mesh, t.shape[1], run, x, t.idx, t.codebook, bias,
+                      local_rows=local_rows)
 
 
 def pas_conv2d(
@@ -321,22 +460,33 @@ def pas_conv2d(
     mesh=None,
     vmem_budget: Optional[int] = None,
     gather_output: bool = True,
+    local_rows: bool = False,
 ) -> torch.Tensor:
     """Implicit-GEMM conv on the paper-faithful PAS formulation, K4.
 
     Unpadded ``(B, img) → (B, P_out, N)``, single dictionary, forward only;
-    packed indices are unpacked first.  ``bias``/``relu``/``geom.pool`` fuse
-    as in :func:`pasm_conv2d`.  ``vmem_budget`` and ``gather_output`` are
-    kept for signature parity with the JAX package and are unused (no VMEM
-    schedule; ``gather_output`` only shapes a sharded call).
+    packed indices are unpacked first.  ``bias``/``relu``/``geom.pool`` and
+    ``mesh=`` behave as in :func:`pasm_conv2d`.  ``vmem_budget`` and
+    ``gather_output`` are kept for signature parity with the JAX package and
+    are unused (no VMEM schedule; a sharded call always gathers N: it
+    returns the global result).
     """
     del vmem_budget, gather_output
-    _no_mesh(mesh)
     if bias is not None:
         bias = bias.to(torch.float32).contiguous()
-    return pas_conv_kernel_call(
-        x.contiguous(), _pasm.logical_idx(t).contiguous(),
-        t.codebook.contiguous(), bias, geom=geom, relu=relu)
+
+    def run(xl, idx, codebook, b, whole=None):
+        return pas_conv_kernel_call(
+            xl.contiguous(), idx.contiguous(), codebook.contiguous(), b,
+            geom=geom, relu=relu,
+            whole=None if whole is None else (whole[0] * geom.P_rows, whole[1]))
+
+    idx = _pasm.logical_idx(t)
+    if mesh is None:
+        return run(x, idx, t.codebook, bias)
+    _check_batch(x, mesh, local_rows)
+    return shard_gemm(mesh, t.shape[1], run, x, idx, t.codebook, bias,
+                      local_rows=local_rows)
 
 
 def flash_attention(

@@ -54,6 +54,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.pasm_matmul import (
     _I,
     _P,
+    HALF,
     ConvGeom,
     _cdiv,
     _check_image,
@@ -112,7 +113,8 @@ class PasPlan(NamedTuple):
     scratch: int
 
 
-def pas_plan(M: int, K: int, N: int, B: int, pool: int = 1) -> PasPlan:
+def pas_plan(M: int, K: int, N: int, B: int, pool: int = 1, *,
+             whole: Optional[tuple] = None) -> PasPlan:
     """K3/K4's launch for ``x (M, K) · idx (K, N)`` over ``B`` bins (K4: the
     ``M = batch · P_rows`` rows of the implicit patch matrix, image after
     image) — a pure function of the shapes.
@@ -123,7 +125,9 @@ def pas_plan(M: int, K: int, N: int, B: int, pool: int = 1) -> PasPlan:
     whatever M is: a layer of at most :data:`PAS_SPLIT_MAX_N` columns splits
     K into parts of at least :data:`PAS_SPLIT_K` rows (measured on the H100:
     conv4 and conv5 of AlexNet, K = 3456, gain from 2 splits; conv2 and
-    conv3, K = 2400 and 2304, lose).
+    conv3, K = 2400 and 2304, lose).  ``whole = (M, N)`` of the unsharded
+    call, for one rank's block of it: the split count follows the whole N
+    (``pasm_matmul.simt_plan``'s rule).
     """
     if not pool_plan_exists(pool):
         raise ValueError(
@@ -134,10 +138,17 @@ def pas_plan(M: int, K: int, N: int, B: int, pool: int = 1) -> PasPlan:
     tile = next(t for t in PAS_TILES if pw <= t)
     cols = PAS_TILES[tile]
     rows = tile - tile % pw
-    splits = max(1, K // PAS_SPLIT_K) if N <= PAS_SPLIT_MAX_N else 1
+    wn = N if whole is None else whole[1]
+    splits = max(1, K // PAS_SPLIT_K) if wn <= PAS_SPLIT_MAX_N else 1
     blocks = _cdiv(M, rows) * _cdiv(N, cols) * splits
     return PasPlan(tile, rows, cols, _cdiv(B, PAS_BINS), splits, blocks,
                    splits * M * N if splits > 1 else 0)
+
+
+def _widen_x(x: torch.Tensor) -> torch.Tensor:
+    """A bf16 or f16 activation as its exact f32 widening: the PAS phase
+    sums f32 activations into its bins."""
+    return x.float() if x.dtype in HALF else x
 
 
 def _check_pas(x, idx, codebook, bias, k_rows: int) -> None:
@@ -195,15 +206,19 @@ def pas_matmul_kernel_call(
     *,
     relu: bool = False,
     pool: int = 1,
+    whole: Optional[tuple] = None,
 ) -> torch.Tensor:
     """K3: ``x (M, K) · idx (K, N) · codebook (1, B) → (M/pool², N)`` f32.
 
     ``bias (N,)`` and ``relu`` ride the post-pass; ``pool > 1`` expects
     window-major rows (``M % pool² == 0``) and stores the pooled map.  The
-    row tile follows from ``pool``.
+    row tile follows from ``pool``.  A bf16 or f16 ``x`` is summed as its
+    exact f32 widening, as the JAX kernel sums it.  ``whole``: the unsharded
+    call's ``(M, N)`` (:func:`pas_plan`).
     """
     if x.ndim != 2:
         raise ValueError(f"x must be 2-D (M, K), got {tuple(x.shape)}")
+    x = _widen_x(x)
     _check_pas(x, idx, codebook, bias, k_rows=x.shape[1])
     M, K = x.shape
     N = idx.shape[1]
@@ -211,7 +226,7 @@ def pas_matmul_kernel_call(
     if M % pw:
         raise ValueError(f"pool={pool} needs window-major rows, M={M} % {pw}")
     B = codebook.shape[1]
-    plan = pas_plan(M, K, N, B, pool)
+    plan = pas_plan(M, K, N, B, pool, whole=whole)
     if x.device.type == "cpu":
         return pas_matmul_plain(x, idx, codebook, bias, relu=relu, pool=pool)
     if x.device.type != "cuda":
@@ -242,9 +257,12 @@ def pas_conv_kernel_call(
     *,
     geom: ConvGeom,
     relu: bool = False,
+    whole: Optional[tuple] = None,
 ) -> torch.Tensor:
     """K4: implicit-GEMM PAS conv, ``x (B, C, H, W)`` or ``(B, H, W, C)`` →
-    ``(B, P_out, N)`` f32.  The row tile follows from ``geom.pool``.
+    ``(B, P_out, N)`` f32.  The row tile follows from ``geom.pool``; a bf16
+    or f16 ``x`` runs on its exact f32 widening, and ``whole`` is the
+    unsharded call's ``(M, N)``, as in K3.
 
     ``x`` is the UNPADDED image batch (``geom.pad`` is a masked read, as in
     K2).  ``idx (Kp, N)`` holds ``Kp >= geom.conv_k`` unpacked reduction
@@ -253,11 +271,12 @@ def pas_conv_kernel_call(
     several launches of whole images (each counts as a launch).
     """
     Kp = idx.shape[0] if idx.ndim == 2 else -1
+    x = _widen_x(x)
     _check_pas(x, idx, codebook, bias, k_rows=Kp)
     batch = x.shape[0]
     C, H, W = _check_image(x, geom, Kp)
     N, B = idx.shape[1], codebook.shape[1]
-    plan = pas_plan(batch * geom.P_rows, Kp, N, B, geom.pool)
+    plan = pas_plan(batch * geom.P_rows, Kp, N, B, geom.pool, whole=whole)
     if x.device.type == "cpu":
         return pas_conv_plain(x, idx, codebook, bias, geom=geom, relu=relu)
     if x.device.type != "cuda":

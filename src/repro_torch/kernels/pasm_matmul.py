@@ -60,7 +60,8 @@ activation, and there the SIMT kernel above loses: its 128-row tile computes
   not hold (more than :data:`MAX_BF16_GROUPS` dictionaries, or packed bytes
   whose two rows fall in two dictionaries): the f32 kernel above, with the
   tile and split-K of :func:`simt_plan` (K1 ≡ K2 bitwise).  A bf16 ``x`` is
-  widened to it exactly (:func:`_widen_bf16`).
+  widened to it exactly (:func:`_widen`), and so is an f16 one: no bf16
+  route takes f16, and the JAX kernels accept it.
 * ``stream`` — bf16, ``M <= STREAM_MAX_M`` (decode): a warp streams 128
   index columns with 16-byte loads straight into tensor-core A fragments
   (one pair-table lookup a byte), ``x`` is an 8- or 16-row B tile, and
@@ -225,7 +226,8 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def simt_plan(M: int, K: int, N: int, pool: int = 1) -> K1Plan:
+def simt_plan(M: int, K: int, N: int, pool: int = 1, *,
+              whole: Optional[tuple] = None) -> K1Plan:
     """K1 simt's and K2's launch for ``x (M, K) · W (K, N)`` (K2: the
     ``M = batch · P_rows`` rows of the implicit patch matrix, image after
     image) — a pure function of the shapes.
@@ -238,13 +240,20 @@ def simt_plan(M: int, K: int, N: int, pool: int = 1) -> K1Plan:
     whatever M is: the late stages of a CNN, whose weight matrices are large
     and whose maps are small, split (AlexNet's conv3–conv5 at K = 2304 and
     3456: 4, 6 and 6 parts); conv1 and conv2 do not.
+
+    ``whole = (M, N)`` of the unsharded call, for a launch on one rank's
+    block of it: the split count follows the whole N, so a shard sums each
+    output in the single-device order (a ``model`` shard of conv3 has N 192,
+    which alone would not split); the tile and blocks follow the local
+    shape.  Without ``whole`` the plan is the single-device one.
     """
     bm = _pool_bm(pool)
     rows = bm - bm % (pool * pool)
     bn = 64 if bm > BM_TILES[0] else \
         min(SIMT_BNS, key=lambda b: (_cdiv(N, b) * b, -b))
+    wn = N if whole is None else whole[1]
     splits = 1
-    if K * N >= SIMT_SPLIT_MIN_KN and N <= SIMT_SPLIT_MAX_N:
+    if K * wn >= SIMT_SPLIT_MIN_KN and wn <= SIMT_SPLIT_MAX_N:
         splits = max(1, min(SIMT_MAX_SPLITS, K // SIMT_SPLIT_K))
     return K1Plan("simt", splits, bm, bn,
                   _cdiv(M, rows) * _cdiv(N, bn) * splits,
@@ -252,7 +261,8 @@ def simt_plan(M: int, K: int, N: int, pool: int = 1) -> K1Plan:
 
 
 def k1_plan(M: int, K: int, N: int, dtype: torch.dtype, pool: int = 1, *,
-            packed: bool = False, groups: int = 1) -> K1Plan:
+            packed: bool = False, groups: int = 1,
+            whole: Optional[tuple] = None) -> K1Plan:
     """K1's route for ``x (M, K) · W (K, N)`` over ``groups`` dictionaries
     (``packed``: two int4 indices a byte) — a pure function of the shapes
     and ``x``'s dtype.
@@ -264,17 +274,23 @@ def k1_plan(M: int, K: int, N: int, dtype: torch.dtype, pool: int = 1, *,
     split-K count of every route depends on K and N only (so a row sums in
     the same order whatever M is); on the bf16 routes it is enough splits
     to fill the SMs, each at least :data:`MIN_SPLIT_K` K rows.
+
+    ``whole = (M, N)`` of the unsharded call (a rank's block of it): the
+    route follows the whole M and the split count the whole N, as in
+    :func:`simt_plan`, so a shard computes the single-device function.
     """
     if dtype != torch.bfloat16 or pool > 1 or \
             not 0 < groups <= MAX_BF16_GROUPS or (packed and (K // groups) % 2):
-        return simt_plan(M, K, N, pool)
-    route = "stream" if M <= STREAM_MAX_M else "mma"
+        return simt_plan(M, K, N, pool, whole=whole)
+    wm, wn = (M, N) if whole is None else whole
+    route = "stream" if wm <= STREAM_MAX_M else "mma"
     cols = _cdiv(N, STREAM_COLS if route == "stream" else MMA_BN)
     # split-K by K and N only, to about 1.5 blocks an SM on stream (measured
     # at M = 4, H100: wq 3, w1 1, w2 5 splits are the fastest) and one on
     # mma, whose blocks are heavier and which has M / 64 row blocks besides
     want = (3 * SMS // 2) if route == "stream" else SMS
-    splits = max(1, min((2 * want + cols) // (2 * cols), K // MIN_SPLIT_K))
+    wcols = _cdiv(wn, STREAM_COLS if route == "stream" else MMA_BN)
+    splits = max(1, min((2 * want + wcols) // (2 * wcols), K // MIN_SPLIT_K))
     if route == "stream":
         tile = STREAM_ROWS[0] if M <= STREAM_ROWS[0] else STREAM_ROWS[1]
     else:
@@ -377,22 +393,26 @@ def patch_tile(img: torch.Tensor, m0: int, q0: int, *, geom: ConvGeom,
 # ---------------------------------------------------------------------------
 
 
-def _widen_bf16(x: torch.Tensor, codebook: torch.Tensor) -> tuple:
-    """K1's bf16 route: ``x`` widened to f32 and the codebook rounded to
-    bf16 and back.  Both steps are exact, and so is every product of two
-    bf16 values in f32, so the f32 GEMM computes the JAX kernel's
-    ``Σ_k bf16(x)·bf16(cb[idx])`` (it dequantizes each tile to ``x``'s
-    dtype and accumulates in f32) up to the order of the sum."""
-    if x.dtype != torch.bfloat16:
+HALF = (torch.bfloat16, torch.float16)
+
+
+def _widen(x: torch.Tensor, codebook: torch.Tensor) -> tuple:
+    """A bf16 or f16 ``x`` onto the f32 route: ``x`` widened to f32 and the
+    codebook rounded to ``x``'s dtype and back.  Both steps are exact, and
+    so is every product of two such values in f32, so the f32 GEMM computes
+    the JAX kernel's ``Σ_k x·cb[idx]`` (it dequantizes each tile to ``x``'s
+    dtype and accumulates in f32) up to the order of the sum.  An f32 ``x``
+    passes unchanged."""
+    if x.dtype not in HALF:
         return x, codebook
-    return x.float(), codebook.to(torch.bfloat16).float()
+    return x.float(), codebook.to(x.dtype).float()
 
 
 def pasm_matmul_plain(x, idx, codebook, bias=None, *, packed: bool,
                       relu: bool = False, pool: int = 1) -> torch.Tensor:
     """K1's plain version: dequant GEMM, epilogue, window-major row pool.
-    ``x`` is f32 or bf16 (:func:`_widen_bf16`); the result is f32."""
-    x, codebook = _widen_bf16(x, codebook)
+    ``x`` is f32, bf16 or f16 (:func:`_widen`); the result is f32."""
+    x, codebook = _widen(x, codebook)
     y = _ref.pasm_matmul_ref(x, idx, codebook, packed=packed)
     return _ref.max_pool_rows(_ref.apply_epilogue(y, bias, relu), pool)
 
@@ -409,6 +429,7 @@ def pasm_conv_plain(x, idx, codebook, bias=None, *, geom: ConvGeom,
                     packed: bool, relu: bool = False) -> torch.Tensor:
     """K2's plain version: pad, gather every patch row with
     :func:`patch_tile`, then K1's plain version.  ``(B, P_out, N)``."""
+    x, codebook = _widen(x, codebook)
     Kp = idx.shape[0] * (2 if packed else 1)
     batch = x.shape[0]
     patches = patch_tile(_pad_image(x, geom), 0, 0, geom=geom,
@@ -510,12 +531,15 @@ def pasm_matmul_kernel_call(
     relu: bool = False,
     pool: int = 1,
     gather: str = "take",
+    whole: Optional[tuple] = None,
 ) -> torch.Tensor:
     """K1: ``x (M, K) · idx (K or K/2, N) · codebook (G, B) → (M/pool², N)``.
 
     ``bias (N,)`` and ``relu`` are the fused epilogue; ``pool > 1`` expects
     window-major rows (``M % pool² == 0``) and stores the pooled map.  ``x``
-    is f32 or bf16; :func:`k1_plan` picks the kernel.  The output is f32.
+    is f32, bf16 or f16; :func:`k1_plan` picks the kernel.  The output is
+    f32.  ``whole = (M, N)`` of the unsharded call when this launch computes
+    one rank's block of it (:func:`k1_plan`).
     """
     if x.ndim != 2:
         raise ValueError(f"x must be 2-D (M, K), got {tuple(x.shape)}")
@@ -525,10 +549,10 @@ def pasm_matmul_kernel_call(
     if M % pw:
         raise ValueError(f"pool={pool} needs window-major rows, M={M} % {pw}")
     plan = k1_plan(M, K, N, x.dtype, pool, packed=packed,
-                   groups=codebook.shape[0] if codebook.ndim else 1)
+                   groups=codebook.shape[0] if codebook.ndim else 1, whole=whole)
     simt = plan.route == "simt"
     if simt:
-        x, codebook = _widen_bf16(x, codebook)
+        x, codebook = _widen(x, codebook)
     _check_operands(x, idx, codebook, bias, packed=packed, gather=gather,
                     k_rows=K, x_dtype=torch.float32 if simt else torch.bfloat16)
     G, B = codebook.shape
@@ -574,10 +598,14 @@ def pasm_conv_kernel_call(
     packed: bool,
     relu: bool = False,
     gather: str = "take",
+    whole: Optional[tuple] = None,
 ) -> torch.Tensor:
     """K2: implicit-GEMM conv, ``x (B, C, H, W)`` or ``(B, H, W, C)`` →
     ``(B, P_out, N)`` f32, any batch: the rows run over the batch, and the
-    tile and split-K are :func:`simt_plan`'s over its ``B · P_rows`` rows.
+    tile and split-K are :func:`simt_plan`'s over its ``B · P_rows`` rows
+    (``whole``: the unsharded call's, as in K1).  A bf16 or f16 ``x`` runs
+    on its exact f32 widening, the codebook rounded to its dtype
+    (:func:`_widen`), K1's f32 route.
 
     ``x`` is the UNPADDED image batch: ``geom.pad`` is applied as masked
     zero reads inside the kernel (the TPU kernel took a padded image).
@@ -585,12 +613,13 @@ def pasm_conv_kernel_call(
     ``conv_k`` (the §3 pack-time pad) pair with zero activations.
     """
     Kp = idx.shape[0] * (2 if packed else 1) if idx.ndim == 2 else -1
+    x, codebook = _widen(x, codebook)
     _check_operands(x, idx, codebook, bias, packed=packed, gather=gather,
                     k_rows=Kp)
     batch = x.shape[0]
     C, H, W = _check_image(x, geom, Kp)
     N = idx.shape[1]
-    plan = simt_plan(batch * geom.P_rows, Kp, N, geom.pool)
+    plan = simt_plan(batch * geom.P_rows, Kp, N, geom.pool, whole=whole)
     if x.device.type == "cpu":
         return pasm_conv_plain(x, idx, codebook, bias, geom=geom,
                                packed=packed, relu=relu)

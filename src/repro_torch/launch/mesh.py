@@ -1,0 +1,189 @@
+"""Device meshes on ``torch.distributed``: the port's ``repro.launch.mesh``.
+
+The JAX package shards with ``shard_map`` over a ``jax.sharding.Mesh``: one
+program sees global arrays, and each device runs the body on its block.
+PyTorch has no such program, so the port runs SPMD: one process a rank,
+each building the same :class:`Mesh` and running the same code on its own
+block of every sharded tensor, with explicit collectives where the JAX body
+has them (:func:`all_gather`).
+
+A rank sits at the row-major coordinates of its rank in the mesh shape, as
+``jax.make_mesh`` lays devices out, and holds one process group per axis
+of size > 1: the ranks that share every coordinate but that axis.  The
+caller starts the processes and ``torch.distributed.init_process_group``
+(its address, world size and rank); without a process group the world is
+this one process, which builds any mesh of one rank.
+
+Nothing here runs at import: building a mesh creates process groups.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch._device import resolve_device
+
+__all__ = [
+    "Mesh",
+    "make_production_mesh",
+    "make_conv_mesh",
+    "axis_sizes",
+    "data_model_sizes",
+    "n_shard_axis",
+    "all_gather",
+    "SINGLE_POD",
+    "MULTI_POD",
+]
+
+SINGLE_POD = (16, 16)  # 256 chips
+MULTI_POD = (2, 16, 16)  # 2 pods × 256 chips
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """One rank's view of a device mesh.
+
+    ``shape`` gives each axis's size and ``axis_names`` its name; this rank
+    sits at ``coords``; ``groups[i]`` is the process group along axis ``i``
+    (``None`` when that axis has size 1: nothing to exchange); ``device`` is
+    where this rank's blocks live and its kernels run.
+    """
+
+    shape: tuple
+    axis_names: tuple
+    coords: tuple
+    groups: tuple
+    device: torch.device
+
+    def _axis(self, axis: str) -> int:
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has no axis {axis!r} (axes {self.axis_names})")
+        return self.axis_names.index(axis)
+
+    def size(self, axis: str) -> int:
+        """Ranks along ``axis`` (1 for an axis the mesh lacks)."""
+        return self.shape[self._axis(axis)] if axis in self.axis_names else 1
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (0 for an axis the mesh lacks)."""
+        return self.coords[self._axis(axis)] if axis in self.axis_names else 0
+
+
+def _world() -> tuple:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def _make_mesh(shape, axis_names: tuple, device) -> Mesh:
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != len(axis_names) or min(shape, default=0) < 1:
+        raise ValueError(f"mesh shape {shape} does not fit axes {axis_names}")
+    world, rank = _world()
+    n = math.prod(shape)
+    if n != world:
+        raise ValueError(
+            f"mesh shape {shape} needs {n} ranks but the process group has "
+            f"{world}: start one process a rank (torch.distributed."
+            "init_process_group with that world size)"
+        )
+    coords, r = [], rank
+    for s in reversed(shape):
+        r, c = divmod(r, s)
+        coords.append(c)
+    coords = tuple(reversed(coords))
+
+    def ravel(c) -> int:
+        out = 0
+        for ci, s in zip(c, shape):
+            out = out * s + ci
+        return out
+
+    groups = []
+    for a, size in enumerate(shape):
+        mine = None
+        if size > 1:
+            # new_group is collective over the world: every rank creates
+            # every group of the axis, in the same order
+            others = [range(s) for i, s in enumerate(shape) if i != a]
+            for rest in itertools.product(*others):
+                ranks = [ravel(rest[:a] + (j,) + rest[a:]) for j in range(size)]
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mine = g
+        groups.append(mine)
+    return Mesh(shape, tuple(axis_names), coords, tuple(groups),
+                resolve_device(device))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    """The production ``("data", "model")`` mesh (``("pod", "data",
+    "model")`` across pods): :data:`SINGLE_POD` / :data:`MULTI_POD` ranks."""
+    shape = MULTI_POD if multi_pod else SINGLE_POD
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _make_mesh(shape, axes, device)
+
+
+def make_conv_mesh(shape=None, *, device=None) -> Mesh:
+    """The ``("data", "model")`` mesh the sharded conv stack runs on.
+
+    ``shape=(n_data, n_model)`` must hold every rank of the process group;
+    ``None`` puts every rank on ``data`` (pure batch sharding).  ``device``
+    is this rank's device (default the card; pass ``"cpu"`` for the plain
+    path).  The full AlexNet config records :data:`SINGLE_POD` in
+    ``CNNConfig.mesh_shape``.
+    """
+    if shape is None:
+        shape = (_world()[0], 1)
+    return _make_mesh(shape, ("data", "model"), device)
+
+
+def axis_sizes(mesh: Mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def data_model_sizes(mesh: Mesh) -> tuple:
+    """``(n_data, n_model)`` of a conv/GEMM mesh; an absent ``model`` counts 1.
+
+    The one definition every sharded layer derives its axis sizes from
+    (``kernels/ops.py``, ``core/conv.py``, ``models/cnn.py``)."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh= takes a repro_torch.launch.mesh.Mesh, got {type(mesh).__name__}; "
+            "build one with make_conv_mesh")
+    if "data" not in mesh.axis_names:
+        raise ValueError(
+            f"mesh needs a 'data' axis (got axes {mesh.axis_names}); build "
+            "one with repro_torch.launch.mesh.make_conv_mesh"
+        )
+    return mesh.size("data"), mesh.size("model")
+
+
+def n_shard_axis(mesh: Mesh, n: int) -> Optional[str]:
+    """The GEMM N dimension's mesh axis: ``"model"`` when it divides, else
+    ``None`` (replicate).
+
+    The one divisibility rule of the sharded dispatch:
+    ``models/sharding.py::conv_param_pspecs`` applies the same test, so
+    weight placement and compute never disagree."""
+    _, nm = data_model_sizes(mesh)
+    return "model" if nm > 1 and n % nm == 0 else None
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The blocks of every rank along ``axis`` concatenated on ``dim`` in
+    coordinate order: JAX's tiled ``all_gather``, so the N blocks of a
+    ``model``-sharded output gather to the full-N output bitwise.  Every
+    rank's block has ``t``'s shape.  An axis of size 1 returns ``t``."""
+    g = mesh.groups[mesh._axis(axis)] if axis in mesh.axis_names else None
+    if g is None:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
+    dist.all_gather(parts, t, group=g)
+    return torch.cat(parts, dim=dim)

@@ -14,6 +14,13 @@ the JAX package::
     qparams = cnn.quantize(params, cfg)          # per-layer k-means codebooks
     logits = cnn.forward(qparams, images, cfg)   # (B, classes) via K1 / K2
 
+Sharded, SPMD: every rank runs the same code with the same global images
+(``torch.distributed`` started by the caller)::
+
+    mesh = make_conv_mesh((n_data, n_model))         # ("data", "model")
+    qparams = cnn.quantize(params, cfg, mesh=mesh)   # this rank's c_out blocks
+    logits = cnn.forward(qparams, images, cfg, mesh=mesh)  # global, every rank
+
 QAT (:mod:`repro_torch.core.qat`'s STE through the conv dictionaries)::
 
     cbs = cnn.qat_codebooks(params, cfg)               # per-layer dictionaries
@@ -33,12 +40,12 @@ from repro_torch.core import conv as _conv
 from repro_torch.core import pasm as _pasm
 from repro_torch.core import qat as _qat
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.core.params import NOT_PORTED_MESH
+from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
 from repro_torch.models.common import Initializer
 
 __all__ = ["stages", "feature_shape", "init_params", "quantize", "forward",
-           "forward_dense", "qat_codebooks", "qat_apply", "qat_forward",
-           "qat_requantize"]
+           "forward_dense", "conv_mesh", "qat_codebooks", "qat_apply",
+           "qat_forward", "qat_requantize"]
 
 # CNNConfig.impl == conv2d engine (pas_kernel_implicit is reached through
 # conv2d only, as in the JAX package)
@@ -83,12 +90,37 @@ def init_params(cfg: CNNConfig, gen: torch.Generator, *, device=None) -> dict:
     }
 
 
+def conv_mesh(cfg: CNNConfig, *, device=None):
+    """``cfg.mesh_shape`` → the stack's ``("data", "model")`` mesh (every
+    rank of the process group; ``None`` puts them all on ``data``)."""
+    from repro_torch.launch.mesh import make_conv_mesh
+
+    return make_conv_mesh(cfg.mesh_shape, device=device)
+
+
+def _place(params: dict, mesh) -> dict:
+    """This rank's block of every leaf per the ``models/sharding.py`` CNN
+    rules (``c_out`` over ``model``, codebooks replicated), copied out on
+    ``mesh.device`` so a rank's weight memory shrinks with the mesh.  A
+    container keeps its global metadata (``kshape``), as a JAX array placed
+    on a mesh keeps its global shape."""
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.models import sharding as _sharding
+    from repro_torch.tree import tree_map
+
+    specs = _sharding.conv_param_pspecs(params, axis_sizes(mesh))
+    return tree_map(
+        lambda leaf, s: _sharding.local_shard(leaf, s, mesh).to(mesh.device).clone(),
+        params, specs)
+
+
 def quantize(params: dict, cfg: CNNConfig, *, iters: int = 16, mesh=None) -> dict:
     """K-means weight-share every conv layer (on the weights' device): one
     dictionary per layer, ``cfg.groups`` reduction-axis dictionaries when
-    > 1, int4-packed into the stack layout's GEMM order when ``cfg.packed``."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+    > 1, int4-packed into the stack layout's GEMM order when ``cfg.packed``.
+    ``mesh=`` then keeps this rank's blocks (:func:`_place`): each rank
+    holds ``1/n_model`` of every idx, bias and the head, and every
+    codebook."""
     convs = []
     for p in params["conv"]:
         q = _conv.ConvParams.quantize(p.kernel, cfg.bins, bias=p.bias,
@@ -97,12 +129,41 @@ def quantize(params: dict, cfg: CNNConfig, *, iters: int = 16, mesh=None) -> dic
         if cfg.packed:
             q = q.pack(layout=cfg.layout)
         convs.append(q)
-    return {"conv": convs, "head": params["head"]}
+    out = {"conv": convs, "head": params["head"]}
+    return _place(out, mesh) if mesh is not None else out
 
 
-def _head(x: torch.Tensor, head: dict) -> torch.Tensor:
-    """Dense classifier (full f32 product)."""
-    return matmul_f32(x.reshape(x.shape[0], -1), head["w"]) + head["b"]
+def _head(x: torch.Tensor, head: dict, mesh=None, *,
+          n_cols: Optional[int] = None) -> torch.Tensor:
+    """Dense classifier (full f32 product).  Under ``mesh=``, ``x`` is this
+    rank's ``data`` rows and the ``n_cols`` classes split over ``model``
+    when they divide it (the head global or this rank's block), gathered
+    back: this rank's rows of the logits.  The contraction keeps the whole
+    feature axis on every rank, as the JAX head's ``shard_map`` does."""
+    xf = x.reshape(x.shape[0], -1)
+    if mesh is None:
+        return matmul_f32(xf, head["w"]) + head["b"]
+    from repro_torch.kernels.ops import shard_gemm
+
+    return shard_gemm(mesh, n_cols,
+                      lambda xl, wl, _cb, bl, _whole: matmul_f32(xl, wl) + bl,
+                      xf, head["w"], None, head["b"], local_rows=True)
+
+
+def _stack(params: dict, images: torch.Tensor, cfg: CNNConfig, engine: str,
+           pool_impl: str, mesh) -> torch.Tensor:
+    if mesh is None:
+        x = images
+        for p, (conv, pool) in zip(params["conv"], stages(cfg)):
+            x = _conv.conv2d(x, p, conv, engine=engine, pool=pool,
+                             pool_impl=pool_impl)
+        return _head(x, params["head"])
+    x = _conv.shard_batch(images, mesh)
+    for p, (conv, pool) in zip(params["conv"], stages(cfg)):
+        x = _conv.conv2d_shard(x, p, conv, mesh=mesh, engine=engine, pool=pool,
+                               pool_impl=pool_impl)
+    y = _head(x, params["head"], mesh, n_cols=cfg.classes)
+    return _conv.gather_batch(y, mesh, images.shape[0])
 
 
 def forward(params: dict, images: torch.Tensor, cfg: CNNConfig, *,
@@ -115,27 +176,25 @@ def forward(params: dict, images: torch.Tensor, cfg: CNNConfig, *,
     dictionary per layer), ``einsum`` the plain reference, ``auto`` K2 for
     batches.  Each stage's pool rides
     ``conv2d(pool=)`` (fused into the kernel epilogue where possible).
+
+    ``mesh=`` runs the stack sharded: every rank passes the same global
+    images and gets the global logits.  The batch splits over ``data``
+    once (an uneven remainder padded), each stage runs
+    :func:`~repro_torch.core.conv.conv2d_shard` on the rank's images with
+    its ``model`` block of the output channels and gathers the channels,
+    and the batch is gathered once, after the head — bitwise the
+    single-device forward on every conv stage.
     """
     if cfg.impl not in _IMPLS:
         raise ValueError(f"impl must be one of {'|'.join(_IMPLS)}, got {cfg.impl!r}")
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
-    x = images
-    for p, (conv, pool) in zip(params["conv"], stages(cfg)):
-        x = _conv.conv2d(x, p, conv, engine=cfg.impl, vmem_budget=cfg.vmem_budget,
-                         pool=pool, pool_impl=cfg.pool_impl)
-    return _head(x, params["head"])
+    return _stack(params, images, cfg, cfg.impl, cfg.pool_impl, mesh)
 
 
 def forward_dense(params: dict, images: torch.Tensor, cfg: CNNConfig, *,
                   mesh=None) -> torch.Tensor:
-    """Reference forward on the dense master weights (no weight sharing)."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
-    x = images
-    for p, (conv, pool) in zip(params["conv"], stages(cfg)):
-        x = _conv.conv2d(x, p, conv, engine="einsum", pool=pool)
-    return _head(x, params["head"])
+    """Reference forward on the dense master weights (no weight sharing);
+    ``mesh=`` as in :func:`forward`, on the sharded plain engine."""
+    return _stack(params, images, cfg, "einsum", "auto", mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -175,8 +234,12 @@ def qat_apply(params: dict, codebooks) -> dict:
 def qat_forward(params: dict, codebooks, images: torch.Tensor, cfg: CNNConfig,
                 *, mesh=None) -> torch.Tensor:
     """QAT training forward: masters STE-snapped, then the dense reference
-    engine (differentiable in masters, codebooks, bias and head)."""
-    return forward_dense(qat_apply(params, codebooks), images, cfg, mesh=mesh)
+    engine (differentiable in masters, codebooks, bias and head).  A sharded
+    forward would gather without differentiable collectives and train
+    wrongly: ``mesh=`` raises (ROADMAP Queue 1 item 13)."""
+    if mesh is not None:
+        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
+    return forward_dense(qat_apply(params, codebooks), images, cfg)
 
 
 def qat_requantize(params: dict, codebooks, cfg: CNNConfig, *, mesh=None) -> dict:
@@ -184,11 +247,10 @@ def qat_requantize(params: dict, codebooks, cfg: CNNConfig, *, mesh=None) -> dic
 
     The re-assignment is :func:`repro_torch.core.qat.assign_bins`, the STE
     forward's own rule, so the frozen ``shared`` params' :func:`forward`
-    equals :func:`qat_forward` at the same masters and codebooks.
+    equals :func:`qat_forward` at the same masters and codebooks.  ``mesh=``
+    keeps this rank's blocks, as in :func:`quantize`.
     """
     _qat_check_groups(cfg)
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
     convs = []
     for p, cb in zip(params["conv"], codebooks):
         idx = _qat.assign_bins(p.kernel, cb).to(torch.uint8)
@@ -196,4 +258,5 @@ def qat_requantize(params: dict, codebooks, cfg: CNNConfig, *, mesh=None) -> dic
         if cfg.packed:
             q = q.pack(layout=cfg.layout)
         convs.append(q)
-    return {"conv": convs, "head": params["head"]}
+    out = {"conv": convs, "head": params["head"]}
+    return _place(out, mesh) if mesh is not None else out

@@ -76,7 +76,8 @@ class ShardCtx:
     """Mesh-axis naming threaded through model code for sharding constraints.
 
     Only the inactive context is ported: every constraint is the identity.
-    An active one (a mesh) belongs to ROADMAP Queue 1 item 10 and raises.
+    An active one (the LM's tensor parallelism) belongs to ROADMAP Queue 1
+    item 12 and raises.
     """
 
     batch: tuple = ("data",)

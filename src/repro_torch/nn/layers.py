@@ -42,7 +42,9 @@ def linear(
 
     ``impl`` (for quantized leaves): ``"dequant"`` | ``"kernel"`` |
     ``"pas_kernel"``; plain tensors and dense params always take the dense
-    product.  The output dtype follows ``x``.
+    product.  ``mesh=`` shards the kernel paths as
+    :func:`repro_torch.core.params.matmul` does.  The output dtype follows
+    ``x``.
     """
     return _params.matmul(x, w, impl=impl, bias=bias, relu=relu, mesh=mesh)
 

@@ -25,6 +25,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
 from repro_torch.models import api
 from repro_torch.models.common import ShardCtx
 from repro_torch.train import optimizer as opt
@@ -200,8 +201,11 @@ def make_cnn_train_step(cfg, ocfg: opt.AdamWConfig, *, mesh=None,
     (tree, opt_state, metrics)`` where ``tree`` holds the dense masters AND
     the per-layer codebooks (freeze with ``cnn.qat_requantize`` for
     serving).  The fused non-finite guard and ``batch["loss_scale"]``
-    behave exactly as in :func:`make_train_step`.  ``mesh=`` belongs to
-    ROADMAP Queue 1 item 10 and raises in the forward."""
+    behave exactly as in :func:`make_train_step`.  ``mesh=`` raises: a
+    sharded step needs differentiable collectives and a gradient all-reduce
+    over ``data`` (ROADMAP Queue 1 item 13)."""
+    if mesh is not None:
+        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
 
     def train_step(tree, opt_state, batch):
         batch, scale = _split_scale(batch)

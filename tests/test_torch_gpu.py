@@ -670,8 +670,15 @@ def test_k1_routes_by_plan(cuda):
         want = pm.pasm_matmul_kernel_call(x.float(), idx, cb.bfloat16().float(),
                                           bias, packed=True)
         assert torch.equal(y, want)
+    # f16 takes the SIMT kernel on its exact widening, the codebook rounded
+    # to f16 (JAX's kernels take f16 too); other dtypes raise
+    pm.reset_launches()
+    y = pm.pasm_matmul_kernel_call(x.half(), idx, cb, bias, packed=True)
+    assert pm.k1_routes == {"simt": 1, "stream": 0, "mma": 0}
+    assert torch.equal(y, pm.pasm_matmul_kernel_call(
+        x.half().float(), idx, cb.half().float(), bias, packed=True))
     with pytest.raises(TypeError, match="float32"):
-        pm.pasm_matmul_kernel_call(x.half(), idx, cb, packed=True)
+        pm.pasm_matmul_kernel_call(x.double(), idx, cb, packed=True)
 
 
 # ---------------------------------------------------------------------------
@@ -984,3 +991,121 @@ def test_whisper_forward_on_the_card(cuda):
     d = (lk.float() - ld.float()).abs().max()
     assert bool(torch.isfinite(lk.float()).all()) and float(d) <= 0.025 * float(
         ld.float().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# half activations (Queue 3) and the sharded plan on the card
+# ---------------------------------------------------------------------------
+
+
+def _stage3(dev, batch=4, c_in=256, c_out=384):
+    """AlexNet conv3's shape (c_in → c_out, k3, an 11×11 map): split-K."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    conv = cv.Conv2D(k=3, c_in=c_in, c_out=c_out, relu=True)
+    p = cv.ConvParams.shared(
+        torch.randint(0, 16, (c_out, c_in, 3, 3), generator=g, device=dev,
+                      dtype=torch.uint8),
+        torch.randn(16, generator=g, device=dev) * 0.02,
+        bias=torch.randn(c_out, generator=g, device=dev))
+    img = torch.randn((batch, c_in, 11, 11), generator=g, device=dev)
+    return conv, p, img
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_images_on_k1_to_k4(cuda, dtype):
+    """A bf16/f16 image on K2 is K1 on the widened operands (x exact, the
+    codebook rounded to the image's dtype), bitwise; on K3/K4 it is the
+    f32 call on the widened image, bitwise.  K1 takes f16 patches on the
+    same widening."""
+    conv, p, img = _stage3(cuda)
+    x = img.to(dtype)
+    t = p.gemm_tensor()
+    geom = cv.conv_geom(conv, 11, 11)
+    cbw = t.codebook.to(dtype).float()
+    patches, _ = cv._im2col(x.float(), conv)
+    y1 = pm.pasm_matmul_kernel_call(patches.contiguous(), t.idx.contiguous(), cbw,
+                                    p.bias, packed=False, relu=True)
+    y2 = ops.pasm_conv2d(x, t, geom, bias=p.bias, relu=True)
+    assert torch.equal(y1.reshape(y2.shape), y2)
+    torch.testing.assert_close(
+        y2, pm.pasm_conv_plain(x, t.idx.contiguous(), t.codebook, p.bias, geom=geom,
+                               packed=False, relu=True), **TOL)
+    if dtype == torch.float16:  # bf16 patches take K1's bf16 routes instead
+        y1h = ops.pasm_matmul(patches.to(dtype), t, bias=p.bias, relu=True)
+        assert torch.equal(y1h, y1)
+    y4 = ops.pas_conv2d(x, t, geom, bias=p.bias, relu=True)
+    assert torch.equal(y4, ops.pas_conv2d(x.float(), t, geom, bias=p.bias, relu=True))
+    y3 = ops.pas_matmul(patches.to(dtype), t, bias=p.bias, relu=True)
+    assert torch.equal(y3.reshape(y4.shape), y4)
+
+
+def test_k5_takes_f16(cuda):
+    """K5 on f16 q/k/v: the f32 route on the exact widening, rounded to f16."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((4, 2, 200, 64), generator=g, device=cuda).half()
+    k, v = (torch.randn((4, 300, 64), generator=g, device=cuda).half() for _ in "kv")
+    for causal in (True, False):
+        before = pm.launches["flash_attention"]
+        y = fa.flash_attention_kernel_call(q, k, v, causal=causal)
+        assert y.dtype == torch.float16 and pm.launches["flash_attention"] == before + 1
+        want = fa.flash_attention_kernel_call(q.float(), k.float(), v.float(),
+                                              causal=causal).half()
+        assert torch.equal(y, want)
+        torch.testing.assert_close(
+            y.float(), fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                                causal=causal), rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(256, 384), (384, 256)])  # conv3, conv5
+def test_model_shard_launch_is_bitwise_the_whole_call(cuda, c_in, c_out):
+    """A ``model`` block of N planned from the whole call (``whole=``) gives
+    exactly the whole call's columns on K1–K4 — the split-K count a half of
+    N would pick alone differs (conv3: 1 instead of 4; conv5: 1, not 6)."""
+    conv, p, img = _stage3(cuda, c_in=c_in, c_out=c_out)
+    t = p.gemm_tensor()
+    t = dataclasses.replace(t, idx=t.idx.contiguous())
+    geom = cv.conv_geom(conv, 11, 11)
+    patches, _ = cv._im2col(img, conv)
+    patches = patches.contiguous()
+    M, K = patches.shape
+    h = c_out // 2
+    idx_h, bias_h = t.idx[:, h:].contiguous(), p.bias[h:].contiguous()
+    assert pm.simt_plan(M, K, h).splits == 1 < pm.simt_plan(M, K, c_out).splits
+    whole = (M, c_out)
+    for full, part in (
+        (pm.pasm_matmul_kernel_call(patches, t.idx, t.codebook, p.bias,
+                                    packed=False, relu=True),
+         pm.pasm_matmul_kernel_call(patches, idx_h, t.codebook, bias_h,
+                                    packed=False, relu=True, whole=whole)),
+        (pm.pasm_conv_kernel_call(img, t.idx, t.codebook, p.bias, geom=geom,
+                                  packed=False, relu=True),
+         pm.pasm_conv_kernel_call(img, idx_h, t.codebook, bias_h, geom=geom,
+                                  packed=False, relu=True, whole=whole)),
+        (ph.pas_matmul_kernel_call(patches, t.idx, t.codebook, p.bias, relu=True),
+         ph.pas_matmul_kernel_call(patches, idx_h, t.codebook, bias_h, relu=True,
+                                   whole=whole)),
+        (ph.pas_conv_kernel_call(img, t.idx, t.codebook, p.bias, geom=geom,
+                                 relu=True),
+         ph.pas_conv_kernel_call(img, idx_h, t.codebook, bias_h, geom=geom,
+                                 relu=True, whole=whole)),
+    ):
+        assert torch.equal(part, full[..., h:])
+
+
+def test_sharded_forward_at_world_size_one(cuda):
+    """``cnn.forward(mesh=)`` on a (1, 1) mesh (no process group: the world
+    is this process) is bitwise the unsharded forward on the card."""
+    from repro_torch.launch.mesh import make_conv_mesh
+
+    cfg = alexnet_conv.smoke_config()
+    mesh = make_conv_mesh((1, 1), device=cuda)
+    params = cnn.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                             device=cuda)
+    q = cnn.quantize(params, cfg)
+    qm = cnn.quantize(params, cfg, mesh=mesh)
+    x = torch.randn((5, *cfg.in_chw), device=cuda)
+    for impl in ("kernel", "kernel_implicit", "pas_kernel", "einsum"):
+        c = dataclasses.replace(cfg, impl=impl)
+        assert torch.equal(cnn.forward(qm, x, c, mesh=mesh), cnn.forward(q, x, c))

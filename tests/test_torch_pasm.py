@@ -224,17 +224,36 @@ def test_feature_shape_matches(padding):
 
 
 def test_port_refuses_engines_of_later_slices():
-    """mesh= (the distribution slice) raises; the PAS engines run now
+    """mesh= takes the port's Mesh (tests/test_torch_sharding.py runs the
+    sharded paths); anything else raises.  The PAS engines run
     (tests/test_torch_pas.py holds them against the JAX package)."""
     idx = torch.zeros((2, 1, 3, 3), dtype=torch.uint8)
     p = tcv.ConvParams.shared(idx, torch.arange(4, dtype=torch.float32))
     conv = tcv.Conv2D(k=3, c_in=1, c_out=2)
     x = torch.zeros((1, 1, 5, 5))
     for engine in ("kernel", "pas_kernel", "pas_kernel_implicit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="Mesh"):
             tcv.conv2d(x, p, conv, engine=engine, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         tpar.matmul(torch.zeros(2, 9), p._as_pasm("ckk"), impl="pas_kernel",
                     mesh=object())
     for engine in ("pas_kernel", "pas_kernel_implicit", "pas_einsum"):
         assert tuple(tcv.conv2d(x, p, conv, engine=engine).shape) == (1, 2, 3, 3)
+
+
+@pytest.mark.parametrize("groups,nan_at", [(1, (3, 2)), (2, (3, 2)), (2, (40, 0))])
+def test_quantize_propagates_nan_as_jax(groups, nan_at):
+    """A weight group holding a NaN gets all-NaN centroids, as
+    ``jnp.quantile``'s init gives JAX's k-means, so every weight of the
+    group dequantizes to NaN (the port's sort-based init once left them
+    finite and served the poisoned weight); the other group stays finite."""
+    w = _rng(11).standard_normal((64, 6)).astype(np.float32)
+    w[nan_at] = np.nan
+    tj = jp.quantize(jnp.asarray(w), 16, groups=groups)
+    tt = tp.quantize(torch.from_numpy(w), 16, groups=groups)
+    dj = np.isnan(np.asarray(jp.dequantize(tj)))
+    dt = np.isnan(tp.dequantize(tt).numpy())
+    np.testing.assert_array_equal(dt, dj)
+    g = nan_at[0] // (64 // groups)
+    assert dt.reshape(groups, -1)[g].all() and dt.sum() == dt.size // groups
+    assert np.isnan(tt.codebook[g].numpy()).all()

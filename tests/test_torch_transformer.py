@@ -434,8 +434,9 @@ def test_tied_head_int8_cache_and_loss():
 
 
 def test_model_surface_refuses_later_slices():
-    """What still raises: every mesh path (item 10); the MoE, vit and audio
-    surfaces are served (the audio frontend's log-mel spec equals JAX's)."""
+    """What still raises: the LM's mesh paths (item 12); the MoE, vit and
+    audio surfaces are served (the audio frontend's log-mel spec equals
+    JAX's)."""
     tc = tconfigs.get_config("qwen3-32b", smoke=True)
     audio = dataclasses.replace(tc, family="audio", frontend="audio")
     spec = tapi.frontend_spec(audio, 2)
@@ -449,9 +450,9 @@ def test_model_surface_refuses_later_slices():
         {k: tuple(v.shape) for k, v in jspecs.items()}
     vit = dataclasses.replace(tc, frontend="vit", frontend_tokens=3, frontend_dim=8)
     assert "vproj" in TT.init_params(vit, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tcommon.ShardCtx(active=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         tpar.dense_stack(torch.zeros(2, 3, 4), torch.float32, spec=("model",))
     p = TT.init_params(tc, torch.Generator().manual_seed(0))
     assert len(p["layers"]) == tc.n_layers and p["embed"].device.type == "cpu"
