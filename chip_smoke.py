@@ -173,8 +173,27 @@ Phases (every one unguarded: any failure exits non-zero):
     stages at (a)'s split-K counts (recorded, printed), the logits bitwise
     (a)'s or within ``TOL``, launches counted, the forward timed; a rank
     that fails or outlives ``SHARD_RANK_TIMEOUT_S`` fails the run;
-14. one ``{"kernels": [...]}`` JSON line;
-15. last line: ``{"ok": true, "device": {...}}``.
+14. the sharded LM at full width: qwen3-32b and deepseek-moe-16b (4
+    layers each, 16 bins int4) through ``prefill``/``decode_step`` under an
+    active ``ShardCtx`` (tensor and expert parallelism, params placed by
+    ``models/sharding.py::place_params``): a 4 × 384 prefill and 8 decode
+    steps (deepseek also a 2 × 2304 prefill, past the MoE regime switch at
+    4096 tokens), one device's logits computed with each mesh's dispatch
+    groups and its one-ulp floor (the embeddings moved by one bf16 ulp);
+    (a) NCCL at world size 1, mesh (1, 1): qwen3's traffic bitwise the
+    unsharded calls, 29 K1 a call (``stream`` at decode; ``mma`` at prefill
+    but the head's), the dispatch timed in turns; (b)/(c) two gloo ranks
+    sharing the card, meshes (1, 2) and (2, 1), the quantized trees handed
+    over through ``build/phase14`` (each rank memory-maps them and copies
+    out its blocks): each rank's idx and expert bytes, its K1 launches a
+    call (every linear once on its block: 29 for qwen3, 317 / 605 for
+    deepseek), collective bytes and wall time a call, its logits held to
+    one device's within ``max(LM_LOGIT_TOL, the floor)`` (the MoE calls
+    replay one device's experts, each place a rank's own top-k differs a
+    near-tie within ``MOE_TIE``); a rank that fails or outlives
+    ``SHARD_RANK_TIMEOUT_S`` fails the run;
+15. one ``{"kernels": [...]}`` JSON line;
+16. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -278,6 +297,11 @@ SHARD_TIME_REPS = 5
 SHARD_TIME_BUDGET_S = 0.02  # (a): a few forwards a window, behind one spin
 SHARD_RANK_TIMEOUT_S = 300  # both ranks of (b), every check
 SHARD_COLLECTIVE_TIMEOUT_S = 120
+# phase 14: the sharded LM at full width (qwen3-32b, deepseek-moe-16b, 4 layers)
+LM_SHARD_BATCH, LM_SHARD_PROMPT = 4, 384
+LM_SHARD_STEPS = 8
+LM_SHARD_MESHES = ((1, 2), (2, 1))
+MOE_SHARD_BIG = (2, 2304)  # 4608 tokens: past the MoE regime switch (> 4096)
 
 
 def log(*a) -> None:
@@ -2845,6 +2869,507 @@ def shard_phase(cfg, params, qparams, gen, card: str) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded LM at full width
+# ---------------------------------------------------------------------------
+
+
+class RouteSpy:
+    """Wraps ``nn.moe.route`` while active.  Alone it records each MoE
+    call's chosen experts.  With ``replay`` (another spy's calls over the
+    unsharded rows) each call takes the recorded experts of its own rows
+    (block ``part`` of the rows, when the batch is split), so the same
+    dispatch and the same drops, gated by its own probabilities (phase 10's
+    rule); it records ``(flips, gap)``: the rows whose own top-k differs and
+    the largest relative shortfall of a taken expert below its own k-th
+    probability (0 with no flip)."""
+
+    def __init__(self, replay=None, part=None):
+        self.calls, self.replay, self.part = [], replay, part
+
+    def __enter__(self):
+        from repro_torch.nn import moe as M
+
+        self.mod, self.inner = M, M.route
+        M.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.inner
+
+    def __call__(self, x, router, k):
+        import torch
+
+        probs, top_w, top_i = self.inner(x, router, k)
+        if self.replay is None:
+            self.calls.append(top_i)
+            return probs, top_w, top_i
+        n = x.shape[0]
+        taken_i = self.replay[len(self.calls)]
+        if self.part is not None:
+            taken_i = taken_i[self.part * n:(self.part + 1) * n]
+        kth = probs.gather(1, top_i[:, -1:])  # route sorts descending
+        taken = probs.gather(1, taken_i)
+        flips = (top_i.sort(-1).values != taken_i.sort(-1).values).any(-1).sum()
+        self.calls.append((flips, ((kth - taken) / kth).clamp(min=0).max()))
+        return probs, taken / torch.clamp(taken.sum(-1, keepdim=True), min=1e-9), taken_i
+
+
+class BlockSpy:
+    """Wraps ``params.block_matmul`` while active and keeps the operands of
+    the first K1 call of each distinct block (the input's shape, the held
+    indices and dictionaries, the leaf's logical shape, the axis and the
+    planned rows), to hold each against K1's plain version after the run
+    (:func:`check_blocks`).  It launches nothing itself."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __enter__(self):
+        from repro_torch.core import params as par
+
+        self.mod, self.inner = par, par.block_matmul
+        par.block_matmul = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.block_matmul = self.inner
+
+    def __call__(self, x, w, **kw):
+        p = self.mod.as_params(w)
+        if kw["impl"] == "kernel" and self.mod.is_quantized(p):
+            key = (tuple(x.shape), kw.get("axis", "model"), kw.get("rows"),
+                   tuple(p.idx.shape), tuple(p.codebook.shape), p.packed, p.shape, p.pad_k)
+            if key not in self.seen:
+                self.seen[key] = (x.clone(), w, kw)
+        return self.inner(x, w, **kw)
+
+
+def check_blocks(spy: BlockSpy, what: str) -> dict:
+    """Each block ``spy`` kept, through ``params.block_matmul`` again (one
+    K1 launch on the card, planned as on the main path), against K1's plain
+    version on the same block and its own dictionaries, the operands the
+    kernel was given (:func:`check_k1_bf16`'s tolerance).  These launches
+    are checks, not the main path's."""
+    from repro_torch.core import params as par
+    from repro_torch.kernels import pasm_matmul as pm
+
+    operands, inner = [], par._matmul_f32
+
+    def keep(x, p, *args, **kw):
+        operands.append((x, p))
+        return inner(x, p, *args, **kw)
+
+    n0, err, t_max = pm.launches["pasm_matmul"], 0.0, 0.0
+    par._matmul_f32 = keep
+    try:
+        for x, w, kw in spy.seen.values():
+            operands.clear()
+            y, _ = par.block_matmul(x, w, **kw)
+            (xb, pb), = operands
+            t = pb.gemm_tensor()
+            K, N = t.shape
+            e, tm = check_k1_bf16(y.reshape(-1, N), xb.reshape(-1, K), t,
+                                  what=f"{what} block x {tuple(x.shape)} of {pb.shape}")
+            err, t_max = max(err, e), max(t_max, tm)
+    finally:
+        par._matmul_f32 = inner
+    launched = pm.launches["pasm_matmul"] - n0
+    if launched != len(spy.seen):
+        raise AssertionError(f"{what}: {len(spy.seen)} block checks launched K1 "
+                             f"{launched} times")
+    return {"checks": len(spy.seen), "launches": launched, "max_abs_err": err,
+            "t": t_max}
+
+
+def lm_shard_inputs(cfg, gen) -> dict:
+    """Phase 14's traffic: a B × S prefill and its decode steps' tokens
+    (teacher-forced: every run feeds the same), and for the MoE config a
+    prefill past the regime switch."""
+    import torch
+
+    B, S = LM_SHARD_BATCH, LM_SHARD_PROMPT
+    tok = lambda *shape: torch.randint(0, cfg.vocab, shape, generator=gen,  # noqa: E731
+                                       device="cuda", dtype=torch.int32)
+    out = {"prefill": tok(B, S), "steps": [tok(B, 1) for _ in range(LM_SHARD_STEPS)]}
+    if cfg.moe:
+        out["big"] = tok(*MOE_SHARD_BIG)
+    return out
+
+
+def lm_shard_traffic(cfg, params, sctx, inputs) -> tuple:
+    """The prefill and its decode steps (and the MoE config's big prefill)
+    under ``sctx``: each call's logits, and its K1 launches by route,
+    collective bytes and host wall ms (from an idle card to its end)."""
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as TT
+
+    def caches(B, S):
+        c = TT.init_caches(cfg, B, S, device="cuda")
+        return sh.place_caches(cfg, c, sctx.mesh, sctx.batch) if sctx.active else c
+
+    logits, calls = [], []
+
+    def call(fn):
+        torch.cuda.synchronize()
+        pm.reset_launches()
+        lmesh.reset_collective_bytes()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "k1": dict(pm.k1_routes), "bytes": dict(lmesh.collective_bytes)})
+        logits.append(out[0].float())
+        return out[1]
+
+    toks = inputs["prefill"]
+    c = caches(toks.shape[0], toks.shape[1] + len(inputs["steps"]))
+    c = call(lambda: TT.prefill(params, toks, c, cfg, sctx))
+    for t in inputs["steps"]:
+        c = call(lambda: TT.decode_step(params, t, c, cfg, sctx))  # noqa: B023
+    if "big" in inputs:
+        big = inputs["big"]
+        call(lambda: TT.prefill(params, big, caches(*big.shape), cfg, sctx))
+    return logits, calls
+
+
+def k1_sharded_per_call(cfg, experts: int) -> int:
+    """K1 launches of one model call on a rank holding ``experts`` routed
+    experts a MoE layer: every linear once on its block (k1_per_call)."""
+    m = cfg.moe
+    return k1_per_call(dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, n_experts=experts))) if m else k1_per_call(cfg)
+
+
+def k1_split_want(want: int, decode: bool) -> dict:
+    """A call's K1 launches by route: every one on ``stream`` at decode; at
+    prefill all on ``mma`` but the head's, which sees the last positions
+    only (M = the batch)."""
+    return {"simt": 0, "stream": want if decode else 1, "mma": 0 if decode else want - 1}
+
+
+def rel_err(a, b, rows=None) -> float:
+    """max |Δ| over max |b| (on the given batch rows)."""
+    if rows is not None:
+        a, b = a[rows], b[rows]
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) if len(b) else 0.0
+
+
+def lm_shard_rank(rank: int, world: int, port: int, data_dir: str) -> None:
+    """One rank of phase 14(b)/(c): gloo on the card every rank shares; each
+    model's quantized tree from ``data_dir`` (memory-mapped: a rank copies
+    out only its blocks), placed on each mesh, its traffic held to the
+    one-device logits of (a); a JSON report (or the traceback) to
+    ``data_dir/rank<r>.json``."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    report = {"lines": [], "k1": 0, "routes": {"stream": 0, "mma": 0, "simt": 0},
+              "checks": 0, "check_launches": 0, "max_abs_err": 0.0, "ok": False}
+    out = Path(data_dir) / f"rank{rank}.json"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARD_COLLECTIVE_TIMEOUT_S))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_grad_enabled(False)
+        for key in ("qwen3", "deepseek"):
+            lm_shard_rank_model(rank, key, Path(data_dir), report)
+        report["ok"] = True
+    except Exception:  # reported by the parent, which fails the run
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        out.write_text(json.dumps(report))
+        dist.destroy_process_group()
+
+
+def lm_shard_rank_model(rank: int, key: str, data: Path, report: dict) -> None:
+    import torch
+
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.tree import flatten_with_path
+
+    say = report["lines"].append
+    cfg = lm_config() if key == "qwen3" else moe_config()
+    tree = torch.load(data / f"{key}.pt", map_location="cpu", mmap=True, weights_only=False)
+    ref = torch.load(data / f"{key}_ref.pt", map_location="cuda:0", weights_only=False)
+    full = {"/".join(p): leaf for p, leaf in flatten_with_path(tree)}
+    for shape in LM_SHARD_MESHES:
+        mesh = make_conv_mesh(shape, device="cuda")
+        B = LM_SHARD_BATCH
+        sctx = ShardCtx.for_mesh(mesh, B)
+        placed = sh.place_params(tree, mesh)
+        frac, held, whole, ex_held, ex_whole = {}, 0, 0, 0, 0
+        for p, leaf in flatten_with_path(placed):
+            name = "/".join(p)
+            g = full.get(name, full.get("/".join(p[:-1])))
+            if p[-1] in ("idx", "w") and leaf.ndim >= 2:
+                f = round(leaf.numel() / g.numel(), 4)
+                frac[f] = frac.get(f, 0) + 1
+            if p[-1] == "idx":
+                held += leaf.numel()
+                whole += g.numel()
+                if "/moe/w" in "/" + name:
+                    ex_held += leaf.numel()
+                    ex_whole += g.numel()
+        cb = sum(leaf.numel() * 4 for p, leaf in flatten_with_path(placed)
+                 if p[-1] == "codebook")
+        say(f"rank {rank} {cfg.name} mesh {shape}: idx bytes {held} of {whole} "
+            f"({held / whole:.3f})"
+            + (f", expert idx bytes {ex_held} of {ex_whole} ({ex_held / ex_whole:.3f})"
+               if ex_whole else "")
+            + f"; each matrix leaf's share {dict(sorted(frac.items()))} (leaves); "
+            f"codebooks replicated, {cb} bytes a rank")
+        torch.cuda.synchronize()
+        # the MoE calls replay one device's experts (its run with this
+        # mesh's dispatch groups): the same dispatch and drops
+        rank_d = rank // shape[1]
+        with RouteSpy(replay=ref["routes"][sctx.dp] if cfg.moe else None,
+                      part=rank_d if sctx.batch_split else None) as spy, \
+                BlockSpy() as blocks:
+            logits, calls = lm_shard_traffic(cfg, placed, sctx, ref["inputs"])
+        # K1 on every block shape this rank's run gave it, against the plain
+        # version (its launches are checks: the main path's were counted)
+        bc = check_blocks(blocks, f"rank {rank} {cfg.name} {shape}")
+        report["checks"] += bc["checks"]
+        report["check_launches"] += bc["launches"]
+        report["max_abs_err"] = max(report["max_abs_err"], bc["max_abs_err"])
+        say(f"  rank {rank} {shape}: K1 on its {bc['checks']} distinct blocks vs the plain "
+            f"version on the same block and dictionaries ({bc['launches']} check "
+            f"launches): max |Δ| {bc['max_abs_err']:.3e}, largest |Δ| / (|x|@|W|) "
+            f"{bc['t']:.2e} <= K1_BF16_TOL")
+        del placed, blocks
+        torch.cuda.empty_cache()
+        # launches: every linear once on its block (the rank's experts)
+        experts = cfg.moe.n_experts // shape[1] if cfg.moe else 0
+        want = k1_sharded_per_call(cfg, experts)
+        for i, c in enumerate(calls):
+            split = k1_split_want(want, 0 < i <= len(ref["inputs"]["steps"]))
+            if c["k1"] != split:
+                raise AssertionError(f"{shape} call {i}: K1 launches {c['k1']}, want "
+                                     f"{split}")
+            report["k1"] += want
+            for r, n in c["k1"].items():
+                report["routes"][r] += n
+        flips = sum(int(f) for f, _ in spy.calls) if cfg.moe else 0
+        gap = max((float(g) for _, g in spy.calls), default=0.0)
+        if gap > MOE_TIE:
+            raise AssertionError(f"{shape}: a replayed expert lies {gap:.4f} of its own "
+                                 f"k-th probability below it (tolerance {MOE_TIE})")
+        # held to (a)'s one-device logits on this rank's own rows (each rank
+        # returns the same global logits)
+        hold = ref["hold"]
+        errs = []
+        for i, (got, want_l) in enumerate(zip(logits, ref["logits"][sctx.dp])):
+            nb = got.shape[0]
+            rows = list(range(nb // shape[0] * rank_d, nb // shape[0] * (rank_d + 1))) \
+                if sctx.batch_split else list(range(nb))
+            if not torch.isfinite(got).all() or tuple(got.shape) != tuple(want_l.shape):
+                raise AssertionError(f"{shape} call {i}: logits {tuple(got.shape)} not "
+                                     "finite or not the shape of one device's")
+            e = rel_err(got, want_l, rows)
+            if e > hold:
+                raise AssertionError(f"{shape} call {i}: logits {e:.4f} of max |logit| "
+                                     f"from one device's, over {hold:.4f}")
+            errs.append(0.0 if torch.equal(got[rows], want_l[rows]) else e)
+        steps = calls[1:1 + len(ref["inputs"]["steps"])]
+        say(f"  rank {rank} {shape}: logits of {len(logits)} calls vs (a)'s one device "
+            f"(own rows): {sum(e == 0.0 for e in errs)} bitwise, max {max(errs):.4f} of "
+            f"max |logit| (held to {hold:.4f})"
+            + (f"; one device's experts replayed: its own top-k differs at {flips} "
+               f"token-layers, each a near-tie (largest shortfall {gap:.4f} <= {MOE_TIE})"
+               if cfg.moe else "")
+            + f"; K1 {want} a call (stream at decode; mma at prefill, the head on stream)"
+            f"; prefill {calls[0]['ms']:.1f} ms wall, decode step "
+            f"{float(np.median([c['ms'] for c in steps])):.1f} ms median"
+            + (f", big prefill {MOE_SHARD_BIG} {calls[-1]['ms']:.1f} ms" if cfg.moe else "")
+            + f"; collective bytes a call: prefill {calls[0]['bytes']}, decode step "
+            f"{steps[0]['bytes']}"
+            + (f", big prefill {calls[-1]['bytes']}" if cfg.moe else ""))
+    del tree
+
+
+def lm_shard_phase(gen, errs: dict, card: str) -> dict:
+    """Phase 14: qwen3-32b and deepseek-moe-16b at full width (4 layers)
+    through ``prefill``/``decode_step`` under an active ``ShardCtx``: (a) on
+    NCCL at world size 1, mesh (1, 1), qwen3's traffic bitwise the unsharded
+    calls and timed against them; (b)/(c) two gloo ranks sharing the card,
+    meshes (1, 2) and (2, 1), each rank's logits held to (a)'s one-device
+    ones (within ``max(LM_LOGIT_TOL, the one-ulp floor)``; MoE rows a
+    routing flip reached left out, each flip a near-tie)."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.common import ShardCtx
+
+    t_phase = time.perf_counter()
+    log(f"phase 14: the sharded LM at full width, a {LM_SHARD_BATCH} x "
+        f"{LM_SHARD_PROMPT} prefill and {LM_SHARD_STEPS} decode steps (deepseek also "
+        f"a {MOE_SHARD_BIG[0]} x {MOE_SHARD_BIG[1]} prefill, past the MoE regime switch)")
+    data = ROOT / "build" / "phase14"
+    data.mkdir(parents=True, exist_ok=True)
+    for f in list(data.glob("*.pt")) + list(data.glob("rank*.json")):
+        f.unlink()
+    k1 = {"stream": 0, "mma": 0, "simt": 0}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        for key, cfg, full_layers in (("qwen3", lm_config(), 64),
+                                      ("deepseek", moe_config(), 28)):
+            params = build_lm(cfg, gen, "14", full_layers)
+            inputs = lm_shard_inputs(cfg, gen)
+            # one device with each mesh's dispatch groups (JAX's dp: 1 at
+            # (1, 2), 2 at (2, 1)), so the same capacity and drops a group
+            refs, routes = {}, {}
+            for dp in sorted({s[0] for s in LM_SHARD_MESHES}):
+                if dp > 1 and not cfg.moe:  # no dispatch groups: the same calls
+                    refs[dp], routes[dp] = refs[1], routes[1]
+                    continue
+                with RouteSpy() as spy:
+                    refs[dp], calls = lm_shard_traffic(cfg, params, ShardCtx(dp=dp), inputs)
+                routes[dp] = spy.calls
+            ref = refs[1]
+            # the one-ulp floor: one device with the embeddings moved by up
+            # to one bf16 ulp (phase 11's oracle noise), compared as the
+            # ranks are: each mesh's dispatch groups, its experts replayed
+            emb = params["embed"]
+            params["embed"] = emb * (1 + 2.0 ** -8 * torch.randint(
+                -1, 2, emb.shape, generator=gen, device="cuda", dtype=torch.int8).float())
+            floors = {}
+            for dp in refs:
+                if dp > 1 and not cfg.moe:  # the same calls as dp 1
+                    floors[dp] = floors[1]
+                    continue
+                with RouteSpy(replay=routes[dp] if cfg.moe else None):
+                    moved, _ = lm_shard_traffic(cfg, params, ShardCtx(dp=dp), inputs)
+                floors[dp] = max(rel_err(a, b) for a, b in zip(moved, refs[dp]))
+            params["embed"] = emb
+            hold = max(LM_LOGIT_TOL, *floors.values())
+            shown = ", ".join(f"dp {d}: {v:.4f}" for d, v in floors.items())
+            log(f"  (a) {cfg.name}: one device, K1 {calls[0]['k1']} at prefill, "
+                f"{calls[1]['k1']} a decode step; the one-ulp floor of max |logit| "
+                f"({shown}{'; experts replayed' if cfg.moe else ''}), ranks held to "
+                f"{hold:.4f} = max(LM_LOGIT_TOL, the floor)")
+            if key == "qwen3":
+                mesh = make_conv_mesh((1, 1), device="cuda")
+                sctx = ShardCtx.for_mesh(mesh, LM_SHARD_BATCH)
+                placed = sh.place_params(params, mesh)
+                got, mcalls = lm_shard_traffic(cfg, placed, sctx, inputs)
+                want = k1_per_call(cfg)
+                for i, (a, b, c) in enumerate(zip(got, ref, mcalls)):
+                    split = k1_split_want(want, 0 < i <= LM_SHARD_STEPS)
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"(1, 1) call {i}: logits not bitwise the "
+                                             "unsharded call's")
+                    if c["k1"] != split:
+                        raise AssertionError(f"(1, 1) call {i}: K1 {c['k1']}, want {split}")
+                    for r, n in c["k1"].items():
+                        k1[r] += n
+                # the dispatch's cost, phase 5's method: CUDA events behind
+                # a spin, in turns (one device, mesh, mesh, one device)
+                from repro_torch.models import transformer as TT
+
+                c0 = TT.prefill(params, inputs["prefill"], TT.init_caches(
+                    cfg, LM_SHARD_BATCH, LM_MAX_SEQ, device="cuda"), cfg)[1]
+                cm = TT.prefill(placed, inputs["prefill"], sh.place_caches(
+                    cfg, TT.init_caches(cfg, LM_SHARD_BATCH, LM_MAX_SEQ, device="cuda"),
+                    mesh, sctx.batch), cfg, sctx)[1]
+                t = inputs["steps"][0]
+                one = lambda: TT.decode_step(params, t, c0, cfg)  # noqa: E731
+                shd = lambda: TT.decode_step(placed, t, cm, cfg, sctx)  # noqa: E731
+                # a decode step is host-bound: wall, host and the profiler's
+                # device time, in turns
+                td = [time_step(f) for f in (one, shd, shd, one)]
+                pre1 = lambda: TT.prefill(params, inputs["prefill"], c0, cfg)  # noqa: E731
+                prem = lambda: TT.prefill(placed, inputs["prefill"], cm, cfg, sctx)  # noqa: E731
+                tp = [time_ms(f, SHARD_TIME_BUDGET_S) for f in (pre1, prem, prem, pre1)]
+
+                def pair(key):
+                    m, o = (td[1][key] + td[2][key]) / 2, (td[0][key] + td[3][key]) / 2
+                    return f"{m:.3f} vs {o:.3f} ms ({(m / o - 1) * 100:+.2f} %)"
+
+                log(f"  (a) NCCL world 1, mesh (1, 1): the prefill and {LM_SHARD_STEPS} decode "
+                    f"steps bitwise the unsharded calls, K1 {want} a call ({mcalls[0]['k1']} "
+                    f"at prefill, the head on stream; {mcalls[1]['k1']} a step); a decode "
+                    f"step, mesh vs unsharded in turns: wall {pair('wall_ms')}, host "
+                    f"{pair('host_ms')}, device {pair('device_ms')} in {td[1]['kernels']} / "
+                    f"{td[0]['kernels']} kernels; the prefill (CUDA events behind a spin) "
+                    f"{(tp[1] + tp[2]) / 2:.4f} vs {(tp[0] + tp[3]) / 2:.4f} ms "
+                    f"({((tp[1] + tp[2]) / (tp[0] + tp[3]) - 1) * 100:+.2f} %) [{card}]")
+                del placed, c0, cm
+            torch.save(params, data / f"{key}.pt")
+            torch.save({"inputs": inputs, "logits": refs, "hold": hold, "routes": routes},
+                       data / f"{key}_ref.pt")
+            del params, refs, ref, moved, routes
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    world = 2
+    log(f"  (b)/(c) {world} ranks on gloo sharing the card (spawned), meshes "
+        f"{list(LM_SHARD_MESHES)}; two ranks on one card time the dispatch and its "
+        "collectives, not a speedup")
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(lm_shard_rank, args=(world, free_port(), str(data)),
+                              nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_RANK_TIMEOUT_S
+    failure = None
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                failure = f"a rank did not finish within {SHARD_RANK_TIMEOUT_S} s"
+                break
+    except Exception as e:  # a rank raised: its report holds the traceback
+        failure = f"a rank failed: {type(e).__name__}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    reports = []
+    for r in range(world):
+        f = data / f"rank{r}.json"
+        reports.append(json.loads(f.read_text()) if f.exists()
+                       else {"ok": False, "lines": [], "error": "no report"})
+    for r, rep in enumerate(reports):
+        for line in rep["lines"]:
+            log("  " + line)
+        if not rep["ok"]:
+            log(f"  rank {r} failed:\n{rep.get('error', '')}")
+            failure = failure or f"rank {r} failed"
+    if failure:
+        raise AssertionError(f"phase 14: {failure}")
+    checks = {"checks": 0, "launches": 0}
+    for rep in reports:
+        for r, n in rep["routes"].items():
+            k1[r] += n
+        checks["checks"] += rep["checks"]
+        checks["launches"] += rep["check_launches"]
+        errs["pasm_matmul"] = max(errs.get("pasm_matmul", 0.0), rep["max_abs_err"])
+    for f in data.glob("*.pt"):
+        f.unlink()
+    log(f"  (b)/(c) both ranks passed in {time.perf_counter() - t0:.1f} s; phase 14 took "
+        f"{time.perf_counter() - t_phase:.1f} s; K1 launches {k1} (the (1, 1) run and "
+        f"both ranks), and {checks['launches']} more holding {checks['checks']} rank "
+        f"blocks to the plain version [{card}]")
+    return {"launches": sum(k1.values()), "routes": k1}
+
+
 def main() -> int:
     import torch
 
@@ -3093,7 +3618,10 @@ def main() -> int:
     # 13. the sharded CNN at full width --------------------------------------------
     shd = shard_phase(cfg, params, qparams, gen, card)
 
-    # 14. the kernels line -----------------------------------------------------
+    # 14. the sharded LM at full width ---------------------------------------------
+    lsh = lm_shard_phase(gen, errs, card)
+
+    # 15. the kernels line -----------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -3104,7 +3632,8 @@ def main() -> int:
     sl = shd["launches"]
     launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"]
                 + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"]
-                + ssm["launches"] + hyb["launches"] + wsp["launches"] + sl["pasm_matmul"],
+                + ssm["launches"] + hyb["launches"] + wsp["launches"] + sl["pasm_matmul"]
+                + lsh["launches"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"]
                 + sl["pasm_conv"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"] + sl["pas_matmul"],
@@ -3130,7 +3659,7 @@ def main() -> int:
     for r in ("stream", "mma"):
         routes["pasm_matmul"][r] = dict(
             k5_rows["k1"][r], launches=lm["routes"][r] + moe["routes"][r] + vlm["routes"][r]
-            + ssm["routes"][r] + hyb["routes"][r] + wsp["routes"][r]
+            + ssm["routes"][r] + hyb["routes"][r] + wsp["routes"][r] + lsh["routes"][r]
             + (TRAIN_K1 if r == "mma" else 0),
             source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
@@ -3167,7 +3696,9 @@ def main() -> int:
         f"+ qwen3 {lm['lm']['pasm_matmul']} + deepseek-moe-16b {moe['launches']} + "
         f"internvl2-26b {vlm['launches']} + mamba2-130m {ssm['launches']} + "
         f"recurrentgemma-2b {hyb['launches']} + whisper-tiny {wsp['launches']} (its "
-        f"stem {wsp['routes']['simt']} on simt); K2, K3), the stage run (K4), the "
+        f"stem {wsp['routes']['simt']} on simt) + the sharded qwen3 / deepseek of phase "
+        f"14 {lsh['launches']} (its (1, 1) run and both ranks); K2, K3), the stage run "
+        f"(K4), the "
         f"sharded AlexNet of phase 13 (K1-K4 {sl}, both of its ranks counted), the "
         f"served attention (K5: qwen3 {lm['k5']}, deepseek "
         f"{moe['k5']}, internvl2 {vlm['k5']}, recurrentgemma {hyb['k5']}, whisper-tiny "

@@ -32,7 +32,11 @@ __all__ = [
     "embed_lookup",
     "dense_weight",
     "dense_stack",
-    "NOT_PORTED_MESH",
+    "tp_linear",
+    "held_block",
+    "block_matmul",
+    "NOT_PORTED_MESH_FAMILY",
+    "NOT_PORTED_MESH_SEQ",
     "NOT_PORTED_MESH_TRAIN",
 ]
 
@@ -42,12 +46,17 @@ KINDS = ("dense", "shared", "packed")
 MATMUL_IMPLS = ("dense", "dequant", "kernel", "pas_kernel")
 
 # the ROADMAP items that own what the sharded paths still refuse: the CNN
-# stack and the quantized matmul run under mesh=, the LM's tensor and
-# expert parallelism and any sharded backward do not
-NOT_PORTED_MESH = (
-    "mesh= on the LM paths (tensor and expert parallelism: an active "
-    "ShardCtx, dense_stack(spec=), the MoE specs) is not ported yet: ROADMAP "
-    "Queue 1 item 12"
+# stack, the quantized matmul and the transformer families' tensor and
+# expert parallelism run under a mesh; the other LM families, the
+# sequence-sharded KV cache and any sharded backward do not
+NOT_PORTED_MESH_FAMILY = (
+    "an active ShardCtx on the SSM, hybrid and encoder-decoder families "
+    "(their tensor parallelism) is not ported yet: ROADMAP Queue 1 item 12b"
+)
+NOT_PORTED_MESH_SEQ = (
+    "KV heads that do not divide the model axis (the sequence-sharded KV "
+    "cache and its distributed softmax) are not ported yet: ROADMAP Queue 1 "
+    "item 12c"
 )
 NOT_PORTED_MESH_TRAIN = (
     "training under mesh= (differentiable collectives, the gradient "
@@ -311,13 +320,53 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
     p = as_params(w)
     if bias is None:
         bias = p.bias
+    return _matmul_f32(x, p, impl, bias, relu, mesh).to(x.dtype)
+
+
+def tp_linear(x: torch.Tensor, w: Weight, *, impl: str, mesh,
+              rows: Optional[int] = None) -> torch.Tensor:
+    """The LM's tensor-parallel linear, run SPMD on rank-local operands,
+    with no gather between a column-parallel layer and the row-parallel one
+    after it.  ``x`` holds this rank's rows (``rows``: the unsharded call's
+    row count, which the kernels plan from; default ``x``'s own) and ``w``
+    is a placed leaf (:func:`repro_torch.models.sharding.place_params`)
+    holding this rank's block of its logical ``shape``.
+
+    An N block (column-parallel) gives this rank's N block of the output,
+    bitwise the unsharded call's columns.  A K block (row-parallel) takes
+    ``x`` whole or as this rank's K block, all-reduces its f32 partial over
+    ``model`` and rounds once: within one ulp of ``x``'s dtype plus
+    ``1e-5·(|x|@|W|)`` of the unsharded call (another order of the f32
+    sum).  A leaf held whole (it did not divide the axis) computes the
+    whole product on every rank.  The leaf's bias (an N block's own
+    columns) is added after the sum; the output dtype follows ``x``."""
+    if impl not in MATMUL_IMPLS:
+        raise ValueError(f"impl must be one of {MATMUL_IMPLS}, got {impl!r}")
+    p = as_params(w)
+    y, k_split = block_matmul(x, p, impl=impl, mesh=mesh, rows=rows)
+    if k_split:
+        from repro_torch.launch.mesh import all_reduce
+
+        y = all_reduce(y, mesh, "model")
+    bias = p.bias
+    if bias is not None and bias.shape[-1] != y.shape[-1]:  # an N block's own
+        bias = bias.narrow(-1, mesh.index("model") * y.shape[-1], y.shape[-1])
+    from repro_torch.kernels.ref import apply_epilogue
+
+    return apply_epilogue(y, bias, False).to(x.dtype)
+
+
+def _matmul_f32(x: torch.Tensor, p: "PasmParams", impl: str, bias, relu: bool,
+                mesh=None, whole: Optional[tuple] = None) -> torch.Tensor:
+    """:func:`matmul`'s body before the final rounding: the f32 product
+    (``whole``: the unsharded call's ``(rows, N)`` for a rank's block)."""
     if p.kind == "dense" or impl in ("dense", "dequant"):
         from repro_torch.kernels.ref import apply_epilogue
 
         # the weight in x's dtype, every product exact in f32 and the sum
         # taken in f32 (the JAX dot's preferred_element_type), for bf16 too
         y = matmul_f32(x.float(), p.dense_matrix(x.dtype).float())
-        return apply_epilogue(y, bias, relu).to(x.dtype)
+        return apply_epilogue(y, bias, relu)
     from repro_torch.kernels import ops as _kops
 
     t = p.gemm_tensor()
@@ -329,10 +378,68 @@ def matmul(x: torch.Tensor, w: Weight, *, impl: str = "dense",
                 "the PAS formulation is paper-faithful single-dictionary; "
                 "grouped codebooks need impl='kernel' or 'dequant'"
             )
-        y = _kops.pas_matmul(x, t, bias=bias, relu=relu, mesh=mesh)
-    else:
-        y = _kops.pasm_matmul(x, t, bias=bias, relu=relu, mesh=mesh)
-    return y.to(x.dtype)
+        return _kops.pas_matmul(x, t, bias=bias, relu=relu, mesh=mesh, whole=whole)
+    return _kops.pasm_matmul(x, t, bias=bias, relu=relu, mesh=mesh, whole=whole)
+
+
+def _held(p: "PasmParams") -> tuple:
+    """The ``(K, N)`` rows and columns a leaf's arrays hold (a packed byte
+    row is two K rows, the §3 pad row included)."""
+    a = p.w if p.kind == "dense" else p.idx
+    return int(a.shape[-2]) * (2 if p.packed else 1), int(a.shape[-1])
+
+
+def held_block(w: Weight, mesh, axis: str = "model") -> tuple:
+    """A placed leaf as the operand this rank computes with: ``(params,
+    k_split)``, the params' ``shape`` set to the held ``(K, N)`` block
+    (a held §3 pad row is an ordinary row: its activation column is zero)
+    and ``k_split`` whether the held K rows are a block along ``axis``.  A K
+    block's grouped dictionaries are cut to its own groups: the placement
+    keeps a K split only where the groups divide it
+    (:func:`repro_torch.models.sharding.place_params`)."""
+    p = as_params(w)
+    K, N = p.shape
+    kh, nh = _held(p)
+    if (kh, nh) == (K, N) and not p.pad_k:  # held whole: the leaf as it is
+        return p, False
+    k_split = kh < K + p.pad_k
+    cb = p.codebook
+    if k_split and cb is not None and cb.shape[-2] > 1:
+        n = (K + p.pad_k) // kh
+        gl = cb.shape[-2] // n
+        cb = cb.narrow(-2, mesh.index(axis) * gl, gl)
+    return dataclasses.replace(p, codebook=cb, shape=(kh, nh), pad_k=0), k_split
+
+
+def block_matmul(x: torch.Tensor, w: Weight, *, impl: str, mesh, axis: str = "model",
+                 rows: Optional[int] = None) -> tuple:
+    """The per-rank body of the tensor-parallel linears: ``x`` times this
+    rank's held block of the placed leaf ``w`` (:func:`held_block`), in f32
+    and unrounded, with no collective but one: ``x`` given as a K block of
+    a leaf held whole is all-gathered over ``axis`` first.  ``x``'s last
+    dim is the whole K (the §3 zero column appended here; cut to the
+    rank's block for a K block) or the block's own width.  The kernels plan
+    from the unsharded call, ``(rows, N)`` (``rows`` default ``x``'s), so an
+    N block is bitwise the unsharded call's columns.  Returns ``(y,
+    k_split)``: a K block's ``y`` is this rank's partial sum."""
+    p = as_params(w)
+    K, N = p.shape
+    pb, k_split = held_block(p, mesh, axis)
+    kh = pb.shape[0]
+    if p.pad_k and x.shape[-1] == K:
+        x = F.pad(x, (0, p.pad_k))
+    Kp = K + p.pad_k
+    if k_split and x.shape[-1] == Kp:
+        x = x.narrow(-1, mesh.index(axis) * kh, kh)
+    elif not k_split and x.shape[-1] != Kp and x.shape[-1] * mesh.size(axis) == Kp:
+        from repro_torch.launch.mesh import all_gather
+
+        x = all_gather(x, mesh, axis, dim=-1)
+    if x.shape[-1] != kh:
+        raise ValueError(f"x's {x.shape[-1]} columns match neither K = {K} nor the "
+                         f"held block's {kh} rows")
+    whole = (x.numel() // max(kh, 1) if rows is None else rows, N)
+    return _matmul_f32(x, pb, impl, None, False, whole=whole), k_split
 
 
 def embed_lookup(w: Weight, tokens: torch.Tensor) -> torch.Tensor:
@@ -359,11 +466,9 @@ def dense_weight(w: Weight, dtype=None) -> torch.Tensor:
     return as_params(w).dense_matrix(dtype)
 
 
-def dense_stack(w: Weight, dtype, constrain=None, spec=None) -> torch.Tensor:
+def dense_stack(w: Weight, dtype) -> torch.Tensor:
     """Stacked expert weights ``(E, K, N)`` → dense ``dtype``, for the MoE
-    einsum path.  ``constrain``/``spec`` re-lay-out the stored weight under
-    a mesh, which belongs to the LM's expert parallelism (ROADMAP Queue 1
-    item 12): a ``spec`` raises."""
-    if spec is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+    einsum path.  Under a mesh the held arrays are this rank's expert block
+    (:func:`repro_torch.models.sharding.place_params`: E over ``model``, the
+    FFN dim over ``data``), and that block is what comes back."""
     return as_params(w).dense_matrix(dtype)

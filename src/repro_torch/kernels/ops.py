@@ -46,8 +46,11 @@ split-K from the whole call's shape (``whole=``), where the JAX kernels'
 k-tile plan depended on K alone — so sharded outputs are bitwise the
 single-device ones.  A sharded call takes global operands and returns the
 global result on every rank; ``local_rows=True`` keeps the rows this
-rank's (the per-layer call of ``core.conv.conv2d_shard``).  The sharded
-path is forward-only (ROADMAP Queue 1 item 13).
+rank's (the per-layer call of ``core.conv.conv2d_shard``).  The LM's
+tensor-parallel linears call K1/K3 on a rank's block directly with
+``whole=`` (``core.params.block_matmul``): an N block needs no gather and
+a K block's f32 partial is all-reduced over ``model`` by the caller.  The
+sharded path is forward-only (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -263,6 +266,7 @@ def pasm_matmul(
     mesh=None,
     pool: int = 1,
     local_rows: bool = False,
+    whole: Optional[tuple] = None,
 ) -> torch.Tensor:
     """``x @ t`` on the fused-dequant kernel K1.  x ``(..., K)`` → ``(..., N)`` f32.
 
@@ -273,7 +277,10 @@ def pasm_matmul(
     ``x``, ``t.codebook`` and ``bias`` (:class:`_PasmMatmul`).  ``mesh=``
     shards rows over ``data`` (padded up to the axis when unpooled; pooled
     rows must split in whole windows) and N over ``model`` when it divides
-    (:func:`shard_gemm`), bitwise the single-device call.
+    (:func:`shard_gemm`), bitwise the single-device call.  ``whole = (M,
+    N)`` of the unsharded call when ``x`` and ``t`` are one rank's block of
+    it (the LM's tensor-parallel linears, ``params.block_matmul``): the
+    kernel plans from it.
     """
     K, N = t.shape
     if bias is not None:
@@ -296,7 +303,7 @@ def pasm_matmul(
                                        whole=whole)
 
     if mesh is None:
-        y = run(x2, t.idx, t.codebook, bias)
+        y = run(x2, t.idx, t.codebook, bias, whole)
     else:
         y = _shard_rows(mesh, N, run, x2, t.idx, t.codebook, bias, pool=pool,
                         local_rows=local_rows)
@@ -312,6 +319,7 @@ def pas_matmul(
     mesh=None,
     pool: int = 1,
     local_rows: bool = False,
+    whole: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Paper-faithful PASM two-phase matmul on K3 (single dictionary).
 
@@ -320,7 +328,8 @@ def pas_matmul(
     per weight.  ``bias (N,)`` / ``relu`` ride the post-pass, and
     ``pool > 1`` max-reduces window-major row groups there too (2-D ``x``
     only — the same contract as :func:`pasm_matmul`, ``mesh=`` too; the
-    PAS bins are per-block registers, so they replicate with the kernel).
+    PAS bins are per-block registers, so they replicate with the kernel);
+    ``whole`` as in :func:`pasm_matmul`.
     """
     K, N = t.shape
     if bias is not None:
@@ -339,7 +348,7 @@ def pas_matmul(
 
     idx = _pasm.logical_idx(t)
     if mesh is None:
-        y = run(x2, idx, t.codebook, bias)
+        y = run(x2, idx, t.codebook, bias, whole)
     else:
         y = _shard_rows(mesh, N, run, x2, idx, t.codebook, bias, pool=pool,
                         local_rows=local_rows)

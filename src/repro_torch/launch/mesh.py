@@ -36,6 +36,9 @@ __all__ = [
     "data_model_sizes",
     "n_shard_axis",
     "all_gather",
+    "all_reduce",
+    "collective_bytes",
+    "reset_collective_bytes",
     "SINGLE_POD",
     "MULTI_POD",
 ]
@@ -130,7 +133,8 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 
 
 def make_conv_mesh(shape=None, *, device=None) -> Mesh:
-    """The ``("data", "model")`` mesh the sharded conv stack runs on.
+    """The ``("data", "model")`` mesh the sharded conv stack and the LM's
+    tensor and expert parallelism (an active ``ShardCtx``) run on.
 
     ``shape=(n_data, n_model)`` must hold every rank of the process group;
     ``None`` puts every rank on ``data`` (pure batch sharding).  ``device``
@@ -175,15 +179,45 @@ def n_shard_axis(mesh: Mesh, n: int) -> Optional[str]:
     return "model" if nm > 1 and n % nm == 0 else None
 
 
+# bytes of every collective's result on this rank, by collective: a plain
+# counter a caller resets and reads around a step
+collective_bytes = {"all_gather": 0, "all_reduce": 0}
+
+
+def reset_collective_bytes() -> None:
+    for k in collective_bytes:
+        collective_bytes[k] = 0
+
+
+def _group(mesh: Mesh, axis: str):
+    return mesh.groups[mesh._axis(axis)] if axis in mesh.axis_names else None
+
+
 def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """The blocks of every rank along ``axis`` concatenated on ``dim`` in
     coordinate order: JAX's tiled ``all_gather``, so the N blocks of a
     ``model``-sharded output gather to the full-N output bitwise.  Every
     rank's block has ``t``'s shape.  An axis of size 1 returns ``t``."""
-    g = mesh.groups[mesh._axis(axis)] if axis in mesh.axis_names else None
+    g = _group(mesh, axis)
     if g is None:
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
     dist.all_gather(parts, t, group=g)
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    collective_bytes["all_gather"] += out.numel() * out.element_size()
+    return out
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's ``t`` (a new tensor; ``t`` is
+    not changed), the same on every rank of the group.  The row-parallel
+    linears' partials and the expert combine take it in f32.  An axis of
+    size 1 returns ``t``."""
+    g = _group(mesh, axis)
+    if g is None:
+        return t
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=g)
+    collective_bytes["all_reduce"] += out.numel() * out.element_size()
+    return out

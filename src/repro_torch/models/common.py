@@ -14,17 +14,18 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import params as _params
 from repro_torch.core import pasm as _pasm
-from repro_torch.core.params import NOT_PORTED_MESH
+from repro_torch.core.params import NOT_PORTED_MESH_FAMILY
 
 __all__ = [
     "ShardCtx",
+    "refuse_mesh",
     "trunc_normal",
     "Initializer",
     "maybe_scan",
@@ -73,21 +74,70 @@ def maybe_scan(body: Callable, carry, stacked, use_scan: bool = True):
 
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
-    """Mesh-axis naming threaded through model code for sharding constraints.
+    """Mesh-axis naming threaded through model code.
 
-    Only the inactive context is ported: every constraint is the identity.
-    An active one (the LM's tensor parallelism) belongs to ROADMAP Queue 1
-    item 12 and raises.
+    ``batch``: the axes the batch dim shards over (``("data",)`` or ``()``,
+    :func:`repro_torch.models.sharding.batch_axes`); ``model``: the
+    tensor-parallel axis; ``dp``: the DP degree, the product of the batch
+    axes' sizes (the MoE's local dispatch groups).  ``active=False`` (the
+    default) is one device.
+
+    An active context runs the transformer families' tensor and expert
+    parallelism SPMD, one process a rank, on the ``("data", "model")``
+    :class:`~repro_torch.launch.mesh.Mesh` it carries: the JAX package reads
+    its ambient mesh, the port takes it as ``mesh=``.  Layouts are explicit
+    there (placed params and caches, rank-local activations), so the
+    layout hooks stay the identity.  :meth:`for_mesh` builds the context
+    the JAX package's dry run builds for a global batch.
     """
 
     batch: tuple = ("data",)
     model: str = "model"
     active: bool = False
     dp: int = 1
+    mesh: Optional[Any] = None
 
     def __post_init__(self):
-        if self.active:
-            raise NotImplementedError(NOT_PORTED_MESH)
+        if not self.active:
+            return
+        if self.mesh is None:
+            raise ValueError(
+                "an active ShardCtx runs SPMD on an explicit mesh: pass mesh= "
+                "(repro_torch.launch.mesh.make_conv_mesh((n_data, n_model)))")
+        from repro_torch.launch.mesh import data_model_sizes
+
+        nd, _ = data_model_sizes(self.mesh)
+        if self.model != "model" or tuple(self.batch) not in ((), ("data",)):
+            raise ValueError(f"batch {self.batch} / model {self.model!r} do not name "
+                             "the ('data', 'model') mesh's axes")
+        if self.dp != (nd if self.batch else 1):
+            raise ValueError(f"dp={self.dp} is not the size of the batch axes "
+                             f"{self.batch} (data: {nd})")
+
+    @classmethod
+    def for_mesh(cls, mesh, global_batch: int) -> "ShardCtx":
+        """The active context for ``global_batch`` rows on ``mesh``: the
+        batch over ``data`` when it divides, else replicated (dp 1)."""
+        from repro_torch.launch.mesh import data_model_sizes
+        from repro_torch.models.sharding import batch_axes
+
+        nd, _ = data_model_sizes(mesh)
+        batch = batch_axes(False, global_batch, nd)
+        return cls(batch=batch, active=True, dp=nd if batch else 1, mesh=mesh)
+
+    @property
+    def tp(self) -> int:
+        """Ranks along ``model`` (1 when inactive)."""
+        return self.mesh.size(self.model) if self.active else 1
+
+    @property
+    def batch_split(self) -> bool:
+        """Whether a rank holds only its block of the batch rows."""
+        return self.active and bool(self.batch) and self.dp > 1
+
+    def rows(self, x: torch.Tensor) -> int:
+        """Rows of the unsharded call behind ``x`` (this rank's rows)."""
+        return x.numel() // max(x.shape[-1], 1) * (self.dp if self.batch_split else 1)
 
     def cs(self, x: torch.Tensor, *spec) -> torch.Tensor:
         return x
@@ -100,6 +150,13 @@ class ShardCtx:
 
     def act_btf(self, x):  # (batch, seq, ff)
         return x
+
+
+def refuse_mesh(sctx: ShardCtx) -> None:
+    """The SSM, hybrid and encoder-decoder families never run unsharded
+    under an active context: it raises (ROADMAP Queue 1 item 12b)."""
+    if sctx.active:
+        raise NotImplementedError(NOT_PORTED_MESH_FAMILY)
 
 
 def map_leaves(fn: Callable, tree: Any, path: tuple = ()) -> Any:

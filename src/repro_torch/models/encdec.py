@@ -31,7 +31,8 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import params as _params
 from repro_torch.core.conv import Conv2D, ConvParams, conv2d
-from repro_torch.models.common import Initializer, ShardCtx, map_leaves, maybe_scan
+from repro_torch.models.common import (Initializer, ShardCtx, map_leaves, maybe_scan,
+                                       refuse_mesh)
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 
@@ -200,6 +201,7 @@ def encode(params: dict, mel: torch.Tensor, cfg: ArchConfig,
     """mel ``(B, n_mels, T_mel)`` log-mel frames → ``(B, T_mel // 2,
     d_model)``.  The stem runs in f32 (on ``kernel``, K1's f32 route); the
     sinusoid is added before the cast to the activations' dtype."""
+    refuse_mesh(sctx)
     impl = _impl(cfg)
     c1, c2 = _stem_convs(cfg)
     fe = params["frontend"]
@@ -248,6 +250,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             frontend_embeds: Optional[torch.Tensor] = None) -> tuple:
     """Teacher-forced decode over ``tokens`` given log-mel
     ``frontend_embeds`` (silence when None).  Returns ``(logits, {})``."""
+    refuse_mesh(sctx)
     impl = _impl(cfg)
     B, S = tokens.shape
     if frontend_embeds is None:
@@ -295,6 +298,7 @@ def prefill(params: dict, tokens: torch.Tensor, caches: list, cfg: ArchConfig,
     batch (the transformer's contract): the self-KV counters advance by it
     and the logits are each slot's last real position.
     """
+    refuse_mesh(sctx)
     impl = _impl(cfg)
     B, S = tokens.shape
     hd = cfg.hd
@@ -339,6 +343,7 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: list, cfg: ArchConfi
     self-KV cache and its cross K/V (all ``frontend_tokens`` positions
     valid).  The learned position is each slot's own, clipped to
     ``max_seq − 1``.  Returns ``(logits, caches)``."""
+    refuse_mesh(sctx)
     impl = _impl(cfg)
     B = tokens.shape[0]
     hd = cfg.hd

@@ -25,7 +25,8 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import params as _params
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.models.common import Initializer, ShardCtx, map_leaves, maybe_scan
+from repro_torch.models.common import (Initializer, ShardCtx, map_leaves, maybe_scan,
+                                       refuse_mesh)
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import rglru as RG
@@ -198,6 +199,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """Full forward (training / prefill-style).  Returns ``(logits, {})``.
     With ``cfg.remat`` a differentiated call recomputes each group in the
     backward."""
+    refuse_mesh(sctx)
     del frontend_embeds
     x = _embed(params, tokens, sctx)
     cos, sin = _rope_seq(x.shape[1], cfg, x.device)
@@ -295,6 +297,7 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
                 sctx: ShardCtx = ShardCtx()) -> tuple:
     """One autoregressive step.  ``tokens (B, 1)``; returns ``(logits (B, 1,
     V), caches)``; RoPE and the ring slot take each slot's own position."""
+    refuse_mesh(sctx)
     pat, _, _ = _pattern(cfg)
     pos = caches["pos"]
     x = _embed(params, tokens, sctx)[:, 0]
@@ -353,6 +356,7 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     corrupt it.  Serve hybrid slots with exact-length prompts (bucket
     granularity 1).
     """
+    refuse_mesh(sctx)
     if kw.get("lengths") is not None:
         raise ValueError("hybrid.prefill: padded prompts (lengths=) unsupported — "
                          "the RG-LRU scan would absorb pad tokens into state")

@@ -15,8 +15,10 @@ The CNN conv stack has its own rules (:func:`conv_param_pspecs`,
 ``model``, image batches over ``data``, codebooks replicated — the axis
 mapping of ``conv2d(mesh=)``.  The LM tables (:func:`param_pspecs`,
 :func:`opt_state_pspecs`, :func:`cache_pspecs`, :func:`batch_axes`,
-:func:`input_pspecs`) are ported with their rules; no LM path consumes them
-yet (ROADMAP Queue 1 item 12).
+:func:`input_pspecs`) are ported with their rules; the transformer
+families' tensor and expert parallelism (an active ``ShardCtx``) runs on
+params placed by :func:`param_pspecs` (:func:`place_params`) and caches
+placed by :func:`cache_pspecs` (:func:`place_caches`).
 
 :func:`local_shard` is the port's own: ``jax.device_put`` onto a
 ``NamedSharding`` keeps a global array whose blocks live on the devices;
@@ -24,11 +26,13 @@ under SPMD a rank holds its block, and this slices it out.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any
 
 import torch
 
+from repro_torch.core.params import NOT_PORTED_MESH_SEQ, PasmParams
 from repro_torch.tree import flatten_with_path, tree_map, tree_unflatten
 
 __all__ = [
@@ -42,6 +46,9 @@ __all__ = [
     "conv_input_pspecs",
     "conv_batch_pad",
     "local_shard",
+    "place_params",
+    "place_caches",
+    "check_kv_heads",
 ]
 
 MODEL = "model"
@@ -299,3 +306,85 @@ def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         step = t.shape[dim] // n
         t = t.narrow(dim, i * step, step)
     return t
+
+
+# ---------------------------------------------------------------------------
+# the LM: a rank's block of the params and caches (the SPMD placement)
+# ---------------------------------------------------------------------------
+
+
+def _size(ax, mesh) -> int:
+    n = 1
+    for a in _axes(ax):
+        n *= mesh.size(a)
+    return n
+
+
+def _copy_block(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    return local_shard(t, spec, mesh).to(mesh.device).clone()
+
+
+def _place_node(node: Any, spec: Any, mesh) -> Any:
+    if isinstance(node, dict):
+        return {k: _place_node(v, spec[k], mesh) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_place_node(v, s, mesh) for v, s in zip(node, spec))
+    if isinstance(node, PasmParams):
+        a = node.w if node.kind == "dense" else node.idx
+        sa = spec.w if node.kind == "dense" else spec.idx
+        k_ax = sa[a.ndim - 2] if len(sa) >= 2 else None
+        if k_ax is not None and node.groups > 1 and node.groups % _size(k_ax, mesh):
+            # a K split would cut a dictionary group: the leaf stays whole
+            spec = tree_map(lambda t: P(*([None] * t.ndim)), node)
+        return dataclasses.replace(node, **{
+            f.name: _copy_block(getattr(node, f.name), getattr(spec, f.name), mesh)
+            for f in dataclasses.fields(node)
+            if isinstance(getattr(node, f.name), torch.Tensor)})
+    if not isinstance(node, torch.Tensor):
+        return node
+    block = _copy_block(node, spec, mesh)
+    if node.ndim >= 2 and tuple(block.shape[-2:]) != tuple(node.shape[-2:]):
+        # a dense matrix held as a block keeps its logical shape, as a
+        # quantized leaf does (params.tp_linear reads the block off it)
+        return PasmParams(w=block, kind="dense", shape=tuple(node.shape[-2:]))
+    return block
+
+
+def place_params(params: Any, mesh) -> Any:
+    """This rank's block of every leaf of an LM params tree by
+    :func:`param_pspecs` (the LM counterpart of ``cnn._place``), copied out
+    on ``mesh.device`` so a rank's weight memory shrinks with the mesh.
+
+    A ``PasmParams`` keeps its global metadata (``shape``, ``bins``,
+    ``pad_k``) over the held block, and its codebooks whole (replicated, as
+    the spec says); a dense matrix held as a block becomes a ``dense``
+    ``PasmParams`` that keeps its logical shape the same way.  A dim that
+    does not divide its axis leaves the leaf whole (``_divisible``: e.g. a
+    vocab of 92553), as does a K split that would cut a dictionary group
+    (``groups`` not a multiple of the axis); such a leaf is computed whole
+    on every rank.  Packed int4 bytes hold two K rows, so a K block of
+    them starts on an even row and holds the §3 pad row whole."""
+    from repro_torch.launch.mesh import axis_sizes
+
+    return _place_node(params, param_pspecs(params, axis_sizes(mesh)), mesh)
+
+
+def check_kv_heads(cfg, tp: int) -> None:
+    """Raise unless the KV heads divide a ``model`` axis of size ``tp``:
+    otherwise :func:`cache_pspecs` shards the sequence, which needs a
+    distributed softmax (ROADMAP Queue 1 item 12c)."""
+    if tp > 1 and (not cfg.n_kv_heads or cfg.n_kv_heads % tp):
+        raise NotImplementedError(NOT_PORTED_MESH_SEQ)
+
+
+def place_caches(cfg, caches: Any, mesh, batch: tuple) -> Any:
+    """This rank's block of the KV caches by :func:`cache_pspecs`: the
+    batch over ``batch``'s axes, the KV heads over ``model`` (the per-slot
+    counters ``pos`` replicated).  KV heads that do not divide ``model``
+    take :func:`cache_pspecs`' sequence-sharded branch, which needs a
+    distributed softmax: that raises (ROADMAP Queue 1 item 12c)."""
+    from repro_torch.launch.mesh import axis_sizes
+
+    check_kv_heads(cfg, mesh.size(MODEL))
+    specs = cache_pspecs(cfg, caches, axis_sizes(mesh), batch)
+    return tree_map(lambda t, s: _copy_block(t, s, mesh), caches, specs)

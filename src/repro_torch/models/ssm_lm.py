@@ -21,7 +21,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import params as _params
-from repro_torch.models.common import Initializer, ShardCtx, map_leaves, maybe_scan
+from repro_torch.models.common import (Initializer, ShardCtx, map_leaves, maybe_scan,
+                                       refuse_mesh)
 from repro_torch.nn import layers as L
 from repro_torch.nn import rglru as RG  # causal_conv1d shared
 from repro_torch.nn import ssm as S
@@ -129,6 +130,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """Full forward (training / prefill-style).  Returns ``(logits, {})``.
     With ``cfg.remat`` a differentiated call recomputes each layer in the
     backward."""
+    refuse_mesh(sctx)
     del frontend_embeds
     x = _embed(params, tokens, sctx)
     impl = _impl(cfg)
@@ -169,6 +171,7 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
                 sctx: ShardCtx = ShardCtx()) -> tuple:
     """One autoregressive step.  ``tokens (B, 1)``; returns ``(logits (B, 1,
     V), caches)``."""
+    refuse_mesh(sctx)
     d_in = _dims(cfg)[0]
     x = _embed(params, tokens, sctx)[:, 0]  # (B, D)
     impl = _impl(cfg)
@@ -200,6 +203,7 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     corrupt it.  Serve SSM slots with exact-length prompts (bucket
     granularity 1).
     """
+    refuse_mesh(sctx)
     if kw.get("lengths") is not None:
         raise ValueError("ssm_lm.prefill: padded prompts (lengths=) unsupported — "
                          "the recurrent scan would absorb pad tokens into state")

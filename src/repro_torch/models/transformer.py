@@ -15,9 +15,34 @@ activations run in bf16, as the JAX package's do; attention goes through
 ``cfg.remat`` a differentiated :func:`forward` recomputes each scanned
 layer in the backward (``torch.utils.checkpoint``, the JAX package's
 ``jax.checkpoint``).
+
+An active :class:`~repro_torch.models.common.ShardCtx` runs the tensor and
+expert parallelism SPMD, one process a rank (the counterpart of the JAX
+package's ``ShardCtx(active=True)`` constraints), on params placed by
+``models/sharding.py::place_params`` and caches by ``place_caches``::
+
+    mesh = make_conv_mesh((n_data, n_model))          # ("data", "model")
+    sctx = ShardCtx.for_mesh(mesh, global_batch=B)
+    params = place_params(params, mesh)               # this rank's blocks
+    caches = place_caches(cfg, init_caches(cfg, B, S), mesh, sctx.batch)
+    logits, caches = prefill(params, tokens, caches, cfg, sctx)  # global
+
+Every rank passes the global inputs and gets the global logits.  The
+batch splits over ``data`` where it divides (``batch_axes``); ``wq/wk/wv``,
+``w1/w3`` and the head are column-parallel and ``wo``/``w2`` row-parallel
+over ``model`` (``params.tp_linear``), so a rank holds its heads
+(and their KV group) and its FFN block, and the residual stream is whole
+on every rank; the vocab-sharded embedding is looked up on the rank that
+holds each row and summed over ``model`` (exact: one nonzero term); the
+MoE layers run :func:`repro_torch.nn.moe.moe_ffn` under the mesh.  The
+column-parallel linears, the attention and the embedding are bitwise one
+device's; a row-parallel sum adds its f32 partials in another order
+(within an ulp of bf16).  KV heads that do not divide ``model`` raise
+(ROADMAP Queue 1 item 12c).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -27,6 +52,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import params as _params
 from repro_torch.models.common import Initializer, ShardCtx, map_leaves, maybe_scan
+from repro_torch.models.sharding import check_kv_heads
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
@@ -144,13 +170,27 @@ def _lm_head(params: dict, cfg: ArchConfig):
     return params["lm_head"]
 
 
+def _lin(x, w, impl: str, sctx: ShardCtx):
+    """One linear; under an active context the tensor-parallel dispatch on
+    this rank's block, column- or row-parallel as the leaf is placed."""
+    if not sctx.active:
+        return L.linear(x, w, impl)
+    return _params.tp_linear(x, w, impl=impl, mesh=sctx.mesh, rows=sctx.rows(x))
+
+
+def _heads(t: torch.Tensor, hd: int) -> torch.Tensor:
+    """``(B, S, n·hd) → (B, S, n, hd)``: this rank's heads under a mesh."""
+    B, S, _ = t.shape
+    return t.reshape(B, S, -1, hd)
+
+
 def _attention_block(x, p, cfg: ArchConfig, sctx: ShardCtx, cos, sin, *,
                      cache=None, impl: str, lengths=None):
     B, S, D = x.shape
     hd = cfg.hd
-    q = L.linear(x, p["wq"], impl).reshape(B, S, cfg.n_heads, hd)
-    k = L.linear(x, p["wk"], impl).reshape(B, S, cfg.n_kv_heads, hd)
-    v = L.linear(x, p["wv"], impl).reshape(B, S, cfg.n_kv_heads, hd)
+    q = _heads(_lin(x, p["wq"], impl, sctx), hd)
+    k = _heads(_lin(x, p["wk"], impl, sctx), hd)
+    v = _heads(_lin(x, p["wv"], impl, sctx), hd)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -171,7 +211,7 @@ def _attention_block(x, p, cfg: ArchConfig, sctx: ShardCtx, cos, sin, *,
             o = A.gqa_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, S))
     else:
         o = A.gqa_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, S))
-    y = L.linear(o.reshape(B, S, cfg.n_heads * hd), p["wo"], impl)
+    y = _lin(o.reshape(B, S, -1), p["wo"], impl, sctx)
     return sctx.act_btd(y), new_cache
 
 
@@ -182,16 +222,18 @@ def _ffn_block(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str,
     B, S, D = x.shape
     if "moe" in p:
         y, aux = M.moe_ffn(x.reshape(B * S, D), p["moe"], cfg.moe, act=cfg.act,
-                           impl=impl, dropless=dropless, n_groups=sctx.dp)
+                           impl=impl, dropless=dropless, n_groups=sctx.dp,
+                           mesh=sctx.mesh if sctx.active else None,
+                           group_spec=sctx.batch if sctx.batch_split else None)
         return sctx.act_btd(y.reshape(B, S, D)), aux
     mp = p["mlp"]
     if cfg.act == "swiglu":
-        h = L.swiglu(L.linear(x, mp["w1"], impl), L.linear(x, mp["w3"], impl))
+        h = L.swiglu(_lin(x, mp["w1"], impl, sctx), _lin(x, mp["w3"], impl, sctx))
     elif cfg.act == "sq_relu":
-        h = L.sq_relu(L.linear(x, mp["w1"], impl))
+        h = L.sq_relu(_lin(x, mp["w1"], impl, sctx))
     else:
-        h = L.gelu_ffn_act(L.linear(x, mp["w1"], impl))
-    return sctx.act_btd(L.linear(sctx.act_btf(h), mp["w2"], impl)), {}
+        h = L.gelu_ffn_act(_lin(x, mp["w1"], impl, sctx))
+    return sctx.act_btd(_lin(sctx.act_btf(h), mp["w2"], impl, sctx)), {}
 
 
 def _layer_fwd(x, p, cfg, sctx, cos, sin, cache=None, impl="dense", dropless=False,
@@ -214,12 +256,30 @@ def _head_impl(cfg: ArchConfig) -> str:
     return "dense" if cfg.tie_embeddings else _impl(cfg)
 
 
+def _embed(w, tokens: torch.Tensor, sctx: ShardCtx) -> torch.Tensor:
+    """The embedding rows of ``tokens``.  A vocab-sharded table (under a
+    mesh) looks up the rows this rank holds, zeros elsewhere, and sums over
+    ``model``: one nonzero term per element, so exact."""
+    if sctx.active:
+        held, split = _params.held_block(w, sctx.mesh)
+        if split:
+            from repro_torch.launch.mesh import all_reduce
+
+            n = held.shape[0]
+            loc = tokens - sctx.mesh.index(sctx.model) * n
+            own = (loc >= 0) & (loc < n)
+            rows = _params.embed_lookup(w, torch.where(own, loc, torch.zeros_like(loc)))
+            rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+            return all_reduce(rows, sctx.mesh, sctx.model)
+    return _params.embed_lookup(w, tokens)
+
+
 def _prep_inputs(params, cfg: ArchConfig, sctx: ShardCtx, tokens, frontend_embeds):
     """Token embeddings in bf16, prefixed by the projected patch embeddings
     when the config has a vit frontend and they are given.  Returns ``(x,
     n_prefix)``.  ``vproj`` takes the ``dense`` path even when quantized
     (the JAX package's rule): it dequantizes, and launches no kernel."""
-    x = _params.embed_lookup(params["embed"], tokens).to(torch.bfloat16)
+    x = _embed(params["embed"], tokens, sctx).to(torch.bfloat16)
     n_prefix = 0
     if cfg.frontend == "vit" and frontend_embeds is not None:
         pe = L.linear(frontend_embeds.to(torch.bfloat16), params["vproj"], "dense")
@@ -229,6 +289,49 @@ def _prep_inputs(params, cfg: ArchConfig, sctx: ShardCtx, tokens, frontend_embed
 
 
 _AUX_KEYS = ("moe_load_balance", "moe_drop_frac")
+
+
+def _mine(t, sctx: ShardCtx):
+    """This rank's batch rows of a global input (all of them when the batch
+    is not split)."""
+    if t is None or not sctx.batch_split:
+        return t
+    from repro_torch.models.sharding import DATA, P, local_shard
+
+    return local_shard(t, P(DATA), sctx.mesh)
+
+
+def _global_logits(logits: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx) -> torch.Tensor:
+    """This rank's logits block → the global logits: the vocab gathered over
+    ``model`` (a column-parallel head), then the rows over ``data``."""
+    if not sctx.active:
+        return logits
+    from repro_torch.launch.mesh import all_gather
+
+    if logits.shape[-1] != cfg.vocab:
+        logits = all_gather(logits, sctx.mesh, sctx.model, dim=-1)
+    if sctx.batch_split:
+        logits = all_gather(logits, sctx.mesh, "data", dim=0)
+    return logits
+
+
+def _local_caches(caches: dict, sctx: ShardCtx) -> dict:
+    """Placed caches hold this rank's rows of K/V but every slot's counter
+    (``cache_pspecs`` replicates ``pos``): the layers take this rank's."""
+    if not sctx.batch_split:
+        return caches
+    return {k: [dataclasses.replace(c, pos=_mine(c.pos, sctx)) for c in v]
+            for k, v in caches.items()}
+
+
+def _global_caches(new: dict, old: dict, sctx: ShardCtx, adv) -> dict:
+    """The layers' caches with every slot's counter advanced by ``adv``
+    (tokens written: an int, or each slot's real length)."""
+    if not sctx.batch_split:
+        return new
+    return {k: [dataclasses.replace(n, pos=o.pos + (adv if isinstance(adv, int)
+                                                     else adv.to(o.pos.dtype)))
+                for n, o in zip(new[k], old[k])] for k in new}
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +345,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     ``aux`` holds the MoE terms summed over the scanned layers (zero for
     the dense family).  With ``frontend_embeds`` (vit) the logits cover the
     token positions only: the patch prefix is sliced off."""
-    x, n_prefix = _prep_inputs(params, cfg, sctx, tokens, frontend_embeds)
+    check_kv_heads(cfg, sctx.tp)
+    x, n_prefix = _prep_inputs(params, cfg, sctx, _mine(tokens, sctx),
+                               _mine(frontend_embeds, sctx))
     B, S, D = x.shape
     cos, sin = L.rope(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     cos, sin = cos[None], sin[None]
@@ -269,10 +374,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     (x, aux), _ = maybe_scan(body, (x, [zero] * len(_AUX_KEYS)), params["layers"],
                              cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.linear(x, _lm_head(params, cfg), _head_impl(cfg))
+    logits = _lin(x, _lm_head(params, cfg), _head_impl(cfg), sctx)
     if n_prefix:
         logits = logits[:, n_prefix:]
-    return logits, dict(zip(_AUX_KEYS, aux))
+    return _global_logits(logits, cfg, sctx), dict(zip(_AUX_KEYS, aux))
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
@@ -296,7 +401,9 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
                 sctx: ShardCtx = ShardCtx()) -> tuple:
     """One autoregressive step against the KV caches.  ``tokens (B, 1)``.
     Returns ``(logits, caches)``; RoPE takes each slot's own position."""
-    x, _ = _prep_inputs(params, cfg, sctx, tokens, None)
+    check_kv_heads(cfg, sctx.tp)
+    x, _ = _prep_inputs(params, cfg, sctx, _mine(tokens, sctx), None)
+    old, caches = caches, _local_caches(caches, sctx)
     # every layer advances in lockstep: the first scanned layer's counters
     # position all slots
     pos = caches["scan"][0].pos
@@ -315,8 +422,9 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
     x, new_scan = maybe_scan(body, x, list(zip(params["layers"], caches["scan"])),
                              cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = L.linear(x, _lm_head(params, cfg), _head_impl(cfg))
-    return logits, {"dense": new_dense or [], "scan": new_scan}
+    logits = _lin(x, _lm_head(params, cfg), _head_impl(cfg), sctx)
+    new = {"dense": new_dense or [], "scan": new_scan}
+    return _global_logits(logits, cfg, sctx), _global_caches(new, old, sctx, 1)
 
 
 def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
@@ -333,12 +441,16 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     ahead of the prompt: the counters advance by ``lengths`` plus the
     prefix.
     """
-    x, n_prefix = _prep_inputs(params, cfg, sctx, tokens, frontend_embeds)
+    check_kv_heads(cfg, sctx.tp)
+    x, n_prefix = _prep_inputs(params, cfg, sctx, _mine(tokens, sctx),
+                               _mine(frontend_embeds, sctx))
     B, S, D = x.shape
     cos, sin = L.rope(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     cos, sin = cos[None], sin[None]
     impl = _impl(cfg)
-    eff_lengths = None if lengths is None else lengths + n_prefix
+    adv = S if lengths is None else lengths + n_prefix
+    eff_lengths = None if lengths is None else _mine(lengths, sctx) + n_prefix
+    old, caches = caches, _local_caches(caches, sctx)
 
     def body(h, inp):
         lp, cache = inp
@@ -356,5 +468,6 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     else:
         last = torch.clamp(eff_lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=x.device), last][:, None]
-    logits = L.linear(x_last, _lm_head(params, cfg), _head_impl(cfg))
-    return logits, {"dense": new_dense or [], "scan": new_scan}
+    logits = _lin(x_last, _lm_head(params, cfg), _head_impl(cfg), sctx)
+    new = {"dense": new_dense or [], "scan": new_scan}
+    return _global_logits(logits, cfg, sctx), _global_caches(new, old, sctx, adv)

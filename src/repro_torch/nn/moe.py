@@ -15,10 +15,27 @@ each expert with its own dictionaries: under ``kernel``/``pas_kernel``
 every expert is one :func:`repro_torch.core.params.matmul` call (K1 or K3
 on the card) on its slice (:meth:`PasmParams.select`, a view); otherwise
 the stack dequantizes (:func:`repro_torch.core.params.dense_stack`) into
-one batched product.  The JAX package's sharding constraints are not
-ported: the port has no mesh.
+one batched product.
+
+Under a mesh (``mesh=``) the experts run SPMD, as the JAX package's
+sharding constraints lay them out (``src/repro/nn/moe.py``): each rank
+dispatches its own group of tokens and holds its block of the placed
+expert stacks (``models/sharding.py::place_params``: E over ``model``,
+the FFN dim ``Fe`` over ``data``).  Up to 4096 tokens the ``Fe``-sharded
+weights stay in place: the groups' buffers are gathered over ``data``,
+each rank computes its ``Fe`` block for every token, and the outputs are
+summed over ``data`` in f32.  Above it the int4 weights are gathered over
+``data`` (the indices move, not dense matrices) and each rank computes
+its own tokens.  The combine adds each token's k experts, which live on
+different ``model`` ranks: a partial sum in f32 a rank, all-reduced over
+``model``.  The shared experts are column/row-parallel over ``model``;
+the router is replicated.  A reduction over an axis of size 1 is not
+taken, so mesh (1, 1) computes the one-device function bitwise.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -27,17 +44,38 @@ from repro_torch.core import params as _params
 from repro_torch.core._f32 import matmul_f32
 from repro_torch.nn import layers as L
 
-__all__ = ["moe_ffn", "expert_ffn", "capacity", "route"]
+__all__ = ["moe_ffn", "expert_ffn", "capacity", "route", "GATHER_WEIGHTS_T"]
 
-def expert_ffn(x: torch.Tensor, w1, w3, w2, act: str, impl: str) -> torch.Tensor:
-    """SwiGLU / squared-ReLU / GELU FFN, for the shared experts."""
+DATA, MODEL = "data", "model"
+# the regime switch (JAX's ``gather_weights = T > 4096``): above this many
+# tokens a call gathers the Fe-sharded weights over data instead of
+# reducing the expert outputs over it
+GATHER_WEIGHTS_T = 4096
+
+
+def _ffn(x: torch.Tensor, mm, act: str) -> torch.Tensor:
+    """SwiGLU / squared-ReLU / GELU FFN over a per-matrix product ``mm(x,
+    name)``, ``name`` one of ``w1``, ``w3``, ``w2``."""
+    h = mm(x, "w1")
     if act == "swiglu":
-        h = L.swiglu(L.linear(x, w1, impl), L.linear(x, w3, impl))
+        h = L.swiglu(h, mm(x, "w3"))
     elif act == "sq_relu":
-        h = L.sq_relu(L.linear(x, w1, impl))
+        h = L.sq_relu(h)
     else:
-        h = L.gelu_ffn_act(L.linear(x, w1, impl))
-    return L.linear(h, w2, impl)
+        h = L.gelu_ffn_act(h)
+    return mm(h, "w2")
+
+
+def expert_ffn(x: torch.Tensor, w1, w3, w2, act: str, impl: str, *, mesh=None,
+               rows: Optional[int] = None) -> torch.Tensor:
+    """The FFN of the shared experts; ``mesh`` runs ``w1``/``w3`` column-
+    and ``w2`` row-parallel on this rank's ``rows``-row block of the
+    unsharded call (``params.tp_linear``)."""
+    ws = {"w1": w1, "w3": w3, "w2": w2}
+    if mesh is None:
+        return _ffn(x, lambda h, n: L.linear(h, ws[n], impl), act)
+    return _ffn(x, lambda h, n: _params.tp_linear(h, ws[n], impl=impl, mesh=mesh,
+                                                  rows=rows), act)
 
 
 def _expert_matmul(bufT, w, dt, impl):
@@ -56,6 +94,55 @@ def _expert_matmul(bufT, w, dt, impl):
         ]).to(dt)
     wd = _params.dense_stack(w, dt)
     return matmul_f32(bufT.float(), wd.float()).to(dt)
+
+
+def _expert_block_matmul(bufT, w, dt, impl, mesh, rows: int):
+    """:func:`_expert_matmul` under a mesh: ``w`` is this rank's expert
+    block with its own dictionaries (:func:`_own_experts`) and ``bufT`` its
+    experts' buffers; each GEMM runs on the held ``Fe`` block
+    (``params.block_matmul`` over ``data``, planned from ``rows``, the
+    unsharded call's).  A K block's f32 partials are summed over ``data``
+    before the one rounding to ``dt``."""
+    from repro_torch.launch.mesh import all_reduce
+
+    p = _params.as_params(w)
+    if _params.is_quantized(p) and impl in ("kernel", "pas_kernel"):
+        outs = [_params.block_matmul(bufT[e], p.select(e), impl=impl, mesh=mesh,
+                                     axis=DATA, rows=rows)
+                for e in range(bufT.shape[0])]
+        y, split = torch.stack([o for o, _ in outs]), outs[0][1]
+    else:
+        y, split = _params.block_matmul(bufT, p, impl=impl, mesh=mesh, axis=DATA,
+                                        rows=rows)
+    if split:
+        y = all_reduce(y, mesh, DATA)
+    return y.to(dt)
+
+
+def _own_experts(w, e0: int, n: int):
+    """The held expert block ``[e0, e0 + n)`` with its own dictionaries: a
+    placed stack holds every expert's codebooks (replicated, as the spec
+    says) beside its own experts' indices."""
+    p = _params.as_params(w)
+    if p.codebook is not None and p.codebook.shape[0] != n:
+        p = dataclasses.replace(p, codebook=p.codebook[e0:e0 + n])
+    return p
+
+
+def _gather_ff(w, mesh):
+    """The stack with its held ``Fe`` block gathered over ``data``: JAX's
+    just-in-time weight gather (its ``spec`` on the stored weight), which
+    moves the int4 indices."""
+    from repro_torch.launch.mesh import all_gather
+
+    p = _params.as_params(w)
+    pb, k_split = _params.held_block(p, mesh, DATA)
+    dim = -2 if k_split else -1
+    if not k_split and pb.shape[1] == p.shape[1]:
+        return p
+    field = "w" if p.kind == "dense" else "idx"
+    return dataclasses.replace(p, **{field: all_gather(getattr(p, field), mesh, DATA,
+                                                       dim=dim)})
 
 
 def capacity(T: int, cfg: MoEConfig, *, dropless: bool, n_groups: int = 1) -> tuple:
@@ -115,6 +202,61 @@ def _dispatch(xl: torch.Tensor, il: torch.Tensor, E: int, cap: int) -> tuple:
     return buf, pos_u.reshape(Tl, k), keep_u.reshape(Tl, k)
 
 
+def _combine(yb, ig, wg, groups, dt, e0: int = 0, partial: bool = False) -> torch.Tensor:
+    """Each token's k gated expert outputs, group after group: ``yb (G, E,
+    C, D)``.  ``partial``: ``yb`` holds the experts ``[e0, e0 + E)`` only;
+    the others' terms are left out and the sum is taken in f32, for the
+    caller to add over ``model``."""
+    ys = []
+    for g, (_, pos_u, keep_u) in enumerate(groups):
+        il, wl, ybl = ig[g], wg[g], yb[g]
+        Tl, D = il.shape[0], ybl.shape[-1]
+        if not partial:
+            y = torch.zeros((Tl, D), dtype=ybl.dtype, device=ybl.device)
+            for j in range(il.shape[1]):  # k gathers of (Tl, D)
+                contrib = ybl[il[:, j], pos_u[:, j]]
+                gate = (wl[:, j] * keep_u[:, j]).to(ybl.dtype)
+                y = y + contrib * gate[:, None]
+        else:
+            y = torch.zeros((Tl, D), dtype=torch.float32, device=ybl.device)
+            for j in range(il.shape[1]):
+                e = il[:, j] - e0
+                mine = (e >= 0) & (e < ybl.shape[0])
+                contrib = ybl[torch.where(mine, e, torch.zeros_like(e)), pos_u[:, j]]
+                gate = (wl[:, j] * keep_u[:, j] * mine).to(dt)
+                y = y + contrib.float() * gate.float()[:, None]
+        ys.append(y)
+    return torch.cat(ys)
+
+
+def _experts_sharded(buf, params, cfg: MoEConfig, act: str, impl: str, mesh, *,
+                     T: int, n_groups: int, cap: int, own_group: bool) -> tuple:
+    """The routed experts on this rank's block (module docstring): ``buf
+    (G_l, E, C, D)`` → ``(yb (G_l, E_l, C, D), e0)``, the held experts'
+    outputs for the held groups' tokens."""
+    from repro_torch.launch.mesh import all_gather
+
+    E = cfg.n_experts
+    G_l, _, C, D = buf.shape
+    dt = buf.dtype
+    E_l = _params.as_params(params["w1"])._lead[0]
+    e0 = mesh.index(MODEL) * E_l if E_l < E else 0
+    ws = {n: _own_experts(params[n], e0, E_l) for n in ("w1", "w3", "w2") if n in params}
+    w1 = _params.as_params(ws["w1"])
+    ff_split = _params.held_block(w1, mesh, DATA)[0].shape[1] < w1.shape[1]
+    gather_buf = ff_split and T <= GATHER_WEIGHTS_T and own_group
+    if ff_split and T > GATHER_WEIGHTS_T:
+        ws = {n: _gather_ff(w, mesh) for n, w in ws.items()}
+    bufT = buf[:, e0:e0 + E_l].transpose(0, 1).reshape(E_l, G_l * C, D)
+    if gather_buf:  # every group's tokens, for this rank's Fe block
+        bufT = all_gather(bufT, mesh, DATA, dim=1)
+    rows = n_groups * cap  # the unsharded expert GEMMs' rows
+    y2 = _ffn(bufT, lambda h, n: _expert_block_matmul(h, ws[n], dt, impl, mesh, rows), act)
+    if gather_buf:  # back to this rank's own group
+        y2 = y2.narrow(1, mesh.index(DATA) * C, C)
+    return y2.reshape(E_l, G_l, C, D).transpose(0, 1), e0
+
+
 def moe_ffn(
     x: torch.Tensor,
     params: dict,
@@ -124,54 +266,67 @@ def moe_ffn(
     impl: str = "dense",
     dropless: bool = False,
     n_groups: int = 1,
+    mesh=None,
+    group_spec: Optional[tuple] = None,
 ) -> tuple:
     """``x (T, D) → (T, D)``, aux metrics.
 
     ``n_groups``: local-dispatch groups (each sorts only its own tokens).
     ``aux`` holds ``moe_load_balance`` and ``moe_drop_frac`` when not
     ``dropless``, and is empty when serving.
+
+    ``mesh`` runs the experts SPMD (module docstring) on params placed by
+    ``models/sharding.py::place_params``; ``group_spec`` names the axes the
+    group dim shards over, as in the JAX package: with ``("data",)`` ``x``
+    is this rank's own group of the ``n_groups``, else every token.  The
+    output and aux are this rank's tokens' and the global ones.
     """
-    T, D = x.shape
+    from repro_torch.launch.mesh import all_reduce
+
+    own_group = mesh is not None and bool(group_spec) and group_spec[0] is not None
+    T_l, D = x.shape
+    T = T_l * n_groups if own_group else T_l
     E, k = cfg.n_experts, cfg.top_k
     n_groups, cap = capacity(T, cfg, dropless=dropless, n_groups=n_groups)
-    Tl = T // n_groups
+    G_l = 1 if own_group else n_groups
+    Tl = T_l // G_l
 
     probs, top_w, top_i = route(x, params["router"], k)
-    xg = x.reshape(n_groups, Tl, D)
-    ig = top_i.reshape(n_groups, Tl, k)
-    wg = top_w.reshape(n_groups, Tl, k)
-    groups = [_dispatch(xg[g], ig[g], E, cap) for g in range(n_groups)]
+    xg = x.reshape(G_l, Tl, D)
+    ig = top_i.reshape(G_l, Tl, k)
+    wg = top_w.reshape(G_l, Tl, k)
+    groups = [_dispatch(xg[g], ig[g], E, cap) for g in range(G_l)]
     buf = torch.stack([b for b, _, _ in groups])  # (G, E, C, D)
 
     dt = x.dtype
-    bufT = buf.transpose(0, 1).reshape(E, n_groups * cap, D)
-    h = _expert_matmul(bufT, params["w1"], dt, impl)
-    if act == "swiglu":
-        h = L.swiglu(h, _expert_matmul(bufT, params["w3"], dt, impl))
-    elif act == "sq_relu":
-        h = L.sq_relu(h)
+    if mesh is None:
+        bufT = buf.transpose(0, 1).reshape(E, n_groups * cap, D)
+        y2 = _ffn(bufT, lambda h, n: _expert_matmul(h, params[n], dt, impl), act)
+        yb = y2.reshape(E, n_groups, cap, D).transpose(0, 1)  # (G, E, C, D)
+        y = _combine(yb, ig, wg, groups, dt)
     else:
-        h = L.gelu_ffn_act(h)
-    y2 = _expert_matmul(h, params["w2"], dt, impl)
-    yb = y2.reshape(E, n_groups, cap, D).transpose(0, 1)  # (G, E, C, D)
-
-    ys = []
-    for g, (_, pos_u, keep_u) in enumerate(groups):
-        il, wl, ybl = ig[g], wg[g], yb[g]
-        y = torch.zeros((Tl, D), dtype=ybl.dtype, device=x.device)
-        for j in range(k):  # k gathers of (Tl, D)
-            contrib = ybl[il[:, j], pos_u[:, j]]
-            gate = (wl[:, j] * keep_u[:, j]).to(ybl.dtype)
-            y = y + contrib * gate[:, None]
-        ys.append(y)
-    y = torch.cat(ys)
+        yb, e0 = _experts_sharded(buf, params, cfg, act, impl, mesh, T=T,
+                                  n_groups=n_groups, cap=cap, own_group=own_group)
+        partial = yb.shape[1] < E
+        y = _combine(yb, ig, wg, groups, dt, e0, partial=partial)
+        if partial:
+            y = all_reduce(y, mesh, MODEL).to(dt)
 
     if "shared_w1" in params:
         y = y + expert_ffn(x, params["shared_w1"], params["shared_w3"],
-                           params["shared_w2"], act, impl)
+                           params["shared_w2"], act, impl, mesh=mesh, rows=T)
 
     if dropless:
         aux = {}
+    elif own_group:
+        # the global means: this group's sums added over data
+        kept = torch.stack([kp for _, _, kp in groups]).float().sum()
+        s = all_reduce(torch.cat([probs.sum(dim=0),
+                                  torch.bincount(top_i.reshape(-1), minlength=E).float(),
+                                  kept[None]]), mesh, DATA)
+        me, ce = s[:E] / T, s[E:2 * E] / (T * k)
+        aux = {"moe_load_balance": E * torch.sum(me * ce),
+               "moe_drop_frac": 1.0 - s[-1] / (T * k)}
     else:
         me = probs.mean(dim=0)
         # integer counts: exact, and deterministic on the card

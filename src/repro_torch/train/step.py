@@ -99,7 +99,10 @@ def loss_and_grads(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx = ShardC
     """``(loss, aux, grads)`` of the LM loss — what :func:`make_train_step`
     hands the optimizer.  ``microbatches > 1`` accumulates gradients over
     sequential slices of the batch (activation-memory relief at a fixed
-    global batch) and averages them."""
+    global batch) and averages them.  An active ``sctx`` raises: a sharded
+    backward needs differentiable collectives (ROADMAP Queue 1 item 13)."""
+    if sctx.active:
+        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
     model = api.get_model(cfg)
     batch, scale = _split_scale(batch)
     if microbatches == 1:
@@ -145,8 +148,11 @@ def make_train_step(
 
     ``compress_grads_bins`` applies the PASM-style dictionary compression
     to the gradients before the optimizer.  ``guard_nonfinite`` (default
-    on) folds the fused non-finite guard into the step.
+    on) folds the fused non-finite guard into the step.  An active ``sctx``
+    raises, as :func:`loss_and_grads` does.
     """
+    if sctx.active:
+        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = loss_and_grads(params, batch, cfg, sctx,

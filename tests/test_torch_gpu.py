@@ -626,6 +626,51 @@ def test_k1_bf16_routes_match_plain(cuda, M, K, N, groups, packed):
     assert torch.equal(y, y2)
 
 
+@pytest.mark.parametrize("M", [4, 384], ids=["stream", "mma"])
+@pytest.mark.parametrize("K,N,groups,packed", [
+    (8192, 640, 1, True),    # qwen3's wo rows, packed
+    (3072, 512, 2, True),    # two dictionaries: a rank's block takes its own
+    (2048, 384, 1, False),   # uint8 indices
+])
+def test_k1_row_parallel_block_matches_plain(cuda, M, K, N, groups, packed):
+    """K1 on a row-parallel K block over ``model`` 2, as
+    ``params.block_matmul`` launches it for ``params.tp_linear``: each rank's
+    f32 partial against the plain version's partial on the same block (its
+    own dictionaries), within ``K1_BF16_TOL·(|x|@|W|)``; the two partials
+    sum to the unsharded plain call within twice that; an N block is
+    bitwise the unsharded kernel call's columns (planned from the whole)."""
+    from repro_torch.core import params as par
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import sharding as sh
+
+    x, idx, cb, _ = _k1_operands(cuda, M, K, N, groups, packed)
+    w = par.PasmParams(idx=idx, codebook=cb, kind="packed" if packed else "shared",
+                       shape=(K, N), bins=16)
+    whole = pm.pasm_matmul_kernel_call(x, idx, cb, packed=packed)
+    ys, scale_sum, cols = [], 0, []
+    for m in range(2):
+        mesh = Mesh((1, 2), ("data", "model"), (0, m), (None, None), cuda)
+        placed = sh.place_params({"w2": w, "w1": w}, mesh)
+        before = pm.launches["pasm_matmul"]
+        y, split = par.block_matmul(x, placed["w2"], impl="kernel", mesh=mesh, rows=M)
+        assert split and pm.launches["pasm_matmul"] == before + 1
+        pb, _ = par.held_block(placed["w2"], mesh)
+        xb = x[:, m * K // 2:(m + 1) * K // 2].contiguous()
+        want = pm.pasm_matmul_plain(xb, pb.idx, pb.codebook, packed=packed)
+        scale = pm.pasm_matmul_plain(xb.abs(), pb.idx, pb.codebook.abs(), packed=packed)
+        torch.cuda.synchronize()
+        assert bool(((y - want).abs() <= pm.K1_BF16_TOL * scale + 1e-6).all())
+        ys.append(y)
+        scale_sum = scale_sum + scale
+        c, col_split = par.block_matmul(x, placed["w1"], impl="kernel", mesh=mesh, rows=M)
+        assert not col_split
+        cols.append(c)
+    plain = pm.pasm_matmul_plain(x, idx, cb, packed=packed)
+    torch.cuda.synchronize()
+    assert bool(((ys[0] + ys[1] - plain).abs() <= 2 * pm.K1_BF16_TOL * scale_sum + 1e-6).all())
+    assert torch.equal(torch.cat(cols, -1), whole)
+
+
 @pytest.mark.parametrize("M,rows", [(4, 1), (4 * (pm.STREAM_MAX_M + 1), pm.STREAM_MAX_M + 1)],
                          ids=["stream", "mma"])
 @pytest.mark.parametrize("K,N,packed", [(5120, 1000, True), (25600, 512, True),

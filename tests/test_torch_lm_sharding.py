@@ -1,0 +1,504 @@
+"""The transformer families' tensor and expert parallelism against one device
+and against the JAX package, on the CPU.
+
+An active ``ShardCtx`` runs ``forward``/``prefill``/``decode_step`` SPMD,
+one process a rank, on params placed by ``models/sharding.py::
+place_params`` and caches by ``place_caches``.  Each mesh shape — ``(2,
+1)``, ``(1, 2)``, ``(2, 2)`` — is one ``torch.multiprocessing`` spawn of
+gloo ranks (``tests/_torch_lm_sharding_worker.py``) over a ``file://``
+store, running the smoke configs of qwen3-32b, deepseek-moe-16b and
+internvl2-26b (with its vit prefix) on ``dequant``, ``kernel`` and
+``pas_kernel``, the bf16 and the int8 KV cache, forward, a right-padded
+prefill and 3 decode steps, and one MoE call above 4096 tokens.
+
+What is bitwise and what is held to a tolerance:
+- bitwise one device's: mesh (1, 1) everywhere; with no ``model`` split
+  (``(2, 1)``) the dense and vit families (batch rows split, every product
+  a row block of one device's);
+- within ``LOGIT_TOL`` (2.5 % of max |logit|) of one device's logits: the
+  row-parallel ``wo``/``w2``/``shared_w2`` and the MoE sums over ``data``
+  and ``model`` add the same f32 terms in another order and round once
+  (one bf16 ulp of |y| plus ``1e-5·(|x|@|W|)`` a linear, held exactly in
+  ``test_block_matmul_k_split``); MoE routing flips must be near-ties
+  (within 2^-5 of the k-th probability) and the sequences they reach are
+  not compared (``tests/test_torch_transformer.py``'s MoE rule);
+- against the JAX package's unsharded prefill and decode steps on the same
+  weights (carried across with ``tests/_torch_lm.py``): within
+  ``LOGIT_TOL``, with the near-tie rule against JAX's own probabilities.
+"""
+import dataclasses
+import pickle
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as tmp
+
+import _torch_lm_sharding_worker as worker
+from _torch_lm import tree_to_numpy
+from repro import configs as jconfigs
+from repro.core import params as jpar
+from repro.models import common as jcommon
+from repro.models import sharding as jsh
+from repro.models import transformer as JT
+from repro.nn import moe as JM
+from repro_torch import configs as tconfigs
+from repro_torch import interop
+from repro_torch.core import params as tpar
+from repro_torch.launch.mesh import Mesh, make_conv_mesh
+from repro_torch.models import common as tcommon
+from repro_torch.models import encdec as TE
+from repro_torch.models import hybrid as TH
+from repro_torch.models import sharding as tsh
+from repro_torch.models import ssm_lm as TS
+from repro_torch.models import transformer as TT
+from repro_torch.nn import moe as TM
+from repro_torch.train import optimizer as topt
+from repro_torch.train import step as tstep
+from repro_torch.tree import flatten_with_path
+
+ARCHS = ("qwen3-32b", "deepseek-moe-16b", "internvl2-26b")
+MESHES = [(2, 1), (1, 2), (2, 2)]
+JOIN_TIMEOUT_S = 240  # every check of one mesh, all ranks
+LOGIT_TOL = worker.LOGIT_TOL
+TIE = worker.TIE
+B, S, STEPS, MAX_SEQ = 4, 11, 3, 32
+BIG_T = 4200  # one MoE call past the regime switch (> 4096 tokens)
+
+
+def _cpu_mesh(shape, coords) -> Mesh:
+    """One rank's view of a mesh with no process groups: placement and the
+    rank-local products need none (and raise before any collective)."""
+    return Mesh(tuple(shape), ("data", "model"), tuple(coords), (None, None),
+                torch.device("cpu"))
+
+
+def _jcfg(arch: str):
+    return jconfigs.get_config(arch, smoke=True).with_quant(enabled=True,
+                                                            min_weight_elems=1024)
+
+
+@pytest.fixture(scope="module")
+def cases():
+    """The JAX weights (quantized by the JAX package, jitted: the same
+    dictionaries without eager tracing), every rank's inputs, and the JAX
+    package's unsharded prefill and decode logits on ``dequant`` with the
+    MoE calls' router inputs."""
+    data, refs = {"lm": {}}, {}
+    rng = np.random.default_rng(7)
+    for arch in ARCHS:
+        jc = _jcfg(arch).with_quant(impl="dequant")
+        jp = jax.jit(lambda k, jc=jc: jcommon.quantize_params(JT.init_params(jc, k), jc))(
+            jax.random.PRNGKey(0))
+        fe = None
+        if jc.frontend == "vit":
+            fe = rng.standard_normal((B, jc.frontend_tokens, jc.frontend_dim)).astype(
+                np.float32)
+        case = {"params": tree_to_numpy(jp),
+                "toks": rng.integers(0, jc.vocab, (B, S)).astype(np.int32),
+                "lengths": np.array([S, 6, 9, 3], np.int32),
+                "nxt": rng.integers(0, jc.vocab, (STEPS, B, 1)).astype(np.int32),
+                "fe": fe, "max_seq": MAX_SEQ}
+        data["lm"][arch] = case
+        log = {"pre": [], "dec": []}
+        kw = {} if fe is None else {"frontend_embeds": jnp.asarray(fe, jnp.bfloat16)}
+        pre = jax.jit(lambda p, t, c, ln, kw: JT.prefill(p, t, c, jc, lengths=ln, **kw))
+        dec = jax.jit(lambda p, t, c: JT.decode_step(p, t, c, jc))
+        with _routes(log["pre"]):
+            logits, cache = pre(jp, jnp.asarray(case["toks"]),
+                                JT.init_caches(jc, B, MAX_SEQ),
+                                jnp.asarray(case["lengths"]), kw)
+            jax.effects_barrier()
+        out = {"pre": np.asarray(logits.astype(jnp.float32)), "dec": []}
+        with _routes(log["dec"]):
+            for step in case["nxt"]:
+                logits, cache = dec(jp, jnp.asarray(step), cache)
+                out["dec"].append(np.asarray(logits.astype(jnp.float32)))
+            jax.effects_barrier()
+        refs[arch] = dict(out, routes=log)
+    # the MoE call past the switch: deepseek's first MoE layer, JAX's output
+    jc = _jcfg("deepseek-moe-16b")
+    lp = data["lm"]["deepseek-moe-16b"]["params"]
+    moe0 = jax.tree.map(lambda a: a[0], _jax_tree(lp["layers"]["moe"]))
+    x_big = rng.standard_normal((BIG_T, jc.d_model)).astype(np.float32)
+    data["moe_above_switch"] = {
+        "params": lp, "x_big": x_big,
+        "x_small": rng.standard_normal((64, jc.d_model)).astype(np.float32)}
+    y = jax.jit(lambda x, p: JM.moe_ffn(x, p, jc.moe, impl="dequant", n_groups=2)[0])(
+        jnp.asarray(x_big, jnp.bfloat16), moe0)
+    refs["moe_big"] = {"y": np.asarray(y.astype(jnp.float32)), "router": np.asarray(
+        moe0["router"])}
+    return data, refs
+
+
+def _jax_tree(t):
+    """A numpy tree from :func:`tree_to_numpy` back to JAX containers."""
+    if isinstance(t, dict) and "kind" in t:
+        arr = {f: None if t[f] is None else jnp.asarray(t[f])
+               for f in ("w", "idx", "codebook", "bias")}
+        return jpar.PasmParams(**arr, kind=t["kind"], shape=tuple(t["shape"]),
+                               bins=t["bins"], pad_k=t["pad_k"])
+    if isinstance(t, dict):
+        return {k: _jax_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_jax_tree(v) for v in t]
+    return jnp.asarray(t)
+
+
+class _routes:
+    """Record the JAX MoE calls' router inputs (``x`` f32) in order, through
+    a debug callback inside the jitted call."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def __enter__(self):
+        self.inner = JM.moe_ffn
+        log = self.log
+
+        def spy(x, params, cfg, **kw):
+            jax.debug.callback(lambda a: log.append(np.array(a)), x.astype(jnp.float32),
+                               ordered=True)
+            return self.inner(x, params, cfg, **kw)
+
+        JM.moe_ffn = spy
+
+    def __exit__(self, *exc):
+        JM.moe_ffn = self.inner
+
+
+@pytest.fixture(scope="module", params=MESHES, ids=lambda s: f"mesh{s[0]}x{s[1]}")
+def ranks(request, cases, tmp_path_factory):
+    """Run every check on one mesh shape: ``(shape, [each rank's results])``,
+    a rank's results a dict: check → (status, outputs, collective bytes)."""
+    shape = request.param
+    world = shape[0] * shape[1]
+    d = tmp_path_factory.mktemp(f"lm{shape[0]}x{shape[1]}")
+    with open(d / "cases.pkl", "wb") as f:
+        pickle.dump(cases[0], f)
+    ctx = tmp.start_processes(
+        worker.run, args=(world, shape, str(d / "store"), str(d / "cases.pkl"), str(d)),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                pytest.fail(f"mesh {shape}: ranks did not finish in {JOIN_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)
+    assert not any(p.is_alive() for p in ctx.processes)
+    out = []
+    for r in range(world):
+        with open(d / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return shape, out
+
+
+def _result(ranks, name: str):
+    """Every rank's outputs of a check, after asserting it passed on every
+    rank and moved bytes through a collective where the mesh has ranks."""
+    shape, res = ranks
+    for r, rr in enumerate(res):
+        status, val, nbytes = rr[name]
+        assert status == "ok", f"rank {r}, check {name}:\n{val}"
+        assert sum(nbytes.values()) > 0
+    return [rr[name][1] for rr in res]
+
+
+def _jax_flips(jlog, tlog, router, k: int, seq: int) -> set:
+    """The sequences of ``seq`` rows where the port's chosen experts differ
+    from JAX's at some MoE call, each a near-tie in JAX's probabilities."""
+    hit = set()
+    for xj, xt in zip(jlog, tlog):
+        pj = np.asarray(jax.nn.softmax(jnp.dot(jnp.asarray(xj), jnp.asarray(router)), -1))
+        ij = np.sort(np.asarray(jax.lax.top_k(jnp.asarray(pj), k)[1]), -1)
+        it = np.sort(TM.route(torch.from_numpy(np.array(xt)), torch.from_numpy(np.array(router)),
+                              k)[2].numpy(), -1)
+        for t in np.flatnonzero((ij != it).any(-1)):
+            kth = np.sort(pj[t])[-k]
+            assert all(pj[t, e] >= kth * (1 - TIE) for e in set(it[t]) - set(ij[t]))
+            hit.add(int(t) // seq)
+    return hit
+
+
+def _global_routes(shape, outs, arch, key):
+    """The sharded run's router inputs of every MoE call over the global
+    rows: the data ranks' blocks in coordinate order (model rank 0)."""
+    nd, nm = shape
+    per_rank = [outs[d * nm][arch]["dequant", 16]["routes"][key] for d in range(nd)]
+    return [np.concatenate(xs) for xs in zip(*per_rank)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_lm_matches_one_device_and_jax(ranks, cases, arch):
+    """forward / prefill / 3 decode steps under every mesh: the ranks held
+    each call against one device (bitwise at (2, 1) for the dense and vit
+    families); here every rank's global logits are the same, the cache
+    counters advanced per slot, and the ``dequant`` logits agree with the
+    JAX package's unsharded prefill and decode steps."""
+    shape, _ = ranks
+    outs = _result(ranks, "lm")
+    first = outs[0][arch]
+    for o in outs[1:]:  # every rank returns the global result
+        for key, r in first.items():
+            if isinstance(r, dict):
+                for part in ("fwd", "pre"):
+                    np.testing.assert_array_equal(o[arch][key][part], r[part])
+                for a, b in zip(o[arch][key]["dec"], r["dec"]):
+                    np.testing.assert_array_equal(a, b)
+    P = cases[0]["lm"][arch]["fe"].shape[1] if arch == "internvl2-26b" else 0
+    lengths = cases[0]["lm"][arch]["lengths"] + P
+    assert first["kernel", 8]["pos"][-1] == (lengths + STEPS).tolist()
+    ref, got = cases[1][arch], first["dequant", 16]
+    moe = arch == "deepseek-moe-16b"
+    hit = set()
+    if moe:  # one router a MoE layer, the calls in layer order
+        k = _jcfg(arch).moe.top_k
+        routers = list(cases[0]["lm"][arch]["params"]["layers"]["moe"]["router"])
+        for jx, tx, r in zip(ref["routes"]["pre"], _global_routes(shape, outs, arch, "pre"),
+                             routers):
+            hit |= _jax_flips([jx], [tx], r, k, S)
+    scale = np.abs(ref["pre"]).max()
+    rows = [b for b in range(B) if b not in hit]
+    assert len(rows) >= B // 2
+    d = np.abs(got["pre"][rows] - ref["pre"][rows]).max()
+    assert d <= LOGIT_TOL * scale, (d, scale)
+    n = len(ref["routes"]["dec"]) // STEPS if moe else 0
+    tdec = _global_routes(shape, outs, arch, "dec") if moe else []
+    for i, (g, w) in enumerate(zip(got["dec"], ref["dec"])):
+        if moe:
+            for j in range(n):
+                hit |= _jax_flips([ref["routes"]["dec"][i * n + j]], [tdec[i * n + j]],
+                                  routers[j], k, 1)
+        rows = [b for b in range(B) if b not in hit]
+        d = np.abs(g[rows] - w[rows]).max() if rows else 0.0
+        assert d <= LOGIT_TOL * np.abs(w).max(), (i, d)
+
+
+def test_moe_above_the_regime_switch(ranks, cases):
+    """A 4200-token MoE call gathers the Fe-sharded int4 weights over
+    ``data`` (at n_data 2) and a 64-token one reduces the expert outputs
+    over it instead: each rank's group held against one device in the
+    ranks; here the groups put together against JAX's ``moe_ffn`` (the bf16
+    tolerance of ``tests/test_torch_moe.py``, ``5e-3 + 2^-7·max|y|``), on
+    the rows before the first routing flip of each group (a near-tie)."""
+    shape, _ = ranks
+    nd, nm = shape
+    outs = _result(ranks, "moe_above_switch")
+    for impl in ("dequant", "kernel", "pas_kernel"):
+        y = np.concatenate([outs[d * nm]["big", impl] for d in range(nd)])
+        want, router = cases[1]["moe_big"]["y"], cases[1]["moe_big"]["router"]
+        x = cases[0]["moe_above_switch"]["x_big"]
+        xb = torch.from_numpy(x).bfloat16().float()
+        k = _jcfg("deepseek-moe-16b").moe.top_k
+        pj = np.asarray(jax.nn.softmax(jnp.dot(jnp.asarray(xb.numpy()),
+                                               jnp.asarray(router)), -1))
+        ij = np.sort(np.asarray(jax.lax.top_k(jnp.asarray(pj), k)[1]), -1)
+        it = np.sort(TM.route(xb, torch.from_numpy(np.array(router)), k)[2].numpy(), -1)
+        per = BIG_T // 2  # JAX's two dispatch groups
+        rows = np.arange(BIG_T)
+        for g in range(2):
+            diff = np.flatnonzero((ij[g * per:(g + 1) * per] != it[g * per:(g + 1) * per])
+                                  .any(-1))
+            for t in diff + g * per:
+                kth = np.sort(pj[t])[-k]
+                assert all(pj[t, e] >= kth * (1 - TIE) for e in set(it[t]) - set(ij[t]))
+            if len(diff):
+                rows = rows[(rows < g * per + diff[0]) | (rows >= (g + 1) * per)]
+        assert len(rows) >= BIG_T // 2
+        tol = 5e-3 + 2.0 ** -7 * np.abs(want).max()
+        assert np.abs(y[rows] - want[rows]).max() <= tol, impl
+
+
+# ---------------------------------------------------------------------------
+# in one process: placement, the rank-local products, (1, 1), refusals
+# ---------------------------------------------------------------------------
+
+
+def _port_path(path: tuple) -> str:
+    """A placed leaf's path as the JAX tree names it: no per-layer index
+    (JAX stacks the layers) and no ``w`` of a dense leaf placed as a block."""
+    path = [p for i, p in enumerate(path) if not (i and path[i - 1] == "layers")]
+    return "/".join(path[:-1] if path[-1] == "w" else path)
+
+
+def _jax_specs(jparams, sizes) -> dict:
+    specs = jsh.param_pspecs(jparams, sizes)
+    from _torch_lm import _key
+
+    flat = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))[0]
+    return {"/".join(_key(p) for p in path): tuple(s) for path, s in flat}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_placed_leaves_follow_jax_param_pspecs(cases, arch):
+    """Every leaf ``place_params`` gives a rank is the block JAX's
+    ``param_pspecs`` names for it, on every coordinate of every mesh: each
+    sharded dim divided by its axes, the codebooks whole."""
+    tree = cases[0]["lm"][arch]["params"]
+    jp, tp = _jax_tree(tree), interop.lm_params_from_numpy(tree, device="cpu")
+    glob = {"/".join(p): leaf for p, leaf in flatten_with_path(tp)}
+    for shape in MESHES:
+        sizes = dict(zip(("data", "model"), shape))
+        spec = _jax_specs(jp, sizes)
+        for coords in np.ndindex(*shape):
+            placed = tsh.place_params(tp, _cpu_mesh(shape, coords))
+            n_split = 0
+            for path, leaf in flatten_with_path(placed):
+                key = _port_path(path)
+                g = glob.get("/".join(path), glob.get("/".join(path[:-1])))
+                s = spec[key][-leaf.ndim:] if leaf.ndim else ()
+                s = tuple(s) + (None,) * (leaf.ndim - len(s))
+                want = tuple(d // int(np.prod([sizes[a] for a in
+                                               ((ax,) if isinstance(ax, str) else ax)]))
+                             if ax else d for d, ax in zip(g.shape, s))
+                assert tuple(leaf.shape) == want, (shape, coords, key, leaf.shape, s)
+                n_split += want != tuple(g.shape)
+                if key.endswith("codebook"):
+                    assert torch.equal(leaf, g)
+            if shape == (1, 2):  # wq/wk/wv/wo, the FFN, the head at least
+                assert n_split >= 7
+
+
+def test_grouped_k_split_keeps_its_groups_or_stays_whole():
+    """A row-parallel leaf with grouped dictionaries: groups that divide the
+    axis go with their rows (``held_block`` cuts the codebook), groups that
+    do not keep the leaf whole; both compute the unsharded product."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((6, 96)).astype(np.float32)).bfloat16()
+    for groups in (2, 3):
+        w = tpar.PasmParams.shared(
+            torch.from_numpy(rng.integers(0, 16, (96, 40)).astype(np.uint8)),
+            torch.from_numpy(rng.standard_normal((groups, 16)).astype(np.float32))).pack()
+        want = tpar.matmul(x, w, impl="kernel").float()
+        parts = []
+        for m in range(2):
+            mesh = _cpu_mesh((1, 2), (0, m))
+            wp = tsh.place_params({"layers": [{"attn": {"wo": w}}]}, mesh)
+            wp = wp["layers"][0]["attn"]["wo"]
+            y, split = tpar.block_matmul(x, wp, impl="kernel", mesh=mesh)
+            assert split == (groups == 2)
+            assert wp.idx.shape[0] == (24 if groups == 2 else 48)
+            parts.append(y)
+        got = parts[0] + parts[1] if groups == 2 else parts[0]
+        assert (got - want).abs().max() <= 2.0 ** -7 * want.abs().max() + 1e-5
+
+
+@pytest.mark.parametrize("kind,impl", [
+    (kind, impl) for kind in ("shared", "packed", "packed_pad", "grouped", "dense")
+    for impl in ("dequant", "kernel", "pas_kernel")
+    if not (kind == "grouped" and impl == "pas_kernel")])  # PAS: one dictionary
+def test_block_matmul_k_split(kind, impl):
+    """The row-parallel dispatch's per-rank body on every leaf kind: the two
+    ranks' f32 partials of a K split sum to the unsharded f32 product within
+    ``1e-5·(|x|@|W|)`` (another order of the same exact products), and a
+    column block is bitwise the unsharded call's columns."""
+    rng = np.random.default_rng(len(kind))
+    K = 63 if kind == "packed_pad" else 64
+    idx = torch.from_numpy(rng.integers(0, 16, (K, 48)).astype(np.uint8))
+    cb = torch.from_numpy(rng.standard_normal((2 if kind == "grouped" else 1, 16))
+                          .astype(np.float32))
+    w = tpar.PasmParams.shared(idx, cb)
+    if kind.startswith("packed") or kind == "grouped":
+        w = w.pack()
+    if kind == "dense":
+        w = w.dense_matrix()
+    x = torch.from_numpy(rng.standard_normal((5, K)).astype(np.float32)).bfloat16()
+    whole = tpar._matmul_f32(x, tpar.as_params(w), impl, None, False)
+    absw = tpar.as_params(w).dense_matrix(torch.bfloat16).float().abs()
+    bound = 1e-5 * (x.float().abs() @ absw) + 1e-6
+    for name in ("w2", "w1"):  # row-parallel (K over model), column-parallel (N)
+        parts = []
+        for m in range(2):
+            mesh = _cpu_mesh((1, 2), (0, m))
+            leaf = tsh.place_params({name: w}, mesh)[name]
+            y, k_split = tpar.block_matmul(x, leaf, impl=impl, mesh=mesh)
+            assert k_split == (name == "w2")
+            parts.append(y)
+        if name == "w2":  # packed_pad: 32 bytes (63 rows + the pad row), 16 a rank
+            assert ((parts[0] + parts[1]) - whole).abs().le(bound).all(), kind
+        else:
+            assert torch.equal(torch.cat(parts, -1), whole)
+
+
+def test_mesh_1x1_is_bitwise_the_unsharded_calls():
+    """An active context on the (1, 1) mesh (no process group) computes the
+    one-device function bitwise: every family, forward, prefill, decode."""
+    mesh = make_conv_mesh((1, 1), device="cpu")
+    for arch in ARCHS:
+        tc = worker.smoke_config(arch, impl="kernel")
+        params = tcommon.quantize_params(
+            TT.init_params(tc, torch.Generator().manual_seed(1)), tc, iters=2)
+        sctx = tcommon.ShardCtx.for_mesh(mesh, 2)
+        assert sctx.active and sctx.dp == 1 and not sctx.batch_split
+        placed = tsh.place_params(params, mesh)
+        toks = torch.randint(0, tc.vocab, (2, 7), generator=torch.Generator().manual_seed(2))
+        fe = None
+        if tc.frontend == "vit":
+            fe = torch.randn((2, tc.frontend_tokens, tc.frontend_dim),
+                             generator=torch.Generator().manual_seed(3)).bfloat16()
+        a, _ = TT.forward(params, toks, tc, frontend_embeds=fe)
+        b, _ = TT.forward(placed, toks, tc, sctx, frontend_embeds=fe)
+        assert torch.equal(a, b), arch
+        ca = TT.init_caches(tc, 2, 16, device="cpu")
+        cb = tsh.place_caches(tc, TT.init_caches(tc, 2, 16, device="cpu"), mesh, sctx.batch)
+        a, ca = TT.prefill(params, toks, ca, tc, frontend_embeds=fe)
+        b, cb = TT.prefill(placed, toks, cb, tc, sctx, frontend_embeds=fe)
+        assert torch.equal(a, b), arch
+        a, _ = TT.decode_step(params, toks[:, :1], ca, tc)
+        b, _ = TT.decode_step(placed, toks[:, :1], cb, tc, sctx)
+        assert torch.equal(a, b), arch
+
+
+def test_active_ctx_and_dense_stack_block():
+    """An active context carries its mesh and the batch axes' DP degree;
+    ``dense_stack`` of a placed stack gives the rank's expert block."""
+    mesh = _cpu_mesh((2, 2), (1, 0))
+    sctx = tcommon.ShardCtx.for_mesh(mesh, 4)
+    assert (sctx.batch, sctx.dp, sctx.tp, sctx.batch_split) == (("data",), 2, 2, True)
+    assert tcommon.ShardCtx.for_mesh(mesh, 3).batch == ()
+    with pytest.raises(ValueError, match="explicit mesh"):
+        tcommon.ShardCtx(active=True)
+    with pytest.raises(ValueError, match="dp="):
+        tcommon.ShardCtx(active=True, mesh=mesh, dp=1)
+    stack = torch.arange(4 * 3 * 2, dtype=torch.float32).reshape(4, 3, 2)
+    placed = tsh.place_params({"moe": {"w1": stack}}, mesh)["moe"]["w1"]
+    assert tuple(placed.w.shape) == (2, 3, 1) and placed.shape == (3, 2)
+    block = tpar.dense_stack(placed, torch.float32)
+    assert torch.equal(block, stack[:2, :, 1:])
+
+
+def test_refusals_name_their_roadmap_items():
+    """The SSM, hybrid and encdec families and the train step raise on an
+    active context, as does a KV-head count the model axis does not divide
+    (the sequence-sharded cache): nothing runs replicated in silence."""
+    mesh = _cpu_mesh((1, 2), (0, 0))
+    sctx = tcommon.ShardCtx.for_mesh(mesh, 2)
+    toks = torch.zeros((2, 3), dtype=torch.long)
+    for arch, mod in (("mamba2-130m", TS), ("recurrentgemma-2b", TH), ("whisper-tiny", TE)):
+        cfg = tconfigs.get_config(arch, smoke=True)
+        for call in (lambda: mod.forward({}, toks, cfg, sctx),
+                     lambda: mod.prefill({}, toks, {}, cfg, sctx),
+                     lambda: mod.decode_step({}, toks[:, :1], {}, cfg, sctx)):
+            with pytest.raises(NotImplementedError, match="item 12b"):
+                call()
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        TE.encode({}, torch.zeros((2, 80, 8)), tconfigs.get_config("whisper-tiny", smoke=True),
+                  sctx)
+    cfg = tconfigs.get_config("qwen3-32b", smoke=True)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tstep.make_train_step(cfg, topt.AdamWConfig(), sctx)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, cfg, sctx)
+    odd = dataclasses.replace(cfg, n_kv_heads=1, n_heads=4)  # KV 1 over model 2
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        tsh.place_caches(odd, TT.init_caches(odd, 2, 8, device="cpu"), mesh, sctx.batch)
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        TT.forward({}, toks, odd, sctx)
