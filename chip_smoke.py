@@ -87,7 +87,12 @@ Phases (every one unguarded: any failure exits non-zero):
    with a crash at step 3: the resumed run's params and optimizer state
    bitwise the uninterrupted run's; (d) the full-width AlexNet QAT-trained
    2 steps at batch 8, frozen with ``qat_requantize`` and served on K1
-   and K2 within ``TOL`` of ``qat_forward``;
+   and K2 within ``TOL`` of ``qat_forward``; (e) mamba2-130m,
+   recurrentgemma-2b and whisper-tiny at full width and full depth, one
+   train step each at 8 × 128: loss and grads on ``kernel`` against
+   ``dequant`` within ``LM_GRAD_TOL`` or the one-ulp floor measured in the
+   run (``kernel`` with the embeddings moved by one bf16 ulp), the step
+   timed with its peak memory, K1 launches counted;
 10. the MoE family and the vit prefix at full width, depth cut: (a)
     deepseek-moe-16b (d_model 2048, 16/16 heads of hd 128, layer 0 dense
     with SwiGLU d_ff 10944, then 64 routed experts top-6 of d_expert 1408
@@ -192,8 +197,24 @@ Phases (every one unguarded: any failure exits non-zero):
     replay one device's experts, each place a rank's own top-k differs a
     near-tie within ``MOE_TIE``); a rank that fails or outlives
     ``SHARD_RANK_TIMEOUT_S`` fails the run;
-15. one ``{"kernels": [...]}`` JSON line;
-16. last line: ``{"ok": true, "device": {...}}``.
+15. sharded training (``train_shard_phase``), under deterministic
+    algorithms: (a) NCCL at world size 1, mesh (1, 1): the full-width
+    AlexNet's QAT step at batch 32 (``make_cnn_train_step(mesh=)``) and
+    qwen3-32b's train step (4 of 64 layers, 8 × 128, remat, K1) under an
+    active ``ShardCtx`` bitwise the unsharded steps, 57 K1 launches a step,
+    all ``mma``; (b) two gloo ranks sharing the card at (1, 2) and (2, 1),
+    one device's loss and grads handed over through ``build/phase15``:
+    the AlexNet's loss within ``QAT_LOSS_TOL`` and every gradient leaf
+    (gathered) within ``QAT_GRAD_TOL`` of max, its step timed, a NaN
+    ``loss_scale`` skipped with the tree bitwise, a crash after step 4 of 6
+    resumed from the gathered checkpoints bitwise the uninterrupted run;
+    qwen3's loss within ``LM_LOSS_TOL`` and every float leaf's gradient
+    (codebooks, norms, the embedding's rows) within ``LM_GRAD_TOL`` of max,
+    57 K1 launches a step, every distinct block K1 ran held to the plain
+    version (``check_blocks``), the collective bytes of a forward and of a
+    step, the step's wall time and peak memory a rank;
+16. one ``{"kernels": [...]}`` JSON line;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -302,6 +323,18 @@ LM_SHARD_BATCH, LM_SHARD_PROMPT = 4, 384
 LM_SHARD_STEPS = 8
 LM_SHARD_MESHES = ((1, 2), (2, 1))
 MOE_SHARD_BIG = (2, 2304)  # 4608 tokens: past the MoE regime switch (> 4096)
+# phase 9(e): the recurrent and encoder-decoder families trained at full depth
+FAMILY_TRAIN = (("mamba2-130m", 24), ("recurrentgemma-2b", 26), ("whisper-tiny", 4))
+# phase 15: sharded training (the AlexNet QAT step, the qwen3 train step)
+TRAIN_SHARD_MESHES = ((1, 2), (2, 1))
+QAT_SHARD_BATCH = 32
+TRAIN_SHARD_STEPS, TRAIN_SHARD_CRASH = 6, 4  # the AlexNet crash-resume, ckpt every 2
+TRAIN_SHARD_TIMEOUT_S = 900  # both ranks of (b), every check
+# AlexNet sharded vs one device, f32: the loss (a mean over the batch) and
+# each gradient leaf (|Δ| <= t·max) sum the same products in another order:
+# the rows split over data, the GEMMs planned by cuBLAS for the blocks
+QAT_LOSS_TOL = 1e-5
+QAT_GRAD_TOL = BWD_TOL["float32"]
 
 
 def log(*a) -> None:
@@ -1468,6 +1501,88 @@ def qat_check(cfg, params, gen, card: str) -> dict:
             "k2": counts["kernel_implicit"]["pasm_conv"]}
 
 
+def family_train(gen, card: str) -> dict:
+    """Phase 9(e): mamba2-130m, recurrentgemma-2b and whisper-tiny at full
+    width and full depth (16 bins int4, weights drawn and quantized on the
+    card), one train step each at phase 9(b)'s batch: the loss and grads on
+    ``kernel`` against ``dequant``, held within ``LM_GRAD_TOL`` or, where it
+    is larger, the oracle's own one-ulp floor (``kernel`` with every
+    embedding moved by up to one bf16 ulp, phase 11's measure: at full
+    depth it exceeds ``LM_LOGIT_TOL`` in the forward); the step timed with
+    its peak memory and its K1 launches counted."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+
+    out = {"launches": 0, "routes": {"simt": 0, "stream": 0, "mma": 0}}
+    for arch, full in FAMILY_TRAIN:
+        cfg = get_config(arch).with_quant(enabled=True, bins=16, impl="kernel")
+        params = build_lm(cfg, gen, "9(e)", full)
+        batch = synthetic_batch(DataConfig(seed=SEED, vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                           global_batch=TRAIN_BATCH), 0, device="cuda")
+        res = {}
+        for impl, c in (("kernel", cfg), ("dequant", cfg.with_quant(impl="dequant"))):
+            torch.cuda.synchronize()
+            pm.reset_launches()
+            r0 = dict(pm.k1_routes)
+            t0 = time.perf_counter()
+            loss, _, grads = st.loss_and_grads(params, batch, c)
+            torch.cuda.synchronize()
+            res[impl] = (float(loss), leaf_grads(grads), pm.launches["pasm_matmul"],
+                         {k: pm.k1_routes[k] - r0[k] for k in r0},
+                         time.perf_counter() - t0)
+            del grads
+        emb = params["embed"]
+        params["embed"] = emb * (1 + 2.0 ** -8 * torch.randint(
+            -1, 2, emb.shape, generator=gen, device="cuda", dtype=torch.int8).float())
+        loss_m, _, grads = st.loss_and_grads(params, batch, cfg)
+        moved = leaf_grads(grads)
+        params["embed"] = emb
+        del grads
+        lk, gk = res["kernel"][0], res["kernel"][1]
+        floor = max(rel_err(moved[k], gk[k]) for k in gk)
+        loss_floor = abs(float(loss_m) - lk) / abs(lk)
+        hold = max(LM_GRAD_TOL, floor)
+        ld = res["dequant"][0]
+        if not (np.isfinite(lk) and abs(lk - ld) <= max(LM_LOSS_TOL, loss_floor) * abs(ld)):
+            raise AssertionError(f"{arch} train loss kernel {lk} vs dequant {ld}")
+        worst = max(bwd_close(gk[k], gd, hold, f"{arch} train grad {k}")
+                    for k, gd in res["dequant"][1].items())
+        if not res["kernel"][2] or res["dequant"][2]:
+            raise AssertionError(f"{arch}: K1 launches kernel {res['kernel'][2]}, "
+                                 f"dequant {res['dequant'][2]}")
+        out["launches"] += res["kernel"][2]
+        for k, n in res["kernel"][3].items():
+            out["routes"][k] += n
+        step = st.make_train_step(cfg, opt.AdamWConfig())
+        state = opt.init_opt_state(params)
+        step(params, state, batch)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new = step(params, state, batch)
+        torch.cuda.synchronize()
+        ms, peak = (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+        if int(new[2]["skipped"]) or not np.isfinite(float(new[2]["loss"])):
+            raise AssertionError(f"{arch} train step: {new[2]}")
+        out[arch] = {"ms": ms, "peak_gb": peak / 1e9, "grad_err": worst, "hold": hold}
+        log(f"  {arch} (full depth, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}): fits, one "
+            f"step {ms:.1f} ms host clock to a synchronize, peak memory {peak / 1e9:.2f} "
+            f"GB (max_memory_allocated); kernel vs dequant: loss {lk:.6f} vs {ld:.6f}, "
+            f"grads {worst:.2e} of max (held to {hold:.4f} = max(LM_GRAD_TOL, the one-ulp "
+            f"floor {floor:.4f})); K1 launches {res['kernel'][2]} in loss_and_grads "
+            f"(routes {res['kernel'][3]}), dequant's grads {res['dequant'][4]:.2f} s, "
+            f"kernel's {res['kernel'][4]:.2f} s [{card}]")
+        del params, state, new, step, res, moved
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_phase(cfg, params, qparams, lm: dict, gen, card: str) -> dict:
     """Phase 9; returns the K1/K2 launches of its main paths and its times."""
     import torch
@@ -1485,6 +1600,9 @@ def train_phase(cfg, params, qparams, lm: dict, gen, card: str) -> dict:
         out = lm_train(lm, gen, card, errs)
         out["resume"] = resume_check(card)
         out["qat"] = qat_check(cfg, params, gen, card)
+        log(f"phase 9(e): the recurrent and encoder-decoder families trained at full "
+            f"width and full depth [{card}]")
+        out["families"] = family_train(gen, card)
     log(f"phase 9: largest |Δ|/max: backwards f32 {errs['bwd_f32']:.3e}, bf16 "
         f"{errs['bwd_bf16']:.3e}; train grads kernel vs dequant {errs['lm_grad']:.3e}")
     return dict(out, errs=errs)
@@ -2941,7 +3059,7 @@ class BlockSpy:
             key = (tuple(x.shape), kw.get("axis", "model"), kw.get("rows"),
                    tuple(p.idx.shape), tuple(p.codebook.shape), p.packed, p.shape, p.pad_k)
             if key not in self.seen:
-                self.seen[key] = (x.clone(), w, kw)
+                self.seen[key] = (x.detach().clone(), w, kw)
         return self.inner(x, w, **kw)
 
 
@@ -3370,6 +3488,446 @@ def lm_shard_phase(gen, errs: dict, card: str) -> dict:
     return {"launches": sum(k1.values()), "routes": k1}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded training
+# ---------------------------------------------------------------------------
+
+
+def same_tree(a, b) -> bool:
+    """Every leaf of two trees bitwise equal (compared where ``b`` lives)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.to(y.device), y)
+        for x, y in zip(la, lb))
+
+
+def qat_batch(cfg, batch: int, step: int = 0) -> dict:
+    from repro_torch.data.pipeline import DataConfig, synthetic_image_batch
+
+    return synthetic_image_batch(DataConfig(seed=SEED, global_batch=batch), step,
+                                 chw=cfg.in_chw, classes=cfg.classes, device="cuda")
+
+
+def supervised_run(step, fresh, batches, d: Path, *, mesh=None, specs=None) -> tuple:
+    """``run_loop`` of ``TRAIN_SHARD_STEPS`` under ``ft.Supervisor`` with a
+    crash after step ``TRAIN_SHARD_CRASH``'s update, checkpoints every 2,
+    restored as ``--resume auto`` does: ``(last, losses, state, restarts)``."""
+    from repro_torch import ft
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.train.faults import TrainFaultPlan, TrainFaultSpec
+    from repro_torch.train.loop import run_loop
+
+    mgr = ckpt.CheckpointManager(d, mesh=mesh, specs=specs)
+    plan = TrainFaultPlan([TrainFaultSpec("crash", step=TRAIN_SHARD_CRASH)])
+    sup = ft.Supervisor(ft.RestartPolicy(max_restarts=2, backoff_s=0.0),
+                        sleep=lambda _s: None)
+    losses, box = {}, {}
+
+    def loop(resume_step):
+        state, start = fresh(), 0
+        if ckpt.latest_step(mgr.dir) is not None:
+            state, man = mgr.restore_latest(state) if resume_step is None else \
+                ckpt.restore(mgr.dir, state, step=resume_step, mesh=mesh, specs=specs)
+            start = man["step"]
+        res = run_loop(step, state, batches, steps=TRAIN_SHARD_STEPS, start_step=start,
+                       mgr=mgr, ckpt_every=2, faults=plan, losses=losses)
+        box["state"] = res.state
+        return res.last_step
+
+    last = sup.run(loop)
+    return last, losses, box["state"], sup.restarts
+
+
+def train_shard_rank(rank: int, world: int, port: int, data_dir: str) -> None:
+    """One rank of phase 15(b): gloo on the card every rank shares, the
+    AlexNet QAT step and the qwen3 train step on each mesh, held to (a)'s
+    one-device results in ``data_dir``; a JSON report (or the traceback)
+    to ``data_dir/rank<r>.json``."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.train.step import deterministic
+
+    report = {"lines": [], "k1": 0, "routes": {"stream": 0, "mma": 0, "simt": 0},
+              "checks": 0, "check_launches": 0, "max_abs_err": 0.0, "ok": False}
+    data = Path(data_dir)
+    out = data / f"rank{rank}.json"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARD_COLLECTIVE_TIMEOUT_S))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with deterministic():
+            for shape in TRAIN_SHARD_MESHES:
+                mesh = make_conv_mesh(shape, device="cuda")
+                train_shard_cnn(rank, mesh, data, report)
+                torch.cuda.empty_cache()
+                train_shard_lm(rank, mesh, data, report)
+                torch.cuda.empty_cache()
+        report["ok"] = True
+    except Exception:  # reported by the parent, which fails the run
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        out.write_text(json.dumps(report))
+        dist.destroy_process_group()
+
+
+def train_shard_cnn(rank: int, mesh, data: Path, report: dict) -> None:
+    """The full-width AlexNet's QAT step on ``mesh``: loss and every
+    gradient leaf against one device's, the step timed, a poisoned step and
+    a crash-resume bitwise."""
+    import torch
+
+    from repro_torch.configs import alexnet_conv
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import cnn
+    from repro_torch.models import sharding as sh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.train.loop import run_loop
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.tree import flatten_with_path
+
+    say = report["lines"].append
+    cfg = alexnet_conv.config()
+    ref = torch.load(data / "cnn_ref.pt", map_location="cuda:0", weights_only=False)
+    specs = cnn.qat_specs(cfg, mesh)
+    placed = cnn._place(ref["tree"], mesh)
+    batch = ref["batch"]
+    torch.cuda.synchronize()
+    lmesh.reset_collective_bytes()
+    loss, grads = st.cnn_loss_and_grads(placed, batch, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    nbytes = dict(lmesh.collective_bytes)
+    lerr = abs(float(loss) - float(ref["loss"])) / abs(float(ref["loss"]))
+    if lerr > QAT_LOSS_TOL:
+        raise AssertionError(f"AlexNet {mesh.shape}: loss {float(loss)} vs one device "
+                             f"{float(ref['loss'])}")
+    want = dict(flatten_with_path(ref["grads"]))
+    got = dict(flatten_with_path(sh.gather_params(grads, mesh, specs)))
+    if set(got) != set(want):
+        raise AssertionError(f"AlexNet {mesh.shape}: grad leaves {set(got) ^ set(want)}")
+    worst = max(bwd_close(got[k], want[k], QAT_GRAD_TOL, f"AlexNet {mesh.shape} grad "
+                          f"{'/'.join(k)}") for k in want)
+    del grads, got
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1)
+    step = st.make_cnn_train_step(cfg, ocfg, mesh=mesh)
+    state = (placed, opt.init_opt_state(placed))
+    step(*state, batch)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new = step(*state, batch)
+    torch.cuda.synchronize()
+    ms, peak = (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+    if int(new[2]["skipped"]):
+        raise AssertionError(f"AlexNet {mesh.shape}: a clean step skipped")
+    poisoned = dict(batch, loss_scale=torch.tensor(float("nan"), device="cuda"))
+    bad = step(*state, poisoned)
+    if int(bad[2]["skipped"]) != 1 or not same_tree(bad[:2], state):
+        raise AssertionError(f"AlexNet {mesh.shape}: poisoned step skipped "
+                             f"{int(bad[2]['skipped'])}, state bitwise unchanged "
+                             f"{same_tree(bad[:2], state)}")
+    del new, bad, state
+    # crash-resume at the QAT batch of phase 9(d), checkpoints gathered
+    sspecs = cnn.qat_specs(cfg, mesh, with_opt=True)
+    tag = "x".join(map(str, mesh.shape))
+
+    def fresh():
+        p = cnn._place(ref["tree"], mesh)
+        return p, opt.init_opt_state(p)
+
+    def batches(s):
+        return qat_batch(cfg, QAT_BATCH, s)
+
+    t0 = time.perf_counter()
+    full = run_loop(step, fresh(), batches, steps=TRAIN_SHARD_STEPS,
+                    mgr=ckpt.CheckpointManager(data / f"cnn{tag}_ref", mesh=mesh,
+                                               specs=sspecs), ckpt_every=2)
+    last, losses, state, restarts = supervised_run(step, fresh, batches,
+                                                   data / f"cnn{tag}_run", mesh=mesh,
+                                                   specs=sspecs)
+    same_l = [losses[s] for s in range(TRAIN_SHARD_STEPS)] == \
+        [full.losses[s] for s in range(TRAIN_SHARD_STEPS)]
+    if last != TRAIN_SHARD_STEPS or restarts != 1 or not same_l or \
+            not same_tree(state, full.state) or full.n_skipped:
+        raise AssertionError(f"AlexNet {mesh.shape} crash-resume: last {last}, restarts "
+                             f"{restarts}, losses equal {same_l}, state bitwise "
+                             f"{same_tree(state, full.state)}")
+    t_resume = time.perf_counter() - t0
+    say(f"rank {rank} AlexNet QAT {mesh.shape} batch {QAT_SHARD_BATCH}: loss {float(loss):.6f} "
+        f"({lerr:.1e} of one device's), grads {worst:.2e} of max (<= {QAT_GRAD_TOL}, "
+        f"{len(want)} leaves, gathered); step {ms:.1f} ms wall, peak {peak / 1e9:.2f} GB; "
+        f"collective bytes of loss and grads {nbytes}; a NaN loss_scale skipped with the "
+        f"tree bitwise; crashed after step {TRAIN_SHARD_CRASH} of {TRAIN_SHARD_STEPS} at "
+        f"batch {QAT_BATCH}: losses and final tree bitwise the uninterrupted run "
+        f"({t_resume:.1f} s for both runs)")
+
+
+def train_shard_lm(rank: int, mesh, data: Path, report: dict) -> None:
+    """qwen3-32b's train step (4 layers, remat, K1) on ``mesh``: loss and
+    every float leaf's gradient against one device's, K1 launches a step,
+    each distinct block K1 ran held to the plain version, collective bytes,
+    the step timed with its peak memory."""
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path
+
+    say = report["lines"].append
+    cfg = lm_config()
+    tree = torch.load(data / "qwen3.pt", map_location="cpu", mmap=True, weights_only=False)
+    ref = torch.load(data / "qwen3_ref.pt", map_location="cuda:0", weights_only=False)
+    placed = sh.place_params(tree, mesh)
+    del tree
+    sctx = ShardCtx.for_mesh(mesh, TRAIN_BATCH)
+    batch = ref["batch"]
+    with torch.no_grad():  # the forward's collectives alone
+        lmesh.reset_collective_bytes()
+        TT.forward(placed, batch["tokens"], cfg, sctx)
+        torch.cuda.synchronize()
+        fwd = dict(lmesh.collective_bytes)
+    pm.reset_launches()
+    r0 = dict(pm.k1_routes)
+    lmesh.reset_collective_bytes()
+    t0 = time.perf_counter()
+    with BlockSpy() as blocks:
+        loss, _, grads = st.loss_and_grads(placed, batch, cfg, sctx)
+        torch.cuda.synchronize()
+    t_grads = time.perf_counter() - t0
+    both = dict(lmesh.collective_bytes)
+    k1 = pm.launches["pasm_matmul"]
+    routes = {k: pm.k1_routes[k] - r0[k] for k in r0}
+    if k1 != TRAIN_K1 or routes != {"simt": 0, "stream": 0, "mma": TRAIN_K1}:
+        raise AssertionError(f"qwen3 {mesh.shape}: K1 {k1} by route {routes}, want "
+                             f"{TRAIN_K1} on mma")
+    lerr = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    if lerr > LM_LOSS_TOL:
+        raise AssertionError(f"qwen3 {mesh.shape}: loss {float(loss)} vs one device "
+                             f"{ref['loss']}")
+    worst, seen = {}, 0
+    for path, g in flatten_with_path(grads):
+        name = "/".join(path)
+        if name in ("embed", "embed/w"):  # this rank's vocab block: its rows, zero elsewhere
+            n = g.shape[0]
+            off = mesh.index("model") * n if n < cfg.vocab else 0
+            rows = ref["embed_rows"]
+            mine = (rows >= off) & (rows < off + n)
+            # the batch's tokens may all lie in the other rank's vocab block
+            e = bwd_close(g[rows[mine] - off], ref["embed"][mine], LM_GRAD_TOL,
+                          f"qwen3 {mesh.shape} grad embed rows") if bool(mine.any()) else 0.0
+            if int(g.abs().amax(-1).count_nonzero()) > int(mine.sum()):
+                raise AssertionError(f"qwen3 {mesh.shape}: embed gradient off the batch's rows")
+            worst["embed"] = max(worst.get("embed", 0.0), e)
+            seen += 1
+        elif name in ref["grads"]:
+            kind = path[-1] if "norm" in path[-1] else "codebook"
+            worst[kind] = max(worst.get(kind, 0.0), bwd_close(
+                g, ref["grads"][name], LM_GRAD_TOL, f"qwen3 {mesh.shape} grad {name}"))
+            seen += 1
+    if seen != len(ref["grads"]) + 1:
+        raise AssertionError(f"qwen3 {mesh.shape}: {seen} of {len(ref['grads']) + 1} "
+                             "gradient leaves compared")
+    del grads, loss
+    torch.cuda.empty_cache()
+    with torch.no_grad():  # K1 on every block this rank's step gave it: checks
+        bc = check_blocks(blocks, f"rank {rank} qwen3 train {mesh.shape}")
+    report["checks"] += bc["checks"]
+    report["check_launches"] += bc["launches"]
+    report["max_abs_err"] = max(report["max_abs_err"], bc["max_abs_err"])
+    del blocks
+    torch.cuda.empty_cache()
+    step = st.make_train_step(cfg, opt.AdamWConfig(), sctx)
+    state = opt.init_opt_state(placed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pm.reset_launches()
+    t0 = time.perf_counter()
+    new = step(placed, state, batch)
+    torch.cuda.synchronize()
+    ms, peak = (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+    if int(new[2]["skipped"]) or not np.isfinite(float(new[2]["loss"])) or \
+            pm.launches["pasm_matmul"] != TRAIN_K1:
+        raise AssertionError(f"qwen3 {mesh.shape} step: {new[2]}, K1 "
+                             f"{pm.launches['pasm_matmul']}")
+    report["k1"] += 2 * TRAIN_K1
+    report["routes"]["mma"] += 2 * TRAIN_K1
+    say(f"rank {rank} qwen3 train {mesh.shape} batch {TRAIN_BATCH} x {TRAIN_SEQ}: loss "
+        f"{lerr:.1e} of one device's; grads |Δ|/max by kind "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in sorted(worst.items()))} (<= "
+        f"{LM_GRAD_TOL}); K1 {TRAIN_K1} a step, all mma; {bc['checks']} distinct blocks "
+        f"vs the plain version: max |Δ| {bc['max_abs_err']:.3e}, |Δ|/(|x|@|W|) "
+        f"{bc['t']:.2e}; collective bytes: a forward {fwd}, loss and grads (forward + "
+        f"remat's recompute + backward + reduction) {both}; loss and grads {t_grads:.2f} s, "
+        f"the step {ms:.1f} ms wall, peak {peak / 1e9:.2f} GB (max_memory_allocated)")
+    del new, state, step, placed
+    torch.cuda.empty_cache()
+
+
+def train_shard_phase(cfg, params, gen, card: str) -> dict:
+    """Phase 15: sharded training.  (a) NCCL at world size 1, mesh (1, 1):
+    the full-width AlexNet QAT step at batch 32 and the qwen3-32b train
+    step (4 layers, remat, K1) bitwise the unsharded steps; one device's
+    loss and grads saved for (b).  (b) two gloo ranks sharing the card at
+    (1, 2) and (2, 1): :func:`train_shard_cnn`, :func:`train_shard_lm`."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import cnn
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.train.step import deterministic
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    log(f"phase 15: sharded training, the AlexNet QAT step (batch {QAT_SHARD_BATCH}) and "
+        f"qwen3-32b's train step ({LM_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ}, remat, "
+        f"K1) over ('data', 'model') meshes, under deterministic algorithms")
+    data = ROOT / "build" / "phase15"
+    shutil.rmtree(data, ignore_errors=True)
+    data.mkdir(parents=True)
+    k1 = {"stream": 0, "mma": 0, "simt": 0}
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        with deterministic(), torch.enable_grad():
+            mesh = make_conv_mesh((1, 1), device="cuda")
+            # the AlexNet
+            tree = {"params": params, "codebooks": cnn.qat_codebooks(params, cfg)}
+            batch = qat_batch(cfg, QAT_SHARD_BATCH)
+            ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1)
+            a = st.make_cnn_train_step(cfg, ocfg)(tree, opt.init_opt_state(tree), batch)
+            placed = cnn._place(tree, mesh)
+            b = st.make_cnn_train_step(cfg, ocfg, mesh=mesh)(
+                placed, opt.init_opt_state(placed), batch)
+            if not (same_tree(a[:2], b[:2]) and torch.equal(a[2]["loss"], b[2]["loss"])):
+                raise AssertionError("(1, 1) AlexNet QAT step: not bitwise the unsharded")
+            loss, grads = st.cnn_loss_and_grads(tree, batch, cfg)
+            torch.save({"tree": tree, "batch": batch, "loss": loss, "grads": grads},
+                       data / "cnn_ref.pt")
+            log(f"  (a) NCCL world 1, mesh (1, 1): the AlexNet QAT step (loss "
+                f"{float(a[2]['loss']):.6f}) bitwise the unsharded step: params, "
+                f"codebooks and optimizer state [{card}]")
+            del a, b, placed, grads
+            # qwen3
+            lcfg = lm_config()
+            lparams = build_lm(lcfg, gen, "15", 64)
+            lbatch = synthetic_batch(DataConfig(seed=SEED, vocab=lcfg.vocab, seq_len=TRAIN_SEQ,
+                                                global_batch=TRAIN_BATCH), 0, device="cuda")
+            loss, _, grads = st.loss_and_grads(lparams, lbatch, lcfg)
+            lg = leaf_grads(grads)
+            e = lg.pop("embed")
+            rows = e.abs().amax(-1).nonzero().flatten()
+            torch.save({"batch": lbatch, "loss": float(loss), "grads": lg,
+                        "embed_rows": rows, "embed": e[rows]}, data / "qwen3_ref.pt")
+            del grads, lg, e
+            torch.save(lparams, data / "qwen3.pt")
+            ocfg = opt.AdamWConfig()
+            a = st.make_train_step(lcfg, ocfg)(lparams, opt.init_opt_state(lparams), lbatch)
+            a = (tree_map(lambda t: t.cpu(), a[:2]), a[2]["loss"].cpu())
+            torch.cuda.empty_cache()
+            placed = sh.place_params(lparams, mesh)
+            del lparams
+            sctx = ShardCtx.for_mesh(mesh, TRAIN_BATCH)
+            torch.cuda.synchronize()
+            pm.reset_launches()
+            r0 = dict(pm.k1_routes)
+            b = st.make_train_step(lcfg, ocfg, sctx)(placed, opt.init_opt_state(placed),
+                                                      lbatch)
+            torch.cuda.synchronize()
+            n, routes = pm.launches["pasm_matmul"], {k: pm.k1_routes[k] - r0[k] for k in r0}
+            if n != TRAIN_K1 or routes != {"simt": 0, "stream": 0, "mma": TRAIN_K1}:
+                raise AssertionError(f"(1, 1) qwen3 step: K1 {n} by route {routes}")
+            for r, c in routes.items():
+                k1[r] += c
+            if not (same_tree(b[:2], a[0]) and torch.equal(b[2]["loss"].cpu(), a[1])):
+                raise AssertionError("(1, 1) qwen3 step: not bitwise the unsharded")
+            log(f"  (a) NCCL world 1, mesh (1, 1): the qwen3 train step (loss "
+                f"{float(a[1]):.6f}) bitwise the unsharded step (params, optimizer "
+                f"state), K1 {n} launches, all mma [{card}]")
+            del a, b, placed
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    world = 2
+    free, total = torch.cuda.mem_get_info()
+    log(f"  (b) {world} ranks on gloo sharing the card (spawned), meshes "
+        f"{list(TRAIN_SHARD_MESHES)}, {free / 1e9:.1f} of {total / 1e9:.1f} GB free; two "
+        "ranks on one card time the dispatch and its collectives, not a speedup")
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(train_shard_rank, args=(world, free_port(), str(data)),
+                              nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + TRAIN_SHARD_TIMEOUT_S
+    failure = None
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                failure = f"a rank did not finish within {TRAIN_SHARD_TIMEOUT_S} s"
+                break
+    except Exception as e:  # a rank raised: its report holds the traceback
+        failure = f"a rank failed: {type(e).__name__}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    reports = []
+    for r in range(world):
+        f = data / f"rank{r}.json"
+        reports.append(json.loads(f.read_text()) if f.exists()
+                       else {"ok": False, "lines": [], "error": "no report"})
+    for r, rep in enumerate(reports):
+        for line in rep["lines"]:
+            log(f"  {line} [{card}]")
+        if not rep["ok"]:
+            log(f"  rank {r} failed:\n{rep.get('error', '')}")
+            failure = failure or f"rank {r} failed"
+    if failure:
+        raise AssertionError(f"phase 15(b): {failure}")
+    checks = {"checks": 0, "launches": 0, "max_abs_err": 0.0}
+    for rep in reports:
+        for r, n in rep["routes"].items():
+            k1[r] += n
+        checks["checks"] += rep["checks"]
+        checks["launches"] += rep["check_launches"]
+        checks["max_abs_err"] = max(checks["max_abs_err"], rep["max_abs_err"])
+    shutil.rmtree(data, ignore_errors=True)
+    log(f"  (b) both ranks passed in {time.perf_counter() - t0:.1f} s; phase 15 took "
+        f"{time.perf_counter() - t_phase:.1f} s; K1 launches {k1} (the (1, 1) step and "
+        f"both ranks' two steps a mesh), and {checks['launches']} more holding "
+        f"{checks['checks']} rank blocks to the plain version (max |Δ| "
+        f"{checks['max_abs_err']:.3e}) [{card}]")
+    return {"launches": sum(k1.values()), "routes": k1, "max_abs_err": checks["max_abs_err"]}
+
+
 def main() -> int:
     import torch
 
@@ -3621,7 +4179,11 @@ def main() -> int:
     # 14. the sharded LM at full width ---------------------------------------------
     lsh = lm_shard_phase(gen, errs, card)
 
-    # 15. the kernels line -----------------------------------------------------
+    # 15. sharded training -----------------------------------------------------------
+    trs = train_shard_phase(cfg, params, gen, card)
+    errs["pasm_matmul"] = max(errs["pasm_matmul"], trs["max_abs_err"])
+
+    # 16. the kernels line -----------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -3633,7 +4195,7 @@ def main() -> int:
     launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"]
                 + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"]
                 + ssm["launches"] + hyb["launches"] + wsp["launches"] + sl["pasm_matmul"]
-                + lsh["launches"],
+                + lsh["launches"] + train["families"]["launches"] + trs["launches"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"]
                 + sl["pasm_conv"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"] + sl["pas_matmul"],
@@ -3652,7 +4214,8 @@ def main() -> int:
               for k in KERNELS}
     routes["pasm_matmul"]["simt"]["launches"] = (counts["kernel"]["pasm_matmul"]
                                                  + train["qat"]["k1"] + wsp["routes"]["simt"]
-                                                 + sl["pasm_matmul"])
+                                                 + sl["pasm_matmul"]
+                                                 + train["families"]["routes"]["simt"])
     routes["pasm_matmul"]["simt"].update(
         {k: tot["pasm_matmul"][k] for k in timed if k != "bound_by"},
         bound_by="operations")
@@ -3660,6 +4223,7 @@ def main() -> int:
         routes["pasm_matmul"][r] = dict(
             k5_rows["k1"][r], launches=lm["routes"][r] + moe["routes"][r] + vlm["routes"][r]
             + ssm["routes"][r] + hyb["routes"][r] + wsp["routes"][r] + lsh["routes"][r]
+            + train["families"]["routes"][r] + trs["routes"][r]
             + (TRAIN_K1 if r == "mma" else 0),
             source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
@@ -3704,7 +4268,9 @@ def main() -> int:
         f"{moe['k5']}, internvl2 {vlm['k5']}, recurrentgemma {hyb['k5']}, whisper-tiny "
         f"{wsp['k5']}) and training "
         f"(K1: one qwen3 step {TRAIN_K1} + the "
-        f"frozen QAT AlexNet {train['qat']['k1']}; K2: {train['qat']['k2']}); "
+        f"frozen QAT AlexNet {train['qat']['k1']} + the recurrent and encoder-decoder "
+        f"families' grads {train['families']['launches']} + the sharded qwen3 steps of "
+        f"phase 15 {trs['launches']}; K2: {train['qat']['k2']}); "
         f"max_abs_err is the largest over every forward check [{card}]")
     log(f"train step at full width: kernel {train['kernel']['ms']:.1f} ms, dequant "
         f"{train['dequant']['ms']:.1f} ms; peak memory {train['kernel']['peak_gb']:.2f} / "
@@ -3717,6 +4283,10 @@ def main() -> int:
     for arch, r in (("mamba2-130m", ssm), ("recurrentgemma-2b", hyb), ("whisper-tiny", wsp)):
         for (impl, name), t in r["times"].items():
             log(f"{arch} (full depth) {name} on {impl}: {fmt_step(t)} [{card}]")
+        t = train["families"][arch]
+        log(f"{arch} (full depth) train step on kernel: {t['ms']:.1f} ms, peak "
+            f"{t['peak_gb']:.2f} GB; grads vs dequant {t['grad_err']:.2e} of max (held "
+            f"to {t['hold']:.4f}) [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

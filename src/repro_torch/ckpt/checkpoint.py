@@ -18,7 +18,12 @@ Layout:  <dir>/step_<N>/shard_<i>.npz + manifest.json
   checkpoint costs ``ckpt_every`` steps of recompute, never the run
   (DESIGN.md §4).
 * **elastic**: arrays are saved logically (whole, one shard per host
-  process) and restored onto any device.
+  process) and restored onto any device.  Under a mesh
+  (``CheckpointManager(mesh=)``) every rank's blocks are gathered into the
+  logical arrays (``models/sharding.py::gather_params``), rank 0 writes
+  them, and every rank waits for the write at a barrier; a restore reads
+  the logical arrays on every rank and places them on the caller's mesh,
+  which may differ from the one that saved them.
 * **async**: ``save(..., background=True)`` hands the host copy to a worker
   thread so the train loop keeps stepping during I/O.  The writer CAPTURES
   any exception instead of letting it vanish in the daemon thread; it is
@@ -224,7 +229,8 @@ def _load_arrays(d: Path, manifest: dict, *, verify: bool) -> dict:
     return arrays
 
 
-def _restore_one(directory: Path, template: Any, step: int, *, verify: bool):
+def _restore_one(directory: Path, template: Any, step: int, *, verify: bool,
+                 layout=None):
     d = directory / f"step_{step}"
     try:
         manifest = json.loads((d / "manifest.json").read_text())
@@ -233,6 +239,12 @@ def _restore_one(directory: Path, template: Any, step: int, *, verify: bool):
     except (json.JSONDecodeError, OSError) as e:
         raise CheckpointCorruptError(f"{d.name}: unreadable manifest ({e})") from e
     arrays = _load_arrays(d, manifest, verify=verify)
+    placed = template
+    if layout is not None:  # the logical arrays, then this mesh's blocks
+        from repro_torch.models import sharding as sh
+
+        mesh, specs = layout
+        template = sh.global_like(placed, mesh, specs)
 
     out = []
     for path, leaf in flatten_with_path(template):
@@ -242,8 +254,20 @@ def _restore_one(directory: Path, template: Any, step: int, *, verify: bool):
         a = arrays[key]
         if tuple(a.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint {a.shape} vs template {tuple(leaf.shape)}")
-        out.append(torch.from_numpy(np.array(a)).to(device=leaf.device, dtype=leaf.dtype))
-    return tree_unflatten(template, out), manifest
+        if layout is not None:
+            out.append(torch.from_numpy(np.array(a)).to(dtype=leaf.dtype))
+        else:
+            out.append(torch.from_numpy(np.array(a)).to(device=leaf.device,
+                                                        dtype=leaf.dtype))
+    tree = tree_unflatten(template, out)
+    if layout is not None:
+        tree = sh.place_tree(tree, specs, mesh, like=placed)
+        for (key, got), (_, want) in zip(flatten_with_path(tree),
+                                         flatten_with_path(placed)):
+            if tuple(got.shape) != tuple(want.shape):
+                raise ValueError(f"{_key(key)}: placed {tuple(got.shape)} vs template "
+                                 f"{tuple(want.shape)}")
+    return tree, manifest
 
 
 def restore(
@@ -253,8 +277,15 @@ def restore(
     *,
     verify: bool = True,
     fallback: bool = False,
+    mesh=None,
+    specs: Any = None,
 ) -> tuple[Any, dict]:
     """Restore into the structure of ``template`` (shapes/dtypes validated).
+
+    ``mesh=``: ``template`` is a placed tree (a rank's blocks, placed by
+    ``specs``; default ``models/sharding.py::placed_specs``, for the LM):
+    the logical arrays are read on every rank and this rank's blocks of
+    them come back on ``mesh.device``.
 
     ``verify=True`` re-hashes every array against the manifest CRC32s and
     raises :class:`CheckpointCorruptError` on mismatch or unreadable shards
@@ -266,15 +297,20 @@ def restore(
     The arrays land on the template leaves' devices and dtypes.
     """
     directory = Path(directory)
+    layout = None
+    if mesh is not None:
+        from repro_torch.models import sharding as sh
+
+        layout = (mesh, sh.placed_specs(template, mesh) if specs is None else specs)
     if step is not None:
-        return _restore_one(directory, template, step, verify=verify)
+        return _restore_one(directory, template, step, verify=verify, layout=layout)
     steps = complete_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no complete checkpoint under {directory}")
     last_err: Optional[CheckpointCorruptError] = None
     for s in reversed(steps):
         try:
-            return _restore_one(directory, template, s, verify=verify)
+            return _restore_one(directory, template, s, verify=verify, layout=layout)
         except CheckpointCorruptError as e:
             if not fallback:
                 raise
@@ -292,28 +328,62 @@ def restore(
 
 
 class CheckpointManager:
-    """Keep-last-k rotation + background writes + auto-resume with fallback."""
+    """Keep-last-k rotation + background writes + auto-resume with fallback.
 
-    def __init__(self, directory: str | Path, keep: int = 3):
+    ``mesh=`` (SPMD, every rank builds the manager and calls it in step):
+    :meth:`save` gathers the placed tree's logical arrays on every rank
+    (``specs`` as in ``models/sharding.py::gather_params``) and rank 0
+    writes them; :meth:`wait` joins the write and is a barrier, raising on
+    every rank if rank 0's write failed; :meth:`restore_latest` places the
+    logical arrays on the manager's mesh."""
+
+    def __init__(self, directory: str | Path, keep: int = 3, *, mesh=None,
+                 specs: Any = None):
         self.dir = Path(directory)
         self.keep = keep
+        self.mesh, self.specs = mesh, specs
         self._pending: Optional[BackgroundWriter] = None
         self._pending_step: Optional[int] = None
 
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes (rank 0 of a mesh, or no mesh)."""
+        import torch.distributed as dist
+
+        return self.mesh is None or not dist.is_initialized() or dist.get_rank() == 0
+
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
         self.wait()  # surfaces the PREVIOUS write's failure before starting
+        if self.mesh is not None:
+            from repro_torch.models.sharding import gather_params
+
+            tree = gather_params(tree, self.mesh, self.specs)
+        if not self.writer:
+            return
         self._pending_step = step
         self._pending = save(self.dir, step, tree, extra=extra, background=True)
         self._gc()
 
     def wait(self):
         """Join the in-flight write and RE-RAISE its failure, if any — a
-        background checkpoint loss is never silent."""
+        background checkpoint loss is never silent.  Under a mesh every rank
+        waits here for rank 0's write, and every rank raises if it failed."""
+        err = None
         if self._pending is not None:
             t, self._pending = self._pending, None
             t.join()
             self._pending_step = None
-            t.check()
+            try:
+                t.check()
+            except RuntimeError as e:
+                err = e
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import barrier
+
+            if barrier(self.mesh, err is not None) and err is None:
+                raise RuntimeError("background checkpoint write failed on rank 0")
+        if err is not None:
+            raise err
 
     def _gc(self):
         """Delete all but the newest ``keep`` complete checkpoints — but
@@ -330,4 +400,5 @@ class CheckpointManager:
 
     def restore_latest(self, template: Any, *, fallback: bool = True):
         self.wait()
-        return restore(self.dir, template, fallback=fallback)
+        return restore(self.dir, template, fallback=fallback, mesh=self.mesh,
+                       specs=self.specs)

@@ -595,8 +595,10 @@ def conv2d(
 
 def shard_batch(x: torch.Tensor, mesh) -> torch.Tensor:
     """This rank's ``data`` block of a global image batch, an uneven
-    remainder zero-padded in first (the sharded stack's input)."""
-    from repro_torch.launch.mesh import data_model_sizes
+    remainder zero-padded in first (the sharded stack's input).  The batch
+    is replicated over ``data``: it enters the rank's rows through
+    ``enter_split``, so a batch that needs a gradient gets it whole."""
+    from repro_torch.launch.mesh import data_model_sizes, enter_split
     from repro_torch.models.sharding import (
         conv_batch_pad, conv_input_pspecs, local_shard)
 
@@ -606,12 +608,13 @@ def shard_batch(x: torch.Tensor, mesh) -> torch.Tensor:
     pad_b = conv_batch_pad(x.shape[0], data_model_sizes(mesh)[0])
     if pad_b:
         x = F.pad(x, (0, 0) * 3 + (0, pad_b))
-    return local_shard(x, conv_input_pspecs(), mesh)
+    return local_shard(enter_split(x, mesh, "data"), conv_input_pspecs(), mesh)
 
 
 def gather_batch(y: torch.Tensor, mesh, batch: int) -> torch.Tensor:
     """Every rank's ``data`` block of an output gathered, the pad images of
-    :func:`shard_batch` sliced off: the global result on every rank."""
+    :func:`shard_batch` sliced off: the global result on every rank
+    (differentiable: a rank's block gets its rows of the gradient)."""
     from repro_torch.launch.mesh import all_gather
     from repro_torch.models.sharding import DATA
 
@@ -632,7 +635,8 @@ def conv2d_shard(
     rank's ``data`` block of the batch, and so is the result (every output
     channel: the ``model`` blocks are gathered).  ``models/cnn.py::forward``
     runs its stages through this, so activations stay ``data``-local from
-    layer to layer and the batch is gathered once, at the head."""
+    layer to layer and the batch is gathered once, at the head.
+    Differentiable on every engine (``kernels/ops.py::shard_gemm``)."""
     xb, _, eng, fuse_pool, pool = _dispatch(x, params, conv, engine, pool,
                                             pool_impl, mesh)
     return _conv2d(xb, params, conv, eng, fuse_pool, pool, False, mesh)

@@ -47,8 +47,9 @@ MATMUL_IMPLS = ("dense", "dequant", "kernel", "pas_kernel")
 
 # the ROADMAP items that own what the sharded paths still refuse: the CNN
 # stack, the quantized matmul and the transformer families' tensor and
-# expert parallelism run under a mesh; the other LM families, the
-# sequence-sharded KV cache and any sharded backward do not
+# expert parallelism run under a mesh, and the CNN QAT step and the dense
+# LM family train there; the other LM families, the sequence-sharded KV
+# cache, MoE / vlm training, compressed gradients and the ZeRO layout do not
 NOT_PORTED_MESH_FAMILY = (
     "an active ShardCtx on the SSM, hybrid and encoder-decoder families "
     "(their tensor parallelism) is not ported yet: ROADMAP Queue 1 item 12b"
@@ -59,8 +60,9 @@ NOT_PORTED_MESH_SEQ = (
     "item 12c"
 )
 NOT_PORTED_MESH_TRAIN = (
-    "training under mesh= (differentiable collectives, the gradient "
-    "all-reduce over 'data') is not ported yet: ROADMAP Queue 1 item 13"
+    "training the MoE and vlm families under an active ShardCtx (expert "
+    "stacks split on a leading dim), compress_grads under a mesh and the "
+    "ZeRO optimizer-state layout are not ported yet: ROADMAP Queue 1 item 13b"
 )
 
 Weight = Union[torch.Tensor, "PasmParams", _pasm.PASMTensor]
@@ -421,16 +423,25 @@ def block_matmul(x: torch.Tensor, w: Weight, *, impl: str, mesh, axis: str = "mo
     rank's block for a K block) or the block's own width.  The kernels plan
     from the unsharded call, ``(rows, N)`` (``rows`` default ``x``'s), so an
     N block is bitwise the unsharded call's columns.  Returns ``(y,
-    k_split)``: a K block's ``y`` is this rank's partial sum."""
+    k_split)``: a K block's ``y`` is this rank's partial sum.
+
+    Differentiable: a replicated ``x`` passes ``enter_split`` before an N
+    block and before a K block's ``narrow`` (its gradient is summed over
+    ``axis`` in the backward), and a K block of ``x`` gathered for a whole
+    leaf gets its own block of the gradient back."""
     p = as_params(w)
     K, N = p.shape
+    from repro_torch.launch.mesh import enter_split
+
     pb, k_split = held_block(p, mesh, axis)
     kh = pb.shape[0]
     if p.pad_k and x.shape[-1] == K:
         x = F.pad(x, (0, p.pad_k))
     Kp = K + p.pad_k
+    if pb.shape[1] < N:  # an N block: the replicated x enters this rank's columns
+        x = enter_split(x, mesh, axis)
     if k_split and x.shape[-1] == Kp:
-        x = x.narrow(-1, mesh.index(axis) * kh, kh)
+        x = enter_split(x, mesh, axis).narrow(-1, mesh.index(axis) * kh, kh)
     elif not k_split and x.shape[-1] != Kp and x.shape[-1] * mesh.size(axis) == Kp:
         from repro_torch.launch.mesh import all_gather
 

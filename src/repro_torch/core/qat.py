@@ -11,6 +11,11 @@ reduction order on every device, so training stays bitwise reproducible
 under ``torch.use_deterministic_algorithms`` (``bincount`` with weights
 raises there on CUDA, and ``index_add_`` / ``scatter_add_`` sort every
 index first).
+
+Under a mesh a rank snaps its block of the masters (``cnn.qat_apply`` on
+placed ``c_out`` blocks) onto the whole dictionary, so an entry's gradient
+here is the bin sums of that block; the sharded train step adds the
+blocks' sums over ``model`` (``models/sharding.py::grad_reduce_axes``).
 """
 from __future__ import annotations
 

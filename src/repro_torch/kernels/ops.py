@@ -50,7 +50,11 @@ rank's (the per-layer call of ``core.conv.conv2d_shard``).  The LM's
 tensor-parallel linears call K1/K3 on a rank's block directly with
 ``whole=`` (``core.params.block_matmul``): an N block needs no gather and
 a K block's f32 partial is all-reduced over ``model`` by the caller.  The
-sharded path is forward-only (ROADMAP Queue 1 item 13).
+sharded path trains: the collectives carry gradients
+(``launch/mesh.py``), a replicated operand entering a rank's block passes
+``enter_split``, and the K1/K2 Functions run on a rank's block as on the
+whole call, their codebook and bias gradients this rank's part, which the
+train step sums (``models/sharding.py::grad_reduce_axes``).
 """
 from __future__ import annotations
 
@@ -61,7 +65,6 @@ import torch.nn.functional as F
 
 from repro_torch.core import pasm as _pasm
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
 from repro_torch.core.qat import bin_sums
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_kernel_call
@@ -75,7 +78,7 @@ from repro_torch.kernels.pasm_matmul import (
     pasm_matmul_kernel_call,
     pool_plan_exists,
 )
-from repro_torch.launch.mesh import all_gather, data_model_sizes, n_shard_axis
+from repro_torch.launch.mesh import all_gather, data_model_sizes, enter_split, n_shard_axis
 from repro_torch.models.sharding import DATA, MODEL, P, local_shard
 
 __all__ = ["pasm_matmul", "pas_matmul", "pasm_conv2d", "pas_conv2d",
@@ -112,7 +115,10 @@ def shard_gemm(mesh, n_cols: int, local_fn, x: torch.Tensor, w: torch.Tensor,
     :func:`~repro_torch.launch.mesh.n_shard_axis` says so, each the global
     operand or already this rank's block; ``codebook`` is replicated.
     ``local_fn(x, w, codebook, bias, whole)`` runs this rank's block with
-    the single-device code, ``whole = (leading dim, N)`` of the global call
+    the single-device code (differentiable: ``x`` enters the rank's rows
+    and N block through ``enter_split``, the gathers carry the gradient
+    back; a weight's gradient is its block's or, given whole, zero outside
+    the block, summed by the train step), ``whole = (leading dim, N)`` of the global call
     (``whole_lead`` overrides the leading dim: a padded call's true rows),
     which the kernels plan from.  The N blocks of the output are
     all-gathered over ``model`` in coordinate order (JAX's tiled
@@ -121,9 +127,10 @@ def shard_gemm(mesh, n_cols: int, local_fn, x: torch.Tensor, w: torch.Tensor,
     """
     nd, _ = data_model_sizes(mesh)
     ns = n_shard_axis(mesh, n_cols)
-    if not local_rows:
-        x = local_shard(x, P(DATA), mesh)
-    if ns is not None:
+    if not local_rows:  # the replicated global rows: this rank's block
+        x = local_shard(enter_split(x, mesh, DATA), P(DATA), mesh)
+    if ns is not None:  # x is replicated over model, each rank's N block its own
+        x = enter_split(x, mesh, MODEL)
         w = _n_block(w, n_cols, mesh)
         bias = None if bias is None else _n_block(bias, n_cols, mesh)
     elif w.shape[-1] != n_cols:
@@ -165,13 +172,6 @@ def _check_batch(x: torch.Tensor, mesh, local_rows: bool) -> None:
         raise ValueError(
             f"batch {x.shape[0]} does not divide the data axis ({nd}); "
             "pad the batch first (conv2d(mesh=) handles the remainder)")
-
-
-def _no_grad_under_mesh(whole, *ts) -> None:
-    """A sharded call is forward-only: ``dist.all_gather`` carries no
-    gradient, so a backward through it would be silently wrong."""
-    if whole is not None and _needs_grad(*ts):
-        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
 
 
 def _pool_rows(x: torch.Tensor, pool: int) -> None:
@@ -229,9 +229,9 @@ class _PasmMatmul(torch.autograd.Function):
     backward.  ``idx`` gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x, idx, codebook, bias, packed, gather, relu, pool):
+    def forward(ctx, x, idx, codebook, bias, packed, gather, relu, pool, whole):
         y = pasm_matmul_kernel_call(x, idx, codebook, bias, packed=packed,
-                                    relu=relu, pool=pool, gather=gather)
+                                    relu=relu, pool=pool, gather=gather, whole=whole)
         ctx.packed, ctx.relu, ctx.pool = packed, relu, pool
         # y only for the unpooled ReLU mask: a pooled output cannot give the
         # pre-pool mask, which the backward recomputes instead
@@ -253,7 +253,7 @@ class _PasmMatmul(torch.autograd.Function):
         dx, dcb = _pasm_bwd(x, idx, codebook, ctx.packed, g,
                             ctx.needs_input_grad[0], ctx.needs_input_grad[2])
         dbias = g.sum(dim=0).to(bias.dtype) if ctx.needs_input_grad[3] else None
-        return dx, None, dcb, dbias, None, None, None, None
+        return dx, None, dcb, dbias, None, None, None, None, None
 
 
 def pasm_matmul(
@@ -294,10 +294,9 @@ def pasm_matmul(
 
     def run(xl, idx, codebook, b, whole=None):
         xl, idx, codebook = xl.contiguous(), idx.contiguous(), codebook.contiguous()
-        _no_grad_under_mesh(whole, xl, codebook, b)
         if _needs_grad(xl, codebook, b):
             return _PasmMatmul.apply(xl, idx, codebook, b, t.packed, gather,
-                                     relu, pool)
+                                     relu, pool, whole)
         return pasm_matmul_kernel_call(xl, idx, codebook, b, packed=t.packed,
                                        relu=relu, pool=pool, gather=gather,
                                        whole=whole)
@@ -372,9 +371,9 @@ class _PasmConv(torch.autograd.Function):
     patches, the GEMM backward, dx back through im2colᵀ (col2im)."""
 
     @staticmethod
-    def forward(ctx, x, idx, codebook, bias, geom, packed, gather, relu):
+    def forward(ctx, x, idx, codebook, bias, geom, packed, gather, relu, whole):
         y = pasm_conv_kernel_call(x, idx, codebook, bias, geom=geom,
-                                  packed=packed, relu=relu, gather=gather)
+                                  packed=packed, relu=relu, gather=gather, whole=whole)
         ctx.geom, ctx.packed, ctx.relu = geom, packed, relu
         ctx.save_for_backward(x, idx, codebook, bias,
                               y if relu and geom.pool == 1 else None)
@@ -408,7 +407,7 @@ class _PasmConv(torch.autograd.Function):
         if need_dx:
             dx, = torch.autograd.grad(patches, xr, dp[:, : geom.conv_k])
         dbias = g2.sum(dim=0).to(bias.dtype) if ctx.needs_input_grad[3] else None
-        return dx, None, dcb, dbias, None, None, None, None
+        return dx, None, dcb, dbias, None, None, None, None, None
 
 
 def pasm_conv2d(
@@ -443,14 +442,13 @@ def pasm_conv2d(
 
     def run(xl, idx, codebook, b, whole=None):
         xl, idx, codebook = xl.contiguous(), idx.contiguous(), codebook.contiguous()
-        _no_grad_under_mesh(whole, xl, codebook, b)
+        rows = None if whole is None else (whole[0] * geom.P_rows, whole[1])
         if _needs_grad(xl, codebook, b):
             return _PasmConv.apply(xl, idx, codebook, b, geom, t.packed, gather,
-                                   relu)
+                                   relu, rows)
         return pasm_conv_kernel_call(
             xl, idx, codebook, b, geom=geom, packed=t.packed, relu=relu,
-            gather=gather,
-            whole=None if whole is None else (whole[0] * geom.P_rows, whole[1]))
+            gather=gather, whole=rows)
 
     if mesh is None:
         return run(x, t.idx, t.codebook, bias)

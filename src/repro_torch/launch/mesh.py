@@ -37,6 +37,9 @@ __all__ = [
     "n_shard_axis",
     "all_gather",
     "all_reduce",
+    "enter_split",
+    "sum_over",
+    "barrier",
     "collective_bytes",
     "reset_collective_bytes",
     "SINGLE_POD",
@@ -180,8 +183,14 @@ def n_shard_axis(mesh: Mesh, n: int) -> Optional[str]:
 
 
 # bytes of every collective's result on this rank, by collective: a plain
-# counter a caller resets and reads around a step
-collective_bytes = {"all_gather": 0, "all_reduce": 0}
+# counter a caller resets and reads around a step.  The forward's
+# collectives count under their names (a remat's recompute in the backward
+# counts there too); ``all_reduce_bwd`` is :func:`enter_split`'s backward
+# and ``grad_reduce`` the train step's gradient reduction, its global norm
+# and its non-finite probe (``models/sharding.py::reduce_grads``,
+# ``train/optimizer.py``).
+collective_bytes = {"all_gather": 0, "all_reduce": 0, "all_reduce_bwd": 0,
+                    "grad_reduce": 0}
 
 
 def reset_collective_bytes() -> None:
@@ -193,14 +202,7 @@ def _group(mesh: Mesh, axis: str):
     return mesh.groups[mesh._axis(axis)] if axis in mesh.axis_names else None
 
 
-def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
-    """The blocks of every rank along ``axis`` concatenated on ``dim`` in
-    coordinate order: JAX's tiled ``all_gather``, so the N blocks of a
-    ``model``-sharded output gather to the full-N output bitwise.  Every
-    rank's block has ``t``'s shape.  An axis of size 1 returns ``t``."""
-    g = _group(mesh, axis)
-    if g is None:
-        return t
+def _gather(t: torch.Tensor, g, dim: int) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
     dist.all_gather(parts, t, group=g)
@@ -209,15 +211,134 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Te
     return out
 
 
+def _sum(t: torch.Tensor, g, key: str) -> torch.Tensor:
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=g)
+    collective_bytes[key] += out.numel() * out.element_size()
+    return out
+
+
+def _check_grad(g: torch.Tensor, shape, what: str) -> None:
+    """A backward collective's operand must have the forward's shape: a
+    mismatch would reach the other ranks as a collective of another size."""
+    if tuple(g.shape) != tuple(shape):
+        raise ValueError(f"{what}'s backward got a gradient of shape "
+                         f"{tuple(g.shape)} for its output of shape {tuple(shape)}")
+
+
+def _differentiable(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _AllGather(torch.autograd.Function):
+    """The tiled gather; its backward is this rank's block of the incoming
+    gradient.  The gathered tensor's consumer is replicated over the axis,
+    so the gradient that arrives is the same on every rank of it."""
+
+    @staticmethod
+    def forward(ctx, t, g, dim, index):
+        out = _gather(t, g, dim)
+        ctx.g_dim, ctx.index, ctx.n, ctx.shape = dim, index, t.shape[dim], out.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        _check_grad(grad, ctx.shape, "all_gather")
+        return grad.narrow(ctx.g_dim, ctx.index * ctx.n, ctx.n), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum of partials; its backward is the identity (the sum's
+    consumer is replicated, so each partial's gradient is the sum's)."""
+
+    @staticmethod
+    def forward(ctx, t, g):
+        ctx.shape = t.shape
+        return _sum(t, g, "all_reduce")
+
+    @staticmethod
+    def backward(ctx, grad):
+        _check_grad(grad, ctx.shape, "all_reduce")
+        return grad, None
+
+
+class _EnterSplit(torch.autograd.Function):
+    """The identity; its backward sums the gradient over the axis."""
+
+    @staticmethod
+    def forward(ctx, t, g):
+        ctx.g, ctx.shape = g, t.shape
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _check_grad(grad, ctx.shape, "enter_split")
+        return _sum(grad, ctx.g, "all_reduce_bwd"), None
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The blocks of every rank along ``axis`` concatenated on ``dim`` in
+    coordinate order: JAX's tiled ``all_gather``, so the N blocks of a
+    ``model``-sharded output gather to the full-N output bitwise.  Every
+    rank's block has ``t``'s shape.  An axis of size 1 returns ``t``.
+
+    Differentiable: the backward is this rank's block of the gradient,
+    which every rank of the axis receives whole and equal (the result's
+    consumer runs replicated; :func:`enter_split` makes it so)."""
+    g = _group(mesh, axis)
+    if g is None:
+        return t
+    if _differentiable(t):
+        return _AllGather.apply(t, g, dim % t.ndim, mesh.index(axis))
+    return _gather(t, g, dim)
+
+
 def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The sum over ``axis`` of every rank's ``t`` (a new tensor; ``t`` is
     not changed), the same on every rank of the group.  The row-parallel
     linears' partials and the expert combine take it in f32.  An axis of
-    size 1 returns ``t``."""
+    size 1 returns ``t``.  Differentiable: the backward is the identity."""
     g = _group(mesh, axis)
     if g is None:
         return t
-    out = t.contiguous().clone()
-    dist.all_reduce(out, group=g)
-    collective_bytes["all_reduce"] += out.numel() * out.element_size()
-    return out
+    if _differentiable(t):
+        return _AllReduce.apply(t, g)
+    return _sum(t, g, "all_reduce")
+
+
+def enter_split(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``t`` itself, for a tensor replicated over ``axis`` that enters
+    rank-distinct work (an N block of a linear, a K block's ``narrow``, a
+    rank's rows or experts): the backward all-reduces the gradient over
+    ``axis``, so the replicated tensor gets the whole gradient on every
+    rank (Megatron's pairing with :func:`all_gather` / :func:`all_reduce`).
+    An axis of size 1, or a tensor that needs no gradient, returns ``t``."""
+    g = _group(mesh, axis)
+    if g is None or not _differentiable(t):
+        return t
+    return _EnterSplit.apply(t, g)
+
+
+def sum_over(t: torch.Tensor, mesh: Mesh, axes, key: str = "grad_reduce") -> torch.Tensor:
+    """``t`` summed over each of ``axes`` in turn (not differentiable; the
+    train step's reductions), counted under ``key``.  Axes of size 1 and
+    absent axes are skipped; with none left ``t`` itself comes back."""
+    for axis in axes:
+        g = _group(mesh, axis)
+        if g is not None:
+            t = _sum(t, g, key)
+    return t
+
+
+def barrier(mesh: Optional[Mesh] = None, flag: bool = False) -> bool:
+    """Wait for every rank of the process group, and return whether any
+    rank passed ``flag`` (a world all-reduce of it on ``mesh``'s device):
+    a failure one rank saw reaches all of them.  Without a process group
+    it returns ``flag``."""
+    world, _ = _world()
+    if world == 1:
+        return flag
+    dev = mesh.device if mesh is not None else torch.device("cpu")
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+    dist.all_reduce(t)
+    return bool(int(t.item()))

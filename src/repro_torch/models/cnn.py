@@ -26,6 +26,13 @@ QAT (:mod:`repro_torch.core.qat`'s STE through the conv dictionaries)::
     cbs = cnn.qat_codebooks(params, cfg)               # per-layer dictionaries
     logits = cnn.qat_forward(params, cbs, images, cfg)  # STE-snapped forward
     qparams = cnn.qat_requantize(params, cbs, cfg)      # freeze for serving
+
+Sharded QAT places the dense masters (``c_out`` over ``model``) after the
+dictionaries are drawn from the global masters, the same on every rank::
+
+    tree = {"params": params, "codebooks": cnn.qat_codebooks(params, cfg)}
+    tree = cnn._place(tree, mesh)                     # blocks; codebooks whole
+    step = train.step.make_cnn_train_step(cfg, ocfg, mesh=mesh)
 """
 from __future__ import annotations
 
@@ -40,7 +47,6 @@ from repro_torch.core import conv as _conv
 from repro_torch.core import pasm as _pasm
 from repro_torch.core import qat as _qat
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
 from repro_torch.models.common import Initializer
 
 __all__ = ["stages", "feature_shape", "init_params", "quantize", "forward",
@@ -106,12 +112,9 @@ def _place(params: dict, mesh) -> dict:
     on a mesh keeps its global shape."""
     from repro_torch.launch.mesh import axis_sizes
     from repro_torch.models import sharding as _sharding
-    from repro_torch.tree import tree_map
 
     specs = _sharding.conv_param_pspecs(params, axis_sizes(mesh))
-    return tree_map(
-        lambda leaf, s: _sharding.local_shard(leaf, s, mesh).to(mesh.device).clone(),
-        params, specs)
+    return _sharding.place_tree(params, specs, mesh, wrap=False)
 
 
 def quantize(params: dict, cfg: CNNConfig, *, iters: int = 16, mesh=None) -> dict:
@@ -214,8 +217,16 @@ def _qat_check_groups(cfg: CNNConfig) -> None:
 def qat_codebooks(params: dict, cfg: CNNConfig, *, iters: int = 16) -> list:
     """Initial per-layer dictionaries: k-means over each dense master kernel
     (the rule :func:`quantize` bakes into ``shared`` params), kept as plain
-    ``(bins,)`` tensors so they can be trained."""
+    ``(bins,)`` tensors so they can be trained.  Under a mesh every rank
+    draws them from the global masters, before :func:`_place`: a rank's
+    block would give another dictionary."""
     _qat_check_groups(cfg)
+    for p in params["conv"]:
+        if tuple(p.kernel.shape) != tuple(p.kshape):
+            raise ValueError(
+                f"qat_codebooks needs the global masters, got a placed block "
+                f"{tuple(p.kernel.shape)} of {p.kshape}: draw the dictionaries "
+                "before placing the tree")
     return [_pasm.kmeans_codebook(p.kernel.reshape(-1, 1), cfg.bins, groups=1,
                                   iters=iters)[0][0]
             for p in params["conv"]]
@@ -225,21 +236,61 @@ def qat_apply(params: dict, codebooks) -> dict:
     """STE-snap every dense master ``ConvParams`` onto its layer dictionary:
     the forward serves codebook values, the gradient flows straight through
     to the master and each codebook entry gathers the bin-summed gradients
-    of its weights.  Bias stays dense (§4)."""
-    convs = [_conv.ConvParams.dense(_qat.ste_quantize(p.kernel, cb), bias=p.bias)
-             for p, cb in zip(params["conv"], codebooks)]
+    of its weights.  Bias stays dense (§4).  Placed masters (a rank's
+    ``c_out`` block, :func:`_place`) snap onto the whole dictionaries and
+    keep their global ``kshape``: a codebook entry's gradient is then this
+    rank's block's bin sums, which the sharded step sums over ``model``."""
+    convs = [dataclasses.replace(
+        _conv.ConvParams.dense(_qat.ste_quantize(p.kernel, cb), bias=p.bias),
+        kshape=p.kshape) for p, cb in zip(params["conv"], codebooks)]
     return {"conv": convs, "head": params["head"]}
 
 
 def qat_forward(params: dict, codebooks, images: torch.Tensor, cfg: CNNConfig,
                 *, mesh=None) -> torch.Tensor:
     """QAT training forward: masters STE-snapped, then the dense reference
-    engine (differentiable in masters, codebooks, bias and head).  A sharded
-    forward would gather without differentiable collectives and train
-    wrongly: ``mesh=`` raises (ROADMAP Queue 1 item 13)."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
-    return forward_dense(qat_apply(params, codebooks), images, cfg)
+    engine (differentiable in masters, codebooks, bias and head).  ``mesh=``
+    runs it sharded on placed masters (:func:`_place`) with whole
+    codebooks: :func:`forward_dense` under the mesh, the ``einsum`` engine
+    through the same dispatch as JAX's ``shard_map``, every rank passing
+    the global images and getting the global logits."""
+    return forward_dense(qat_apply(params, codebooks), images, cfg, mesh=mesh)
+
+
+def _like(cfg: CNNConfig) -> dict:
+    """The global QAT tree's shapes as meta tensors (no data)."""
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    convs = [_conv.ConvParams.dense(meta(c.c_out, c.c_in, c.ky, c.kx), bias=meta(c.c_out))
+             for c, _ in stages(cfg)]
+    C, H, W = feature_shape(cfg)
+    return {"params": {"conv": convs, "head": {"w": meta(C * H * W, cfg.classes),
+                                               "b": meta(cfg.classes)}},
+            "codebooks": [meta(cfg.bins) for _ in convs]}
+
+
+def qat_specs(cfg: CNNConfig, mesh, *, with_opt: bool = False):
+    """The spec tree ``cnn._place`` places a QAT tree (``{"params":
+    masters, "codebooks": [...]}``) by on ``mesh``, or with ``with_opt``
+    the ``(tree, optimizer state)`` pair a checkpoint holds: from the
+    config's global shapes, so a rank holding blocks can gather them
+    (``models/sharding.py::gather_params``)."""
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.models import sharding as _sharding
+    from repro_torch.train.optimizer import init_opt_state
+
+    like = _like(cfg)
+    if with_opt:
+        like = (like, init_opt_state(like))
+    return _sharding.conv_param_pspecs(like, axis_sizes(mesh))
+
+
+def qat_reads(cfg: CNNConfig) -> dict:
+    """The QAT tree's whole leaves read by rank blocks: layer ``i``'s
+    dictionary by its master's ``c_out`` block
+    (``models/sharding.py::grad_reduce_axes``'s ``reads``)."""
+    return {f"codebooks/{i}": f"params/conv/{i}" for i in range(len(cfg.layers))}
 
 
 def qat_requantize(params: dict, codebooks, cfg: CNNConfig, *, mesh=None) -> dict:

@@ -47,6 +47,13 @@ __all__ = [
     "conv_batch_pad",
     "local_shard",
     "place_params",
+    "place_tree",
+    "placed_specs",
+    "gather_params",
+    "global_like",
+    "block_axes",
+    "grad_reduce_axes",
+    "reduce_grads",
     "place_caches",
     "check_kv_heads",
 ]
@@ -324,18 +331,42 @@ def _copy_block(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return local_shard(t, spec, mesh).to(mesh.device).clone()
 
 
-def _place_node(node: Any, spec: Any, mesh) -> Any:
+def _whole(t) -> P:
+    return P(*([None] * t.ndim))
+
+
+def _node_spec(node: Any, spec: Any, mesh) -> Any:
+    """The spec a container is placed by: ``spec``, except that a K split
+    of a ``PasmParams`` that would cut a dictionary group leaves the leaf
+    whole (every field replicated).  ``node`` may be a gradient tree's
+    container (``None`` at its integer indices)."""
+    if not isinstance(node, PasmParams):
+        return spec
+    sa = spec.w if node.kind == "dense" else spec.idx
+    k_ax = sa[-2] if sa is not None and len(sa) >= 2 else None
+    if k_ax is not None and node.groups > 1 and node.groups % _size(k_ax, mesh):
+        return tree_map(_whole, node)
+    return spec
+
+
+def _is_container(node: Any) -> bool:
+    return dataclasses.is_dataclass(node) and not isinstance(node, type)
+
+
+def _place_node(node: Any, spec: Any, mesh, wrap: bool, like: Any = None) -> Any:
+    def kids(i):  # the like tree's child, when there is one
+        return None if like is None else like[i]
+
     if isinstance(node, dict):
-        return {k: _place_node(v, spec[k], mesh) for k, v in node.items()}
+        return {k: _place_node(v, spec[k], mesh, wrap, kids(k)) for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_place_node(v, s, mesh, wrap, kids(i))
+                            for i, (v, s) in enumerate(zip(node, spec))))
     if isinstance(node, (list, tuple)):
-        return type(node)(_place_node(v, s, mesh) for v, s in zip(node, spec))
-    if isinstance(node, PasmParams):
-        a = node.w if node.kind == "dense" else node.idx
-        sa = spec.w if node.kind == "dense" else spec.idx
-        k_ax = sa[a.ndim - 2] if len(sa) >= 2 else None
-        if k_ax is not None and node.groups > 1 and node.groups % _size(k_ax, mesh):
-            # a K split would cut a dictionary group: the leaf stays whole
-            spec = tree_map(lambda t: P(*([None] * t.ndim)), node)
+        return type(node)(_place_node(v, s, mesh, wrap, kids(i))
+                          for i, (v, s) in enumerate(zip(node, spec)))
+    if _is_container(node):
+        spec = _node_spec(node, spec, mesh)
         return dataclasses.replace(node, **{
             f.name: _copy_block(getattr(node, f.name), getattr(spec, f.name), mesh)
             for f in dataclasses.fields(node)
@@ -343,11 +374,24 @@ def _place_node(node: Any, spec: Any, mesh) -> Any:
     if not isinstance(node, torch.Tensor):
         return node
     block = _copy_block(node, spec, mesh)
-    if node.ndim >= 2 and tuple(block.shape[-2:]) != tuple(node.shape[-2:]):
+    if like is not None:
+        wrap = isinstance(like, PasmParams)
+    if wrap and node.ndim >= 2 and tuple(block.shape[-2:]) != tuple(node.shape[-2:]):
         # a dense matrix held as a block keeps its logical shape, as a
         # quantized leaf does (params.tp_linear reads the block off it)
         return PasmParams(w=block, kind="dense", shape=tuple(node.shape[-2:]))
     return block
+
+
+def place_tree(tree: Any, specs: Any, mesh, *, wrap: bool = True, like: Any = None) -> Any:
+    """This rank's block of every leaf of ``tree`` by the spec tree
+    ``specs``, copied out on ``mesh.device``.  ``wrap`` (the LM's
+    :func:`place_params`) turns a dense matrix held as a block into a
+    ``dense`` ``PasmParams`` of its logical shape; the CNN's placement
+    (``cnn._place``) keeps a container's global ``kshape`` instead.  With
+    ``like`` (a placed tree of the same structure: a restore's template)
+    a block is wrapped exactly where ``like`` holds a ``PasmParams``."""
+    return _place_node(tree, specs, mesh, wrap, like)
 
 
 def place_params(params: Any, mesh) -> Any:
@@ -366,7 +410,280 @@ def place_params(params: Any, mesh) -> Any:
     them starts on an even row and holds the §3 pad row whole."""
     from repro_torch.launch.mesh import axis_sizes
 
-    return _place_node(params, param_pspecs(params, axis_sizes(mesh)), mesh)
+    return _place_node(params, param_pspecs(params, axis_sizes(mesh)), mesh, True)
+
+
+# ---------------------------------------------------------------------------
+# training on placed trees: the global view, gathering, gradient reduction
+# ---------------------------------------------------------------------------
+
+
+def _walk(node: Any, spec: Any, mesh, path: tuple, out: list) -> None:
+    """``(path, leaf, spec, owner)`` for every leaf of a placed tree in
+    :func:`repro_torch.tree.flatten_with_path`'s order, ``spec`` the one it
+    was placed by and ``owner`` ``(container, its placed spec)`` for a field
+    of a container."""
+    if node is None:
+        return
+    if isinstance(node, torch.Tensor):
+        out.append((path, node, spec, None))
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            _walk(v, spec[k], mesh, path + (str(k),), out)
+    elif isinstance(node, tuple) and hasattr(node, "_fields"):
+        for k, v, s in zip(node._fields, node, spec):
+            _walk(v, s, mesh, path + (k,), out)
+    elif isinstance(node, (list, tuple)):
+        for i, (v, s) in enumerate(zip(node, spec)):
+            _walk(v, s, mesh, path + (str(i),), out)
+    elif isinstance(spec, P):  # a dense matrix held as a block (place_params)
+        out.append((path + ("w",), node.w, spec, None))
+    else:
+        spec = _node_spec(node, spec, mesh)
+        for f in dataclasses.fields(node):
+            v = getattr(node, f.name)
+            if isinstance(v, torch.Tensor):
+                out.append((path + (f.name,), v, getattr(spec, f.name), (node, spec)))
+
+
+def _split_axes(spec, mesh) -> tuple:
+    """The mesh axes of size > 1 that ``spec`` splits a dim over."""
+    return tuple(a for d in spec if d is not None for a in _axes(d) if mesh.size(a) > 1)
+
+
+def _global_like(placed: Any) -> Any:
+    """The global tree a self-describing placed LM tree was placed from, as
+    meta tensors: a ``PasmParams`` takes its arrays' global shapes from its
+    logical ``shape`` (a dense block unwrapped to the plain matrix it came
+    from); a plain tensor is whole (:func:`place_params` wraps every
+    dense matrix it splits)."""
+    def meta(shape, dtype):
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+    def one(node):
+        if isinstance(node, dict):
+            return {k: one(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(one(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(one(v) for v in node)
+        if isinstance(node, torch.Tensor):
+            return meta(node.shape, node.dtype)
+        if not isinstance(node, PasmParams):
+            return node
+        K, N = node.shape
+        if node.kind == "dense" and node.w is not None and node.w.ndim >= 2 \
+                and tuple(node.w.shape[-2:]) != (K, N):
+            return meta(tuple(node.w.shape[:-2]) + (K, N), node.w.dtype)
+
+        def field(t, rows):
+            if t is None or t.ndim < 2:  # a moment's 0-d placeholder
+                return None if t is None else meta(t.shape, t.dtype)
+            return meta(tuple(t.shape[:-2]) + (rows, N), t.dtype)
+
+        rows = (K + node.pad_k) // 2 if node.packed else K
+        return dataclasses.replace(
+            node, w=field(node.w, K), idx=field(node.idx, rows),
+            codebook=None if node.codebook is None else meta(node.codebook.shape,
+                                                            node.codebook.dtype),
+            bias=None if node.bias is None else meta(node.bias.shape, node.bias.dtype))
+
+    return one(placed)
+
+
+def placed_specs(placed: Any, mesh) -> Any:
+    """The spec tree :func:`place_params` placed a self-describing LM tree
+    (params, optimizer state, or both) by, recomputed from the global
+    shapes its leaves record (:func:`param_pspecs`).  A leading dim (an
+    expert stack) split over the mesh records no global size: that raises
+    (ROADMAP Queue 1 item 13b)."""
+    from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
+    from repro_torch.launch.mesh import axis_sizes
+
+    like = _global_like(placed)
+    specs = param_pspecs(like, axis_sizes(mesh))
+    for _, leaf, spec, _ in _walked(placed, specs, mesh):
+        if _split_axes(tuple(spec)[:max(leaf.ndim - 2, 0)], mesh):
+            raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
+    return specs
+
+
+def _walked(placed: Any, specs: Any, mesh) -> list:
+    out: list = []
+    _walk(placed, specs, mesh, (), out)
+    return out
+
+
+def _map_logical(placed: Any, specs: Any, mesh, fn) -> Any:
+    """``fn(array, spec)`` over a placed tree's arrays, rebuilt in the
+    global tree's structure: a dense block that :func:`place_params`
+    wrapped comes back as the plain matrix ``fn`` returns."""
+    def one(node, spec):
+        if node is None:
+            return None
+        if isinstance(node, torch.Tensor):
+            return fn(node, spec)
+        if isinstance(node, dict):
+            return {k: one(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(one(v, s) for v, s in zip(node, spec)))
+        if isinstance(node, (list, tuple)):
+            return type(node)(one(v, s) for v, s in zip(node, spec))
+        if isinstance(spec, P):  # a wrapped dense block: the plain matrix
+            return fn(node.w, spec)
+        spec = _node_spec(node, spec, mesh)
+        return dataclasses.replace(node, **{
+            f.name: fn(getattr(node, f.name), getattr(spec, f.name))
+            for f in dataclasses.fields(node)
+            if isinstance(getattr(node, f.name), torch.Tensor)})
+
+    return one(placed, specs)
+
+
+def gather_params(placed: Any, mesh, specs: Any = None) -> Any:
+    """The inverse of :func:`place_params` and ``cnn._place``: every
+    rank's block of each leaf all-gathered over the axes its spec splits
+    it on, so every rank holds the global (logical) tree; a dense block
+    that :func:`place_params` wrapped comes back as the plain matrix.
+    ``specs`` is the spec tree the tree was placed by (default
+    :func:`placed_specs`, for a self-describing LM tree: params, optimizer
+    state or both).  A collective: every rank calls it, in step."""
+    from repro_torch.launch.mesh import all_gather
+
+    def gather(t, spec):
+        with torch.no_grad():
+            for dim, ax in enumerate(spec):
+                for a in reversed(_axes(ax) if ax is not None else ()):
+                    t = all_gather(t, mesh, a, dim=dim)  # the inner axis first
+        return t
+
+    specs = placed_specs(placed, mesh) if specs is None else specs
+    return _map_logical(placed, specs, mesh, gather)
+
+
+def global_like(placed: Any, mesh, specs: Any = None) -> Any:
+    """The global tree a placed tree was placed from (by ``specs``; default
+    :func:`placed_specs`), as meta tensors: each split dim times its axes'
+    sizes, a wrapped dense block the plain matrix.  What a restore reads
+    the logical arrays into before placing them on this mesh."""
+    def grow(t, spec):
+        shape = [d * _size(ax, mesh) if ax is not None else d
+                 for d, ax in zip(t.shape, tuple(spec) + (None,) * t.ndim)]
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    specs = placed_specs(placed, mesh) if specs is None else specs
+    return _map_logical(placed, specs, mesh, grow)
+
+
+# a whole leaf read on rank-distinct work outside a container: the per-head
+# norm scales act on this rank's heads, the heads of the projection beside them
+_READ_ON = ((r"(^|/)q_norm$", "wq"), (r"(^|/)k_norm$", "wk"))
+
+
+def _main_field(node: Any) -> str:
+    """A container's weight array: ``w`` of a dense ``PasmParams``, else
+    ``idx``, else a dense conv's ``kernel``."""
+    if isinstance(node, PasmParams) and node.kind == "dense":
+        return "w"
+    return "idx" if getattr(node, "idx", None) is not None else "kernel"
+
+
+def _n_axes(node: Any, spec: Any, mesh) -> tuple:
+    """The axes a container's output dim (N; a conv's ``c_out``) splits over."""
+    name = _main_field(node)
+    t, sa = getattr(node, name), getattr(spec, name)
+    if t is None or t.ndim < 2:
+        return ()
+    n_dim = 0 if t.ndim == 4 else t.ndim - 1  # a conv kernel/idx: c_out first
+    return _split_axes(tuple(sa)[n_dim:n_dim + 1], mesh)
+
+
+def block_axes(placed: Any, mesh, specs: Any = None) -> dict:
+    """``{path: axes}``: the mesh axes each leaf of a placed tree holds a
+    block over (empty for a leaf held whole), by path
+    (:func:`repro_torch.tree.flatten_with_path`).  ``specs`` as in
+    :func:`gather_params`."""
+    specs = placed_specs(placed, mesh) if specs is None else specs
+    return {path: _split_axes(spec, mesh) for path, _, spec, _ in
+            _walked(placed, specs, mesh)}
+
+
+def grad_reduce_axes(placed: Any, mesh, specs: Any = None, *, batch_split: bool = True,
+                     reads: dict = None) -> dict:
+    """``{path: axes}``: the mesh axes each leaf's gradient is summed over,
+    so every rank holds the one-device gradient of its block.
+
+    - ``data`` for every leaf when the batch rows split there
+      (``batch_split``): each rank's gradient is its rows' part;
+    - a leaf held whole is also summed over the axes where a rank reads
+      only part of it or combines it with its own block: the codebooks of
+      a split leaf (``core/qat.py``: a block's bin sums), the whole bias
+      an N block narrows (``params.tp_linear``), a quantized vocab-sharded
+      table's codebook, the per-head ``q_norm``/``k_norm`` on a rank's
+      heads, and what ``reads`` names (``{leaf path: the path of the
+      container whose output blocks read it}``: the CNN's per-layer QAT
+      codebooks);
+    - a leaf held as a block is never summed over the axes it splits on,
+      and a whole leaf on replicated work (a norm on the residual stream)
+      is the same on every rank already.
+    """
+    specs = placed_specs(placed, mesh) if specs is None else specs
+    walked = _walked(placed, specs, mesh)
+    n_axes = {}  # container (or wrapped block) path -> its output dim's axes
+    for path, _, spec, owner in walked:
+        if owner is not None:
+            n_axes["/".join(path[:-1])] = _n_axes(*owner, mesh)
+        elif path[-1] == "w" and len(spec) >= 2:
+            n_axes["/".join(path[:-1])] = _split_axes(spec[-1:], mesh)
+    base = ("data",) if batch_split and mesh.size("data") > 1 else ()
+    out = {}
+    for path, leaf, spec, owner in walked:
+        extra = ()
+        if not _split_axes(spec, mesh):
+            name = "/".join(path)
+            if owner is not None and path[-1] == "codebook":
+                node, nspec = owner
+                extra = _split_axes(getattr(nspec, _main_field(node)), mesh)
+            elif owner is not None and path[-1] == "bias":
+                extra = n_axes["/".join(path[:-1])]
+            target = (reads or {}).get(name)
+            for pat, proj in _READ_ON:
+                if target is None and re.search(pat, name):
+                    target = re.sub(pat, lambda m, proj=proj: m.group(1) + proj, name)
+            if target is not None:
+                extra = n_axes.get(target, ())
+        out[path] = base + tuple(a for a in extra if a not in base)
+    return out
+
+
+_BUCKET_ELEMS = 1 << 20  # a gradient leaf this large is all-reduced alone
+
+
+def reduce_grads(grads: Any, axes: dict, mesh) -> Any:
+    """Each gradient leaf summed over its ``axes[path]``
+    (:func:`grad_reduce_axes`), the same sum on every rank.  Leaves that
+    share their axes and dtype travel in one flat buffer a group (large
+    leaves alone); a leaf with no axes, and ``None`` (an integer leaf),
+    come back as they are.  A collective: every rank calls it, in step."""
+    from repro_torch.launch.mesh import sum_over
+
+    flat = flatten_with_path(grads)
+    out = [g for _, g in flat]
+    groups: dict = {}
+    for i, (path, g) in enumerate(flat):
+        ax = axes[path]
+        if not ax:
+            continue
+        if g.numel() >= _BUCKET_ELEMS:
+            out[i] = sum_over(g, mesh, ax)
+        else:
+            groups.setdefault((ax, g.dtype), []).append(i)
+    for (ax, _), idx in groups.items():
+        buf = sum_over(torch.cat([out[i].reshape(-1) for i in idx]), mesh, ax)
+        for i, part in zip(idx, buf.split([out[i].numel() for i in idx])):
+            out[i] = part.view_as(out[i])
+    return tree_unflatten(grads, out)
+
 
 
 def check_kv_heads(cfg, tp: int) -> None:

@@ -38,7 +38,10 @@ MoE layers run :func:`repro_torch.nn.moe.moe_ffn` under the mesh.  The
 column-parallel linears, the attention and the embedding are bitwise one
 device's; a row-parallel sum adds its f32 partials in another order
 (within an ulp of bf16).  KV heads that do not divide ``model`` raise
-(ROADMAP Queue 1 item 12c).
+(ROADMAP Queue 1 item 12c).  The dense family's forward under an active
+context is differentiable (the collectives carry gradients:
+``train/step.py`` trains on it); the MoE and vit families train on one
+device only (ROADMAP Queue 1 item 13b).
 """
 from __future__ import annotations
 
@@ -162,11 +165,16 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> d
 # ---------------------------------------------------------------------------
 
 
-def _lm_head(params: dict, cfg: ArchConfig):
+def _lm_head(params: dict, cfg: ArchConfig, sctx: ShardCtx = ShardCtx()):
     """The ``(D, V)`` head matrix: a tied head dequantizes the embedding once
-    and transposes it; an untied head passes its leaf straight to linear."""
+    and transposes it; an untied head passes its leaf straight to linear.
+    A tied head over a vocab-sharded table is this rank's column block of
+    the logical ``(D, V)`` head, so ``tp_linear`` reads it as one."""
     if cfg.tie_embeddings:
-        return _params.dense_weight(params["embed"]).T
+        w = _params.dense_weight(params["embed"]).T
+        if sctx.active and w.shape[-1] != cfg.vocab:
+            return _params.PasmParams(w=w, kind="dense", shape=(cfg.d_model, cfg.vocab))
+        return w
     return params["lm_head"]
 
 
@@ -374,7 +382,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     (x, aux), _ = maybe_scan(body, (x, [zero] * len(_AUX_KEYS)), params["layers"],
                              cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _lin(x, _lm_head(params, cfg), _head_impl(cfg), sctx)
+    logits = _lin(x, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
     if n_prefix:
         logits = logits[:, n_prefix:]
     return _global_logits(logits, cfg, sctx), dict(zip(_AUX_KEYS, aux))
@@ -422,7 +430,7 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
     x, new_scan = maybe_scan(body, x, list(zip(params["layers"], caches["scan"])),
                              cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _lin(x, _lm_head(params, cfg), _head_impl(cfg), sctx)
+    logits = _lin(x, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
     new = {"dense": new_dense or [], "scan": new_scan}
     return _global_logits(logits, cfg, sctx), _global_caches(new, old, sctx, 1)
 
@@ -468,6 +476,6 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     else:
         last = torch.clamp(eff_lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=x.device), last][:, None]
-    logits = _lin(x_last, _lm_head(params, cfg), _head_impl(cfg), sctx)
+    logits = _lin(x_last, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
     new = {"dense": new_dense or [], "scan": new_scan}
     return _global_logits(logits, cfg, sctx), _global_caches(new, old, sctx, adv)

@@ -29,6 +29,12 @@ The loss/step-time trajectories are written into the caller's ``history``
 dicts keyed by step, so a supervised (crash + restore) run accumulates one
 coherent trajectory across attempts, bitwise equal to the uninterrupted
 run's (step-addressed data, a deterministic step).
+
+Sharded, every rank runs the loop in step with the same step-addressed
+batches and the same fault plan, so a crash fires on every rank at the
+same step; a ``CheckpointManager(mesh=)`` gathers the logical arrays, rank
+0 writes them, and its ``wait`` is the barrier every rank passes before a
+restore reads them back.
 """
 from __future__ import annotations
 

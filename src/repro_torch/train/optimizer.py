@@ -8,7 +8,10 @@ probe) stays a device tensor, so a step needs no host synchronisation.
 
 Trees are those of :mod:`repro_torch.tree`: integer leaves (PASM indices)
 are frozen, their moments 0-d placeholders; decoupled weight decay applies
-to leaves with ``ndim >= 2``.  The port's per-layer leaves are unstacked
+to leaves with ``ndim >= 2``.  Under a mesh the trees hold a rank's blocks
+and the moments follow the params' layout: :func:`global_norm` and
+:func:`nonfinite_probe` take the mesh, so the clip scale is the one-device
+one and every rank takes the same skip.  The port's per-layer leaves are unstacked
 (ROADMAP Queue 3), so a layer's norm scale ``(D,)`` is not decayed where
 the JAX package's stacked ``(L, D)`` one is.
 """
@@ -16,11 +19,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update", "cosine_lr",
            "global_norm", "compress_grads", "nonfinite_probe", "tree_select"]
@@ -68,25 +71,48 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.to(torch.float32)))
-          for x in tree_leaves(tree) if x.is_floating_point()]
+def global_norm(tree: Any, *, mesh=None, block_axes: Optional[dict] = None) -> torch.Tensor:
+    """The L2 norm over every floating leaf.  Under ``mesh`` a leaf held as
+    a block over axes (``block_axes[path]``,
+    ``models/sharding.py::block_axes``) adds its squared sum all-reduced
+    over them, and a whole leaf counts once: the one-device norm on every
+    rank.  The squared sums are added in leaf order, so a mesh of one rank
+    gives the unsharded norm bitwise."""
+    from repro_torch.launch.mesh import sum_over
+
+    flat = [(p, x) for p, x in flatten_with_path(tree) if x.is_floating_point()]
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for _, x in flat]
+    groups: dict = {}
+    for i, (p, _) in enumerate(flat):
+        ax = (block_axes or {}).get(p, ()) if mesh is not None else ()
+        if ax:
+            groups.setdefault(ax, []).append(i)
+    for ax, idx in groups.items():  # one all-reduce a group of axes
+        tot = sum_over(torch.stack([sq[i] for i in idx]), mesh, ax)
+        for j, i in enumerate(idx):
+            sq[i] = tot[j]
     return torch.sqrt(sum(sq))
 
 
-def nonfinite_probe(loss: torch.Tensor, grads: Any) -> torch.Tensor:
+def nonfinite_probe(loss: torch.Tensor, grads: Any, *, mesh=None) -> torch.Tensor:
     """ONE finiteness check over loss + every floating grad leaf.
 
     Returns a bool scalar tensor: True iff the loss and all gradient
     elements are finite.  Each leaf contributes ``sum(g * 0)``, exactly 0
     when the leaf is all-finite and NaN otherwise (``inf * 0`` and
     ``nan * 0`` are NaN in IEEE-754), so the tree folds into one scalar on
-    the device: no per-leaf host sync.
+    the device: no per-leaf host sync.  Under ``mesh`` the scalar is summed
+    over every axis, so a non-finite block on one rank skips the step on
+    all of them and the ranks' trees stay one state.
     """
+    from repro_torch.launch.mesh import sum_over
+
     z = loss.to(torch.float32)
     for g in tree_leaves(grads):
         if g.is_floating_point():
             z = z + torch.sum(g.to(torch.float32) * 0.0)
+    if mesh is not None:
+        z = sum_over(z.reshape(1), mesh, mesh.axis_names)[0]
     return torch.isfinite(z)
 
 
@@ -98,9 +124,10 @@ def tree_select(pred: torch.Tensor, on_true: Any, on_false: Any) -> Any:
 
 
 def adamw_update(params: Any, grads: Any, state: OptState,
-                 cfg: AdamWConfig) -> tuple:
-    """One AdamW step.  Returns ``(new_params, new_state, metrics)``."""
-    gnorm = global_norm(grads)
+                 cfg: AdamWConfig, *, mesh=None, block_axes: Optional[dict] = None) -> tuple:
+    """One AdamW step.  Returns ``(new_params, new_state, metrics)``.
+    ``mesh``/``block_axes``: the placement :func:`global_norm` reads."""
+    gnorm = global_norm(grads, mesh=mesh, block_axes=block_axes)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = cosine_lr(cfg, step)
@@ -128,11 +155,17 @@ def adamw_update(params: Any, grads: Any, state: OptState,
 # ---------------------------------------------------------------------------
 
 
-def compress_grads(grads: Any, bins: int = 256) -> Any:
+def compress_grads(grads: Any, bins: int = 256, *, mesh=None) -> Any:
     """Quantize each gradient matrix to a symmetric uniform ``bins``-entry
     dictionary of ``max |g|`` before the data-parallel all-reduce — the
     PASM storage trick on the collective payload.  The error is bounded by
-    half a bin width."""
+    half a bin width.  ``mesh=`` raises: the JAX package compresses the
+    global gradient, and a block's ``max |g|`` is another dictionary
+    (ROADMAP Queue 1 item 13b)."""
+    if mesh is not None:
+        from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
+
+        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
 
     def one(g):
         if g.ndim < 2 or not g.is_floating_point():

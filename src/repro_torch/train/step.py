@@ -15,6 +15,17 @@ The steps are functional: a float leaf is differentiated through a
 modified.  Integer leaves (PASM indices) get no gradient (``None`` in the
 grads tree).  For bitwise reproducibility run them under
 :func:`deterministic`.
+
+Sharded, SPMD on a ``("data", "model")`` mesh (one process a rank): the
+dense LM family's step under an active ``ShardCtx`` on params placed by
+``models/sharding.py::place_params``, and the CNN QAT step with
+``mesh=`` on a tree placed by ``cnn._place``.  Every rank passes the global
+batch and computes the global loss; the backward runs through the
+differentiable collectives, and between it and the update each gradient
+leaf is summed over the axes ``grad_reduce_axes`` names, so a rank holds
+the one-device gradient of its blocks.  The clip norm and the non-finite
+guard are taken over the whole mesh.  At mesh ``(1, 1)`` the step is
+bitwise the unsharded one.
 """
 from __future__ import annotations
 
@@ -32,7 +43,7 @@ from repro_torch.train import optimizer as opt
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["make_train_step", "make_eval_step", "make_cnn_train_step",
-           "cnn_qat_loss", "loss_and_grads", "deterministic"]
+           "cnn_qat_loss", "cnn_loss_and_grads", "loss_and_grads", "deterministic"]
 
 
 @contextlib.contextmanager
@@ -94,15 +105,40 @@ def _split_scale(batch: dict) -> tuple:
     return {k: v for k, v in batch.items() if k != "loss_scale"}, batch["loss_scale"]
 
 
+def _check_sharded(cfg: ArchConfig, sctx: ShardCtx, batch: dict, microbatches: int):
+    """The dense family trains under an active context; MoE and vlm do not
+    (item 13b), and a microbatch's rows must still split over ``data``."""
+    if cfg.moe or cfg.frontend == "vit":
+        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
+    rows = batch["tokens"].shape[0] // microbatches
+    if sctx.batch_split and rows % sctx.dp:
+        raise ValueError(f"a microbatch of {rows} rows does not split over the "
+                         f"{sctx.dp} data ranks the context was built for")
+
+
 def loss_and_grads(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx = ShardCtx(),
                    *, microbatches: int = 1) -> tuple:
     """``(loss, aux, grads)`` of the LM loss — what :func:`make_train_step`
     hands the optimizer.  ``microbatches > 1`` accumulates gradients over
     sequential slices of the batch (activation-memory relief at a fixed
-    global batch) and averages them.  An active ``sctx`` raises: a sharded
-    backward needs differentiable collectives (ROADMAP Queue 1 item 13)."""
+    global batch) and averages them.  Under an active ``sctx`` (the dense
+    family; MoE and vlm raise, ROADMAP Queue 1 item 13b) ``params`` are a
+    rank's placed blocks, every rank passes the global batch and gets the
+    global loss, and each gradient leaf comes back summed over its
+    ``grad_reduce_axes``: the one-device gradient of the rank's block."""
     if sctx.active:
-        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
+        _check_sharded(cfg, sctx, batch, microbatches)
+    loss, aux, grads = _accumulate(params, batch, cfg, sctx, microbatches)
+    if sctx.active:
+        from repro_torch.models import sharding as sh
+
+        axes = sh.grad_reduce_axes(params, sctx.mesh, batch_split=sctx.batch_split)
+        grads = sh.reduce_grads(grads, axes, sctx.mesh)
+    return loss, aux, grads
+
+
+def _accumulate(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx,
+                microbatches: int) -> tuple:
     model = api.get_model(cfg)
     batch, scale = _split_scale(batch)
     if microbatches == 1:
@@ -121,14 +157,17 @@ def loss_and_grads(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx = ShardC
     return loss / microbatches, {}, grads
 
 
-def _guarded_update(params, opt_state, loss, grads, ocfg, *, guard: bool):
+def _guarded_update(params, opt_state, loss, grads, ocfg, *, guard: bool,
+                    mesh=None, block_axes=None):
     """AdamW + the fused non-finite guard: ONE probe scalar decides between
-    the updated tree and the bit-identical old one."""
-    new_p, new_s, metrics = opt.adamw_update(params, grads, opt_state, ocfg)
+    the updated tree and the bit-identical old one (under ``mesh``, one
+    probe for every rank, and the clip norm over the placement)."""
+    new_p, new_s, metrics = opt.adamw_update(params, grads, opt_state, ocfg,
+                                             mesh=mesh, block_axes=block_axes)
     if not guard:
         return new_p, new_s, dict(metrics, skipped=torch.zeros(
             (), dtype=torch.int32, device=loss.device))
-    ok = opt.nonfinite_probe(loss, grads)
+    ok = opt.nonfinite_probe(loss, grads, mesh=mesh)
     params = opt.tree_select(ok, new_p, params)
     opt_state = opt.tree_select(ok, new_s, opt_state)
     return params, opt_state, dict(metrics, skipped=(~ok).to(torch.int32))
@@ -149,9 +188,12 @@ def make_train_step(
     ``compress_grads_bins`` applies the PASM-style dictionary compression
     to the gradients before the optimizer.  ``guard_nonfinite`` (default
     on) folds the fused non-finite guard into the step.  An active ``sctx``
-    raises, as :func:`loss_and_grads` does.
+    runs the step SPMD on placed params (:func:`loss_and_grads`), with the
+    clip norm and the guard over the whole mesh; compressed gradients
+    under it raise (ROADMAP Queue 1 item 13b).
     """
-    if sctx.active:
+    mesh = sctx.mesh if sctx.active else None
+    if mesh is not None and compress_grads_bins:
         raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
 
     def train_step(params, opt_state, batch):
@@ -159,8 +201,14 @@ def make_train_step(
                                           microbatches=microbatches)
         if compress_grads_bins:
             grads = opt.compress_grads(grads, compress_grads_bins)
+        blocks = None
+        if mesh is not None:
+            from repro_torch.models.sharding import block_axes
+
+            blocks = block_axes(params, mesh)
         params, opt_state, metrics = _guarded_update(
-            params, opt_state, loss, grads, ocfg, guard=guard_nonfinite)
+            params, opt_state, loss, grads, ocfg, guard=guard_nonfinite,
+            mesh=mesh, block_axes=blocks)
         return params, opt_state, dict(metrics, loss=loss, **aux)
 
     return train_step
@@ -188,6 +236,8 @@ def cnn_qat_loss(tree: dict, batch: dict, cfg, *, mesh=None, scale=None):
     ``tree = {"params": cnn dense masters, "codebooks": [per-layer dicts]}``
     — both differentiable (``cnn.qat_forward``: masters get straight-through
     grads, codebook entries the bin-summed grads of their assigned weights).
+    ``mesh=``: placed masters, the global images and labels on every rank,
+    the global loss.
     """
     from repro_torch.models import cnn
 
@@ -201,24 +251,48 @@ def cnn_qat_loss(tree: dict, batch: dict, cfg, *, mesh=None, scale=None):
     return loss
 
 
+def cnn_loss_and_grads(tree: dict, batch: dict, cfg, *, mesh=None, specs=None) -> tuple:
+    """``(loss, grads)`` of :func:`cnn_qat_loss` — what
+    :func:`make_cnn_train_step` hands the optimizer (``batch["loss_scale"]``
+    honoured).  ``mesh=``: ``tree`` is placed (``cnn._place``) and each
+    gradient leaf comes back summed over its axes (``data``; a layer's
+    dictionary also over the ``model`` blocks that read it), the
+    one-device gradient of the rank's blocks.  ``specs``: the tree's
+    placement (default ``cnn.qat_specs(cfg, mesh)``)."""
+    from repro_torch.models import cnn, sharding as sh
+
+    batch, scale = _split_scale(batch)
+    loss, _, grads = _value_and_grad(
+        lambda t: (cnn_qat_loss(t, batch, cfg, mesh=mesh, scale=scale), {}), tree)
+    if mesh is not None:
+        specs = cnn.qat_specs(cfg, mesh) if specs is None else specs
+        axes = sh.grad_reduce_axes(tree, mesh, specs, reads=cnn.qat_reads(cfg))
+        grads = sh.reduce_grads(grads, axes, mesh)
+    return loss, grads
+
+
 def make_cnn_train_step(cfg, ocfg: opt.AdamWConfig, *, mesh=None,
                         guard_nonfinite: bool = True) -> Callable:
     """QAT train step for the conv stack: ``(tree, opt_state, batch) →
     (tree, opt_state, metrics)`` where ``tree`` holds the dense masters AND
     the per-layer codebooks (freeze with ``cnn.qat_requantize`` for
     serving).  The fused non-finite guard and ``batch["loss_scale"]``
-    behave exactly as in :func:`make_train_step`.  ``mesh=`` raises: a
-    sharded step needs differentiable collectives and a gradient all-reduce
-    over ``data`` (ROADMAP Queue 1 item 13)."""
-    if mesh is not None:
-        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
+    behave exactly as in :func:`make_train_step`.  ``mesh=`` runs the step
+    SPMD on a tree placed by ``cnn._place`` (the masters' ``c_out`` blocks
+    over ``model``, the codebooks whole): each rank computes its rows and
+    blocks, then every gradient leaf is summed over its axes (``data``;
+    a layer's dictionary also over the ``model`` blocks that read it) and
+    the guard and the clip norm are taken over the mesh."""
+    from repro_torch.models import cnn, sharding as sh
+
+    specs = None if mesh is None else cnn.qat_specs(cfg, mesh)
 
     def train_step(tree, opt_state, batch):
-        batch, scale = _split_scale(batch)
-        loss, _, grads = _value_and_grad(
-            lambda t: (cnn_qat_loss(t, batch, cfg, mesh=mesh, scale=scale), {}), tree)
+        loss, grads = cnn_loss_and_grads(tree, batch, cfg, mesh=mesh, specs=specs)
+        blocks = None if mesh is None else sh.block_axes(tree, mesh, specs)
         tree, opt_state, metrics = _guarded_update(
-            tree, opt_state, loss, grads, ocfg, guard=guard_nonfinite)
+            tree, opt_state, loss, grads, ocfg, guard=guard_nonfinite, mesh=mesh,
+            block_axes=blocks)
         return tree, opt_state, dict(metrics, loss=loss)
 
     return train_step

@@ -33,7 +33,7 @@ from repro_torch.kernels import pas_histogram as ph
 from repro_torch.kernels import pasm_matmul as pm
 from repro_torch.launch.mesh import make_conv_mesh
 from repro_torch.models import cnn
-from repro_torch.train import step as tstep
+from repro_torch.train import optimizer as topt
 from repro_torch.tree import flatten_with_path, tree_leaves
 
 COLLECTIVE_TIMEOUT_S = 30  # a rank out of step fails fast instead of hanging
@@ -125,20 +125,14 @@ def check_refusals(mesh, case):
             raised[what] = str(e)
         else:
             raise AssertionError(f"{what}: no {err.__name__}")
-    cfg = tcfg.smoke_config()
-    params = cnn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    cbs = cnn.qat_codebooks(params, cfg, iters=2)
-    imgs = torch.zeros((2, *cfg.in_chw))
-    for what, call in (
-        ("qat_forward", lambda: cnn.qat_forward(params, cbs, imgs, cfg, mesh=mesh)),
-        ("train_step", lambda: tstep.make_cnn_train_step(cfg, None, mesh=mesh)),
-    ):
-        try:
-            call()
-        except NotImplementedError as e:
-            raised[what] = str(e)
-        else:
-            raise AssertionError(f"{what}: no NotImplementedError")
+    # sharded QAT trains (tests/test_torch_train_sharding.py); compressed
+    # gradients under a mesh do not (ROADMAP Queue 1 item 13b)
+    try:
+        topt.compress_grads({"w": torch.zeros((2, 2))}, 16, mesh=mesh)
+    except NotImplementedError as e:
+        raised["compress_grads"] = str(e)
+    else:
+        raise AssertionError("compress_grads: no NotImplementedError")
     return raised
 
 

@@ -795,6 +795,49 @@ def test_k1_backward_matches_chain(cuda, M, K, N, bins, groups, packed, relu, po
     _assert_bwd_close(grads[0], grads[1], dtype, f"K1 M{M} K{K} N{N}")
 
 
+@pytest.mark.parametrize("M", [8, 1024], ids=["stream", "mma"])
+@pytest.mark.parametrize("name", ["w2", "w1"], ids=["k_block", "n_block"])
+def test_k1_block_backward_matches_chain(cuda, M, name):
+    """``_PasmMatmul`` on one rank's block of a placed leaf, as the sharded
+    train step runs it (``params.block_matmul``, model rank 1 of 2): dx and
+    the codebook gradient against autograd through the plain chain on the
+    same block.  A K block (``w2``) narrows x to its rows and its two
+    dictionaries to its own one (the other gets zero); an N block
+    (``w1``) takes x whole and its columns' bin sums."""
+    from repro_torch.core import params as par
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import sharding as sh
+
+    K, N = 2048, 512
+    g = torch.Generator(device=cuda).manual_seed(M + len(name))
+    w = torch.randn((K, N), generator=g, device=cuda) * K ** -0.5
+    p = par.PasmParams.quantize(w, 16, groups=2).pack()
+    x0 = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+    mesh = Mesh((1, 2), ("data", "model"), (0, 1), (None, None), cuda)
+    leaf = sh.place_params({name: p}, mesh)[name]
+    pb, split = par.held_block(leaf, mesh)
+    assert split == (name == "w2")
+    up = torch.randn((M, pb.shape[1]), generator=g, device=cuda)
+    grads = []
+    for side in ("kernel", "chain"):
+        x = x0.clone().requires_grad_()
+        cb = leaf.codebook.clone().requires_grad_()
+        before = pm.launches["pasm_matmul"]
+        if side == "kernel":
+            y, _ = par.block_matmul(x, dataclasses.replace(leaf, codebook=cb),
+                                    impl="kernel", mesh=mesh, rows=M)
+            assert pm.launches["pasm_matmul"] == before + 1
+        else:
+            xb = x.narrow(-1, K // 2, K // 2) if split else x
+            y = pm.pasm_matmul_plain(xb, pb.idx, cb.narrow(0, 1, 1) if split else cb,
+                                     packed=True)
+        grads.append(torch.autograd.grad(y, [x, cb], up))
+    torch.cuda.synchronize()
+    _assert_bwd_close(grads[0], grads[1], torch.bfloat16, f"K1 {name} block M{M}")
+    if split:  # the other rank's dictionary and x columns get nothing here
+        assert not bool(grads[0][1][0].any()) and not bool(grads[0][0][:, :K // 2].any())
+
+
 @pytest.mark.parametrize("engine", ["kernel", "kernel_implicit"])
 @pytest.mark.parametrize("k,stride,pool,groups,packed", [
     (11, 4, 2, 1, False),   # conv1's geometry, pooled

@@ -476,9 +476,10 @@ def test_active_ctx_and_dense_stack_block():
 
 
 def test_refusals_name_their_roadmap_items():
-    """The SSM, hybrid and encdec families and the train step raise on an
-    active context, as does a KV-head count the model axis does not divide
-    (the sequence-sharded cache): nothing runs replicated in silence."""
+    """The SSM, hybrid and encdec families, MoE training and compressed
+    gradients raise on an active context, as does a KV-head count the model
+    axis does not divide (the sequence-sharded cache): nothing runs
+    replicated in silence."""
     mesh = _cpu_mesh((1, 2), (0, 0))
     sctx = tcommon.ShardCtx.for_mesh(mesh, 2)
     toks = torch.zeros((2, 3), dtype=torch.long)
@@ -492,11 +493,14 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="item 12b"):
         TE.encode({}, torch.zeros((2, 80, 8)), tconfigs.get_config("whisper-tiny", smoke=True),
                   sctx)
+    # the dense family trains under the context (tests/test_torch_train_sharding.py);
+    # the MoE family and compressed gradients do not
     cfg = tconfigs.get_config("qwen3-32b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tstep.make_train_step(cfg, topt.AdamWConfig(), sctx)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, cfg, sctx)
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        tstep.make_train_step(cfg, topt.AdamWConfig(), sctx, compress_grads_bins=16)
+    moe = tconfigs.get_config("deepseek-moe-16b", smoke=True)
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, moe, sctx)
     odd = dataclasses.replace(cfg, n_kv_heads=1, n_heads=4)  # KV 1 over model 2
     with pytest.raises(NotImplementedError, match="item 12c"):
         tsh.place_caches(odd, TT.init_caches(odd, 2, 8, device="cpu"), mesh, sctx.batch)
