@@ -213,8 +213,27 @@ Phases (every one unguarded: any failure exits non-zero):
     57 K1 launches a step, every distinct block K1 ran held to the plain
     version (``check_blocks``), the collective bytes of a forward and of a
     step, the step's wall time and peak memory a rank;
-16. one ``{"kernels": [...]}`` JSON line;
-17. last line: ``{"ok": true, "device": {...}}``.
+16. tensor parallelism of the recurrent and encoder-decoder families and
+    the sequence-sharded KV cache (``rec_shard_phase``), under an active
+    ``ShardCtx`` at full width: (a) NCCL at world size 1, mesh (1, 1):
+    mamba2-130m, recurrentgemma-2b and whisper-tiny at full depth, a 4 ×
+    384 prefill (whisper's with 4 encodes of 1500 frames) and 8 decode
+    steps, and the hybrid's 2040-token prompt with 16 steps past its
+    2048-slot ring, bitwise the unsharded calls at their K1 launch counts
+    (49, 147, 66 / 32 a call); (b) two gloo ranks sharing the card at (1,
+    2) and (2, 1) (the ring prompt at (1, 2), its slots split over the
+    two ranks), the trees handed over through ``build/phase16``: each
+    rank's weight bytes and each split leaf's share, its K1 launches a
+    call, every distinct block K1 ran held to the plain version
+    (``check_blocks``), collective bytes a prefill and a decode step by
+    key, wall ms, the logits within ``max(LM_LOGIT_TOL, the one-ulp
+    floor)`` of one device's; (c) phi3-medium-14b at full width, 4 of its
+    40 layers, on four gloo ranks at (1, 4): its 10 KV heads do not divide
+    4, so q, k and v are gathered and the KV cache's positions split over
+    the ranks; the same traffic on the bf16 and the int8 KV cache, held
+    the same way;
+17. one ``{"kernels": [...]}`` JSON line;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -330,6 +349,12 @@ TRAIN_SHARD_MESHES = ((1, 2), (2, 1))
 QAT_SHARD_BATCH = 32
 TRAIN_SHARD_STEPS, TRAIN_SHARD_CRASH = 6, 4  # the AlexNet crash-resume, ckpt every 2
 TRAIN_SHARD_TIMEOUT_S = 900  # both ranks of (b), every check
+# phase 16: TP for the recurrent and encdec families, the sequence-sharded cache
+REC_SHARD_MODELS = (("mamba2-130m", 24), ("recurrentgemma-2b", 26), ("whisper-tiny", 4))
+REC_SHARD_MESHES = ((1, 2), (2, 1))
+RING_SHARD_STEPS = 16  # the hybrid's ring prompt at (1, 2): slots 2040..2055 wrap
+SEQ_SHARD_ARCH, SEQ_SHARD_LAYERS, SEQ_SHARD_MESH = "phi3-medium-14b", 4, (1, 4)
+REC_SHARD_TIMEOUT_S = 420  # the ranks of (b) or (c), every check
 # AlexNet sharded vs one device, f32: the loss (a mean over the batch) and
 # each gradient leaf (|Δ| <= t·max) sum the same products in another order:
 # the rows split over data, the GEMMs planned by cuBLAS for the blocks
@@ -1686,7 +1711,7 @@ class MoeSpy:
 K1_KERNEL_NAMES = ("k1b::", "pasm")  # K1's bf16 routes' namespace, its f32 kernel
 
 
-def time_step(fn, reps: int = 3) -> dict:
+def time_step(fn, reps: int = 3, traces: int = 3) -> dict:
     """One call of a whole model step, warm, medians over ``reps``: ``wall_ms``
     from an idle card to the step's end; ``host_ms`` until its last launch
     returns (the host's time, unless the launch queue filled); from one
@@ -1695,8 +1720,9 @@ def time_step(fn, reps: int = 3) -> dict:
     K1's part of it and ``kernels`` their count.  A step launches more
     kernels than the queue holds, so no spin can cover its host time and
     CUDA events around it would time the host; the profiler reads each
-    kernel's own interval.  ``device_ms`` is None if the trace holds no
-    kernel."""
+    kernel's own interval.  A trace that holds no kernel (CUPTI at times
+    hands back no device events) is taken again, up to ``traces`` times;
+    ``device_ms`` is None if none of them holds one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1711,11 +1737,15 @@ def time_step(fn, reps: int = 3) -> dict:
         torch.cuda.synchronize()
         wall.append(time.perf_counter() - t0)
         host.append(t1 - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kern = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    kern: list = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        if kern:
+            break
     dev = sum(t for _, t in kern) / 1e3
     k1 = sum(t for n, t in kern if any(k in n for k in K1_KERNEL_NAMES)) / 1e3
     by_name: dict = {}
@@ -3418,6 +3448,8 @@ def lm_shard_phase(gen, errs: dict, card: str) -> dict:
                 tp = [time_ms(f, SHARD_TIME_BUDGET_S) for f in (pre1, prem, prem, pre1)]
 
                 def pair(key):
+                    if any(t[key] is None for t in td):
+                        return "not measured (the profiler saw no kernel)"
                     m, o = (td[1][key] + td[2][key]) / 2, (td[0][key] + td[3][key]) / 2
                     return f"{m:.3f} vs {o:.3f} ms ({(m / o - 1) * 100:+.2f} %)"
 
@@ -3928,6 +3960,408 @@ def train_shard_phase(cfg, params, gen, card: str) -> dict:
     return {"launches": sum(k1.values()), "routes": k1, "max_abs_err": checks["max_abs_err"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: TP for the recurrent and encdec families, the sequence-sharded cache
+# ---------------------------------------------------------------------------
+
+
+def rec_shard_config(arch: str, n_layers: int = 0):
+    """A phase-16 model at full width, 16 bins int4 on ``kernel`` (depth cut
+    to ``n_layers`` when given)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg.with_quant(enabled=True, bins=16, impl="kernel")
+
+
+def rec_shard_k1(cfg) -> tuple:
+    """K1 launches of (a prefill call, a decode call), from the code."""
+    if cfg.family == "audio":
+        return whisper_per_call(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        n = recurrent_per_call(cfg)[0]
+        return n, n
+    n = k1_per_call(cfg)
+    return n, n
+
+
+def rec_shard_inputs(cfg, gen) -> dict:
+    """Phase 16's traffic: a B × S prefill (whisper's behind seeded mels of
+    1500 frames) and its decode steps' tokens; the hybrid also its ring
+    prompt and the steps that wrap the ring."""
+    import torch
+
+    tok = lambda *shape: torch.randint(0, cfg.vocab, shape, generator=gen,  # noqa: E731
+                                       device="cuda", dtype=torch.int32)
+    B, S = LM_SHARD_BATCH, LM_SHARD_PROMPT
+    out = {"prefill": tok(B, S), "steps": [tok(B, 1) for _ in range(LM_SHARD_STEPS)]}
+    if cfg.family == "audio":
+        out["mel"] = torch.randn((B, cfg.n_mels, 2 * cfg.frontend_tokens), generator=gen,
+                                 device="cuda")
+    if cfg.family == "hybrid":
+        out["ring"] = tok(1, RING_PROMPT)
+        out["ring_steps"] = [tok(1, 1) for _ in range(RING_SHARD_STEPS)]
+    return out
+
+
+def rec_shard_traffic(cfg, params, sctx, inputs, ring: bool = True) -> tuple:
+    """The prefill and its decode steps (and, with ``ring``, the hybrid's
+    ring prompt and its steps) under ``sctx``: each call's logits, and its
+    K1 launches, collective bytes and host wall ms (from an idle card to
+    its end), and whether it was a decode step."""
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import api
+    from repro_torch.models import sharding as sh
+
+    model = api.get_model(cfg)
+    logits, calls = [], []
+
+    def caches(B, S):
+        c = model.init_caches(cfg, B, S, device="cuda")
+        return sh.place_caches(cfg, c, sctx.mesh, sctx.batch) if sctx.active else c
+
+    def call(fn, decode: bool):
+        torch.cuda.synchronize()
+        pm.reset_launches()
+        lmesh.reset_collective_bytes()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3, "decode": decode,
+                      "k1": pm.launches["pasm_matmul"], "routes": dict(pm.k1_routes),
+                      "bytes": {k: v for k, v in lmesh.collective_bytes.items() if v}})
+        logits.append(out[0].float())
+        return out[1]
+
+    kw = {"frontend_embeds": inputs["mel"]} if "mel" in inputs else {}
+    runs = [(inputs["prefill"], inputs["steps"], LM_SHARD_PROMPT + LM_SHARD_STEPS)]
+    if ring and "ring" in inputs:
+        runs.append((inputs["ring"], inputs["ring_steps"], RING_MAX_SEQ))
+    for toks, steps, max_seq in runs:
+        c = caches(toks.shape[0], max_seq)
+        c = call(lambda: model.prefill(params, toks, c, cfg, sctx, **kw), False)  # noqa: B023
+        for t in steps:
+            c = call(lambda: model.decode_step(params, t, c, cfg, sctx), True)  # noqa: B023
+    return logits, calls
+
+
+def rec_shard_build(arch: str, full_layers: int, n_layers: int, gen) -> tuple:
+    """A phase-16 model's config and quantized weights, drawn on the card
+    (whisper's stem weight-shared too)."""
+    from repro_torch.models import encdec as TE
+
+    cfg = rec_shard_config(arch, n_layers)
+    params = build_lm(cfg, gen, "16", full_layers)
+    if cfg.family == "audio":
+        params = TE.quantize_frontend(params, bins=cfg.quant.bins)
+    return cfg, params
+
+
+def rec_shard_refs(cfg, params, inputs, gen) -> tuple:
+    """One device's logits and calls on the traffic, and its one-ulp floor:
+    the same calls with the embeddings moved by up to one bf16 ulp (phase
+    11's oracle noise), max |Δ| over max |logit| of each call.  The calls
+    returned (launches, wall ms) are the second, warm run's."""
+    import torch
+
+    from repro_torch.models.common import ShardCtx
+
+    ref, _ = rec_shard_traffic(cfg, params, ShardCtx(), inputs)
+    emb = params["embed"]
+    params["embed"] = emb * (1 + 2.0 ** -8 * torch.randint(
+        -1, 2, emb.shape, generator=gen, device="cuda", dtype=torch.int8).float())
+    moved, calls = rec_shard_traffic(cfg, params, ShardCtx(), inputs)
+    params["embed"] = emb
+    return ref, calls, max(rel_err(a, b) for a, b in zip(moved, ref))
+
+
+def rec_shard_k1_check(cfg, calls, what: str) -> None:
+    """Every call launched K1 once a linear (on its block)."""
+    pre, dec = rec_shard_k1(cfg)
+    for i, c in enumerate(calls):
+        want = dec if c["decode"] else pre
+        if c["k1"] != want:
+            raise AssertionError(f"{what} call {i}: K1 launched {c['k1']} times, want {want}")
+
+
+def rec_shard_rank(rank: int, world: int, port: int, data_dir: str, keys: list) -> None:
+    """One rank of phase 16(b)/(c): gloo on the card every rank shares; each
+    model's quantized tree from ``data_dir`` (memory-mapped: a rank copies
+    out only its blocks), placed on each mesh, its traffic held to one
+    device's logits; a JSON report (or the traceback) to
+    ``data_dir/rank<r>.json``."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    report = {"lines": [], "routes": {"stream": 0, "mma": 0, "simt": 0}, "checks": 0,
+              "check_launches": 0, "max_abs_err": 0.0, "ok": False}
+    out = Path(data_dir) / f"rank{rank}.json"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARD_COLLECTIVE_TIMEOUT_S))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_grad_enabled(False)
+        for key in keys:
+            rec_shard_rank_model(rank, key, Path(data_dir), report)
+        report["ok"] = True
+    except Exception:  # reported by the parent, which fails the run
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        out.write_text(json.dumps(report))
+        dist.destroy_process_group()
+
+
+def rec_shard_rank_model(rank: int, key: str, data: Path, report: dict) -> None:
+    import torch
+
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.tree import flatten_with_path
+
+    say = report["lines"].append
+    tree = torch.load(data / f"{key}.pt", map_location="cpu", mmap=True, weights_only=False)
+    ref = torch.load(data / f"{key}_ref.pt", map_location="cuda:0", weights_only=False)
+    full = {"/".join(p): leaf for p, leaf in flatten_with_path(tree)}
+    for shape, cfg, tag, ring in ref["runs"]:
+        mesh = make_conv_mesh(shape, device="cuda")
+        sctx = ShardCtx.for_mesh(mesh, LM_SHARD_BATCH)
+        placed = sh.place_params(tree, mesh)
+        held = whole = 0
+        frac = {}
+        for p, leaf in flatten_with_path(placed):
+            g = full.get("/".join(p), full.get("/".join(p[:-1])))
+            held += leaf.numel() * leaf.element_size()
+            whole += g.numel() * g.element_size()
+            if leaf.numel() != g.numel():
+                f = round(leaf.numel() / g.numel(), 4)
+                frac[f] = frac.get(f, 0) + 1
+        say(f"rank {rank} {cfg.name} {tag} mesh {shape}: weight bytes {held} of {whole} "
+            f"({held / whole:.3f}); each split leaf's share {dict(sorted(frac.items()))} "
+            f"(leaves)")
+        if shape[1] > 1 and set(frac) != {round(1 / shape[1], 4)}:
+            raise AssertionError(f"{shape}: a split leaf holds {sorted(frac)} of its bytes, "
+                                 f"not 1/{shape[1]}")
+        torch.cuda.synchronize()
+        with BlockSpy() as blocks:
+            logits, calls = rec_shard_traffic(cfg, placed, sctx, ref["inputs"], ring)
+        bc = check_blocks(blocks, f"rank {rank} {cfg.name} {tag} {shape}")
+        report["checks"] += bc["checks"]
+        report["check_launches"] += bc["launches"]
+        report["max_abs_err"] = max(report["max_abs_err"], bc["max_abs_err"])
+        del placed, blocks
+        torch.cuda.empty_cache()
+        rec_shard_k1_check(cfg, calls, f"rank {rank} {cfg.name} {tag} {shape}")
+        for c in calls:
+            for r, n in c["routes"].items():
+                report["routes"][r] += n
+        hold, errs = ref["hold"][tag], []
+        rank_d = rank // shape[1]
+        for i, (got, want) in enumerate(zip(logits, ref["logits"][tag])):
+            nb = got.shape[0]
+            rows = list(range(nb // shape[0] * rank_d, nb // shape[0] * (rank_d + 1))) \
+                if sctx.batch_split and nb % shape[0] == 0 else list(range(nb))
+            if not torch.isfinite(got).all() or tuple(got.shape) != tuple(want.shape):
+                raise AssertionError(f"{shape} call {i}: logits {tuple(got.shape)} not "
+                                     "finite or not the shape of one device's")
+            e = rel_err(got, want, rows)
+            if e > hold:
+                raise AssertionError(f"{cfg.name} {tag} {shape} call {i}: logits {e:.4f} "
+                                     f"of max |logit| from one device's, over {hold:.4f}")
+            errs.append(0.0 if torch.equal(got[rows], want[rows]) else e)
+        n_main = 1 + LM_SHARD_STEPS
+        dec = [c for c in calls[:n_main] if c["decode"]]
+        say(f"  rank {rank} {shape}: logits of {len(logits)} calls vs one device's (own "
+            f"rows): {sum(e == 0.0 for e in errs)} bitwise, max {max(errs):.4f} of max "
+            f"|logit| (held to {hold:.4f}); K1 {rec_shard_k1(cfg)} a prefill / decode "
+            f"call, {bc['checks']} distinct blocks vs the plain version ({bc['launches']} "
+            f"check launches): max |Δ| {bc['max_abs_err']:.3e}, |Δ| / (|x|@|W|) "
+            f"{bc['t']:.2e}; prefill {calls[0]['ms']:.1f} ms wall, decode step "
+            f"{float(np.median([c['ms'] for c in dec])):.1f} ms median"
+            + (f", ring prompt ({RING_PROMPT}) prefill {calls[n_main]['ms']:.1f} ms, its "
+               f"steps {float(np.median([c['ms'] for c in calls[n_main + 1:]])):.1f} ms"
+               if len(calls) > n_main else "")
+            + f"; collective bytes: prefill {calls[0]['bytes']}, decode step "
+            f"{dec[0]['bytes']}"
+            + (f", ring prefill {calls[n_main]['bytes']}, ring step "
+               f"{calls[n_main + 1]['bytes']}" if len(calls) > n_main else ""))
+    del tree
+
+
+def rec_shard_spawn(keys: list, world: int, data: Path, what: str) -> dict:
+    """The ranks of (b) or (c), spawned on gloo; their reports, every line
+    logged, any failure raised."""
+    import torch.multiprocessing as tmp
+
+    for f in data.glob("rank*.json"):
+        f.unlink()
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(rec_shard_rank, args=(world, free_port(), str(data), keys),
+                              nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + REC_SHARD_TIMEOUT_S
+    failure = None
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                failure = f"a rank did not finish within {REC_SHARD_TIMEOUT_S} s"
+                break
+    except Exception as e:  # a rank raised: its report holds the traceback
+        failure = f"a rank failed: {type(e).__name__}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    total = {"routes": {"stream": 0, "mma": 0, "simt": 0}, "checks": 0, "launches": 0,
+             "max_abs_err": 0.0}
+    for r in range(world):
+        f = data / f"rank{r}.json"
+        rep = json.loads(f.read_text()) if f.exists() else \
+            {"ok": False, "lines": [], "error": "no report"}
+        for line in rep["lines"]:
+            log("  " + line)
+        if not rep["ok"]:
+            log(f"  rank {r} failed:\n{rep.get('error', '')}")
+            failure = failure or f"rank {r} failed"
+            continue
+        for k, n in rep["routes"].items():
+            total["routes"][k] += n
+        total["checks"] += rep["checks"]
+        total["launches"] += rep["check_launches"]
+        total["max_abs_err"] = max(total["max_abs_err"], rep["max_abs_err"])
+    if failure:
+        raise AssertionError(f"phase 16 {what}: {failure}")
+    log(f"  {what}: all {world} ranks passed in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def rec_shard_phase(gen, errs: dict, card: str) -> dict:
+    """Phase 16: mamba2-130m, recurrentgemma-2b and whisper-tiny at full
+    width and depth, and phi3-medium-14b (4 of 40 layers) with its KV heads
+    cut by ``model``, through ``prefill``/``decode_step`` under an active
+    ``ShardCtx``: (a) NCCL at world size 1, mesh (1, 1), bitwise the
+    unsharded calls at their K1 counts; (b) two gloo ranks at (1, 2) and
+    (2, 1); (c) four gloo ranks at (1, 4) on phi3's bf16 and int8 KV
+    caches; each rank's logits held to one device's within
+    ``max(LM_LOGIT_TOL, the one-ulp floor)``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.common import ShardCtx
+
+    t_phase = time.perf_counter()
+    log(f"phase 16: TP for the recurrent and encoder-decoder families and the "
+        f"sequence-sharded KV cache, a {LM_SHARD_BATCH} x {LM_SHARD_PROMPT} prefill and "
+        f"{LM_SHARD_STEPS} decode steps (recurrentgemma-2b also its {RING_PROMPT}-token "
+        f"ring prompt and {RING_SHARD_STEPS} steps)")
+    data = ROOT / "build" / "phase16"
+    data.mkdir(parents=True, exist_ok=True)
+    for f in list(data.glob("*.pt")) + list(data.glob("rank*.json")):
+        f.unlink()
+    k1 = {"stream": 0, "mma": 0, "simt": 0}
+    keys = []
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        for arch, full_layers in REC_SHARD_MODELS:
+            cfg, params = rec_shard_build(arch, full_layers, 0, gen)
+            inputs = rec_shard_inputs(cfg, gen)
+            ref, calls, floor = rec_shard_refs(cfg, params, inputs, gen)
+            rec_shard_k1_check(cfg, calls, f"{arch} one device")
+            hold = max(LM_LOGIT_TOL, floor)
+            mesh = make_conv_mesh((1, 1), device="cuda")
+            sctx = ShardCtx.for_mesh(mesh, LM_SHARD_BATCH)
+            placed = sh.place_params(params, mesh)
+            got, mcalls = rec_shard_traffic(cfg, placed, sctx, inputs)
+            for i, (a, b) in enumerate(zip(got, ref)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{arch} (1, 1) call {i}: logits not bitwise the "
+                                         "unsharded call's")
+            rec_shard_k1_check(cfg, mcalls, f"{arch} (1, 1)")
+            for c in mcalls:
+                for r, n in c["routes"].items():
+                    k1[r] += n
+            dec1 = [c["ms"] for c in calls if c["decode"]]
+            decm = [c["ms"] for c in mcalls if c["decode"]]
+            log(f"  (a) {arch}: NCCL world 1, mesh (1, 1): {len(got)} calls bitwise the "
+                f"unsharded calls, K1 {rec_shard_k1(cfg)} a prefill / decode call "
+                f"({sum(c['k1'] for c in mcalls)} launches); prefill {mcalls[0]['ms']:.1f} "
+                f"vs {calls[0]['ms']:.1f} ms wall, a decode step {np.median(decm):.1f} vs "
+                f"{np.median(dec1):.1f} ms median (mesh vs unsharded); the one-ulp floor "
+                f"{floor:.4f} of max |logit|, ranks held to {hold:.4f} [{card}]")
+            runs = [(s, cfg, "main", s == (1, 2)) for s in REC_SHARD_MESHES]
+            logits = {"main": ref}
+            if cfg.family == "hybrid":  # the ring run: the last calls of ref
+                n = 1 + LM_SHARD_STEPS
+                logits = {"main": ref[:n], "ring": ref}
+                runs = [(s, cfg, "main" if s != (1, 2) else "ring", s == (1, 2))
+                        for s in REC_SHARD_MESHES]
+            key = arch.split("-")[0]
+            torch.save(params, data / f"{key}.pt")
+            torch.save({"inputs": inputs, "logits": logits,
+                        "hold": dict.fromkeys(logits, hold), "runs": runs},
+                       data / f"{key}_ref.pt")
+            keys.append(key)
+            del params, placed, ref, got
+            torch.cuda.empty_cache()
+        # (c)'s model: phi3-medium-14b, 4 layers, one device on both caches
+        cfg, params = rec_shard_build(SEQ_SHARD_ARCH, 40, SEQ_SHARD_LAYERS, gen)
+        inputs = rec_shard_inputs(cfg, gen)
+        logits, holds, runs = {}, {}, []
+        for kv in (16, 8):
+            c = cfg.with_quant(kv_bits=kv)
+            tag = f"kv{kv}"
+            logits[tag], calls, floor = rec_shard_refs(c, params, inputs, gen)
+            rec_shard_k1_check(c, calls, f"{SEQ_SHARD_ARCH} {tag} one device")
+            holds[tag] = max(LM_LOGIT_TOL, floor)
+            runs.append((SEQ_SHARD_MESH, c, tag, False))
+            log(f"  (c) {SEQ_SHARD_ARCH} ({SEQ_SHARD_LAYERS} of 40 layers) {tag} cache: one "
+                f"device's one-ulp floor {floor:.4f} of max |logit|, ranks held to "
+                f"{holds[tag]:.4f}; prefill {calls[0]['ms']:.1f} ms wall [{card}]")
+        torch.save(params, data / "phi3.pt")
+        torch.save({"inputs": inputs, "logits": logits, "hold": holds, "runs": runs},
+                   data / "phi3_ref.pt")
+        del params, logits
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    log(f"  (b) 2 ranks on gloo sharing the card (spawned), meshes "
+        f"{list(REC_SHARD_MESHES)} (the ring prompt at (1, 2)); two ranks on one card time "
+        "the dispatch and its collectives, not a speedup")
+    tot_b = rec_shard_spawn(keys, 2, data, "(b)")
+    log(f"  (c) {SEQ_SHARD_MESH[1]} ranks on gloo sharing the card, mesh {SEQ_SHARD_MESH}: "
+        f"{SEQ_SHARD_ARCH}'s 10 KV heads over model {SEQ_SHARD_MESH[1]}, the KV positions "
+        "split")
+    tot_c = rec_shard_spawn(["phi3"], SEQ_SHARD_MESH[1], data, "(c)")
+    checks = {"checks": 0, "launches": 0}
+    for tot in (tot_b, tot_c):
+        for r, n in tot["routes"].items():
+            k1[r] += n
+        checks["checks"] += tot["checks"]
+        checks["launches"] += tot["launches"]
+        errs["pasm_matmul"] = max(errs.get("pasm_matmul", 0.0), tot["max_abs_err"])
+    for f in data.glob("*.pt"):
+        f.unlink()
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s; K1 launches {k1} (the (1, 1) "
+        f"runs and every rank), and {checks['launches']} more holding {checks['checks']} "
+        f"rank blocks to the plain version [{card}]")
+    return {"launches": sum(k1.values()), "routes": k1}
+
+
 def main() -> int:
     import torch
 
@@ -4183,7 +4617,10 @@ def main() -> int:
     trs = train_shard_phase(cfg, params, gen, card)
     errs["pasm_matmul"] = max(errs["pasm_matmul"], trs["max_abs_err"])
 
-    # 16. the kernels line -----------------------------------------------------
+    # 16. TP for the recurrent and encdec families, the sequence-sharded cache ----
+    rsh = rec_shard_phase(gen, errs, card)
+
+    # 17. the kernels line -----------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -4195,7 +4632,8 @@ def main() -> int:
     launches = {"pasm_matmul": counts["kernel"]["pasm_matmul"] + lm["lm"]["pasm_matmul"]
                 + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"]
                 + ssm["launches"] + hyb["launches"] + wsp["launches"] + sl["pasm_matmul"]
-                + lsh["launches"] + train["families"]["launches"] + trs["launches"],
+                + lsh["launches"] + train["families"]["launches"] + trs["launches"]
+                + rsh["launches"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"]
                 + sl["pasm_conv"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"] + sl["pas_matmul"],
@@ -4215,7 +4653,8 @@ def main() -> int:
     routes["pasm_matmul"]["simt"]["launches"] = (counts["kernel"]["pasm_matmul"]
                                                  + train["qat"]["k1"] + wsp["routes"]["simt"]
                                                  + sl["pasm_matmul"]
-                                                 + train["families"]["routes"]["simt"])
+                                                 + train["families"]["routes"]["simt"]
+                                                 + rsh["routes"]["simt"])
     routes["pasm_matmul"]["simt"].update(
         {k: tot["pasm_matmul"][k] for k in timed if k != "bound_by"},
         bound_by="operations")
@@ -4223,7 +4662,7 @@ def main() -> int:
         routes["pasm_matmul"][r] = dict(
             k5_rows["k1"][r], launches=lm["routes"][r] + moe["routes"][r] + vlm["routes"][r]
             + ssm["routes"][r] + hyb["routes"][r] + wsp["routes"][r] + lsh["routes"][r]
-            + train["families"]["routes"][r] + trs["routes"][r]
+            + train["families"]["routes"][r] + trs["routes"][r] + rsh["routes"][r]
             + (TRAIN_K1 if r == "mma" else 0),
             source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
@@ -4261,7 +4700,9 @@ def main() -> int:
         f"internvl2-26b {vlm['launches']} + mamba2-130m {ssm['launches']} + "
         f"recurrentgemma-2b {hyb['launches']} + whisper-tiny {wsp['launches']} (its "
         f"stem {wsp['routes']['simt']} on simt) + the sharded qwen3 / deepseek of phase "
-        f"14 {lsh['launches']} (its (1, 1) run and both ranks); K2, K3), the stage run "
+        f"14 {lsh['launches']} (its (1, 1) run and both ranks) + the sharded recurrent, "
+        f"encdec and phi3 calls of phase 16 {rsh['launches']} (the (1, 1) runs and every "
+        f"rank; the stem's {rsh['routes']['simt']} on simt); K2, K3), the stage run "
         f"(K4), the "
         f"sharded AlexNet of phase 13 (K1-K4 {sl}, both of its ranks counted), the "
         f"served attention (K5: qwen3 {lm['k5']}, deepseek "

@@ -35,8 +35,6 @@ __all__ = [
     "tp_linear",
     "held_block",
     "block_matmul",
-    "NOT_PORTED_MESH_FAMILY",
-    "NOT_PORTED_MESH_SEQ",
     "NOT_PORTED_MESH_TRAIN",
 ]
 
@@ -45,24 +43,17 @@ KINDS = ("dense", "shared", "packed")
 # under every impl — quantized params dispatch on it.
 MATMUL_IMPLS = ("dense", "dequant", "kernel", "pas_kernel")
 
-# the ROADMAP items that own what the sharded paths still refuse: the CNN
-# stack, the quantized matmul and the transformer families' tensor and
-# expert parallelism run under a mesh, and the CNN QAT step and the dense
-# LM family train there; the other LM families, the sequence-sharded KV
-# cache, MoE / vlm training, compressed gradients and the ZeRO layout do not
-NOT_PORTED_MESH_FAMILY = (
-    "an active ShardCtx on the SSM, hybrid and encoder-decoder families "
-    "(their tensor parallelism) is not ported yet: ROADMAP Queue 1 item 12b"
-)
-NOT_PORTED_MESH_SEQ = (
-    "KV heads that do not divide the model axis (the sequence-sharded KV "
-    "cache and its distributed softmax) are not ported yet: ROADMAP Queue 1 "
-    "item 12c"
-)
+# the ROADMAP item that owns what the sharded paths still refuse: the CNN
+# stack, the quantized matmul and every LM family's tensor parallelism (the
+# MoE family's expert parallelism, the sequence-sharded KV cache) run under
+# a mesh, and the CNN QAT step and the dense LM family train there; the
+# other families' training, compressed gradients and the ZeRO layout do not
 NOT_PORTED_MESH_TRAIN = (
-    "training the MoE and vlm families under an active ShardCtx (expert "
-    "stacks split on a leading dim), compress_grads under a mesh and the "
-    "ZeRO optimizer-state layout are not ported yet: ROADMAP Queue 1 item 13b"
+    "training the MoE, vlm, SSM, hybrid and encoder-decoder families under an "
+    "active ShardCtx (expert stacks split on a leading dim; the recurrent and "
+    "encdec leaves' gradient reduction), a transformer whose KV heads do not "
+    "divide the model axis, compress_grads under a mesh and the ZeRO "
+    "optimizer-state layout are not ported yet: ROADMAP Queue 1 item 13b"
 )
 
 Weight = Union[torch.Tensor, "PasmParams", _pasm.PASMTensor]

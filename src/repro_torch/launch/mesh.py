@@ -188,9 +188,16 @@ def n_shard_axis(mesh: Mesh, n: int) -> Optional[str]:
 # counts there too); ``all_reduce_bwd`` is :func:`enter_split`'s backward
 # and ``grad_reduce`` the train step's gradient reduction, its global norm
 # and its non-finite probe (``models/sharding.py::reduce_grads``,
-# ``train/optimizer.py``).
+# ``train/optimizer.py``).  Three gathers of activations have keys of their
+# own: ``relayout`` where a fused leaf's block does not line up with what a
+# rank's state or the next leaf needs (mamba2's ``in_proj`` across ``z |
+# xBC | dt``, a conv's channel block, heads cut by a column block),
+# ``softmax_combine`` the sequence-sharded attention's partials, and
+# ``cache_rows`` a recurrent state that ``cache_pspecs`` keeps whole on
+# the batch, gathered over ``data`` after a rank updated its rows.
 collective_bytes = {"all_gather": 0, "all_reduce": 0, "all_reduce_bwd": 0,
-                    "grad_reduce": 0}
+                    "grad_reduce": 0, "relayout": 0, "softmax_combine": 0,
+                    "cache_rows": 0}
 
 
 def reset_collective_bytes() -> None:
@@ -202,12 +209,12 @@ def _group(mesh: Mesh, axis: str):
     return mesh.groups[mesh._axis(axis)] if axis in mesh.axis_names else None
 
 
-def _gather(t: torch.Tensor, g, dim: int) -> torch.Tensor:
-    t = t.contiguous()
+def _gather(t: torch.Tensor, g, dim: int, key: str = "all_gather") -> torch.Tensor:
+    t = t.contiguous()  # a strided view (a slice of the last dim) is sent packed
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
     dist.all_gather(parts, t, group=g)
     out = torch.cat(parts, dim=dim)
-    collective_bytes["all_gather"] += out.numel() * out.element_size()
+    collective_bytes[key] += out.numel() * out.element_size()
     return out
 
 
@@ -236,15 +243,15 @@ class _AllGather(torch.autograd.Function):
     so the gradient that arrives is the same on every rank of it."""
 
     @staticmethod
-    def forward(ctx, t, g, dim, index):
-        out = _gather(t, g, dim)
+    def forward(ctx, t, g, dim, index, key):
+        out = _gather(t, g, dim, key)
         ctx.g_dim, ctx.index, ctx.n, ctx.shape = dim, index, t.shape[dim], out.shape
         return out
 
     @staticmethod
     def backward(ctx, grad):
         _check_grad(grad, ctx.shape, "all_gather")
-        return grad.narrow(ctx.g_dim, ctx.index * ctx.n, ctx.n), None, None, None
+        return grad.narrow(ctx.g_dim, ctx.index * ctx.n, ctx.n), None, None, None, None
 
 
 class _AllReduce(torch.autograd.Function):
@@ -276,11 +283,14 @@ class _EnterSplit(torch.autograd.Function):
         return _sum(grad, ctx.g, "all_reduce_bwd"), None
 
 
-def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0,
+               key: str = "all_gather") -> torch.Tensor:
     """The blocks of every rank along ``axis`` concatenated on ``dim`` in
     coordinate order: JAX's tiled ``all_gather``, so the N blocks of a
     ``model``-sharded output gather to the full-N output bitwise.  Every
-    rank's block has ``t``'s shape.  An axis of size 1 returns ``t``.
+    rank's block has ``t``'s shape (any view: a slice of the last dim is
+    sent packed).  Its bytes count under ``key`` of
+    :data:`collective_bytes`.  An axis of size 1 returns ``t``.
 
     Differentiable: the backward is this rank's block of the gradient,
     which every rank of the axis receives whole and equal (the result's
@@ -289,8 +299,8 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Te
     if g is None:
         return t
     if _differentiable(t):
-        return _AllGather.apply(t, g, dim % t.ndim, mesh.index(axis))
-    return _gather(t, g, dim)
+        return _AllGather.apply(t, g, dim % t.ndim, mesh.index(axis), key)
+    return _gather(t, g, dim, key)
 
 
 def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:

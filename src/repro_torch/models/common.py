@@ -21,11 +21,22 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import params as _params
 from repro_torch.core import pasm as _pasm
-from repro_torch.core.params import NOT_PORTED_MESH_FAMILY
+from repro_torch.nn import layers as L
 
 __all__ = [
     "ShardCtx",
-    "refuse_mesh",
+    "shard_linear",
+    "whole_cols",
+    "block_of",
+    "conv_weight",
+    "heads_split",
+    "proj_heads",
+    "qkv_heads",
+    "local_rows",
+    "whole_rows",
+    "embed_tokens",
+    "tied_head",
+    "global_logits",
     "trunc_normal",
     "Initializer",
     "maybe_scan",
@@ -82,8 +93,9 @@ class ShardCtx:
     axes' sizes (the MoE's local dispatch groups).  ``active=False`` (the
     default) is one device.
 
-    An active context runs the transformer families' tensor and expert
-    parallelism SPMD, one process a rank, on the ``("data", "model")``
+    An active context runs every LM family's tensor parallelism (and the
+    MoE family's expert parallelism) SPMD, one process a rank, on the
+    ``("data", "model")``
     :class:`~repro_torch.launch.mesh.Mesh` it carries: the JAX package reads
     its ambient mesh, the port takes it as ``mesh=``.  Layouts are explicit
     there (placed params and caches, rank-local activations), so the
@@ -152,11 +164,140 @@ class ShardCtx:
         return x
 
 
-def refuse_mesh(sctx: ShardCtx) -> None:
-    """The SSM, hybrid and encoder-decoder families never run unsharded
-    under an active context: it raises (ROADMAP Queue 1 item 12b)."""
+# ---------------------------------------------------------------------------
+# the SPMD pieces every LM family shares under an active context: params
+# placed by models/sharding.py::place_params, activations rank-local
+# ---------------------------------------------------------------------------
+
+
+def shard_linear(x: torch.Tensor, w, impl: str, sctx: ShardCtx) -> torch.Tensor:
+    """One linear; under an active context the tensor-parallel dispatch on
+    this rank's block (``params.tp_linear``), column- or row-parallel as
+    the leaf is placed: an N block gives this rank's output columns, a K
+    block takes ``x`` whole or as its own K block and sums over ``model``."""
+    if not sctx.active:
+        return L.linear(x, w, impl)
+    return _params.tp_linear(x, w, impl=impl, mesh=sctx.mesh, rows=sctx.rows(x))
+
+
+def whole_cols(y: torch.Tensor, n: int, sctx: ShardCtx) -> torch.Tensor:
+    """``y`` with its last dim whole (``n``): a column-parallel output held
+    as this rank's block is all-gathered over ``model`` (bitwise the
+    unsharded columns), counted as ``relayout``: the block does not line
+    up with what the next step needs.  A whole ``y`` comes back as is."""
+    if not sctx.active or y.shape[-1] == n:
+        return y
+    from repro_torch.launch.mesh import all_gather
+
+    return all_gather(y, sctx.mesh, sctx.model, dim=-1, key="relayout")
+
+
+def block_of(n: int, held: int, sctx: ShardCtx) -> slice:
+    """The slice of a dim of ``n`` that this rank's ``held`` entries are: its
+    contiguous block along ``model`` (all of it when held whole)."""
+    if held == n:
+        return slice(0, n)
+    start = sctx.mesh.index(sctx.model) * held
+    return slice(start, start + held)
+
+
+def conv_weight(p: dict) -> torch.Tensor:
+    """A layer's depthwise conv weight as it holds it: under a mesh its
+    channel block, which ``place_params`` keeps as a ``dense``
+    ``PasmParams`` of the logical shape."""
+    return _params.dense_weight(p["conv_w"])
+
+
+def heads_split(cfg: ArchConfig, sctx: ShardCtx) -> bool:
+    """Whether a rank holds its own attention heads (and their KV group):
+    the KV heads divide ``model``.  Otherwise a column block of ``wq/wk/
+    wv`` can cut a head, so q, k and v are gathered whole and attention runs
+    the same function on every rank (``cache_pspecs`` then puts the KV
+    cache's sequence over ``model``)."""
+    return sctx.active and sctx.tp > 1 and bool(cfg.n_kv_heads) \
+        and cfg.n_kv_heads % sctx.tp == 0
+
+
+def proj_heads(x, w, n: int, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> torch.Tensor:
+    """``x`` through the column-parallel ``w`` as ``(..., heads, hd)`` of
+    ``n`` heads: this rank's own heads when they split over ``model``
+    (:func:`heads_split`) and every head otherwise, a column block gathered
+    over ``model`` (it may cut a head)."""
+    y = shard_linear(x, w, impl, sctx)
+    if not heads_split(cfg, sctx):
+        y = whole_cols(y, n * cfg.hd, sctx)
+    return y.reshape(*y.shape[:-1], -1, cfg.hd)
+
+
+def qkv_heads(xq, xkv, p: dict, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
+    """The attention heads ``(q, k, v)`` (:func:`proj_heads`) of ``xq``
+    (queries) and ``xkv`` (keys and values) through ``p``'s ``wq/wk/wv``."""
+    return (proj_heads(xq, p["wq"], cfg.n_heads, cfg, sctx, impl),
+            proj_heads(xkv, p["wk"], cfg.n_kv_heads, cfg, sctx, impl),
+            proj_heads(xkv, p["wv"], cfg.n_kv_heads, cfg, sctx, impl))
+
+
+def local_rows(t, sctx: ShardCtx):
+    """This rank's batch rows of a global input (all of them when the batch
+    is not split)."""
+    if t is None or not sctx.batch_split:
+        return t
+    from repro_torch.models.sharding import DATA, P, local_shard
+
+    return local_shard(t, P(DATA), sctx.mesh)
+
+
+def whole_rows(t: torch.Tensor, sctx: ShardCtx, key: str = "cache_rows") -> torch.Tensor:
+    """Every rank's rows of ``t`` gathered over ``data``: by default a
+    recurrent state ``cache_pspecs`` keeps whole on the batch, after a rank
+    updated its own rows (counted under ``key``)."""
+    if not sctx.batch_split:
+        return t
+    from repro_torch.launch.mesh import all_gather
+
+    return all_gather(t, sctx.mesh, "data", dim=0, key=key)
+
+
+def embed_tokens(w, tokens: torch.Tensor, sctx: ShardCtx) -> torch.Tensor:
+    """The embedding rows of ``tokens``.  A vocab-sharded table (under a
+    mesh) looks up the rows this rank holds, zeros elsewhere, and sums over
+    ``model``: one nonzero term per element, so exact."""
     if sctx.active:
-        raise NotImplementedError(NOT_PORTED_MESH_FAMILY)
+        held, split = _params.held_block(w, sctx.mesh)
+        if split:
+            from repro_torch.launch.mesh import all_reduce
+
+            n = held.shape[0]
+            loc = tokens - sctx.mesh.index(sctx.model) * n
+            own = (loc >= 0) & (loc < n)
+            rows = _params.embed_lookup(w, torch.where(own, loc, torch.zeros_like(loc)))
+            rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+            return all_reduce(rows, sctx.mesh, sctx.model)
+    return _params.embed_lookup(w, tokens)
+
+
+def tied_head(embed, cfg: ArchConfig, sctx: ShardCtx):
+    """The ``(D, V)`` head of a tied embedding: dequantized once and
+    transposed.  Over a vocab-sharded table it is this rank's column block
+    of the logical ``(D, V)`` head, so ``tp_linear`` reads it as one."""
+    w = _params.dense_weight(embed).T
+    if sctx.active and w.shape[-1] != cfg.vocab:
+        return _params.PasmParams(w=w, kind="dense", shape=(cfg.d_model, cfg.vocab))
+    return w
+
+
+def global_logits(logits: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx) -> torch.Tensor:
+    """This rank's logits block → the global logits: the vocab gathered over
+    ``model`` (a column-parallel head), then the rows over ``data``."""
+    if not sctx.active:
+        return logits
+    from repro_torch.launch.mesh import all_gather
+
+    if logits.shape[-1] != cfg.vocab:
+        logits = all_gather(logits, sctx.mesh, sctx.model, dim=-1)
+    if sctx.batch_split:
+        logits = all_gather(logits, sctx.mesh, "data", dim=0)
+    return logits
 
 
 def map_leaves(fn: Callable, tree: Any, path: tuple = ()) -> Any:

@@ -18,9 +18,26 @@ embeddings are tied to the LM head.  ``"enc_layers"`` and ``"dec_layers"``
 are lists of per-layer dicts, and the caches a list of per-layer
 ``{"self": KVCache, "cross": {"k", "v"}}``; the cross K/V are computed once
 at prefill and read by every decode step.
+
+An active :class:`~repro_torch.models.common.ShardCtx` runs the tensor
+parallelism SPMD, one process a rank, on params placed by
+``models/sharding.py::place_params`` and caches by ``place_caches`` (the
+transformer's contract: global inputs, the global logits — and from
+:func:`encode` the global encoding — on every rank).  The encoder, the
+decoder's self- and cross-attention and the MLPs are Megatron blocks:
+``wq/wk/wv``/``w1`` column-parallel (``bias1`` narrowed to the rank's
+block), ``wo``/``w2`` row-parallel; whisper-tiny's 6 heads split 3 + 3 at
+``model`` 2 and the self and cross K/V caches hold the rank's heads (heads
+that do not divide ``model`` are gathered whole and the caches' positions
+split instead, as in the transformer).  The mel stem's conv leaves match no
+placement rule, so the stem runs whole on every rank; ``embed`` is
+vocab-sharded where the vocab divides (51865 does not: it is held whole,
+with the tied head on it), and ``pos_embed``'s rows split the same way.
+Mesh (1, 1) runs the unsharded arithmetic.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -29,10 +46,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import params as _params
 from repro_torch.core.conv import Conv2D, ConvParams, conv2d
-from repro_torch.models.common import (Initializer, ShardCtx, map_leaves, maybe_scan,
-                                       refuse_mesh)
+from repro_torch.models.common import (Initializer, ShardCtx, block_of, embed_tokens,
+                                       global_logits, heads_split, local_rows, map_leaves,
+                                       maybe_scan, proj_heads, qkv_heads, shard_linear, tied_head,
+                                       whole_rows)
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 
@@ -137,19 +155,18 @@ def _impl(cfg: ArchConfig) -> str:
     return cfg.quant.impl if cfg.quant.enabled else "dense"
 
 
-def _mha(xq, xkv, p, cfg: ArchConfig, impl: str, *, causal: bool):
+def _mha(xq, xkv, p, cfg: ArchConfig, impl: str, sctx: ShardCtx, *, causal: bool):
     B, Sq, _ = xq.shape
-    hd = cfg.hd
-    q = L.linear(xq, p["wq"], impl).reshape(B, Sq, cfg.n_heads, hd)
-    k = L.linear(xkv, p["wk"], impl).reshape(B, -1, cfg.n_kv_heads, hd)
-    v = L.linear(xkv, p["wv"], impl).reshape(B, -1, cfg.n_kv_heads, hd)
+    q, k, v = qkv_heads(xq, xkv, p, cfg, sctx, impl)
     o = A.gqa_attention(q, k, v, causal=causal, chunk=min(1024, k.shape[1]))
-    return L.linear(o.reshape(B, Sq, -1), p["wo"], impl), (k, v)
+    return shard_linear(o.reshape(B, Sq, -1), p["wo"], impl, sctx), (k, v)
 
 
-def _mlp_fwd(x, p, impl: str):
-    h = L.gelu_ffn_act(L.linear(x, p["w1"], impl) + p["bias1"].to(x.dtype))
-    return L.linear(h, p["w2"], impl) + p["bias2"].to(x.dtype)
+def _mlp_fwd(x, p, impl: str, sctx: ShardCtx):
+    h = shard_linear(x, p["w1"], impl, sctx)
+    b1 = p["bias1"][block_of(p["bias1"].shape[-1], h.shape[-1], sctx)]
+    h = L.gelu_ffn_act(h + b1.to(x.dtype))
+    return shard_linear(h, p["w2"], impl, sctx) + p["bias2"].to(x.dtype)
 
 
 def _lnorm(x, p, eps: float = 1e-5):
@@ -200,8 +217,15 @@ def encode(params: dict, mel: torch.Tensor, cfg: ArchConfig,
            sctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """mel ``(B, n_mels, T_mel)`` log-mel frames → ``(B, T_mel // 2,
     d_model)``.  The stem runs in f32 (on ``kernel``, K1's f32 route); the
-    sinusoid is added before the cast to the activations' dtype."""
-    refuse_mesh(sctx)
+    sinusoid is added before the cast to the activations' dtype.  Under an
+    active context every rank passes the global mel and gets the global
+    encoding."""
+    return whole_rows(_encode(params, local_rows(mel, sctx), cfg, sctx), sctx,
+                      key="all_gather")
+
+
+def _encode(params: dict, mel: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx) -> torch.Tensor:
+    """:func:`encode` of this rank's rows."""
     impl = _impl(cfg)
     c1, c2 = _stem_convs(cfg)
     fe = params["frontend"]
@@ -214,8 +238,8 @@ def encode(params: dict, mel: torch.Tensor, cfg: ArchConfig,
 
     def layer(h, lp):
         xn = _lnorm(h, lp["ln1"])
-        h = h + _mha(xn, xn, lp["attn"], cfg, impl, causal=False)[0]
-        return h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl)
+        h = h + _mha(xn, xn, lp["attn"], cfg, impl, sctx, causal=False)[0]
+        return h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl, sctx)
 
     x, _ = maybe_scan(lambda h, lp: (_remat(layer, cfg, h, lp), None), x,
                       params["enc_layers"], cfg.scan_layers)
@@ -227,17 +251,40 @@ def _silence(cfg: ArchConfig, batch: int, device) -> torch.Tensor:
                        device=device)
 
 
-def _embed(params: dict, tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def _embed(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
+           sctx: ShardCtx) -> torch.Tensor:
     """Token embeddings plus the learned positions ``pos`` (``(S,)`` shared
-    or ``(B, 1)`` per slot), in the activations' dtype."""
-    x = _params.embed_lookup(params["embed"], tokens).to(_ACT)
-    return x + params["pos_embed"][pos.long()].to(_ACT)
+    or ``(B, 1)`` per slot), in the activations' dtype.  Both tables are
+    row-sharded over ``model`` where their rows divide it (``param_pspecs``'
+    ``embed`` rule also takes ``pos_embed``)."""
+    x = embed_tokens(params["embed"], tokens, sctx).to(_ACT)
+    return x + embed_tokens(params["pos_embed"], pos.long(), sctx).to(_ACT)
 
 
-def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """The tied head: ``x @ embedᵀ``, a dense product outside any kernel."""
+def _head(params: dict, x: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx) -> torch.Tensor:
+    """The tied head: ``x @ embedᵀ``, a dense product outside any kernel;
+    the global logits of this rank's rows."""
     x = _lnorm(x, params["dec_ln"])
-    return L.linear(x, _params.dense_weight(params["embed"]).T, "dense")
+    return global_logits(shard_linear(x, tied_head(params["embed"], cfg, sctx), "dense", sctx),
+                         cfg, sctx)
+
+
+def _self_local(cache, sctx: ShardCtx):
+    """A self-KV cache with this rank's rows' counters (``pos`` is whole)."""
+    return dataclasses.replace(cache, pos=local_rows(cache.pos, sctx))
+
+
+def _mesh(sctx: ShardCtx):
+    return sctx.mesh if sctx.active else None
+
+
+def _cross_shards(cfg: ArchConfig, sctx: ShardCtx) -> int:
+    """Ranks the cross K/V's positions split over: ``cache_pspecs`` puts
+    them on ``model`` when the KV heads do not divide it and they do."""
+    if not sctx.active or sctx.tp == 1 or heads_split(cfg, sctx) \
+            or cfg.frontend_tokens % sctx.tp:
+        return 1
+    return sctx.tp
 
 
 # ---------------------------------------------------------------------------
@@ -250,24 +297,24 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             frontend_embeds: Optional[torch.Tensor] = None) -> tuple:
     """Teacher-forced decode over ``tokens`` given log-mel
     ``frontend_embeds`` (silence when None).  Returns ``(logits, {})``."""
-    refuse_mesh(sctx)
     impl = _impl(cfg)
     B, S = tokens.shape
     if frontend_embeds is None:
         frontend_embeds = _silence(cfg, B, tokens.device)
-    enc = encode(params, frontend_embeds, cfg, sctx)
-    x = sctx.act_btd(_embed(params, tokens, torch.arange(S, device=tokens.device)))
+    enc = _encode(params, local_rows(frontend_embeds, sctx), cfg, sctx)
+    x = sctx.act_btd(_embed(params, local_rows(tokens, sctx),
+                            torch.arange(S, device=tokens.device), sctx))
 
     def layer(h, lp):
         xn = _lnorm(h, lp["ln1"])
-        h = h + _mha(xn, xn, lp["attn"], cfg, impl, causal=True)[0]
-        h = h + _mha(_lnorm(h, lp["ln_cross"]), enc, lp["cross"], cfg, impl,
+        h = h + _mha(xn, xn, lp["attn"], cfg, impl, sctx, causal=True)[0]
+        h = h + _mha(_lnorm(h, lp["ln_cross"]), enc, lp["cross"], cfg, impl, sctx,
                      causal=False)[0]
-        return h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl)
+        return h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl, sctx)
 
     x, _ = maybe_scan(lambda h, lp: (_remat(layer, cfg, h, lp), None), x,
                       params["dec_layers"], cfg.scan_layers)
-    return sctx.cs(_head(params, x), sctx.batch, None, sctx.model), {}
+    return _head(params, x, cfg, sctx), {}
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
@@ -298,43 +345,44 @@ def prefill(params: dict, tokens: torch.Tensor, caches: list, cfg: ArchConfig,
     batch (the transformer's contract): the self-KV counters advance by it
     and the logits are each slot's last real position.
     """
-    refuse_mesh(sctx)
     impl = _impl(cfg)
     B, S = tokens.shape
-    hd = cfg.hd
+    mesh = _mesh(sctx)
     if frontend_embeds is None:
         frontend_embeds = _silence(cfg, B, tokens.device)
-    enc = encode(params, frontend_embeds, cfg, sctx)
-    x = _embed(params, tokens, torch.arange(S, device=tokens.device))
+    enc = _encode(params, local_rows(frontend_embeds, sctx), cfg, sctx)
+    x = _embed(params, local_rows(tokens, sctx), torch.arange(S, device=tokens.device),
+               sctx)
+    mine = local_rows(lengths, sctx)
+    adv = S if lengths is None else lengths.to(torch.int32)
 
     def body(h, inp):
         lp, cache = inp
         xn = _lnorm(h, lp["ln1"])
-        q = L.linear(xn, lp["attn"]["wq"], impl).reshape(B, S, cfg.n_heads, hd)
-        k = L.linear(xn, lp["attn"]["wk"], impl).reshape(B, S, cfg.n_kv_heads, hd)
-        v = L.linear(xn, lp["attn"]["wv"], impl).reshape(B, S, cfg.n_kv_heads, hd)
+        q, k, v = qkv_heads(xn, xn, lp["attn"], cfg, sctx, impl)
         o = A.gqa_attention(q, k, v, causal=True, chunk=min(1024, S))
-        h = h + L.linear(o.reshape(B, S, -1), lp["attn"]["wo"], impl)
-        new_self = A.update_cache(cache["self"], k, v, lengths=lengths)
-        ck = L.linear(enc, lp["cross"]["wk"], impl).reshape(B, -1, cfg.n_kv_heads, hd)
-        cv = L.linear(enc, lp["cross"]["wv"], impl).reshape(B, -1, cfg.n_kv_heads, hd)
-        xn = _lnorm(h, lp["ln_cross"])
-        qc = L.linear(xn, lp["cross"]["wq"], impl).reshape(B, S, cfg.n_heads, hd)
+        h = h + shard_linear(o.reshape(*o.shape[:2], -1), lp["attn"]["wo"], impl, sctx)
+        new_self = A.update_cache(_self_local(cache["self"], sctx), k, v, lengths=mine,
+                                  mesh=mesh)
+        new_self = dataclasses.replace(new_self, pos=cache["self"].pos + adv)
+        qc, ck, cv = qkv_heads(_lnorm(h, lp["ln_cross"]), enc, lp["cross"], cfg, sctx, impl)
         oc = A.gqa_attention(qc, ck, cv, causal=False, chunk=min(1024, ck.shape[1]))
-        h = h + L.linear(oc.reshape(B, S, -1), lp["cross"]["wo"], impl)
-        h = h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl)
+        h = h + shard_linear(oc.reshape(*oc.shape[:2], -1), lp["cross"]["wo"], impl, sctx)
+        h = h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl, sctx)
         cross = cache["cross"]
-        return h, {"self": new_self, "cross": {"k": ck.to(cross["k"].dtype),
-                                               "v": cv.to(cross["v"].dtype)}}
+        # the cross K/V's positions this rank holds (all, unless they split)
+        at = block_of(ck.shape[1], ck.shape[1] // _cross_shards(cfg, sctx), sctx)
+        return h, {"self": new_self, "cross": {"k": ck[:, at].to(cross["k"].dtype),
+                                               "v": cv[:, at].to(cross["v"].dtype)}}
 
     x, new_caches = maybe_scan(body, x, list(zip(params["dec_layers"], caches)),
                                cfg.scan_layers)
-    if lengths is None:
+    if mine is None:
         x_last = x[:, -1:]
     else:  # each slot's last real position in a right-padded batch
-        last = torch.clamp(lengths.long() - 1, 0, S - 1)
-        x_last = x[torch.arange(B, device=x.device), last][:, None]
-    return _head(params, x_last), new_caches
+        last = torch.clamp(mine.long() - 1, 0, S - 1)
+        x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+    return _head(params, x_last, cfg, sctx), new_caches
 
 
 def decode_step(params: dict, tokens: torch.Tensor, caches: list, cfg: ArchConfig,
@@ -343,33 +391,32 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: list, cfg: ArchConfi
     self-KV cache and its cross K/V (all ``frontend_tokens`` positions
     valid).  The learned position is each slot's own, clipped to
     ``max_seq − 1``.  Returns ``(logits, caches)``."""
-    refuse_mesh(sctx)
     impl = _impl(cfg)
-    B = tokens.shape[0]
-    hd = cfg.hd
+    mesh = _mesh(sctx)
     pos = caches[0]["self"].pos  # (B,) per-slot positions (every layer in lockstep)
-    x = _embed(params, tokens, torch.clamp(pos, 0, cfg.max_seq - 1)[:, None])
+    x = _embed(params, local_rows(tokens, sctx),
+               torch.clamp(local_rows(pos, sctx), 0, cfg.max_seq - 1)[:, None], sctx)
+    B = x.shape[0]
 
     def body(h, inp):
         lp, cache = inp
         xn = _lnorm(h, lp["ln1"])
-        q = L.linear(xn, lp["attn"]["wq"], impl).reshape(B, 1, cfg.n_heads, hd)
-        k = L.linear(xn, lp["attn"]["wk"], impl).reshape(B, 1, cfg.n_kv_heads, hd)
-        v = L.linear(xn, lp["attn"]["wv"], impl).reshape(B, 1, cfg.n_kv_heads, hd)
-        new_self = A.update_cache(cache["self"], k, v)
-        o = A.decode_attention(q, new_self)
-        h = h + L.linear(o.reshape(B, 1, -1), lp["attn"]["wo"], impl)
+        q, k, v = qkv_heads(xn, xn, lp["attn"], cfg, sctx, impl)
+        new_self = A.update_cache(_self_local(cache["self"], sctx), k, v, mesh=mesh)
+        o = A.decode_attention(q, new_self, mesh=mesh)
+        h = h + shard_linear(o.reshape(B, 1, -1), lp["attn"]["wo"], impl, sctx)
         xn = _lnorm(h, lp["ln_cross"])
-        qc = L.linear(xn, lp["cross"]["wq"], impl).reshape(B, 1, cfg.n_heads, hd)
-        ck = cache["cross"]["k"]
-        crossc = A.KVCache(k=ck, v=cache["cross"]["v"],
-                           pos=torch.full((B,), ck.shape[1], dtype=torch.int32,
-                                          device=ck.device))
-        oc = A.decode_attention(qc, crossc)
-        h = h + L.linear(oc.reshape(B, 1, -1), lp["cross"]["wo"], impl)
-        h = h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl)
+        qc = proj_heads(xn, lp["cross"]["wq"], cfg.n_heads, cfg, sctx, impl)
+        ck, shards = cache["cross"]["k"], _cross_shards(cfg, sctx)
+        crossc = A.KVCache(k=ck, v=cache["cross"]["v"],  # every encoder position valid
+                           pos=torch.full((B,), ck.shape[1] * shards, dtype=torch.int32,
+                                          device=ck.device), seq_shards=shards)
+        oc = A.decode_attention(qc, crossc, mesh=mesh)
+        h = h + shard_linear(oc.reshape(B, 1, -1), lp["cross"]["wo"], impl, sctx)
+        h = h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl, sctx)
+        new_self = dataclasses.replace(new_self, pos=cache["self"].pos + 1)
         return h, {"self": new_self, "cross": cache["cross"]}
 
     x, new_caches = maybe_scan(body, x, list(zip(params["dec_layers"], caches)),
                                cfg.scan_layers)
-    return _head(params, x), new_caches
+    return _head(params, x, cfg, sctx), new_caches

@@ -14,6 +14,26 @@ The conv window carried into decode is left-padded with zeros, so a
 prompt shorter than ``conv_width − 1`` tokens decodes (the JAX package's
 ``prefill`` cannot take one).  Prefill refuses right-padded prompts: the
 engine serves this family at the exact prompt length.
+
+An active :class:`~repro_torch.models.common.ShardCtx` runs the tensor
+parallelism SPMD, one process a rank, on params placed by
+``models/sharding.py::place_params`` and caches by ``place_caches`` (the
+transformer's contract: global inputs, the global logits on every rank).
+A recurrent layer's ``rec_in`` column block splits ``lru_in | gate`` (at
+``model`` 2 rank 0 holds all of ``lru_in``), so its output is gathered
+whole (``relayout``) and each rank takes its block of the channels: the
+conv, its window, the RG-LRU state, ``lam/b_a/b_x`` and ``rec_out``'s K
+block all hold that block; the gates read the whole conv output
+(gathered, ``relayout``) through their column blocks (``nn/rglru.py``).
+recurrentgemma-2b's one KV head does not divide ``model``: q, k and v are
+gathered whole (a column block of ``wk`` holds half the head's dims), the
+prefill attention runs on every head, and the ring's slots split over
+``model`` (``cache_pspecs``: slot ``s`` on rank ``s // (win / tp)``), so
+decode combines each rank's softmax partial over its slots in rank order
+(:func:`repro_torch.nn.attention.combine_over`) and ``wo`` takes the rank's
+K block.  ``slot_pos``, ``pos`` and the recurrent states are whole on the
+batch (``cache_pspecs``): a rank updates its rows and gathers them over
+``data`` (``cache_rows``).  Mesh (1, 1) runs the unsharded arithmetic.
 """
 from __future__ import annotations
 
@@ -23,10 +43,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import params as _params
 from repro_torch.core._f32 import matmul_f32
-from repro_torch.models.common import (Initializer, ShardCtx, map_leaves, maybe_scan,
-                                       refuse_mesh)
+from repro_torch.models.common import (Initializer, ShardCtx, block_of, conv_weight,
+                                       embed_tokens, global_logits, local_rows, map_leaves,
+                                       maybe_scan, qkv_heads, shard_linear, whole_cols,
+                                       whole_rows)
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import rglru as RG
@@ -115,13 +136,15 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> d
 # ---------------------------------------------------------------------------
 
 
-def _mlp(x, p, impl: str):
-    return L.linear(L.swiglu(L.linear(x, p["w1"], impl), L.linear(x, p["w3"], impl)),
-                    p["w2"], impl)
+def _mlp(x, p, impl: str, sctx: ShardCtx):
+    def lin(a, w):
+        return shard_linear(a, w, impl, sctx)
+
+    return lin(L.swiglu(lin(x, p["w1"]), lin(x, p["w3"])), p["w2"])
 
 
-def _ffn(x, p, cfg: ArchConfig, impl: str):
-    return x + _mlp(L.rms_norm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"], impl)
+def _ffn(x, p, cfg: ArchConfig, impl: str, sctx: ShardCtx):
+    return x + _mlp(L.rms_norm(x, p["ffn_norm"], cfg.norm_eps), p["mlp"], impl, sctx)
 
 
 def _gate(y, gate):
@@ -132,32 +155,48 @@ def _gate(y, gate):
     return (y.float() * F.gelu(gate.float(), approximate="tanh")).to(y.dtype)
 
 
+def _branches(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
+    """``rec_in``'s output whole → ``(lru_in, gate)``, each this rank's
+    block of the channels (all of them unsharded)."""
+    W = _width(cfg)
+    br = whole_cols(shard_linear(L.rms_norm(x, p["rec_norm"], cfg.norm_eps), p["rec_in"],
+                                 impl, sctx), 2 * W, sctx)
+    ch = block_of(W, conv_weight(p).shape[-1], sctx)
+    return sctx.act_btf(br[..., :W][..., ch]), br[..., W:][..., ch]
+
+
+
+def _gate_inputs(c, cfg: ArchConfig, sctx: ShardCtx) -> dict:
+    """Under a mesh the gates read the whole conv output through their
+    column blocks (``nn/rglru.py::_gates``)."""
+    if not sctx.active:
+        return {}
+    return {"whole": whole_cols(c, _width(cfg), sctx),
+            "linear": lambda a, w: shard_linear(a, w, "dequant", sctx)}
+
+
 def _recurrent_fwd(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
     """Returns ``(x, (h_last, conv window))``: the states decode continues
-    from."""
-    W = _width(cfg)
-    branches = L.linear(L.rms_norm(x, p["rec_norm"], cfg.norm_eps), p["rec_in"], impl)
-    lru_in, gate = sctx.act_btf(branches[..., :W]), branches[..., W:]
-    y, h_last = RG.rg_lru_scan(RG.causal_conv1d(lru_in, p["conv_w"], p["conv_b"]), p)
-    x = x + L.linear(_gate(y, gate), p["rec_out"], impl)
-    return sctx.act_btd(_ffn(x, p, cfg, impl)), \
+    from (this rank's channels)."""
+    lru_in, gate = _branches(x, p, cfg, sctx, impl)
+    c = RG.causal_conv1d(lru_in, conv_weight(p), p["conv_b"])
+    y, h_last = RG.rg_lru_scan(c, p, **_gate_inputs(c, cfg, sctx))
+    x = x + shard_linear(_gate(y, gate), p["rec_out"], impl, sctx)
+    return sctx.act_btd(_ffn(x, p, cfg, impl, sctx)), \
         (h_last, RG.conv_window(lru_in, cfg.hybrid.conv_width))
 
 
 def _attention_fwd(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str, cos, sin) -> tuple:
     """Returns ``(x, (k, v))``: the roped keys and values, for the ring."""
     B, S, _ = x.shape
-    hd = cfg.hd
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     ap = p["attn"]
-    q = L.linear(xn, ap["wq"], impl).reshape(B, S, cfg.n_heads, hd)
-    k = L.linear(xn, ap["wk"], impl).reshape(B, S, cfg.n_kv_heads, hd)
-    v = L.linear(xn, ap["wv"], impl).reshape(B, S, cfg.n_kv_heads, hd)
+    q, k, v = qkv_heads(xn, xn, ap, cfg, sctx, impl)
     q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
     o = A.gqa_attention(sctx.act_bthd(q), k, v, causal=True,
                         window=cfg.hybrid.local_window, chunk=min(1024, S))
-    x = x + L.linear(o.reshape(B, S, -1), ap["wo"], impl)
-    return sctx.act_btd(_ffn(x, p, cfg, impl)), (k, v)
+    x = x + shard_linear(o.reshape(B, S, -1), ap["wo"], impl, sctx)
+    return sctx.act_btd(_ffn(x, p, cfg, impl, sctx)), (k, v)
 
 
 def _group_fwd(x, gp, cfg: ArchConfig, sctx: ShardCtx, impl: str, cos, sin) -> tuple:
@@ -182,11 +221,14 @@ _ACT = torch.bfloat16
 
 
 def _embed(params, tokens, sctx: ShardCtx):
-    return sctx.act_btd(_params.embed_lookup(params["embed"], tokens).to(_ACT))
+    """This rank's rows of ``tokens``, embedded."""
+    return sctx.act_btd(embed_tokens(params["embed"], local_rows(tokens, sctx), sctx).to(_ACT))
 
 
-def _head(params, x, cfg: ArchConfig, impl: str):
-    return L.linear(L.rms_norm(x, params["final_norm"], cfg.norm_eps), params["lm_head"], impl)
+def _head(params, x, cfg: ArchConfig, impl: str, sctx: ShardCtx):
+    """The global logits of this rank's rows ``x``."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return global_logits(shard_linear(x, params["lm_head"], impl, sctx), cfg, sctx)
 
 
 def _rope_seq(S: int, cfg: ArchConfig, device) -> tuple:
@@ -199,7 +241,6 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """Full forward (training / prefill-style).  Returns ``(logits, {})``.
     With ``cfg.remat`` a differentiated call recomputes each group in the
     backward."""
-    refuse_mesh(sctx)
     del frontend_embeds
     x = _embed(params, tokens, sctx)
     cos, sin = _rope_seq(x.shape[1], cfg, x.device)
@@ -216,7 +257,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     x, _ = maybe_scan(body, x, params["groups"], cfg.scan_layers)
     for p in params["tail"]:
         x, _ = _recurrent_fwd(x, p, cfg, sctx, impl)
-    return _head(params, x, cfg, impl), {}
+    return _head(params, x, cfg, impl, sctx), {}
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +269,10 @@ def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
                 device=None) -> dict:
     """Per recurrent layer the LRU state and conv window; per attention
     layer a ring of ``min(local_window, seq)`` slots; on ``device``
-    (default the card; ``"meta"`` for shapes only)."""
+    (default the card; ``"meta"`` for shapes only).  Under a mesh
+    ``place_caches`` holds the states' channel blocks (whole on the batch),
+    the ring's batch rows and its heads or slots over ``model``, and
+    ``slot_pos``/``pos`` whole."""
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     pat, n_groups, tail = _pattern(cfg)
     W = _width(cfg)
@@ -255,53 +299,75 @@ def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
     }
 
 
-def _recurrent_step(x, p, cfg: ArchConfig, impl: str, cache: dict) -> tuple:
-    W = _width(cfg)
-    branches = L.linear(L.rms_norm(x, p["rec_norm"], cfg.norm_eps), p["rec_in"], impl)
-    lru_in, gate = branches[..., :W], branches[..., W:]
-    c_out, new_win = RG.conv1d_decode_step(lru_in, p["conv_w"], p["conv_b"], cache["conv"])
-    y, h_new = RG.rg_lru_decode_step(c_out, p, cache["h"])
-    x = x + L.linear(_gate(y, gate), p["rec_out"], impl)
-    return _ffn(x, p, cfg, impl), {"h": h_new, "conv": new_win}
+def _recurrent_step(x, p, cfg: ArchConfig, impl: str, cache: dict, sctx: ShardCtx) -> tuple:
+    lru_in, gate = _branches(x, p, cfg, sctx, impl)
+    c_out, new_win = RG.conv1d_decode_step(lru_in, conv_weight(p), p["conv_b"],
+                                           local_rows(cache["conv"], sctx))
+    y, h_new = RG.rg_lru_decode_step(c_out, p, local_rows(cache["h"], sctx),
+                                     **_gate_inputs(c_out, cfg, sctx))
+    x = x + shard_linear(_gate(y, gate), p["rec_out"], impl, sctx)
+    return _ffn(x, p, cfg, impl, sctx), {"h": whole_rows(h_new, sctx),
+                                         "conv": whole_rows(new_win, sctx)}
 
 
-def _attention_step(x, p, cfg: ArchConfig, impl: str, cache: dict, pos, cos, sin) -> tuple:
+def _ring_block(cache: dict, sctx: ShardCtx) -> tuple:
+    """``(offset, win)``: the first ring slot this rank's ``k``/``v`` hold and
+    the ring's size (``slot_pos`` is whole: its width is the ring's)."""
+    win, held = cache["slot_pos"].shape[1], cache["k"].shape[1]
+    return block_of(win, held, sctx).start, win
+
+
+def _attention_step(x, p, cfg: ArchConfig, impl: str, cache: dict, pos, cos, sin,
+                    sctx: ShardCtx) -> tuple:
     """x: (B, D) one token.  Each batch row writes its own ring slot, then
-    attends over the slots holding its last ``win`` positions."""
-    B = x.shape[0]
+    attends over the slots holding its last ``win`` positions.  ``pos`` is
+    every row's position (``slot_pos`` is whole on the batch); a ring whose
+    slots split over ``model`` writes the rank's slots and combines the
+    ranks' softmax partials."""
     hd, KV = cfg.hd, cfg.n_kv_heads
-    win = cache["k"].shape[1]
+    off, win = _ring_block(cache, sctx)
+    held = cache["k"].shape[1]
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     ap = p["attn"]
-    q = L.linear(xn, ap["wq"], impl).reshape(B, 1, cfg.n_heads, hd)
-    k = L.linear(xn, ap["wk"], impl).reshape(B, 1, KV, hd)
-    v = L.linear(xn, ap["wv"], impl).reshape(B, 1, KV, hd)
+    q, k, v = (t[:, None] for t in qkv_heads(xn, xn, ap, cfg, sctx, impl))
+    B, _, H, _ = q.shape
+    mine = local_rows(pos, sctx)
     q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
-    at = (torch.arange(B, device=x.device), (pos % win).long())
-    ck = cache["k"].index_put(at, k[:, 0].to(cache["k"].dtype))
-    cv = cache["v"].index_put(at, v[:, 0].to(cache["v"].dtype))
-    spos = cache["slot_pos"].index_put(at, pos.to(torch.int32))
+    every = (torch.arange(pos.shape[0], device=x.device), (pos % win).long())
+    spos = cache["slot_pos"].index_put(every, pos.to(torch.int32))
+    if held == win:
+        at = (torch.arange(B, device=x.device), (mine % win).long())
+        ck = cache["k"].index_put(at, k[:, 0].to(cache["k"].dtype))
+        cv = cache["v"].index_put(at, v[:, 0].to(cache["v"].dtype))
+    else:  # this rank's slots of the ring: the rows whose slot lies there
+        hit = (off + torch.arange(held, device=x.device))[None, :] == (mine % win)[:, None]
+        hit = hit[:, :, None, None]
+        ck = torch.where(hit, k.to(cache["k"].dtype), cache["k"])
+        cv = torch.where(hit, v.to(cache["v"].dtype), cache["v"])
     # masked attention over the ring buffer (invalid / out-of-window masked)
-    qg = q.reshape(B, KV, cfg.n_heads // KV, hd).float()
-    s = matmul_f32(qg, ck.permute(0, 2, 3, 1).float()) * hd ** -0.5  # (B,KV,G,win)
-    valid = (spos >= 0) & (spos >= pos[:, None] - win + 1) & (spos <= pos[:, None])
+    sp = local_rows(spos, sctx)[:, off:off + held]
+    qg = q.reshape(B, KV, H // KV, hd).float()
+    s = matmul_f32(qg, ck.permute(0, 2, 3, 1).float()) * hd ** -0.5  # (B,KV,G,held)
+    valid = (sp >= 0) & (sp >= mine[:, None] - win + 1) & (sp <= mine[:, None])
     s = torch.where(valid[:, None, None, :], s, torch.full((), -1e30, device=x.device))
-    pw = torch.softmax(s, dim=-1)
-    o = matmul_f32(pw.to(cv.dtype).float(), cv.permute(0, 2, 1, 3).float())  # (B,KV,G,hd)
-    o = o.reshape(B, cfg.n_heads * hd).to(x.dtype)
-    x = x + L.linear(o, ap["wo"], impl)
-    return _ffn(x, p, cfg, impl), {"k": ck, "v": cv, "slot_pos": spos}
+    if held == win:
+        pw = torch.softmax(s, dim=-1)
+        o = matmul_f32(pw.to(cv.dtype).float(), cv.permute(0, 2, 1, 3).float())  # (B,KV,G,hd)
+    else:
+        o = A.combine_over(*A.softmax_partial(s, cv), sctx.mesh)
+    o = o.reshape(B, H * hd).to(x.dtype)
+    x = x + shard_linear(o, ap["wo"], impl, sctx)
+    return _ffn(x, p, cfg, impl, sctx), {"k": ck, "v": cv, "slot_pos": spos}
 
 
 def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
                 sctx: ShardCtx = ShardCtx()) -> tuple:
     """One autoregressive step.  ``tokens (B, 1)``; returns ``(logits (B, 1,
     V), caches)``; RoPE and the ring slot take each slot's own position."""
-    refuse_mesh(sctx)
     pat, _, _ = _pattern(cfg)
     pos = caches["pos"]
     x = _embed(params, tokens, sctx)[:, 0]
-    cos, sin = L.rope(pos, cfg.hd, cfg.rope_theta)
+    cos, sin = L.rope(local_rows(pos, sctx), cfg.hd, cfg.rope_theta)
     cos, sin = cos[:, None], sin[:, None]  # (B, 1, hd/2): per-slot rope
     impl = _impl(cfg)
 
@@ -311,38 +377,45 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
         for i, kind in enumerate(pat):
             key = f"l{i}"
             if kind == "recurrent":
-                h, new_gc[key] = _recurrent_step(h, gp[key], cfg, impl, gc[key])
+                h, new_gc[key] = _recurrent_step(h, gp[key], cfg, impl, gc[key], sctx)
             else:
                 h, new_gc[key] = _attention_step(h, gp[key], cfg, impl, gc[key], pos,
-                                                 cos, sin)
+                                                 cos, sin, sctx)
         return h, new_gc
 
     x, new_groups = maybe_scan(body, x, list(zip(params["groups"], caches["groups"])),
                                cfg.scan_layers)
     new_tail = []
     for p, c in zip(params["tail"], caches["tail"]):
-        x, nc = _recurrent_step(x, p, cfg, impl, c)
+        x, nc = _recurrent_step(x, p, cfg, impl, c, sctx)
         new_tail.append(nc)
-    logits = _head(params, x, cfg, impl)[:, None, :]
+    logits = _head(params, x, cfg, impl, sctx)[:, None, :]
     return logits, {"groups": new_groups or [], "tail": new_tail, "pos": pos + 1}
 
 
-def _fill_rec(state, cache: dict) -> dict:
+def _fill_rec(state, cache: dict, sctx: ShardCtx) -> dict:
     h_last, win = state
-    return {"h": h_last, "conv": win.to(cache["conv"].dtype)}
+    return {"h": whole_rows(h_last, sctx),
+            "conv": whole_rows(win.to(cache["conv"].dtype), sctx)}
 
 
-def _fill_attn(kv, cache: dict) -> dict:
-    """Write the last ``win`` positions of a prompt into the ring buffer."""
+def _fill_attn(kv, cache: dict, sctx: ShardCtx) -> dict:
+    """Write the last ``win`` positions of a prompt into the ring buffer
+    (this rank's slots of it when they split over ``model``)."""
     k, v = kv
-    S, win = k.shape[1], cache["k"].shape[1]
+    off, win = _ring_block(cache, sctx)
+    held, S = cache["k"].shape[1], k.shape[1]
     n = min(S, win)
     pos = torch.arange(S - n, S, device=k.device)
     slots = pos % win
     ck, cv, spos = cache["k"].clone(), cache["v"].clone(), cache["slot_pos"].clone()
-    ck[:, slots] = k[:, -n:].to(ck.dtype)
-    cv[:, slots] = v[:, -n:].to(cv.dtype)
     spos[:, slots] = pos.to(spos.dtype)
+    k, v = k[:, -n:], v[:, -n:]
+    if held != win:  # the positions whose slots this rank holds
+        own = (slots >= off) & (slots < off + held)
+        slots, k, v = slots[own] - off, k[:, own], v[:, own]
+    ck[:, slots] = k.to(ck.dtype)
+    cv[:, slots] = v.to(cv.dtype)
     return {"k": ck, "v": cv, "slot_pos": spos}
 
 
@@ -356,7 +429,6 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     corrupt it.  Serve hybrid slots with exact-length prompts (bucket
     granularity 1).
     """
-    refuse_mesh(sctx)
     if kw.get("lengths") is not None:
         raise ValueError("hybrid.prefill: padded prompts (lengths=) unsupported — "
                          "the RG-LRU scan would absorb pad tokens into state")
@@ -370,13 +442,13 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
         gp, gc = inp
         h, states = _group_fwd(h, gp, cfg, sctx, impl, cos, sin)
         return h, {f"l{i}": (_fill_rec if kind == "recurrent" else _fill_attn)(
-            st, gc[f"l{i}"]) for i, (kind, st) in enumerate(zip(pat, states))}
+            st, gc[f"l{i}"], sctx) for i, (kind, st) in enumerate(zip(pat, states))}
 
     x, new_groups = maybe_scan(body, x, list(zip(params["groups"], caches["groups"])),
                                cfg.scan_layers)
     new_tail = []
     for p, c in zip(params["tail"], caches["tail"]):
         x, st = _recurrent_fwd(x, p, cfg, sctx, impl)
-        new_tail.append(_fill_rec(st, c))
-    logits = _head(params, x[:, -1:], cfg, impl)
+        new_tail.append(_fill_rec(st, c, sctx))
+    logits = _head(params, x[:, -1:], cfg, impl, sctx)
     return logits, {"groups": new_groups or [], "tail": new_tail, "pos": caches["pos"] + S}

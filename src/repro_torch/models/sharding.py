@@ -15,10 +15,11 @@ The CNN conv stack has its own rules (:func:`conv_param_pspecs`,
 ``model``, image batches over ``data``, codebooks replicated — the axis
 mapping of ``conv2d(mesh=)``.  The LM tables (:func:`param_pspecs`,
 :func:`opt_state_pspecs`, :func:`cache_pspecs`, :func:`batch_axes`,
-:func:`input_pspecs`) are ported with their rules; the transformer
-families' tensor and expert parallelism (an active ``ShardCtx``) runs on
-params placed by :func:`param_pspecs` (:func:`place_params`) and caches
-placed by :func:`cache_pspecs` (:func:`place_caches`).
+:func:`input_pspecs`) are ported with their rules; every LM family's
+tensor parallelism (an active ``ShardCtx``) runs on params placed by
+:func:`param_pspecs` (:func:`place_params`) and caches placed by
+:func:`cache_pspecs` (:func:`place_caches`; :func:`gather_caches` is the
+inverse).
 
 :func:`local_shard` is the port's own: ``jax.device_put`` onto a
 ``NamedSharding`` keeps a global array whose blocks live on the devices;
@@ -32,7 +33,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.params import NOT_PORTED_MESH_SEQ, PasmParams
+from repro_torch.core.params import PasmParams
 from repro_torch.tree import flatten_with_path, tree_map, tree_unflatten
 
 __all__ = [
@@ -55,7 +56,7 @@ __all__ = [
     "grad_reduce_axes",
     "reduce_grads",
     "place_caches",
-    "check_kv_heads",
+    "gather_caches",
 ]
 
 MODEL = "model"
@@ -686,22 +687,43 @@ def reduce_grads(grads: Any, axes: dict, mesh) -> Any:
 
 
 
-def check_kv_heads(cfg, tp: int) -> None:
-    """Raise unless the KV heads divide a ``model`` axis of size ``tp``:
-    otherwise :func:`cache_pspecs` shards the sequence, which needs a
-    distributed softmax (ROADMAP Queue 1 item 12c)."""
-    if tp > 1 and (not cfg.n_kv_heads or cfg.n_kv_heads % tp):
-        raise NotImplementedError(NOT_PORTED_MESH_SEQ)
+def _mark_seq_shards(caches: Any, specs: Any, n: int) -> Any:
+    """Each KV cache whose positions ``specs`` split over ``model`` records
+    the ``n`` ranks it splits over (``nn/attention.py``'s ``seq_shards``),
+    ``n`` 1 for a whole one."""
+    from repro_torch.nn.attention import KVCache, QuantKVCache
+
+    if isinstance(caches, (KVCache, QuantKVCache)):
+        k = specs.k if isinstance(caches, KVCache) else specs.k_q
+        return dataclasses.replace(caches, seq_shards=n if k[-3] == MODEL else 1)
+    if isinstance(caches, dict):
+        return {key: _mark_seq_shards(v, specs[key], n) for key, v in caches.items()}
+    if isinstance(caches, list):
+        return [_mark_seq_shards(v, s, n) for v, s in zip(caches, specs)]
+    return caches
 
 
 def place_caches(cfg, caches: Any, mesh, batch: tuple) -> Any:
-    """This rank's block of the KV caches by :func:`cache_pspecs`: the
-    batch over ``batch``'s axes, the KV heads over ``model`` (the per-slot
-    counters ``pos`` replicated).  KV heads that do not divide ``model``
-    take :func:`cache_pspecs`' sequence-sharded branch, which needs a
-    distributed softmax: that raises (ROADMAP Queue 1 item 12c)."""
+    """This rank's block of an LM's caches by :func:`cache_pspecs`: the
+    batch over ``batch``'s axes; KV heads over ``model`` when they divide
+    it, else the positions (a ring's slots too), which the attention then
+    combines over ``model`` (``seq_shards``); the SSM state's head dim, the
+    conv windows' and RG-LRU states' channels over ``model``; the counters
+    (``pos``, ``slot_pos``) whole."""
     from repro_torch.launch.mesh import axis_sizes
 
-    check_kv_heads(cfg, mesh.size(MODEL))
     specs = cache_pspecs(cfg, caches, axis_sizes(mesh), batch)
-    return tree_map(lambda t, s: _copy_block(t, s, mesh), caches, specs)
+    placed = tree_map(lambda t, s: _copy_block(t, s, mesh), caches, specs)
+    return _mark_seq_shards(placed, specs, mesh.size(MODEL))
+
+
+def gather_caches(cfg, caches: Any, mesh, batch: tuple, like: Any) -> Any:
+    """The inverse of :func:`place_caches`: every rank's block of each leaf
+    all-gathered over the axes its spec splits it on, so every rank holds
+    the global caches.  ``like`` is the unplaced template (its shapes give
+    the specs; ``init_caches(..., device="meta")`` will do).  A collective:
+    every rank calls it, in step."""
+    from repro_torch.launch.mesh import axis_sizes
+
+    specs = cache_pspecs(cfg, like, axis_sizes(mesh), batch)
+    return _mark_seq_shards(gather_params(caches, mesh, specs), specs, 1)

@@ -9,6 +9,31 @@ prompt shorter than ``d_conv − 1`` tokens decodes (the JAX package's
 ``prefill`` cannot take one).  Prefill refuses right-padded prompts: the
 scan would fold the pads into the state, so the engine serves this family
 at the exact prompt length.
+
+An active :class:`~repro_torch.models.common.ShardCtx` runs the tensor
+parallelism SPMD, one process a rank, on params placed by
+``models/sharding.py::place_params`` and caches by ``place_caches`` (the
+transformer's contract: global inputs, the global logits on every rank).
+Three layouts disagree, so activations move, never a leaf:
+
+- ``in_proj``'s column block cuts across ``z | xBC | dt``: its output is
+  gathered whole (``relayout``);
+- the conv, its bias and its window cache hold a contiguous block of the
+  ``conv_dim`` channels: each rank convolves its channels, and the conv
+  output is gathered whole (``relayout``) — B and C (``n_groups`` 1) are
+  read whole, and ``dt`` is whole;
+- the SSD state holds every head's block of ``head_dim`` P (``cache_pspecs``):
+  the scan runs on the rank's P block of x (each (head, p) channel is its
+  own recurrence), and its output is gathered over P (``relayout``);
+- the gated RMSNorm takes the whole sum of squares, then the rank's block
+  of ``ssm_norm`` scales its contiguous ``d_in`` block, which is
+  ``out_proj``'s K block (row-parallel: f32 partials all-reduced).
+
+Per layer the tensors that cross ``model`` are ``in_proj``'s output, the
+conv output, the scan output and ``out_proj``'s partial sum; the conv
+window, kept whole on the batch, crosses ``data`` (``cache_rows``).
+``embed`` is vocab-sharded and ``lm_head`` column-parallel, as in the
+transformer.  Mesh (1, 1) runs the unsharded arithmetic.
 """
 from __future__ import annotations
 
@@ -20,9 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import params as _params
-from repro_torch.models.common import (Initializer, ShardCtx, map_leaves, maybe_scan,
-                                       refuse_mesh)
+from repro_torch.models.common import (Initializer, ShardCtx, block_of, conv_weight,
+                                       embed_tokens, global_logits, local_rows, map_leaves,
+                                       maybe_scan, shard_linear, whole_cols, whole_rows)
 from repro_torch.nn import layers as L
 from repro_torch.nn import rglru as RG  # causal_conv1d shared
 from repro_torch.nn import ssm as S
@@ -93,19 +118,60 @@ def _ssm_inputs(xbc, dt, p, cfg: ArchConfig) -> tuple:
     return xs, Bm, Cm, dt, A
 
 
+def _p_block(cfg: ArchConfig, sctx: ShardCtx) -> slice:
+    """The block of ``head_dim`` P this rank's SSD state holds: P over
+    ``model`` where it divides (``cache_pspecs``), else all of it."""
+    P = cfg.ssm.head_dim
+    if sctx.active and sctx.tp > 1 and P % sctx.tp == 0:
+        return block_of(P, P // sctx.tp, sctx)
+    return slice(0, P)
+
+
+def _mixer_in(xn, p, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
+    """``in_proj`` whole: ``(z, this rank's conv channels of xBC, dt)``."""
+    _, _, conv_dim, proj_out = _dims(cfg)
+    z, xbc_in, dt = _split_proj(
+        whole_cols(shard_linear(xn, p["in_proj"], impl, sctx), proj_out, sctx), cfg)
+    return z, xbc_in[..., block_of(conv_dim, conv_weight(p).shape[-1], sctx)], dt
+
+
+
+def _ssm_args(xbc_blk, dt, p, cfg: ArchConfig, sctx: ShardCtx) -> tuple:
+    """The conv output (this rank's channels, activated) gathered whole →
+    the scan's ``(x, dt, A, B, C, D)``, x on this rank's P block."""
+    xbc = whole_cols(F.silu(xbc_blk), _dims(cfg)[2], sctx)
+    xs, Bm, Cm, dt, A = _ssm_inputs(xbc, dt, p, cfg)
+    return xs[..., _p_block(cfg, sctx)], dt, A, Bm, Cm, p["ssm_D"].float()
+
+
+def _gated_norm(g, scale, cfg: ArchConfig, sctx: ShardCtx):
+    """The gated RMSNorm over the whole ``d_in``, this rank's block of it
+    scaled by its block of ``ssm_norm`` (``out_proj``'s K block)."""
+    d_in = g.shape[-1]
+    cols = block_of(d_in, scale.shape[-1], sctx)
+    if cols == slice(0, d_in):
+        return L.rms_norm(g, scale, cfg.norm_eps)
+    x = g.float()
+    x = (x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + cfg.norm_eps))[..., cols]
+    return (x * (1.0 + scale.float())).to(g.dtype)
+
+
+def _mixer_out(y_blk, z, p, cfg: ArchConfig, sctx: ShardCtx, impl: str):
+    """The scan's output (this rank's P block) gathered over P, gated,
+    normed and through ``out_proj``."""
+    y = whole_cols(y_blk, cfg.ssm.head_dim, sctx)
+    y = _gated_norm(y.reshape(*y.shape[:-2], -1) * F.silu(z), p["ssm_norm"], cfg, sctx)
+    return shard_linear(sctx.act_btf(y), p["out_proj"], impl, sctx)
+
+
 def _layer_fwd(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
     """Full-sequence SSD layer.  Returns (y, final_ssm_state, last_conv_win)."""
     s = cfg.ssm
-    Bsz, Sq, _ = x.shape
-    d_in = _dims(cfg)[0]
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    z, xbc_in, dt = _split_proj(L.linear(xn, p["in_proj"], impl), cfg)
-    xbc = F.silu(RG.causal_conv1d(xbc_in, p["conv_w"], p["conv_b"]))
-    xs, Bm, Cm, dt, A = _ssm_inputs(xbc, dt, p, cfg)
-    y, h_final = S.ssd_scan(xs, dt, A, Bm, Cm, p["ssm_D"].float(),
-                            chunk=min(s.chunk, Sq))
-    y = L.rms_norm(y.reshape(Bsz, Sq, d_in) * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    out = L.linear(sctx.act_btf(y), p["out_proj"], impl)
+    z, xbc_in, dt = _mixer_in(xn, p, cfg, sctx, impl)
+    args = _ssm_args(RG.causal_conv1d(xbc_in, conv_weight(p), p["conv_b"]), dt, p, cfg, sctx)
+    y, h_final = S.ssd_scan(*args, chunk=min(s.chunk, x.shape[1]))
+    out = _mixer_out(y, z, p, cfg, sctx, impl)
     return sctx.act_btd(out), h_final, RG.conv_window(xbc_in, s.d_conv)
 
 
@@ -118,11 +184,14 @@ _ACT = torch.bfloat16
 
 
 def _embed(params, tokens, sctx: ShardCtx):
-    return sctx.act_btd(_params.embed_lookup(params["embed"], tokens).to(_ACT))
+    """This rank's rows of ``tokens``, embedded."""
+    return sctx.act_btd(embed_tokens(params["embed"], local_rows(tokens, sctx), sctx).to(_ACT))
 
 
-def _head(params, x, cfg: ArchConfig, impl: str):
-    return L.linear(L.rms_norm(x, params["final_norm"], cfg.norm_eps), params["lm_head"], impl)
+def _head(params, x, cfg: ArchConfig, impl: str, sctx: ShardCtx):
+    """The global logits of this rank's rows ``x``."""
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return global_logits(shard_linear(x, params["lm_head"], impl, sctx), cfg, sctx)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -130,7 +199,6 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """Full forward (training / prefill-style).  Returns ``(logits, {})``.
     With ``cfg.remat`` a differentiated call recomputes each layer in the
     backward."""
-    refuse_mesh(sctx)
     del frontend_embeds
     x = _embed(params, tokens, sctx)
     impl = _impl(cfg)
@@ -144,13 +212,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         return layer(h, lp), None
 
     x, _ = maybe_scan(body, x, params["layers"], cfg.scan_layers)
-    return _head(params, x, cfg, impl), {}
+    return _head(params, x, cfg, impl, sctx), {}
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
                 device=None) -> dict:
     """SSM state + conv window per layer (no KV cache: attention-free), on
-    ``device`` (default the card; ``"meta"`` for shapes only)."""
+    ``device`` (default the card; ``"meta"`` for shapes only).  Under a
+    mesh ``place_caches`` holds the state's batch rows and P block, the
+    window's channel block (whole on the batch), ``pos`` replicated."""
     del seq
     dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     s = cfg.ssm
@@ -171,26 +241,23 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
                 sctx: ShardCtx = ShardCtx()) -> tuple:
     """One autoregressive step.  ``tokens (B, 1)``; returns ``(logits (B, 1,
     V), caches)``."""
-    refuse_mesh(sctx)
-    d_in = _dims(cfg)[0]
     x = _embed(params, tokens, sctx)[:, 0]  # (B, D)
     impl = _impl(cfg)
 
     def body(h, inp):
         lp, cache = inp
         xn = L.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        z, xbc, dt = _split_proj(L.linear(xn, lp["in_proj"], impl), cfg)
-        xbc, new_win = RG.conv1d_decode_step(xbc, lp["conv_w"], lp["conv_b"], cache["conv"])
-        xs, Bm, Cm, dt, A = _ssm_inputs(F.silu(xbc), dt, lp, cfg)
-        y, new_state = S.ssd_decode_step(xs, dt, A, Bm, Cm, lp["ssm_D"].float(),
-                                         cache["ssm"])
-        y = L.rms_norm(y.reshape(-1, d_in) * F.silu(z), lp["ssm_norm"], cfg.norm_eps)
-        out = L.linear(y, lp["out_proj"], impl)
-        return h + out, {"ssm": new_state, "conv": new_win, "pos": cache["pos"] + 1}
+        z, xbc, dt = _mixer_in(xn, lp, cfg, sctx, impl)
+        xbc, new_win = RG.conv1d_decode_step(xbc, conv_weight(lp), lp["conv_b"],
+                                             local_rows(cache["conv"], sctx))
+        y, new_state = S.ssd_decode_step(*_ssm_args(xbc, dt, lp, cfg, sctx), cache["ssm"])
+        out = _mixer_out(y, z, lp, cfg, sctx, impl)
+        return h + out, {"ssm": new_state, "conv": whole_rows(new_win, sctx),
+                         "pos": cache["pos"] + 1}
 
     x, new = maybe_scan(body, x, list(zip(params["layers"], caches["layers"])),
                         cfg.scan_layers)
-    return _head(params, x, cfg, impl)[:, None, :], {"layers": new}
+    return _head(params, x, cfg, impl, sctx)[:, None, :], {"layers": new}
 
 
 def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
@@ -203,7 +270,6 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     corrupt it.  Serve SSM slots with exact-length prompts (bucket
     granularity 1).
     """
-    refuse_mesh(sctx)
     if kw.get("lengths") is not None:
         raise ValueError("ssm_lm.prefill: padded prompts (lengths=) unsupported — "
                          "the recurrent scan would absorb pad tokens into state")
@@ -213,9 +279,10 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     def body(h, inp):
         lp, cache = inp
         y, h_final, last_win = _layer_fwd(h, lp, cfg, sctx, impl)
-        return h + y, {"ssm": h_final, "conv": last_win.to(cache["conv"].dtype),
+        return h + y, {"ssm": h_final,
+                       "conv": whole_rows(last_win.to(cache["conv"].dtype), sctx),
                        "pos": cache["pos"] + tokens.shape[1]}
 
     x, new = maybe_scan(body, x, list(zip(params["layers"], caches["layers"])),
                         cfg.scan_layers)
-    return _head(params, x[:, -1:], cfg, impl), {"layers": new}
+    return _head(params, x[:, -1:], cfg, impl, sctx), {"layers": new}

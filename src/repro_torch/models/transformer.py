@@ -37,9 +37,14 @@ holds each row and summed over ``model`` (exact: one nonzero term); the
 MoE layers run :func:`repro_torch.nn.moe.moe_ffn` under the mesh.  The
 column-parallel linears, the attention and the embedding are bitwise one
 device's; a row-parallel sum adds its f32 partials in another order
-(within an ulp of bf16).  KV heads that do not divide ``model`` raise
-(ROADMAP Queue 1 item 12c).  The dense family's forward under an active
-context is differentiable (the collectives carry gradients:
+(within an ulp of bf16).  KV heads that do not divide ``model`` (phi3's 10
+at ``model`` 4: a column block of ``wk`` holds 2.5 heads) gather q, k and
+v whole, so attention runs on whole heads, the same function on every
+rank; ``cache_pspecs`` then puts the KV cache's sequence over ``model``,
+decode combines the ranks' softmax partials
+(:func:`repro_torch.nn.attention.decode_attention`), and ``wo`` takes the
+rank's K block of the whole output.  The dense family's forward under an
+active context is differentiable (the collectives carry gradients:
 ``train/step.py`` trains on it); the MoE and vit families train on one
 device only (ROADMAP Queue 1 item 13b).
 """
@@ -53,9 +58,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import params as _params
-from repro_torch.models.common import Initializer, ShardCtx, map_leaves, maybe_scan
-from repro_torch.models.sharding import check_kv_heads
+from repro_torch.models.common import (Initializer, ShardCtx, embed_tokens, global_logits,
+                                       local_rows, map_leaves, maybe_scan, qkv_heads,
+                                       shard_linear, tied_head)
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as M
@@ -167,38 +172,18 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> d
 
 def _lm_head(params: dict, cfg: ArchConfig, sctx: ShardCtx = ShardCtx()):
     """The ``(D, V)`` head matrix: a tied head dequantizes the embedding once
-    and transposes it; an untied head passes its leaf straight to linear.
-    A tied head over a vocab-sharded table is this rank's column block of
-    the logical ``(D, V)`` head, so ``tp_linear`` reads it as one."""
+    and transposes it (:func:`~repro_torch.models.common.tied_head`); an
+    untied head passes its leaf straight to linear."""
     if cfg.tie_embeddings:
-        w = _params.dense_weight(params["embed"]).T
-        if sctx.active and w.shape[-1] != cfg.vocab:
-            return _params.PasmParams(w=w, kind="dense", shape=(cfg.d_model, cfg.vocab))
-        return w
+        return tied_head(params["embed"], cfg, sctx)
     return params["lm_head"]
-
-
-def _lin(x, w, impl: str, sctx: ShardCtx):
-    """One linear; under an active context the tensor-parallel dispatch on
-    this rank's block, column- or row-parallel as the leaf is placed."""
-    if not sctx.active:
-        return L.linear(x, w, impl)
-    return _params.tp_linear(x, w, impl=impl, mesh=sctx.mesh, rows=sctx.rows(x))
-
-
-def _heads(t: torch.Tensor, hd: int) -> torch.Tensor:
-    """``(B, S, n·hd) → (B, S, n, hd)``: this rank's heads under a mesh."""
-    B, S, _ = t.shape
-    return t.reshape(B, S, -1, hd)
 
 
 def _attention_block(x, p, cfg: ArchConfig, sctx: ShardCtx, cos, sin, *,
                      cache=None, impl: str, lengths=None):
     B, S, D = x.shape
-    hd = cfg.hd
-    q = _heads(_lin(x, p["wq"], impl, sctx), hd)
-    k = _heads(_lin(x, p["wk"], impl, sctx), hd)
-    v = _heads(_lin(x, p["wv"], impl, sctx), hd)
+    q, k, v = qkv_heads(x, x, p, cfg, sctx, impl)
+    mesh = sctx.mesh if sctx.active else None
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -208,18 +193,18 @@ def _attention_block(x, p, cfg: ArchConfig, sctx: ShardCtx, cos, sin, *,
     if cache is not None:
         quant_cache = isinstance(cache, A.QuantKVCache)
         new_cache = (
-            A.update_quant_cache(cache, k, v, lengths=lengths)
+            A.update_quant_cache(cache, k, v, lengths=lengths, mesh=mesh)
             if quant_cache
-            else A.update_cache(cache, k, v, lengths=lengths)
+            else A.update_cache(cache, k, v, lengths=lengths, mesh=mesh)
         )
         if S == 1:
-            o = (A.decode_attention_quant(q, new_cache) if quant_cache
-                 else A.decode_attention(q, new_cache))
+            o = (A.decode_attention_quant(q, new_cache, mesh=mesh) if quant_cache
+                 else A.decode_attention(q, new_cache, mesh=mesh))
         else:  # prefill: attend within the freshly written prefix
             o = A.gqa_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, S))
     else:
         o = A.gqa_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, S))
-    y = _lin(o.reshape(B, S, -1), p["wo"], impl, sctx)
+    y = shard_linear(o.reshape(B, S, -1), p["wo"], impl, sctx)
     return sctx.act_btd(y), new_cache
 
 
@@ -236,12 +221,12 @@ def _ffn_block(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str,
         return sctx.act_btd(y.reshape(B, S, D)), aux
     mp = p["mlp"]
     if cfg.act == "swiglu":
-        h = L.swiglu(_lin(x, mp["w1"], impl, sctx), _lin(x, mp["w3"], impl, sctx))
+        h = L.swiglu(shard_linear(x, mp["w1"], impl, sctx), shard_linear(x, mp["w3"], impl, sctx))
     elif cfg.act == "sq_relu":
-        h = L.sq_relu(_lin(x, mp["w1"], impl, sctx))
+        h = L.sq_relu(shard_linear(x, mp["w1"], impl, sctx))
     else:
-        h = L.gelu_ffn_act(_lin(x, mp["w1"], impl, sctx))
-    return sctx.act_btd(_lin(sctx.act_btf(h), mp["w2"], impl, sctx)), {}
+        h = L.gelu_ffn_act(shard_linear(x, mp["w1"], impl, sctx))
+    return sctx.act_btd(shard_linear(sctx.act_btf(h), mp["w2"], impl, sctx)), {}
 
 
 def _layer_fwd(x, p, cfg, sctx, cos, sin, cache=None, impl="dense", dropless=False,
@@ -264,30 +249,12 @@ def _head_impl(cfg: ArchConfig) -> str:
     return "dense" if cfg.tie_embeddings else _impl(cfg)
 
 
-def _embed(w, tokens: torch.Tensor, sctx: ShardCtx) -> torch.Tensor:
-    """The embedding rows of ``tokens``.  A vocab-sharded table (under a
-    mesh) looks up the rows this rank holds, zeros elsewhere, and sums over
-    ``model``: one nonzero term per element, so exact."""
-    if sctx.active:
-        held, split = _params.held_block(w, sctx.mesh)
-        if split:
-            from repro_torch.launch.mesh import all_reduce
-
-            n = held.shape[0]
-            loc = tokens - sctx.mesh.index(sctx.model) * n
-            own = (loc >= 0) & (loc < n)
-            rows = _params.embed_lookup(w, torch.where(own, loc, torch.zeros_like(loc)))
-            rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
-            return all_reduce(rows, sctx.mesh, sctx.model)
-    return _params.embed_lookup(w, tokens)
-
-
 def _prep_inputs(params, cfg: ArchConfig, sctx: ShardCtx, tokens, frontend_embeds):
     """Token embeddings in bf16, prefixed by the projected patch embeddings
     when the config has a vit frontend and they are given.  Returns ``(x,
     n_prefix)``.  ``vproj`` takes the ``dense`` path even when quantized
     (the JAX package's rule): it dequantizes, and launches no kernel."""
-    x = _embed(params["embed"], tokens, sctx).to(torch.bfloat16)
+    x = embed_tokens(params["embed"], tokens, sctx).to(torch.bfloat16)
     n_prefix = 0
     if cfg.frontend == "vit" and frontend_embeds is not None:
         pe = L.linear(frontend_embeds.to(torch.bfloat16), params["vproj"], "dense")
@@ -299,36 +266,12 @@ def _prep_inputs(params, cfg: ArchConfig, sctx: ShardCtx, tokens, frontend_embed
 _AUX_KEYS = ("moe_load_balance", "moe_drop_frac")
 
 
-def _mine(t, sctx: ShardCtx):
-    """This rank's batch rows of a global input (all of them when the batch
-    is not split)."""
-    if t is None or not sctx.batch_split:
-        return t
-    from repro_torch.models.sharding import DATA, P, local_shard
-
-    return local_shard(t, P(DATA), sctx.mesh)
-
-
-def _global_logits(logits: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx) -> torch.Tensor:
-    """This rank's logits block → the global logits: the vocab gathered over
-    ``model`` (a column-parallel head), then the rows over ``data``."""
-    if not sctx.active:
-        return logits
-    from repro_torch.launch.mesh import all_gather
-
-    if logits.shape[-1] != cfg.vocab:
-        logits = all_gather(logits, sctx.mesh, sctx.model, dim=-1)
-    if sctx.batch_split:
-        logits = all_gather(logits, sctx.mesh, "data", dim=0)
-    return logits
-
-
 def _local_caches(caches: dict, sctx: ShardCtx) -> dict:
     """Placed caches hold this rank's rows of K/V but every slot's counter
     (``cache_pspecs`` replicates ``pos``): the layers take this rank's."""
     if not sctx.batch_split:
         return caches
-    return {k: [dataclasses.replace(c, pos=_mine(c.pos, sctx)) for c in v]
+    return {k: [dataclasses.replace(c, pos=local_rows(c.pos, sctx)) for c in v]
             for k, v in caches.items()}
 
 
@@ -353,9 +296,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     ``aux`` holds the MoE terms summed over the scanned layers (zero for
     the dense family).  With ``frontend_embeds`` (vit) the logits cover the
     token positions only: the patch prefix is sliced off."""
-    check_kv_heads(cfg, sctx.tp)
-    x, n_prefix = _prep_inputs(params, cfg, sctx, _mine(tokens, sctx),
-                               _mine(frontend_embeds, sctx))
+    x, n_prefix = _prep_inputs(params, cfg, sctx, local_rows(tokens, sctx),
+                               local_rows(frontend_embeds, sctx))
     B, S, D = x.shape
     cos, sin = L.rope(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     cos, sin = cos[None], sin[None]
@@ -382,10 +324,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     (x, aux), _ = maybe_scan(body, (x, [zero] * len(_AUX_KEYS)), params["layers"],
                              cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _lin(x, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
+    logits = shard_linear(x, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
     if n_prefix:
         logits = logits[:, n_prefix:]
-    return _global_logits(logits, cfg, sctx), dict(zip(_AUX_KEYS, aux))
+    return global_logits(logits, cfg, sctx), dict(zip(_AUX_KEYS, aux))
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,
@@ -409,8 +351,7 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
                 sctx: ShardCtx = ShardCtx()) -> tuple:
     """One autoregressive step against the KV caches.  ``tokens (B, 1)``.
     Returns ``(logits, caches)``; RoPE takes each slot's own position."""
-    check_kv_heads(cfg, sctx.tp)
-    x, _ = _prep_inputs(params, cfg, sctx, _mine(tokens, sctx), None)
+    x, _ = _prep_inputs(params, cfg, sctx, local_rows(tokens, sctx), None)
     old, caches = caches, _local_caches(caches, sctx)
     # every layer advances in lockstep: the first scanned layer's counters
     # position all slots
@@ -430,9 +371,9 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfi
     x, new_scan = maybe_scan(body, x, list(zip(params["layers"], caches["scan"])),
                              cfg.scan_layers)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _lin(x, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
+    logits = shard_linear(x, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
     new = {"dense": new_dense or [], "scan": new_scan}
-    return _global_logits(logits, cfg, sctx), _global_caches(new, old, sctx, 1)
+    return global_logits(logits, cfg, sctx), _global_caches(new, old, sctx, 1)
 
 
 def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
@@ -449,15 +390,14 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     ahead of the prompt: the counters advance by ``lengths`` plus the
     prefix.
     """
-    check_kv_heads(cfg, sctx.tp)
-    x, n_prefix = _prep_inputs(params, cfg, sctx, _mine(tokens, sctx),
-                               _mine(frontend_embeds, sctx))
+    x, n_prefix = _prep_inputs(params, cfg, sctx, local_rows(tokens, sctx),
+                               local_rows(frontend_embeds, sctx))
     B, S, D = x.shape
     cos, sin = L.rope(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     cos, sin = cos[None], sin[None]
     impl = _impl(cfg)
     adv = S if lengths is None else lengths + n_prefix
-    eff_lengths = None if lengths is None else _mine(lengths, sctx) + n_prefix
+    eff_lengths = None if lengths is None else local_rows(lengths, sctx) + n_prefix
     old, caches = caches, _local_caches(caches, sctx)
 
     def body(h, inp):
@@ -476,6 +416,6 @@ def prefill(params: dict, tokens: torch.Tensor, caches: dict, cfg: ArchConfig,
     else:
         last = torch.clamp(eff_lengths.long() - 1, 0, S - 1)
         x_last = x[torch.arange(B, device=x.device), last][:, None]
-    logits = _lin(x_last, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
+    logits = shard_linear(x_last, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
     new = {"dense": new_dense or [], "scan": new_scan}
-    return _global_logits(logits, cfg, sctx), _global_caches(new, old, sctx, adv)
+    return global_logits(logits, cfg, sctx), _global_caches(new, old, sctx, adv)

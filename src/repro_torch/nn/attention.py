@@ -11,6 +11,16 @@ before the value product, the sum in f32, output in ``q``'s dtype.
 The caches are functional, as in the JAX package: an update returns a new
 cache and leaves its input untouched (the serving engine reuses a fresh
 template cache for every admission).
+
+A cache placed with its sequence over ``model`` (``models/sharding.py::
+cache_pspecs``' branch for KV heads that do not divide the axis; its
+``seq_shards`` > 1) holds this rank's block of positions: slot ``s`` lives
+on rank ``s // (S / seq_shards)``.  Given ``mesh=``, an update writes only
+the rank's positions, and decode computes each rank's f32 partial ``(m, l,
+o)`` over its block for every head (:func:`softmax_partial`), all-gathers
+them and folds them in rank order (:func:`combine_partials`), so every rank
+holds the same bits.  A cache with ``seq_shards`` 1 runs the unsharded code
+untouched.
 """
 from __future__ import annotations
 
@@ -22,6 +32,9 @@ import torch
 from repro_torch.core._f32 import matmul_f32
 
 __all__ = [
+    "softmax_partial",
+    "combine_partials",
+    "combine_over",
     "KVCache",
     "QuantKVCache",
     "init_kv_cache",
@@ -41,6 +54,7 @@ class KVCache:
     k: torch.Tensor  # (B, S, KV, hd)
     v: torch.Tensor
     pos: torch.Tensor  # (B,) int32 — tokens already in cache, PER SLOT
+    seq_shards: int = 1  # ranks along ``model`` the positions split over
 
 
 def init_kv_cache(batch: int, seq: int, n_kv: int, hd: int,
@@ -133,13 +147,75 @@ def gqa_attention(
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _valid(pos: torch.Tensor, S: int, window: Optional[int]) -> torch.Tensor:
-    """(B, S): cache rows each slot may read (below its own position)."""
-    k_pos = torch.arange(S, device=pos.device)
+def _valid(pos: torch.Tensor, S: int, window: Optional[int], offset: int = 0) -> torch.Tensor:
+    """(B, S): cache rows each slot may read (below its own position), the
+    rows from ``offset`` on of a sequence-sharded cache."""
+    k_pos = offset + torch.arange(S, device=pos.device)
     valid = k_pos[None, :] < pos[:, None]
     if window is not None:
         valid = valid & (k_pos[None, :] >= pos[:, None] - window)
     return valid
+
+
+def softmax_partial(s: torch.Tensor, v: torch.Tensor,
+                    v_scale: Optional[torch.Tensor] = None) -> tuple:
+    """One block's share of a decode softmax: ``s (B, KV, G, S_b)`` f32
+    scores (masked entries at ``-1e30``) and the block's values ``v (B,
+    S_b, KV, hd)`` → ``(m, l, o)``, the block's max, its sum of ``exp(s −
+    m)`` and its unnormalised output, all f32.  The weights are rounded to
+    ``v``'s dtype before the value product, as the unsharded softmax's
+    are; an int8 block folds ``v_scale (B, KV, 1, S_b)`` into them
+    instead.  A block with no valid entry gives ``m = -1e30``, which
+    :func:`combine_partials` weighs by zero."""
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    vt = v.permute(0, 2, 1, 3).float()[:, :, None]  # (B,KV,1,S_b,hd)
+    w = p.to(v.dtype).float() if v_scale is None else p * v_scale
+    o = matmul_f32(w[:, :, :, None], vt)[:, :, :, 0]  # (B,KV,G,hd)
+    return m, l, o
+
+
+def combine_partials(parts) -> torch.Tensor:
+    """The softmax output from every block's ``(m, l, o)``
+    (:func:`softmax_partial`), folded in the given (rank) order: the global
+    max, then ``l = Σ l_r·exp(m_r − m)`` and ``o = Σ o_r·exp(m_r − m)``,
+    then ``o / l``.  The same order on every rank gives the same bits."""
+    top = parts[0][0]
+    for m, _, _ in parts[1:]:
+        top = torch.maximum(top, m)
+    l_sum = o_sum = None
+    for m, l, o in parts:
+        w = torch.exp(m - top)
+        l_sum = l * w if l_sum is None else l_sum + l * w
+        o_sum = o * w[..., None] if o_sum is None else o_sum + o * w[..., None]
+    return o_sum / torch.clamp(l_sum[..., None], min=1e-30)
+
+
+def combine_over(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, mesh,
+                 axis: str = "model") -> torch.Tensor:
+    """:func:`combine_partials` over the ranks of ``axis``: each rank's ``(m,
+    l, o)`` all-gathered in one buffer (counted as ``softmax_combine``) and
+    folded in coordinate order."""
+    from repro_torch.launch.mesh import all_gather
+
+    n = mesh.size(axis)
+    packed = torch.cat([m[..., None], l[..., None], o], dim=-1)
+    every = all_gather(packed[None], mesh, axis, dim=0, key="softmax_combine")
+    return combine_partials([(every[r, ..., 0], every[r, ..., 1], every[r, ..., 2:])
+                             for r in range(n)])
+
+
+def _block(cache, mesh) -> tuple:
+    """``(offset, global S)`` of the positions a cache's rank holds."""
+    S = _seq(cache).shape[1]
+    if cache.seq_shards == 1:
+        return 0, S
+    return mesh.index("model") * S, S * cache.seq_shards
+
+
+def _seq(cache) -> torch.Tensor:
+    return cache.k if isinstance(cache, KVCache) else cache.k_q
 
 
 def decode_attention(
@@ -147,11 +223,14 @@ def decode_attention(
     cache: KVCache,
     *,
     window: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Single-token attention against a KV cache.
 
     q: (B, 1, H, hd).  Masks positions ≥ ``cache.pos`` PER SLOT (and outside
     ``window``): slots sit at different depths under continuous batching.
+    A sequence-sharded cache (``seq_shards`` > 1) takes every head of ``q``
+    and combines the ranks' partials over ``mesh``'s ``model`` axis.
     """
     B, _, H, hd = q.shape
     _, S, KV, _ = cache.k.shape
@@ -160,24 +239,38 @@ def decode_attention(
     qg = q.reshape(B, KV, G, 1, hd).float()
     kt = cache.k.permute(0, 2, 3, 1).float()[:, :, None]  # (B,KV,1,hd,S)
     s = matmul_f32(qg, kt)[:, :, :, 0] * scale  # (B,KV,G,S)
-    valid = _valid(cache.pos, S, window)
+    off, _ = _block(cache, mesh)
+    valid = _valid(cache.pos, S, window, off)
     s = torch.where(valid[:, None, None, :], s, torch.full((), _NEG_INF, device=q.device))
+    if cache.seq_shards > 1:
+        o = combine_over(*softmax_partial(s, cache.v), mesh)
+        return o.reshape(B, 1, H, hd).to(q.dtype)
     p = torch.softmax(s, dim=-1)
     vt = cache.v.permute(0, 2, 1, 3).float()[:, :, None]  # (B,KV,1,S,hd)
     o = matmul_f32(p.to(cache.v.dtype).float()[:, :, :, None], vt)[:, :, :, 0]
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def _slot_insert(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+def _slot_insert(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 offset: int = 0, total: Optional[int] = None) -> torch.Tensor:
     """A copy of ``buf`` with ``new (B, T, ...)`` written at each slot's own
     position; the start clamps so the rows fit, as ``dynamic_update_slice``
-    does (a dead slot's counter may run past the cache end)."""
+    does (a dead slot's counter may run past the cache end).  ``buf`` may
+    be a rank's block of ``total`` positions from ``offset`` on: only the
+    rows that fall in it are written (the rest go to a scratch row that is
+    dropped)."""
     B, T = new.shape[:2]
     S = buf.shape[1]
-    start = torch.clamp(pos.long(), 0, S - T)
+    total = S if total is None else total
+    start = torch.clamp(pos.long(), 0, total - T)
     rows = start[:, None] + torch.arange(T, device=buf.device)  # (B, T)
+    if total != S:
+        rows = rows - offset
+        rows = torch.where((rows >= 0) & (rows < S), rows, torch.full_like(rows, S))
+        buf = torch.cat([buf, buf[:, :1]], dim=1)
     index = rows.reshape(B, T, *([1] * (new.ndim - 2))).expand_as(new)
-    return buf.scatter(1, index, new.to(buf.dtype))
+    out = buf.scatter(1, index, new.to(buf.dtype))
+    return out if total == S else out[:, :S]
 
 
 def update_cache(
@@ -186,15 +279,20 @@ def update_cache(
     v_new: torch.Tensor,
     *,
     lengths: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> KVCache:
     """Insert (B, T, KV, hd) at each slot's ``cache.pos`` (T=1 decode, T=S
     prefill).  ``lengths`` (B,) advances each counter by its REAL prompt
     length: right-padded prefill writes all T rows, but pad rows land at
-    positions ≥ ``lengths[b]``, which decode never marks valid."""
+    positions ≥ ``lengths[b]``, which decode never marks valid.  A
+    sequence-sharded cache takes the whole ``k_new``/``v_new`` and keeps
+    the rows of its rank's positions on ``mesh``."""
     adv = k_new.shape[1] if lengths is None else lengths.to(cache.pos.dtype)
-    return KVCache(
-        k=_slot_insert(cache.k, k_new, cache.pos),
-        v=_slot_insert(cache.v, v_new, cache.pos),
+    at = _block(cache, mesh)
+    return dataclasses.replace(
+        cache,
+        k=_slot_insert(cache.k, k_new, cache.pos, *at),
+        v=_slot_insert(cache.v, v_new, cache.pos, *at),
         pos=cache.pos + adv,
     )
 
@@ -212,6 +310,7 @@ class QuantKVCache:
     k_scale: torch.Tensor  # (B, S, KV) f32 — per token·head amax/127
     v_scale: torch.Tensor
     pos: torch.Tensor  # (B,) int32 — per slot
+    seq_shards: int = 1  # ranks along ``model`` the positions split over
 
 
 def init_quant_kv_cache(batch: int, seq: int, n_kv: int, hd: int, *,
@@ -235,23 +334,27 @@ def _quantize_kv(x: torch.Tensor) -> tuple:
 
 
 def update_quant_cache(cache: QuantKVCache, k_new, v_new, *,
-                       lengths: Optional[torch.Tensor] = None) -> QuantKVCache:
+                       lengths: Optional[torch.Tensor] = None, mesh=None) -> QuantKVCache:
     kq, ks = _quantize_kv(k_new)
     vq, vs = _quantize_kv(v_new)
     adv = k_new.shape[1] if lengths is None else lengths.to(cache.pos.dtype)
-    return QuantKVCache(
-        k_q=_slot_insert(cache.k_q, kq, cache.pos),
-        v_q=_slot_insert(cache.v_q, vq, cache.pos),
-        k_scale=_slot_insert(cache.k_scale, ks, cache.pos),
-        v_scale=_slot_insert(cache.v_scale, vs, cache.pos),
+    at = _block(cache, mesh)
+    return dataclasses.replace(
+        cache,
+        k_q=_slot_insert(cache.k_q, kq, cache.pos, *at),
+        v_q=_slot_insert(cache.v_q, vq, cache.pos, *at),
+        k_scale=_slot_insert(cache.k_scale, ks, cache.pos, *at),
+        v_scale=_slot_insert(cache.v_scale, vs, cache.pos, *at),
         pos=cache.pos + adv,
     )
 
 
 def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache, *,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None, mesh=None) -> torch.Tensor:
     """Single-token attention over the int8 cache: ``k_scale`` folds into the
-    scores after the contraction, ``v_scale`` into the softmax weights."""
+    scores after the contraction, ``v_scale`` into the softmax weights.  A
+    sequence-sharded cache combines the ranks' partials, as
+    :func:`decode_attention`."""
     B, _, H, hd = q.shape
     _, S, KV, _ = cache.k_q.shape
     G = H // KV
@@ -260,8 +363,13 @@ def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache, *,
     kq = cache.k_q.to(q.dtype).float().permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,S)
     s = matmul_f32(qg, kq)[:, :, :, 0]  # (B,KV,G,S)
     s = s * cache.k_scale.permute(0, 2, 1)[:, :, None, :] * scale
-    valid = _valid(cache.pos, S, window)
+    off, _ = _block(cache, mesh)
+    valid = _valid(cache.pos, S, window, off)
     s = torch.where(valid[:, None, None, :], s, torch.full((), _NEG_INF, device=q.device))
+    if cache.seq_shards > 1:
+        o = combine_over(*softmax_partial(s, cache.v_q, cache.v_scale.permute(0, 2, 1)[
+            :, :, None, :]), mesh)
+        return o.reshape(B, 1, H, hd).to(q.dtype)
     p = torch.softmax(s, dim=-1)
     pv = p * cache.v_scale.permute(0, 2, 1)[:, :, None, :]
     vq = cache.v_q.float().permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,S,hd)

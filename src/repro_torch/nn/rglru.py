@@ -17,6 +17,11 @@ runs in the input's dtype, each product and sum rounded as in the JAX
 package; its decode step sums in f32.  The window carried into decode is
 left-padded with the zeros the conv assumes before the first token, so a
 prompt shorter than the conv decodes too.
+
+Under a mesh (``models/hybrid.py``) every function runs on a rank's block
+of the channels: the conv, its window, ``lam``/``b_a``/``b_x`` and the
+state.  The gates read the whole conv output (``whole=``) through the
+rank's column blocks of ``w_a``/``w_x`` (``linear=``, still ``dequant``).
 """
 from __future__ import annotations
 
@@ -31,11 +36,17 @@ __all__ = ["rg_lru_scan", "rg_lru_decode_step", "causal_conv1d", "conv1d_decode_
 _C = 8.0
 
 
-def _gates(x: torch.Tensor, params: dict) -> tuple:
+def _gates(x: torch.Tensor, params: dict, whole=None, linear=None) -> tuple:
     """``(a, √(1−a²)·i·x)`` in f32.  ``w_a`` and ``w_x`` take the ``dequant``
-    path whatever the model's impl (the JAX package's rule): no kernel."""
-    r = torch.sigmoid(L.linear(x, params["w_a"], "dequant") + params["b_a"].to(x.dtype))
-    i = torch.sigmoid(L.linear(x, params["w_x"], "dequant") + params["b_x"].to(x.dtype))
+    path whatever the model's impl (the JAX package's rule): no kernel.
+    ``x`` may be a rank's channels; the gate matrices then read ``whole``
+    (the whole input) through ``linear(input, w)``, their column blocks."""
+    xin = x if whole is None else whole
+    if linear is None:
+        def linear(a, w):
+            return L.linear(a, w, "dequant")
+    r = torch.sigmoid(linear(xin, params["w_a"]) + params["b_a"].to(x.dtype))
+    i = torch.sigmoid(linear(xin, params["w_x"]) + params["b_x"].to(x.dtype))
     log_a = -_C * F.softplus(params["lam"].float()) * r.float()
     a = torch.exp(log_a)
     gated = (i.float() * x.float()) * torch.sqrt(
@@ -56,18 +67,22 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rg_lru_scan(x: torch.Tensor, params: dict,
-                init_h: torch.Tensor | None = None) -> tuple:
-    """x: (B, S, W) → (y (B, S, W) in x's dtype, h_final (B, W) f32)."""
-    a, b = _gates(x, params)
+                init_h: torch.Tensor | None = None, *, whole=None, linear=None) -> tuple:
+    """x: (B, S, W) → (y (B, S, W) in x's dtype, h_final (B, W) f32).
+    ``whole``/``linear``: a rank's channels, as :func:`_gates`."""
+    a, b = _gates(x, params, whole, linear)
     if init_h is not None:
         b = torch.cat([b[:, :1] + a[:, :1] * init_h.float()[:, None], b[:, 1:]], dim=1)
     h = _linear_scan(a, b)
     return h.to(x.dtype), h[:, -1]
 
 
-def rg_lru_decode_step(x: torch.Tensor, params: dict, h: torch.Tensor) -> tuple:
-    """x: (B, W) one token; h: (B, W) carried state."""
-    a, b = _gates(x[:, None, :], params)
+def rg_lru_decode_step(x: torch.Tensor, params: dict, h: torch.Tensor, *,
+                       whole=None, linear=None) -> tuple:
+    """x: (B, W) one token; h: (B, W) carried state.  ``whole`` (B, W) /
+    ``linear``: a rank's channels, as :func:`_gates`."""
+    a, b = _gates(x[:, None, :], params, None if whole is None else whole[:, None, :],
+                  linear)
     h_new = a[:, 0] * h.float() + b[:, 0]
     return h_new.to(x.dtype), h_new
 

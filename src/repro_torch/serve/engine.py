@@ -95,9 +95,10 @@ def _cache_map(fn: Callable, *trees):
         return {k: _cache_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, (list, tuple)):
         return type(t0)(_cache_map(fn, *xs) for xs in zip(*trees))
-    if dataclasses.is_dataclass(t0):
+    if dataclasses.is_dataclass(t0):  # a metadata field (seq_shards) stays t0's
         return type(t0)(**{f.name: _cache_map(fn, *(getattr(t, f.name) for t in trees))
-                           for f in dataclasses.fields(t0)})
+                           if isinstance(getattr(t0, f.name), torch.Tensor)
+                           else getattr(t0, f.name) for f in dataclasses.fields(t0)})
     return fn(*trees)
 
 

@@ -106,9 +106,12 @@ def _split_scale(batch: dict) -> tuple:
 
 
 def _check_sharded(cfg: ArchConfig, sctx: ShardCtx, batch: dict, microbatches: int):
-    """The dense family trains under an active context; MoE and vlm do not
-    (item 13b), and a microbatch's rows must still split over ``data``."""
-    if cfg.moe or cfg.frontend == "vit":
+    """The dense family trains under an active context; MoE, vlm, the SSM,
+    hybrid and encdec families and KV heads cut by ``model`` (whole heads
+    on every rank: the per-head norms' reduction differs) do not (item
+    13b), and a microbatch's rows must still split over ``data``."""
+    if cfg.moe or cfg.frontend == "vit" or cfg.family in ("ssm", "hybrid", "audio") \
+            or (sctx.tp > 1 and cfg.n_kv_heads % sctx.tp):
         raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
     rows = batch["tokens"].shape[0] // microbatches
     if sctx.batch_split and rows % sctx.dp:
@@ -122,7 +125,7 @@ def loss_and_grads(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx = ShardC
     hands the optimizer.  ``microbatches > 1`` accumulates gradients over
     sequential slices of the batch (activation-memory relief at a fixed
     global batch) and averages them.  Under an active ``sctx`` (the dense
-    family; MoE and vlm raise, ROADMAP Queue 1 item 13b) ``params`` are a
+    family; the other families raise, ROADMAP Queue 1 item 13b) ``params`` are a
     rank's placed blocks, every rank passes the global batch and gets the
     global loss, and each gradient leaf comes back summed over its
     ``grad_reduce_axes``: the one-device gradient of the rank's block."""

@@ -50,10 +50,7 @@ from repro_torch import interop
 from repro_torch.core import params as tpar
 from repro_torch.launch.mesh import Mesh, make_conv_mesh
 from repro_torch.models import common as tcommon
-from repro_torch.models import encdec as TE
-from repro_torch.models import hybrid as TH
 from repro_torch.models import sharding as tsh
-from repro_torch.models import ssm_lm as TS
 from repro_torch.models import transformer as TT
 from repro_torch.nn import moe as TM
 from repro_torch.train import optimizer as topt
@@ -476,23 +473,25 @@ def test_active_ctx_and_dense_stack_block():
 
 
 def test_refusals_name_their_roadmap_items():
-    """The SSM, hybrid and encdec families, MoE training and compressed
-    gradients raise on an active context, as does a KV-head count the model
-    axis does not divide (the sequence-sharded cache): nothing runs
-    replicated in silence."""
+    """Every family serves under an active context and a KV-head count the
+    model axis does not divide takes the sequence-sharded cache (no item
+    12b/12c refusal is left); training the SSM, hybrid and encdec families,
+    the MoE family, a transformer whose KV heads the axis cuts, and
+    compressed gradients raise, naming item 13b: nothing runs replicated
+    in silence."""
     mesh = _cpu_mesh((1, 2), (0, 0))
     sctx = tcommon.ShardCtx.for_mesh(mesh, 2)
     toks = torch.zeros((2, 3), dtype=torch.long)
-    for arch, mod in (("mamba2-130m", TS), ("recurrentgemma-2b", TH), ("whisper-tiny", TE)):
+    assert not [n for n in dir(tpar) if n.startswith("NOT_PORTED_MESH_") and
+                n != "NOT_PORTED_MESH_TRAIN"]
+    assert "SSM, hybrid and encoder-decoder" in tpar.NOT_PORTED_MESH_TRAIN
+    for arch in ("mamba2-130m", "recurrentgemma-2b", "whisper-tiny"):
         cfg = tconfigs.get_config(arch, smoke=True)
-        for call in (lambda: mod.forward({}, toks, cfg, sctx),
-                     lambda: mod.prefill({}, toks, {}, cfg, sctx),
-                     lambda: mod.decode_step({}, toks[:, :1], {}, cfg, sctx)):
-            with pytest.raises(NotImplementedError, match="item 12b"):
-                call()
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        TE.encode({}, torch.zeros((2, 80, 8)), tconfigs.get_config("whisper-tiny", smoke=True),
-                  sctx)
+        with pytest.raises(NotImplementedError, match="item 13b"):
+            tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, cfg, sctx)
+        with pytest.raises(NotImplementedError, match="item 13b"):
+            tstep.make_train_step(cfg, topt.AdamWConfig(), sctx)({}, None, {
+                "tokens": toks, "labels": toks})
     # the dense family trains under the context (tests/test_torch_train_sharding.py);
     # the MoE family and compressed gradients do not
     cfg = tconfigs.get_config("qwen3-32b", smoke=True)
@@ -502,7 +501,9 @@ def test_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="item 13b"):
         tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, moe, sctx)
     odd = dataclasses.replace(cfg, n_kv_heads=1, n_heads=4)  # KV 1 over model 2
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        tsh.place_caches(odd, TT.init_caches(odd, 2, 8, device="cpu"), mesh, sctx.batch)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        TT.forward({}, toks, odd, sctx)
+    with pytest.raises(NotImplementedError, match="item 13b"):
+        tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, odd, sctx)
+    # its cache is placed with the positions over model, not refused
+    placed = tsh.place_caches(odd, TT.init_caches(odd, 2, 8, device="cpu"), mesh, sctx.batch)
+    assert {c.seq_shards for c in placed["scan"]} == {2}
+    assert placed["scan"][0].k.shape[1] == 4

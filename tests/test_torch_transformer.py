@@ -434,12 +434,13 @@ def test_tied_head_int8_cache_and_loss():
 
 
 def test_model_surface_refuses_later_slices():
-    """What still raises: an active context on the recurrent families
-    (item 12b) and KV heads the model axis does not divide (item 12c); an
-    active ``ShardCtx`` now runs and ``dense_stack`` gives a placed stack's
-    held block (item 12, ``tests/test_torch_lm_sharding.py``); the MoE, vit
-    and audio surfaces are served (the audio frontend's log-mel spec equals
-    JAX's)."""
+    """No serving refusal is left: an active ``ShardCtx`` runs the recurrent
+    families (item 12b; on the (1, 1) mesh the unsharded function) and a
+    KV-head count the model axis does not divide places the cache's
+    positions over it (item 12c), ``dense_stack`` gives a placed stack's
+    held block (item 12, ``tests/test_torch_lm_sharding.py``,
+    ``tests/test_torch_rec_sharding.py``); the MoE, vit and audio surfaces
+    are served (the audio frontend's log-mel spec equals JAX's)."""
     tc = tconfigs.get_config("qwen3-32b", smoke=True)
     audio = dataclasses.replace(tc, family="audio", frontend="audio")
     spec = tapi.frontend_spec(audio, 2)
@@ -454,20 +455,23 @@ def test_model_surface_refuses_later_slices():
     vit = dataclasses.replace(tc, frontend="vit", frontend_tokens=3, frontend_dim=8)
     assert "vproj" in TT.init_params(vit, torch.Generator().manual_seed(0))
     from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import sharding as tsh
     from repro_torch.models import ssm_lm as TS
 
     sctx = tcommon.ShardCtx(active=True, mesh=make_conv_mesh((1, 1), device="cpu"))
     assert sctx.active and sctx.tp == 1 and sctx.dp == 1
     stack = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4)
     assert torch.equal(tpar.dense_stack(stack, torch.float32), stack)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        TS.forward({}, torch.zeros((1, 2), dtype=torch.long),
-                   tconfigs.get_config("mamba2-130m", smoke=True), sctx)
+    mcfg = tconfigs.get_config("mamba2-130m", smoke=True)
+    mp = TS.init_params(mcfg, torch.Generator().manual_seed(0))
+    toks = torch.zeros((1, 2), dtype=torch.long)
+    assert torch.equal(TS.forward(mp, toks, mcfg, sctx)[0], TS.forward(mp, toks, mcfg)[0])
     two = dataclasses.replace(sctx, mesh=dataclasses.replace(
         sctx.mesh, shape=(1, 2), coords=(0, 0)))
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        TT.forward({}, torch.zeros((1, 2), dtype=torch.long),
-                   dataclasses.replace(tc, n_kv_heads=1), two)
+    odd = dataclasses.replace(tc, n_kv_heads=1)
+    placed = tsh.place_caches(odd, TT.init_caches(odd, 1, 8, device="cpu"), two.mesh,
+                              two.batch)
+    assert placed["scan"][0].seq_shards == 2 and placed["scan"][0].k.shape[1] == 4
     p = TT.init_params(tc, torch.Generator().manual_seed(0))
     assert len(p["layers"]) == tc.n_layers and p["embed"].device.type == "cpu"
     carry, ys = tcommon.maybe_scan(lambda c, x: (c + x, x * 2), 0, [1, 2, 3], True)
