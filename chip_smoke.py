@@ -232,8 +232,30 @@ Phases (every one unguarded: any failure exits non-zero):
     4, so q, k and v are gathered and the KV cache's positions split over
     the ranks; the same traffic on the bf16 and the int8 KV cache, held
     the same way;
-17. one ``{"kernels": [...]}`` JSON line;
-18. last line: ``{"ok": true, "device": {...}}``.
+17. sharded training of the other families (``family_train_shard_phase``),
+    under deterministic algorithms, 16 bins int4 on K1, 8 × 128 a step:
+    (a) NCCL at world size 1, mesh (1, 1): deepseek-moe-16b (4 of 28
+    layers), internvl2-26b (4 of 48, behind 256 seeded patch embeddings),
+    recurrentgemma-2b (8 of 26), mamba2-130m and whisper-tiny (seeded
+    3000-frame mels) at full depth, one train step each bitwise the
+    unsharded step;
+    one device's loss and every float gradient leaf (the MoE's experts
+    recorded, for 1 and 2 dispatch groups) and its one-ulp floor (the
+    embeddings moved by a bf16 ulp) handed over through ``build/phase17``;
+    (b) two gloo ranks sharing the card at (1, 2) and (2, 1): each model's
+    loss and gradients (the MoE on one device's experts for its rows)
+    within ``max(LM_GRAD_TOL, the floor)`` of one device's by leaf kind,
+    K1 launches a step, every distinct block K1 ran held to the plain
+    version (``check_blocks``), collective bytes, the step's wall time and
+    peak memory; at (2, 1) the step with JAX's ZeRO-1 moments
+    (``init_opt_state(mesh=)``) bitwise the step with whole ones, its
+    moment bytes beside theirs, ``compress_grads(mesh=)`` bitwise the block
+    of the compressed gathered gradient, and whisper's ZeRO crash-resume
+    bitwise the uninterrupted run; (c) phi3-medium-14b (4 of 40 layers) on
+    four gloo ranks at (1, 4), its 10 KV heads cut by ``model``, one step
+    held the same way;
+18. one ``{"kernels": [...]}`` JSON line;
+19. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -355,6 +377,17 @@ REC_SHARD_MESHES = ((1, 2), (2, 1))
 RING_SHARD_STEPS = 16  # the hybrid's ring prompt at (1, 2): slots 2040..2055 wrap
 SEQ_SHARD_ARCH, SEQ_SHARD_LAYERS, SEQ_SHARD_MESH = "phi3-medium-14b", 4, (1, 4)
 REC_SHARD_TIMEOUT_S = 420  # the ranks of (b) or (c), every check
+# phase 17: sharded training of the other families: (arch, layers run (0:
+# all), the config's layers); recurrentgemma-2b cut to 8 of its 26 layers
+# (two groups and the recurrent tail) to keep the phase inside the run's
+# time limit (at 26 its steps and build took ~60 of the phase's 302 s);
+# (c) phi3's KV heads cut by model 4
+FAM_SHARD_MODELS = (("deepseek-moe-16b", MOE_LAYERS, 28), ("internvl2-26b", VLM_LAYERS, 48),
+                    ("mamba2-130m", 0, 24), ("recurrentgemma-2b", 8, 26),
+                    ("whisper-tiny", 0, 4))
+FAM_SHARD_MESHES = ((1, 2), (2, 1))
+FAM_SEQ_MODEL, FAM_SEQ_MESH = ("phi3-medium-14b", 4, 40), (1, 4)
+FAM_SHARD_TIMEOUT_S = 600  # the ranks of (b) or (c), every check
 # AlexNet sharded vs one device, f32: the loss (a mean over the batch) and
 # each gradient leaf (|Δ| <= t·max) sum the same products in another order:
 # the rows split over data, the GEMMs planned by cuBLAS for the blocks
@@ -4362,6 +4395,551 @@ def rec_shard_phase(gen, errs: dict, card: str) -> dict:
     return {"launches": sum(k1.values()), "routes": k1}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: sharded training of the MoE, vlm, SSM, hybrid and encdec families
+# ---------------------------------------------------------------------------
+
+
+def fam_inputs(cfg, gen) -> dict:
+    """A phase-17 train batch: 8 × 128 tokens (phase 9(b)'s), the vlm's 256
+    seeded patch embeddings, whisper's seeded 3000-frame mels."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+
+    batch = synthetic_batch(DataConfig(seed=SEED, vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH), 0, device="cuda")
+    if cfg.frontend == "vit":
+        batch["frontend_embeds"] = torch.randn(
+            (TRAIN_BATCH, cfg.frontend_tokens, cfg.frontend_dim), generator=gen, device="cuda")
+    if cfg.family == "audio":
+        batch["frontend_embeds"] = torch.randn(
+            (TRAIN_BATCH, cfg.n_mels, 2 * cfg.frontend_tokens), generator=gen, device="cuda")
+    return batch
+
+
+def fam_grads(grads) -> tuple:
+    """One device's float gradient leaves by path but ``embed``'s, and
+    ``embed``'s nonzero rows: ``(grads, rows, their gradients)``."""
+    from repro_torch.tree import flatten_with_path
+
+    out, rows, vals = {}, None, None
+    for path, g in flatten_with_path(grads):
+        if not g.is_floating_point():
+            continue
+        name = "/".join(path)
+        if name == "embed":
+            rows = g.abs().amax(-1).nonzero().flatten()
+            vals = g[rows]
+        else:
+            out[name] = g
+    return out, rows, vals
+
+
+def fam_ref(cfg, params, batch, dp: int, *, replay=None, update=None) -> dict:
+    """One device's loss and gradients with ``dp`` dispatch groups (the MoE's
+    experts recorded, or replayed from ``replay``), its K1 launches;
+    ``update(loss, grads)``, when given, runs on them before they are cut
+    to what the ranks need, its result under ``"step"``."""
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.train import step as st
+
+    torch.cuda.synchronize()
+    n0, r0 = pm.launches["pasm_matmul"], dict(pm.k1_routes)
+    with RouteSpy(replay=replay) as spy:
+        loss, _, grads = st.loss_and_grads(params, batch, cfg, ShardCtx(dp=dp))
+        torch.cuda.synchronize()
+    step = None if update is None else update(loss, grads)
+    g, rows, vals = fam_grads(grads)
+    out = {"loss": float(loss), "grads": g, "embed_rows": rows, "embed": vals,
+           "k1": pm.launches["pasm_matmul"] - n0, "step": step,
+           "routes": {k: pm.k1_routes[k] - r0[k] for k in r0}}
+    if replay is None and cfg.moe:
+        out["experts"] = spy.calls
+    return out
+
+
+def fam_floor(cfg, params, batch, ref: dict, gen) -> tuple:
+    """The one-ulp floor of the gradients and the loss: one device with the
+    embeddings moved by up to one bf16 ulp (phase 9(e)'s measure; the MoE on
+    the recorded experts), max |Δ| over max |g| of any leaf."""
+    import torch
+
+    emb = params["embed"]
+    params["embed"] = emb * (1 + 2.0 ** -8 * torch.randint(
+        -1, 2, emb.shape, generator=gen, device="cuda", dtype=torch.int8).float())
+    moved = fam_ref(cfg, params, batch, 1, replay=ref.get("experts"))
+    params["embed"] = emb
+    floor = max(rel_err(moved["grads"][k], g) for k, g in ref["grads"].items())
+    return floor, abs(moved["loss"] - ref["loss"]) / abs(ref["loss"])
+
+
+def fam_build(arch: str, n_layers: int, full_layers: int, gen, data: Path, key: str,
+              card: str, dps=(1,)) -> dict:
+    """(a) for one model: weights drawn and quantized on the card, one
+    device's loss and gradients for each DP degree and the one-ulp floor,
+    and the (1, 1) step on NCCL bitwise the unsharded step; the tree and the
+    references saved for the ranks.  Returns its K1 launches by route."""
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.tree import tree_map
+
+    cfg = rec_shard_config(arch, n_layers)
+    params = build_lm(cfg, gen, "17", full_layers)
+    batch = fam_inputs(cfg, gen)
+    ocfg = opt.AdamWConfig()
+
+    def update(loss, grads):  # the unsharded step's update, from these grads
+        new = st._guarded_update(params, opt.init_opt_state(params), loss, grads, ocfg,
+                                 guard=True)
+        if int(new[2]["skipped"]):
+            raise AssertionError(f"{arch}: one device's step skipped (non-finite grads)")
+        return tree_map(lambda t: t.cpu(), new[:2]), loss.cpu()
+
+    r_start = dict(pm.k1_routes)
+    refs = {dp: fam_ref(cfg, params, batch, dp, update=update if dp == 1 else None)
+            for dp in dps}
+    a = refs[1].pop("step")
+    for r in refs.values():
+        r.pop("step", None)
+    floor, loss_floor = fam_floor(cfg, params, batch, refs[1], gen)
+    torch.cuda.empty_cache()
+    mesh = make_conv_mesh((1, 1), device="cuda")
+    placed = sh.place_params(params, mesh)
+    torch.cuda.synchronize()
+    n0 = pm.launches["pasm_matmul"]
+    b = st.make_train_step(cfg, ocfg, ShardCtx.for_mesh(mesh, TRAIN_BATCH))(
+        placed, opt.init_opt_state(placed, mesh=mesh), batch)
+    torch.cuda.synchronize()
+    n = pm.launches["pasm_matmul"] - n0
+    if n != refs[1]["k1"]:
+        raise AssertionError(f"{arch} (1, 1) step: K1 {n}, unsharded {refs[1]['k1']}")
+    k1 = {r: pm.k1_routes[r] - c for r, c in r_start.items()}
+    if not (same_tree(b[:2], a[0]) and torch.equal(b[2]["loss"].cpu(), a[1])):
+        raise AssertionError(f"{arch} (1, 1) step: not bitwise the unsharded step")
+    hold = max(LM_GRAD_TOL, floor)
+    log(f"  (a) {arch}{' (' + str(n_layers) + ' of ' + str(full_layers) + ' layers)' if n_layers else ''}: "
+        f"NCCL world 1, mesh (1, 1): the train step (loss "
+        f"{float(a[1]):.6f}) bitwise the unsharded step (params, optimizer state), K1 {n} "
+        f"a step {refs[1]['routes']}; one device's grads of {len(refs[1]['grads'])} float "
+        f"leaves and embed's {len(refs[1]['embed_rows'])} rows saved"
+        + (f" for dispatch groups {list(dps)}" if len(dps) > 1 else "")
+        + f"; the one-ulp floor {floor:.4f} of max |g| (loss {loss_floor:.1e}), ranks held "
+        f"to {hold:.4f} [{card}]")
+    del a, b, placed
+    torch.cuda.empty_cache()
+    torch.save(params, data / f"{key}.pt")
+    torch.save({"cfg": (arch, n_layers), "batch": batch, "refs": refs, "hold": hold,
+                "loss_hold": max(LM_LOSS_TOL, 2 * loss_floor)}, data / f"{key}_ref.pt")
+    del params, refs
+    torch.cuda.empty_cache()
+    return k1
+
+
+def fam_check_grads(cfg, grads, placed, mesh, ref: dict, hold: float, what: str) -> dict:
+    """Each float gradient leaf of this rank's blocks against its block of
+    one device's, ``embed`` on the batch's rows of its vocab block: the
+    worst |Δ| / max by leaf kind."""
+    import torch
+
+    from repro_torch.models import sharding as sh
+
+    worst, seen = {}, 0
+    specs = sh.placed_specs(placed, mesh)
+    for path, g, spec, owner in sh._walked(grads, specs, mesh):
+        if not g.is_floating_point():
+            continue
+        name = "/".join(path)
+        if owner is None and path[-1] == "w" and name not in ref["grads"]:
+            name = "/".join(path[:-1])  # a dense block place_params wrapped
+        if name == "embed":
+            n = g.shape[0]
+            off = mesh.index("model") * n if n < cfg.vocab else 0
+            rows = ref["embed_rows"]
+            mine = (rows >= off) & (rows < off + n)
+            e = bwd_close(g[rows[mine] - off], ref["embed"][mine], hold,
+                          f"{what} grad embed rows") if bool(mine.any()) else 0.0
+            if int(g.abs().amax(-1).count_nonzero()) > int(mine.sum()):
+                raise AssertionError(f"{what}: embed gradient off the batch's rows")
+            kind = "embed"
+        else:
+            want = sh.local_shard(ref["grads"][name], spec, mesh)
+            e = bwd_close(g, want, hold, f"{what} grad {name}")
+            kind = path[-1] if path[-1] != "w" else path[-2]
+        worst[kind] = max(worst.get(kind, 0.0), e)
+        seen += 1
+    if seen != len(ref["grads"]) + 1:
+        raise AssertionError(f"{what}: {seen} of {len(ref['grads']) + 1} gradient leaves "
+                             "compared")
+    return worst
+
+
+class GradSpy:
+    """Wraps ``train.step._guarded_update`` while active and keeps the loss
+    and the (reduced) gradients of the last step it saw, so a timed train
+    step is also the one whose gradients are checked."""
+
+    def __enter__(self):
+        from repro_torch.train import step as st
+
+        self.mod, self.inner = st, st._guarded_update
+        st._guarded_update = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._guarded_update = self.inner
+
+    def __call__(self, params, opt_state, loss, grads, ocfg, **kw):
+        self.loss, self.grads = loss, grads
+        return self.inner(params, opt_state, loss, grads, ocfg, **kw)
+
+
+def fam_rank_model(rank: int, key: str, shape, data: Path, report: dict) -> None:
+    """One model on one mesh: a train step timed with its peak memory, its
+    loss and gradients against one device's (the MoE on one device's
+    experts for its rows), K1 launches, every distinct block K1 ran against
+    the plain version, collective bytes; at ``data`` > 1 the step again
+    with JAX's ZeRO-1 moments, bitwise the first, and
+    ``compress_grads(mesh=)`` bitwise its block of the gathered
+    compression."""
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.tree import flatten_with_path, tree_leaves
+
+    say = report["lines"].append
+    tree = torch.load(data / f"{key}.pt", map_location="cpu", mmap=True, weights_only=False)
+    ref = torch.load(data / f"{key}_ref.pt", map_location="cuda:0", weights_only=False)
+    arch, n_layers = ref["cfg"]
+    cfg = rec_shard_config(arch, n_layers)
+    batch = ref["batch"]
+    mesh = make_conv_mesh(shape, device="cuda")
+    sctx = ShardCtx.for_mesh(mesh, TRAIN_BATCH)
+    one = ref["refs"][sctx.dp if cfg.moe else 1]
+    placed = sh.place_params(tree, mesh)
+    del tree
+    what = f"rank {rank} {arch} {shape}"
+    part = mesh.index("data") if sctx.batch_split else None
+    step = st.make_train_step(cfg, opt.AdamWConfig(), sctx)
+    nb = lambda s: sum(t.numel() * t.element_size() for t in tree_leaves((s.mu, s.nu)))  # noqa: E731
+
+    def timed(state, spies=()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pm.reset_launches()
+        lmesh.reset_collective_bytes()
+        t0 = time.perf_counter()
+        with RouteSpy(replay=one.get("experts"), part=part) as rs:
+            for s in spies:
+                s.__enter__()
+            try:
+                new = step(placed, state, batch)
+                torch.cuda.synchronize()
+            finally:
+                for s in reversed(spies):
+                    s.__exit__(None, None, None)
+        ms = (time.perf_counter() - t0) * 1e3
+        if int(new[2]["skipped"]) or not np.isfinite(float(new[2]["loss"])):
+            raise AssertionError(f"{what} step: {new[2]}")
+        return new, {"ms": ms, "peak": torch.cuda.max_memory_allocated(),
+                     "k1": pm.launches["pasm_matmul"], "routes": dict(pm.k1_routes),
+                     "bytes": dict(lmesh.collective_bytes), "moments": nb(new[1]),
+                     "replay": rs.calls}
+
+    blocks, grads = BlockSpy(), GradSpy()
+    new, t = timed(opt.init_opt_state(placed), (blocks, grads))
+    k1 = t["k1"]
+    if not k1 or t["routes"]["simt"] or t["routes"]["stream"]:
+        raise AssertionError(f"{what}: K1 {k1} by route {t['routes']}")
+    lerr = abs(float(grads.loss) - one["loss"]) / abs(one["loss"])
+    if lerr > ref["loss_hold"]:
+        raise AssertionError(f"{what}: loss {float(grads.loss)} vs one device {one['loss']}")
+    worst = fam_check_grads(cfg, grads.grads, placed, mesh, one, ref["hold"], what)
+    flips = ""
+    if cfg.moe:
+        n_f = int(sum(int(f) for f, _ in t["replay"]))
+        gap = max(float(g.detach()) for _, g in t["replay"])
+        if gap > MOE_TIE:
+            raise AssertionError(f"{what}: a replayed expert {gap:.3e} below the k-th")
+        flips = (f"; one device's experts replayed: its own top-k differs at {n_f} "
+                 f"token-layers, each within {gap:.2e} of the k-th probability")
+    zero = {}
+    if mesh.size("data") > 1:  # compressed gradients: every leaf's global max |g|
+        specs = sh.placed_specs(placed, mesh)
+        lmesh.reset_collective_bytes()
+        c = opt.compress_grads(grads.grads, 16, mesh=mesh)
+        want = sh.place_tree(opt.compress_grads(sh.gather_params(grads.grads, mesh, specs),
+                                                16), specs, mesh, like=grads.grads)
+        if not same_tree(c, want):
+            raise AssertionError(f"{what}: compress_grads(mesh=) is not the block of the "
+                                 "compressed gathered gradient")
+        zero["grad_max"] = lmesh.collective_bytes["grad_max"]
+        del c, want
+    del grads
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        bc = check_blocks(blocks, what)
+    report["checks"] += bc["checks"]
+    report["check_launches"] += bc["launches"]
+    report["max_abs_err"] = max(report["max_abs_err"], bc["max_abs_err"])
+    del blocks
+    torch.cuda.empty_cache()
+    if mesh.size("data") > 1:  # JAX's ZeRO-1 moments: the same step, bitwise
+        znew, zt = timed(opt.init_opt_state(placed, mesh=mesh))
+        dims, i = sh.zero_dims(placed, mesh), mesh.index("data")
+        same = same_tree(znew[0], new[0]) and torch.equal(znew[2]["loss"], new[2]["loss"])
+        for (path, m), (_, zm) in zip(flatten_with_path(new[1]), flatten_with_path(znew[1])):
+            d = dims.get(path[1:])
+            if d is not None:
+                n = zm.shape[d]
+                m = m.narrow(d, i * n, n)
+            same = same and torch.equal(m, zm)
+        if not same or zt["k1"] != k1:
+            raise AssertionError(f"{what}: the ZeRO-1 step is not bitwise the step with "
+                                 f"whole moments (K1 {zt['k1']} vs {k1})")
+        zero.update(zt, leaves=len(dims))
+        del znew
+    report["k1"] += k1 + (k1 if zero.get("ms") else 0)
+    report["routes"]["mma"] += k1 + (k1 if zero.get("ms") else 0)
+    say(f"{what} batch {TRAIN_BATCH} x {TRAIN_SEQ}: loss {lerr:.1e} of one device's; grads "
+        f"|Δ|/max by kind {', '.join(f'{k} {v:.2e}' for k, v in sorted(worst.items()))} "
+        f"(<= {ref['hold']:.4f}){flips}; K1 {k1} a step, all mma; {bc['checks']} distinct "
+        f"blocks vs the plain version: max |Δ| {bc['max_abs_err']:.3e}, |Δ|/(|x|@|W|) "
+        f"{bc['t']:.2e}; the step {t['ms']:.1f} ms wall, peak {t['peak'] / 1e9:.2f} GB, "
+        f"moments {t['moments']} B a rank (the params' layout), collective bytes "
+        f"{t['bytes']}"
+        + (f"; ZeRO-1 ({zero['leaves']} moments cut over data): bitwise, {zero['ms']:.1f} ms "
+           f"wall, peak {zero['peak'] / 1e9:.2f} GB, moments {zero['moments']} B a rank, "
+           f"zero_gather {zero['bytes']['zero_gather']} B; compress_grads(mesh=) bitwise the "
+           f"block of the gathered compression (grad_max {zero['grad_max']} B)"
+           if zero else ""))
+    del new, step, placed
+    torch.cuda.empty_cache()
+
+
+def fam_resume(rank: int, key: str, data: Path, report: dict) -> None:
+    """At (2, 1), whisper-tiny with ZeRO-1 moments: 6 steps checkpointed every
+    2, then again with a crash after step 4 restored by the supervisor:
+    losses and final state bitwise the uninterrupted run."""
+    import torch
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch.mesh import make_conv_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.models.common import ShardCtx
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as st
+    from repro_torch.train.loop import run_loop
+
+    tree = torch.load(data / f"{key}.pt", map_location="cpu", mmap=True, weights_only=False)
+    ref = torch.load(data / f"{key}_ref.pt", map_location="cuda:0", weights_only=False)
+    cfg = rec_shard_config(*ref["cfg"])
+    mesh = make_conv_mesh((2, 1), device="cuda")
+    step = st.make_train_step(cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1),
+                              ShardCtx.for_mesh(mesh, TRAIN_BATCH))
+
+    def fresh():
+        p = sh.place_params(tree, mesh)
+        return p, opt.init_opt_state(p, mesh=mesh)
+
+    def batches(s):
+        b = dict(ref["batch"])
+        b["tokens"] = torch.roll(b["tokens"], s, 1)
+        return b
+
+    t0 = time.perf_counter()
+    full = run_loop(step, fresh(), batches, steps=TRAIN_SHARD_STEPS,
+                    mgr=ckpt.CheckpointManager(data / f"{key}_zero_ref", mesh=mesh),
+                    ckpt_every=2)
+    last, losses, state, restarts = supervised_run(step, fresh, batches,
+                                                   data / f"{key}_zero_run", mesh=mesh)
+    same_l = [losses[s] for s in range(TRAIN_SHARD_STEPS)] == \
+        [full.losses[s] for s in range(TRAIN_SHARD_STEPS)]
+    if last != TRAIN_SHARD_STEPS or restarts != 1 or not same_l or \
+            not same_tree(state, full.state) or full.n_skipped or \
+            not isinstance(state[1], opt.ZeroOptState):
+        raise AssertionError(f"rank {rank} {cfg.name} ZeRO crash-resume: last {last}, "
+                             f"restarts {restarts}, losses equal {same_l}, state bitwise "
+                             f"{same_tree(state, full.state)}")
+    report["lines"].append(
+        f"rank {rank} {cfg.name} (2, 1) ZeRO-1 moments: crashed after step "
+        f"{TRAIN_SHARD_CRASH} of {TRAIN_SHARD_STEPS} (checkpoints every 2, the moments "
+        f"gathered from their data blocks, restored onto them): losses and final state "
+        f"bitwise the uninterrupted run ({time.perf_counter() - t0:.1f} s for both runs)")
+
+
+def fam_rank(rank: int, world: int, port: int, data_dir: str, plan: list) -> None:
+    """One rank of phase 17(b)/(c): gloo on the card every rank shares; each
+    ``(key, mesh)`` of ``plan`` (the key ``resume`` runs :func:`fam_resume`);
+    a JSON report (or the traceback) to ``data_dir/rank<r>.json``."""
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.train.step import deterministic
+
+    report = {"lines": [], "k1": 0, "routes": {"stream": 0, "mma": 0, "simt": 0},
+              "checks": 0, "check_launches": 0, "max_abs_err": 0.0, "ok": False}
+    data = Path(data_dir)
+    out = data / f"rank{rank}.json"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=SHARD_COLLECTIVE_TIMEOUT_S))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with deterministic(), torch.enable_grad():
+            for key, shape in plan:
+                n0 = pm.launches["pasm_matmul"]
+                if key == "resume":
+                    fam_resume(rank, "whisper", data, report)
+                    report["k1"] += pm.launches["pasm_matmul"] - n0
+                    report["routes"]["mma"] += pm.launches["pasm_matmul"] - n0
+                else:
+                    fam_rank_model(rank, key, tuple(shape), data, report)
+                torch.cuda.empty_cache()
+        report["ok"] = True
+    except Exception:  # reported by the parent, which fails the run
+        report["error"] = traceback.format_exc()
+        raise
+    finally:
+        out.write_text(json.dumps(report))
+        dist.destroy_process_group()
+
+
+def fam_spawn(plan: list, world: int, data: Path, what: str) -> dict:
+    """The ranks of (b) or (c), spawned on gloo; their totals, every line
+    logged, any failure raised."""
+    import torch.multiprocessing as tmp
+
+    for f in data.glob("rank*.json"):
+        f.unlink()
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(fam_rank, args=(world, free_port(), str(data), plan),
+                              nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + FAM_SHARD_TIMEOUT_S
+    failure = None
+    try:
+        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                failure = f"a rank did not finish within {FAM_SHARD_TIMEOUT_S} s"
+                break
+    except Exception as e:  # a rank raised: its report holds the traceback
+        failure = f"a rank failed: {type(e).__name__}"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    total = {"routes": {"stream": 0, "mma": 0, "simt": 0}, "checks": 0, "launches": 0,
+             "max_abs_err": 0.0}
+    for r in range(world):
+        f = data / f"rank{r}.json"
+        rep = json.loads(f.read_text()) if f.exists() else \
+            {"ok": False, "lines": [], "error": "no report"}
+        for line in rep["lines"]:
+            log("  " + line)
+        if not rep["ok"]:
+            log(f"  rank {r} failed:\n{rep.get('error', '')}")
+            failure = failure or f"rank {r} failed"
+            continue
+        for k, n in rep["routes"].items():
+            total["routes"][k] += n
+        total["checks"] += rep["checks"]
+        total["launches"] += rep["check_launches"]
+        total["max_abs_err"] = max(total["max_abs_err"], rep["max_abs_err"])
+    if failure:
+        raise AssertionError(f"phase 17 {what}: {failure}")
+    log(f"  {what}: all {world} ranks passed in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def family_train_shard_phase(gen, errs: dict, card: str) -> dict:
+    """Phase 17: sharded training of the other families.  (a) NCCL at world
+    size 1, mesh (1, 1): deepseek-moe-16b and internvl2-26b (4 layers each),
+    recurrentgemma-2b (8 of 26 layers), mamba2-130m and whisper-tiny at full
+    depth, one train step each bitwise the unsharded step; one device's loss, gradients and
+    one-ulp floor saved.  (b) two gloo ranks at (1, 2) and (2, 1): each
+    model's loss and every float gradient leaf held to one device's within
+    ``max(LM_GRAD_TOL, the floor)``, K1's blocks held to the plain version,
+    the step timed; at (2, 1) JAX's ZeRO-1 moments bitwise, compressed
+    gradients bitwise the block of the global compression, a ZeRO
+    crash-resume bitwise.  (c) phi3-medium-14b (4 of 40 layers) on four
+    gloo ranks at (1, 4), its 10 KV heads cut by ``model``."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.train.step import deterministic
+
+    t_phase = time.perf_counter()
+    log(f"phase 17: sharded training of the MoE, vlm, SSM, hybrid and encdec families, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} a step, 16 bins int4 on K1, under deterministic "
+        f"algorithms")
+    data = ROOT / "build" / "phase17"
+    shutil.rmtree(data, ignore_errors=True)
+    data.mkdir(parents=True)
+    k1 = {"stream": 0, "mma": 0, "simt": 0}
+    keys = []
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        with deterministic(), torch.enable_grad():
+            for arch, n_layers, full in FAM_SHARD_MODELS:
+                key = arch.split("-")[0]
+                dps = (1, 2) if arch.startswith("deepseek") else (1,)
+                for r, n in fam_build(arch, n_layers, full, gen, data, key, card,
+                                      dps).items():
+                    k1[r] += n
+                keys.append(key)
+            arch, n_layers, full = FAM_SEQ_MODEL
+            for r, n in fam_build(arch, n_layers, full, gen, data, "phi3", card).items():
+                k1[r] += n
+    finally:
+        dist.destroy_process_group()
+    log(f"  (b) 2 ranks on gloo sharing the card (spawned), meshes {list(FAM_SHARD_MESHES)}; "
+        "two ranks on one card time the dispatch and its collectives, not a speedup")
+    plan = [(key, shape) for shape in FAM_SHARD_MESHES for key in keys] + [("resume", None)]
+    tot_b = fam_spawn(plan, 2, data, "(b)")
+    log(f"  (c) {FAM_SEQ_MESH[1]} ranks on gloo sharing the card, mesh {FAM_SEQ_MESH}: "
+        f"{arch}'s 10 KV heads over model {FAM_SEQ_MESH[1]}, q, k and v gathered whole")
+    tot_c = fam_spawn([("phi3", FAM_SEQ_MESH)], FAM_SEQ_MESH[1], data, "(c)")
+    checks = {"checks": 0, "launches": 0}
+    for tot in (tot_b, tot_c):
+        for r, n in tot["routes"].items():
+            k1[r] += n
+        checks["checks"] += tot["checks"]
+        checks["launches"] += tot["launches"]
+        errs["pasm_matmul"] = max(errs.get("pasm_matmul", 0.0), tot["max_abs_err"])
+    shutil.rmtree(data, ignore_errors=True)
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s; K1 launches {k1} (one "
+        f"device's grads, the (1, 1) steps and every rank's), and {checks['launches']} more "
+        f"holding {checks['checks']} rank blocks to the plain version [{card}]")
+    return {"launches": sum(k1.values()), "routes": k1}
+
+
 def main() -> int:
     import torch
 
@@ -4620,7 +5198,10 @@ def main() -> int:
     # 16. TP for the recurrent and encdec families, the sequence-sharded cache ----
     rsh = rec_shard_phase(gen, errs, card)
 
-    # 17. the kernels line -----------------------------------------------------
+    # 17. sharded training of the MoE, vlm, SSM, hybrid and encdec families -------
+    fsh = family_train_shard_phase(gen, errs, card)
+
+    # the kernels line -----------------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
         "pasm_conv": "src/repro/kernels/pasm_matmul.py:464",
@@ -4633,7 +5214,7 @@ def main() -> int:
                 + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"]
                 + ssm["launches"] + hyb["launches"] + wsp["launches"] + sl["pasm_matmul"]
                 + lsh["launches"] + train["families"]["launches"] + trs["launches"]
-                + rsh["launches"],
+                + rsh["launches"] + fsh["launches"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"]
                 + sl["pasm_conv"],
                 "pas_matmul": counts["pas_kernel"]["pas_matmul"] + sl["pas_matmul"],
@@ -4654,7 +5235,8 @@ def main() -> int:
                                                  + train["qat"]["k1"] + wsp["routes"]["simt"]
                                                  + sl["pasm_matmul"]
                                                  + train["families"]["routes"]["simt"]
-                                                 + rsh["routes"]["simt"])
+                                                 + rsh["routes"]["simt"]
+                                                 + fsh["routes"]["simt"])
     routes["pasm_matmul"]["simt"].update(
         {k: tot["pasm_matmul"][k] for k in timed if k != "bound_by"},
         bound_by="operations")
@@ -4663,7 +5245,7 @@ def main() -> int:
             k5_rows["k1"][r], launches=lm["routes"][r] + moe["routes"][r] + vlm["routes"][r]
             + ssm["routes"][r] + hyb["routes"][r] + wsp["routes"][r] + lsh["routes"][r]
             + train["families"]["routes"][r] + trs["routes"][r] + rsh["routes"][r]
-            + (TRAIN_K1 if r == "mma" else 0),
+            + fsh["routes"][r] + (TRAIN_K1 if r == "mma" else 0),
             source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
         dt: dict(k5_rows[dt], launches=launches["flash_attention"] if dt == "bfloat16" else 0,
@@ -4711,7 +5293,8 @@ def main() -> int:
         f"(K1: one qwen3 step {TRAIN_K1} + the "
         f"frozen QAT AlexNet {train['qat']['k1']} + the recurrent and encoder-decoder "
         f"families' grads {train['families']['launches']} + the sharded qwen3 steps of "
-        f"phase 15 {trs['launches']}; K2: {train['qat']['k2']}); "
+        f"phase 15 {trs['launches']} + the sharded family steps of phase 17 "
+        f"{fsh['launches']}; K2: {train['qat']['k2']}); "
         f"max_abs_err is the largest over every forward check [{card}]")
     log(f"train step at full width: kernel {train['kernel']['ms']:.1f} ms, dequant "
         f"{train['dequant']['ms']:.1f} ms; peak memory {train['kernel']['peak_gb']:.2f} / "

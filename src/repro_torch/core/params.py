@@ -35,26 +35,12 @@ __all__ = [
     "tp_linear",
     "held_block",
     "block_matmul",
-    "NOT_PORTED_MESH_TRAIN",
 ]
 
 KINDS = ("dense", "shared", "packed")
 # matmul impl names: plain tensors / dense params take the dense product
 # under every impl — quantized params dispatch on it.
 MATMUL_IMPLS = ("dense", "dequant", "kernel", "pas_kernel")
-
-# the ROADMAP item that owns what the sharded paths still refuse: the CNN
-# stack, the quantized matmul and every LM family's tensor parallelism (the
-# MoE family's expert parallelism, the sequence-sharded KV cache) run under
-# a mesh, and the CNN QAT step and the dense LM family train there; the
-# other families' training, compressed gradients and the ZeRO layout do not
-NOT_PORTED_MESH_TRAIN = (
-    "training the MoE, vlm, SSM, hybrid and encoder-decoder families under an "
-    "active ShardCtx (expert stacks split on a leading dim; the recurrent and "
-    "encdec leaves' gradient reduction), a transformer whose KV heads do not "
-    "divide the model axis, compress_grads under a mesh and the ZeRO "
-    "optimizer-state layout are not ported yet: ROADMAP Queue 1 item 13b"
-)
 
 Weight = Union[torch.Tensor, "PasmParams", _pasm.PASMTensor]
 
@@ -71,6 +57,11 @@ class PasmParams:
                 column with zeros, which :func:`matmul` does).
     ``bias``    ``(…, N)`` or None on every kind — never shared (paper §4).
     ``shape``   the logical ``(K, N)``.
+    ``lead``    under a mesh, the global leading (stack) dims of a leaf
+                whose leading dim this rank holds a block of (an expert
+                stack's E over ``model``,
+                :func:`repro_torch.models.sharding.place_params`); ``None``
+                when the held leading dims are the global ones.
     """
 
     w: Optional[torch.Tensor] = None
@@ -81,6 +72,7 @@ class PasmParams:
     shape: tuple = ()
     bins: Optional[int] = None
     pad_k: int = 0
+    lead: Optional[tuple] = None
 
     # -- constructors -------------------------------------------------------
 
@@ -198,7 +190,8 @@ class PasmParams:
             raise ValueError(f"select() needs stacked params, got lead dims {self._lead}")
         pick = lambda a: None if a is None else a[i]  # noqa: E731
         return dataclasses.replace(self, w=pick(self.w), idx=pick(self.idx),
-                                   codebook=pick(self.codebook), bias=pick(self.bias))
+                                   codebook=pick(self.codebook), bias=pick(self.bias),
+                                   lead=None)
 
     def gemm_tensor(self) -> _pasm.PASMTensor:
         """The dictionary as the physical GEMM operand, shape

@@ -39,6 +39,7 @@ __all__ = [
     "all_reduce",
     "enter_split",
     "sum_over",
+    "max_over",
     "barrier",
     "collective_bytes",
     "reset_collective_bytes",
@@ -194,10 +195,13 @@ def n_shard_axis(mesh: Mesh, n: int) -> Optional[str]:
 # xBC | dt``, a conv's channel block, heads cut by a column block),
 # ``softmax_combine`` the sequence-sharded attention's partials, and
 # ``cache_rows`` a recurrent state that ``cache_pspecs`` keeps whole on
-# the batch, gathered over ``data`` after a rank updated its rows.
+# the batch, gathered over ``data`` after a rank updated its rows.  Two
+# are the optimizer's: ``grad_max`` the MAX all-reduce of a split leaf's
+# ``max |g|`` (``compress_grads(mesh=)``), ``zero_gather`` the updated
+# params gathered over ``data`` from their ZeRO-1 blocks.
 collective_bytes = {"all_gather": 0, "all_reduce": 0, "all_reduce_bwd": 0,
                     "grad_reduce": 0, "relayout": 0, "softmax_combine": 0,
-                    "cache_rows": 0}
+                    "cache_rows": 0, "grad_max": 0, "zero_gather": 0}
 
 
 def reset_collective_bytes() -> None:
@@ -218,9 +222,9 @@ def _gather(t: torch.Tensor, g, dim: int, key: str = "all_gather") -> torch.Tens
     return out
 
 
-def _sum(t: torch.Tensor, g, key: str) -> torch.Tensor:
+def _sum(t: torch.Tensor, g, key: str, op=None) -> torch.Tensor:
     out = t.contiguous().clone()
-    dist.all_reduce(out, group=g)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op, group=g)
     collective_bytes[key] += out.numel() * out.element_size()
     return out
 
@@ -337,6 +341,18 @@ def sum_over(t: torch.Tensor, mesh: Mesh, axes, key: str = "grad_reduce") -> tor
         g = _group(mesh, axis)
         if g is not None:
             t = _sum(t, g, key)
+    return t
+
+
+def max_over(t: torch.Tensor, mesh: Mesh, axes, key: str = "grad_max") -> torch.Tensor:
+    """The elementwise max of ``t`` over each of ``axes`` in turn (not
+    differentiable; exact in any order), counted under ``key``.  Axes of
+    size 1 and absent axes are skipped; with none left ``t`` itself comes
+    back."""
+    for axis in axes:
+        g = _group(mesh, axis)
+        if g is not None:
+            t = _sum(t, g, key, dist.ReduceOp.MAX)
     return t
 
 

@@ -162,6 +162,10 @@ def _branches(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
     br = whole_cols(shard_linear(L.rms_norm(x, p["rec_norm"], cfg.norm_eps), p["rec_in"],
                                  impl, sctx), 2 * W, sctx)
     ch = block_of(W, conv_weight(p).shape[-1], sctx)
+    if ch != slice(0, W):  # the whole output enters this rank's channels
+        from repro_torch.launch.mesh import enter_split
+
+        br = enter_split(br, sctx.mesh, sctx.model)
     return sctx.act_btf(br[..., :W][..., ch]), br[..., W:][..., ch]
 
 

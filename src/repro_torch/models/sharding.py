@@ -50,6 +50,8 @@ __all__ = [
     "place_params",
     "place_tree",
     "placed_specs",
+    "zero_specs",
+    "zero_dims",
     "gather_params",
     "global_like",
     "block_axes",
@@ -368,20 +370,34 @@ def _place_node(node: Any, spec: Any, mesh, wrap: bool, like: Any = None) -> Any
                           for i, (v, s) in enumerate(zip(node, spec)))
     if _is_container(node):
         spec = _node_spec(node, spec, mesh)
-        return dataclasses.replace(node, **{
+        out = dataclasses.replace(node, **{
             f.name: _copy_block(getattr(node, f.name), getattr(spec, f.name), mesh)
             for f in dataclasses.fields(node)
             if isinstance(getattr(node, f.name), torch.Tensor)})
+        if isinstance(node, PasmParams) and node.lead is None:
+            name = _main_field(node)
+            t = getattr(node, name)
+            if t is not None and t.ndim >= 2:
+                out = dataclasses.replace(out, lead=_lead_of(t, getattr(out, name)))
+        return out
     if not isinstance(node, torch.Tensor):
         return node
     block = _copy_block(node, spec, mesh)
     if like is not None:
         wrap = isinstance(like, PasmParams)
-    if wrap and node.ndim >= 2 and tuple(block.shape[-2:]) != tuple(node.shape[-2:]):
+    if wrap and node.ndim >= 2 and tuple(block.shape) != tuple(node.shape):
         # a dense matrix held as a block keeps its logical shape, as a
         # quantized leaf does (params.tp_linear reads the block off it)
-        return PasmParams(w=block, kind="dense", shape=tuple(node.shape[-2:]))
+        return PasmParams(w=block, kind="dense", shape=tuple(node.shape[-2:]),
+                          lead=_lead_of(node, block))
     return block
+
+
+def _lead_of(t: torch.Tensor, block: torch.Tensor):
+    """The global leading dims of ``t`` where ``block`` holds a block of
+    them (an expert stack's E over ``model``), else ``None``."""
+    lead = tuple(t.shape[:-2])
+    return lead if lead != tuple(block.shape[:-2]) else None
 
 
 def place_tree(tree: Any, specs: Any, mesh, *, wrap: bool = True, like: Any = None) -> Any:
@@ -473,18 +489,22 @@ def _global_like(placed: Any) -> Any:
         if not isinstance(node, PasmParams):
             return node
         K, N = node.shape
+
+        def _lead(t):
+            return tuple(t.shape[:-2]) if node.lead is None else tuple(node.lead)
+
         if node.kind == "dense" and node.w is not None and node.w.ndim >= 2 \
-                and tuple(node.w.shape[-2:]) != (K, N):
-            return meta(tuple(node.w.shape[:-2]) + (K, N), node.w.dtype)
+                and (tuple(node.w.shape[-2:]) != (K, N) or node.lead is not None):
+            return meta(_lead(node.w) + (K, N), node.w.dtype)
 
         def field(t, rows):
             if t is None or t.ndim < 2:  # a moment's 0-d placeholder
                 return None if t is None else meta(t.shape, t.dtype)
-            return meta(tuple(t.shape[:-2]) + (rows, N), t.dtype)
+            return meta(_lead(t) + (rows, N), t.dtype)
 
         rows = (K + node.pad_k) // 2 if node.packed else K
         return dataclasses.replace(
-            node, w=field(node.w, K), idx=field(node.idx, rows),
+            node, lead=None, w=field(node.w, K), idx=field(node.idx, rows),
             codebook=None if node.codebook is None else meta(node.codebook.shape,
                                                             node.codebook.dtype),
             bias=None if node.bias is None else meta(node.bias.shape, node.bias.dtype))
@@ -495,18 +515,145 @@ def _global_like(placed: Any) -> Any:
 def placed_specs(placed: Any, mesh) -> Any:
     """The spec tree :func:`place_params` placed a self-describing LM tree
     (params, optimizer state, or both) by, recomputed from the global
-    shapes its leaves record (:func:`param_pspecs`).  A leading dim (an
-    expert stack) split over the mesh records no global size: that raises
-    (ROADMAP Queue 1 item 13b)."""
-    from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
+    shapes its leaves record (:func:`param_pspecs`; a stack whose leading
+    dim is split records it in ``PasmParams.lead``).  An optimizer state
+    in JAX's ZeRO-1 layout (``train/optimizer.py::ZeroOptState``) takes
+    :func:`zero_specs` of the params beside it: the pair ``(params,
+    state)`` or ``{"params": .., "opt_state": ..}`` (a train state, as the
+    loop and the checkpoints hold it)."""
     from repro_torch.launch.mesh import axis_sizes
 
-    like = _global_like(placed)
-    specs = param_pspecs(like, axis_sizes(mesh))
-    for _, leaf, spec, _ in _walked(placed, specs, mesh):
-        if _split_axes(tuple(spec)[:max(leaf.ndim - 2, 0)], mesh):
-            raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
-    return specs
+    pair = _zero_pair(placed)
+    if pair is None:
+        if _has_zero(placed):
+            raise ValueError("a ZeRO optimizer state's specs follow its params: pass "
+                             "the pair (params, state), or specs=")
+        return param_pspecs(_global_like(placed), axis_sizes(mesh))
+    pk, sk = pair
+    keys = placed.keys() if isinstance(placed, dict) else range(len(placed))
+    out = {}
+    for k in keys:
+        if k == sk:
+            z = zero_specs(placed[pk], mesh)
+            out[k] = type(placed[sk])(P(), z, z)
+        else:
+            out[k] = placed_specs(placed[k], mesh)
+    return out if isinstance(placed, dict) else type(placed)(out[k] for k in keys)
+
+
+def _is_zero(node: Any) -> bool:
+    from repro_torch.train.optimizer import ZeroOptState
+
+    return isinstance(node, ZeroOptState)
+
+
+def _has_zero(node: Any) -> bool:
+    if _is_zero(node):
+        return True
+    if isinstance(node, dict):
+        return any(_has_zero(v) for v in node.values())
+    if isinstance(node, (list, tuple)):
+        return any(_has_zero(v) for v in node)
+    return False
+
+
+def _zero_pair(node: Any):
+    """``(params key, state key)`` of a train state whose optimizer state is
+    in the ZeRO layout, else ``None``."""
+    if isinstance(node, dict) and _is_zero(node.get("opt_state")) and "params" in node:
+        return "params", "opt_state"
+    if isinstance(node, (list, tuple)) and not hasattr(node, "_fields") \
+            and len(node) >= 2 and _is_zero(node[1]):
+        return 0, 1
+    return None
+
+
+# the per-layer (per-group) lists the JAX package stacks on a leading axis
+_STACKED = ("layers", "groups", "enc_layers", "dec_layers")
+
+
+def zero_specs(placed: Any, mesh, specs: Any = None) -> Any:
+    """JAX's ZeRO-1 layout of the Adam moments of a placed params tree
+    (:func:`opt_state_pspecs` on the global shapes): each moment's largest
+    dim that the params' spec leaves whole and ``data`` divides is cut over
+    ``data``; a leaf already split over ``data`` (an expert stack's ``Fe``
+    block) keeps its spec, and an integer leaf's 0-d moment is whole.
+
+    The rule runs on JAX's stacked shapes, a per-layer leaf with its list's
+    length in front.  Where it picks that layer axis (a per-layer vector
+    whose one dim ``model`` holds, a small per-layer dictionary), which the
+    port's per-layer leaves do not have, the moment is cut within the
+    leaf instead, on its largest dim whose block ``data`` divides (inside
+    a ``model`` split, ``data`` the inner axis): a rank still holds
+    ``1/data`` of it.  ``specs``: the params' placement (default
+    :func:`placed_specs`)."""
+    from repro_torch.launch.mesh import axis_sizes
+
+    sizes = axis_sizes(mesh)
+    nd = sizes.get(DATA, 1)
+    specs = placed_specs(placed, mesh) if specs is None else specs
+
+    def one(leaf, spec, n_layers):
+        if leaf.ndim == 0:
+            return P()
+        if not n_layers:
+            return opt_state_pspecs(leaf, spec, sizes)
+        stacked = torch.empty((n_layers,) + tuple(leaf.shape), device="meta")
+        z = opt_state_pspecs(stacked, P(None, *spec), sizes)
+        if z[0] is None:
+            return P(*z[1:])
+        dims = list(spec) + [None] * (leaf.ndim - len(spec))
+        held = [d // _size(a, mesh) if a is not None else d for d, a in zip(leaf.shape, dims)]
+        cands = [(h, i) for i, h in enumerate(held) if h % nd == 0 and h >= nd]
+        if not cands:
+            return P(*dims)
+        _, i = max(cands)
+        dims[i] = DATA if dims[i] is None else _axes(dims[i]) + (DATA,)
+        return P(*dims)
+
+    def walk(node, spec, n_layers, in_list):
+        if node is None:
+            return None
+        if isinstance(node, torch.Tensor):
+            return one(node, spec, n_layers)
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k], len(v) if k in _STACKED and isinstance(v, list)
+                            else n_layers, k in _STACKED) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v, s, n_layers, False) for v, s in zip(node, spec)))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, s, n_layers if in_list else 0, False)
+                              for v, s in zip(node, spec))
+        spec = _node_spec(node, spec, mesh)  # a K split place_params left whole
+        return dataclasses.replace(node, **{
+            f.name: walk(getattr(node, f.name), getattr(spec, f.name), n_layers, False)
+            for f in dataclasses.fields(node)
+            if isinstance(getattr(node, f.name), torch.Tensor)})
+
+    like = tree_map(lambda t: t if t.is_floating_point() else
+                    torch.empty((), dtype=torch.float32, device="meta"),
+                    global_like(placed, mesh, specs))
+    return walk(like, specs, 0, False)
+
+
+def zero_dims(placed: Any, mesh, specs: Any = None) -> dict:
+    """``{path: dim}``: for each float leaf of a placed params tree whose
+    ZeRO-1 moment (:func:`zero_specs`) is a block over ``data`` of the
+    leaf's own block, the dim it is cut on (absent when ``data`` has one
+    rank or the moment is the leaf's block whole)."""
+    if mesh.size(DATA) == 1:
+        return {}
+    specs = placed_specs(placed, mesh) if specs is None else specs
+    z = zero_specs(placed, mesh, specs)
+    out = {}
+    for (path, leaf, ps, _), (_, _, zs, _) in zip(_walked(placed, specs, mesh),
+                                                 _walked(placed, z, mesh)):
+        if not leaf.is_floating_point():
+            continue
+        for d, (a, b) in enumerate(zip(tuple(ps) + (None,) * leaf.ndim, zs)):
+            if b is not None and DATA in _axes(b) and (a is None or DATA not in _axes(a)):
+                out[path] = d
+    return out
 
 
 def _walked(placed: Any, specs: Any, mesh) -> list:
@@ -533,10 +680,11 @@ def _map_logical(placed: Any, specs: Any, mesh, fn) -> Any:
         if isinstance(spec, P):  # a wrapped dense block: the plain matrix
             return fn(node.w, spec)
         spec = _node_spec(node, spec, mesh)
-        return dataclasses.replace(node, **{
+        out = dataclasses.replace(node, **{
             f.name: fn(getattr(node, f.name), getattr(spec, f.name))
             for f in dataclasses.fields(node)
             if isinstance(getattr(node, f.name), torch.Tensor)})
+        return dataclasses.replace(out, lead=None) if isinstance(out, PasmParams) else out
 
     return one(placed, specs)
 
@@ -576,16 +724,19 @@ def global_like(placed: Any, mesh, specs: Any = None) -> Any:
     return _map_logical(placed, specs, mesh, grow)
 
 
-# a whole leaf read on rank-distinct work outside a container: the per-head
-# norm scales act on this rank's heads, the heads of the projection beside them
-_READ_ON = ((r"(^|/)q_norm$", "wq"), (r"(^|/)k_norm$", "wk"))
+# a whole leaf read on rank-distinct work outside a container, and the
+# container whose output block it reads: the per-head norm scales act on
+# this rank's heads (only where the heads split: ``_heads_split``), and
+# whisper's MLP bias (``bias1``) is narrowed to ``w1``'s column block
+_READ_ON = ((r"(^|/)q_norm$", "wq"), (r"(^|/)k_norm$", "wk"), (r"(^|/)bias1$", "w1"))
+_PER_HEAD = ("q_norm", "k_norm")
 
 
 def _main_field(node: Any) -> str:
     """A container's weight array: ``w`` of a dense ``PasmParams``, else
     ``idx``, else a dense conv's ``kernel``."""
-    if isinstance(node, PasmParams) and node.kind == "dense":
-        return "w"
+    if isinstance(node, PasmParams):
+        return "w" if node.kind == "dense" else "idx"
     return "idx" if getattr(node, "idx", None) is not None else "kernel"
 
 
@@ -615,32 +766,44 @@ def grad_reduce_axes(placed: Any, mesh, specs: Any = None, *, batch_split: bool 
     so every rank holds the one-device gradient of its block.
 
     - ``data`` for every leaf when the batch rows split there
-      (``batch_split``): each rank's gradient is its rows' part;
+      (``batch_split``): each rank's gradient is its rows' part; but not a
+      leaf held as a block over ``data`` (an expert stack's ``Fe`` block:
+      a rank runs it on every group's tokens, ``nn/moe.py``);
     - a leaf held whole is also summed over the axes where a rank reads
       only part of it or combines it with its own block: the codebooks of
-      a split leaf (``core/qat.py``: a block's bin sums), the whole bias
-      an N block narrows (``params.tp_linear``), a quantized vocab-sharded
-      table's codebook, the per-head ``q_norm``/``k_norm`` on a rank's
-      heads, and what ``reads`` names (``{leaf path: the path of the
-      container whose output blocks read it}``: the CNN's per-layer QAT
-      codebooks);
+      a split leaf (``core/qat.py``: a block's bin sums; an expert stack's
+      over its E and ``Fe`` blocks), the whole bias an N block narrows
+      (``params.tp_linear``; whisper's ``bias1``), a quantized
+      vocab-sharded table's codebook, the per-head ``q_norm``/``k_norm``
+      where a rank holds its own heads (where the KV heads do not divide
+      ``model`` every rank runs every head: ``models/common.py::
+      qkv_heads``), and what ``reads`` names (``{leaf path: the path of
+      the container whose output blocks read it}``: the CNN's per-layer
+      QAT codebooks);
     - a leaf held as a block is never summed over the axes it splits on,
-      and a whole leaf on replicated work (a norm on the residual stream)
-      is the same on every rank already.
+      and a whole leaf on replicated work (a norm on the residual stream,
+      the MoE router, the SSM's ``A_log``/``dt_bias``/``ssm_D``: their
+      rank-distinct consumers take them through ``enter_split``) is the
+      same on every rank already.
     """
     specs = placed_specs(placed, mesh) if specs is None else specs
     walked = _walked(placed, specs, mesh)
-    n_axes = {}  # container (or wrapped block) path -> its output dim's axes
-    for path, _, spec, owner in walked:
+    n_axes, n_cols = {}, {}  # container (or wrapped block) path -> its N's axes, width
+    for path, leaf, spec, owner in walked:
+        key = "/".join(path[:-1])
         if owner is not None:
-            n_axes["/".join(path[:-1])] = _n_axes(*owner, mesh)
+            n_axes[key] = _n_axes(*owner, mesh)
+            n_cols[key] = owner[0].shape[-1] if isinstance(owner[0], PasmParams) else None
         elif path[-1] == "w" and len(spec) >= 2:
-            n_axes["/".join(path[:-1])] = _split_axes(spec[-1:], mesh)
-    base = ("data",) if batch_split and mesh.size("data") > 1 else ()
+            n_axes[key] = _split_axes(spec[-1:], mesh)
+            n_cols[key] = leaf.shape[-1] * _size(n_axes[key], mesh)
     out = {}
     for path, leaf, spec, owner in walked:
+        own = _split_axes(spec, mesh)
+        base = ("data",) if batch_split and mesh.size("data") > 1 and "data" not in own \
+            else ()
         extra = ()
-        if not _split_axes(spec, mesh):
+        if not own:
             name = "/".join(path)
             if owner is not None and path[-1] == "codebook":
                 node, nspec = owner
@@ -651,10 +814,25 @@ def grad_reduce_axes(placed: Any, mesh, specs: Any = None, *, batch_split: bool 
             for pat, proj in _READ_ON:
                 if target is None and re.search(pat, name):
                     target = re.sub(pat, lambda m, proj=proj: m.group(1) + proj, name)
+                    if path[-1] in _PER_HEAD and not _heads_split(
+                            name, leaf, n_axes, n_cols, mesh):
+                        target = ""
             if target is not None:
                 extra = n_axes.get(target, ())
         out[path] = base + tuple(a for a in extra if a not in base)
     return out
+
+
+def _heads_split(name: str, norm: torch.Tensor, n_axes: dict, n_cols: dict, mesh) -> bool:
+    """Whether a rank holds its own heads beside the per-head norm ``name``:
+    the KV projection ``wk`` is an N block and its heads (its width over
+    the norm's ``head_dim``) divide the axes it splits over
+    (``models/common.py::heads_split``)."""
+    wk = re.sub(r"[qk]_norm$", "wk", name)
+    axes, width = n_axes.get(wk, ()), n_cols.get(wk)
+    if not axes or not width:
+        return bool(axes)
+    return (width // norm.shape[-1]) % _size(axes, mesh) == 0
 
 
 _BUCKET_ELEMS = 1 << 20  # a gradient leaf this large is all-reduced alone

@@ -127,21 +127,42 @@ def _p_block(cfg: ArchConfig, sctx: ShardCtx) -> slice:
     return slice(0, P)
 
 
+def _distinct(t, sctx: ShardCtx):
+    """``t``, replicated over ``model``, entering rank-distinct work (a
+    block of its channels, the scan on a P block): its gradient is summed
+    over ``model`` in the backward (``launch/mesh.py::enter_split``)."""
+    if not sctx.active:
+        return t
+    from repro_torch.launch.mesh import enter_split
+
+    return enter_split(t, sctx.mesh, sctx.model)
+
+
 def _mixer_in(xn, p, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
     """``in_proj`` whole: ``(z, this rank's conv channels of xBC, dt)``."""
     _, _, conv_dim, proj_out = _dims(cfg)
     z, xbc_in, dt = _split_proj(
         whole_cols(shard_linear(xn, p["in_proj"], impl, sctx), proj_out, sctx), cfg)
-    return z, xbc_in[..., block_of(conv_dim, conv_weight(p).shape[-1], sctx)], dt
-
+    ch = block_of(conv_dim, conv_weight(p).shape[-1], sctx)
+    if ch != slice(0, conv_dim):
+        xbc_in = _distinct(xbc_in, sctx)
+    return z, xbc_in[..., ch], dt
 
 
 def _ssm_args(xbc_blk, dt, p, cfg: ArchConfig, sctx: ShardCtx) -> tuple:
     """The conv output (this rank's channels, activated) gathered whole →
-    the scan's ``(x, dt, A, B, C, D)``, x on this rank's P block."""
+    the scan's ``(x, dt, A, B, C, D)``, x on this rank's P block (every
+    input then enters rank-distinct work)."""
     xbc = whole_cols(F.silu(xbc_blk), _dims(cfg)[2], sctx)
+    pb = _p_block(cfg, sctx)
+    split = pb != slice(0, cfg.ssm.head_dim)
+    if split:
+        xbc = _distinct(xbc, sctx)
     xs, Bm, Cm, dt, A = _ssm_inputs(xbc, dt, p, cfg)
-    return xs[..., _p_block(cfg, sctx)], dt, A, Bm, Cm, p["ssm_D"].float()
+    D = p["ssm_D"].float()
+    if split:
+        dt, A, D = (_distinct(t, sctx) for t in (dt, A, D))
+    return xs[..., pb], dt, A, Bm, Cm, D
 
 
 def _gated_norm(g, scale, cfg: ArchConfig, sctx: ShardCtx):
@@ -152,7 +173,8 @@ def _gated_norm(g, scale, cfg: ArchConfig, sctx: ShardCtx):
     if cols == slice(0, d_in):
         return L.rms_norm(g, scale, cfg.norm_eps)
     x = g.float()
-    x = (x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + cfg.norm_eps))[..., cols]
+    x = _distinct(x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + cfg.norm_eps),
+                  sctx)[..., cols]
     return (x * (1.0 + scale.float())).to(g.dtype)
 
 

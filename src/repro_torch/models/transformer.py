@@ -249,15 +249,19 @@ def _head_impl(cfg: ArchConfig) -> str:
     return "dense" if cfg.tie_embeddings else _impl(cfg)
 
 
+# the activations' dtype, bf16 as in the JAX package
+_ACT = torch.bfloat16
+
+
 def _prep_inputs(params, cfg: ArchConfig, sctx: ShardCtx, tokens, frontend_embeds):
     """Token embeddings in bf16, prefixed by the projected patch embeddings
     when the config has a vit frontend and they are given.  Returns ``(x,
     n_prefix)``.  ``vproj`` takes the ``dense`` path even when quantized
     (the JAX package's rule): it dequantizes, and launches no kernel."""
-    x = embed_tokens(params["embed"], tokens, sctx).to(torch.bfloat16)
+    x = embed_tokens(params["embed"], tokens, sctx).to(_ACT)
     n_prefix = 0
     if cfg.frontend == "vit" and frontend_embeds is not None:
-        pe = L.linear(frontend_embeds.to(torch.bfloat16), params["vproj"], "dense")
+        pe = L.linear(frontend_embeds.to(_ACT), params["vproj"], "dense")
         x = torch.cat([pe, x], dim=1)
         n_prefix = pe.shape[1]
     return sctx.act_btd(x), n_prefix

@@ -31,6 +31,16 @@ different ``model`` ranks: a partial sum in f32 a rank, all-reduced over
 ``model``.  The shared experts are column/row-parallel over ``model``;
 the router is replicated.  A reduction over an axis of size 1 is not
 taken, so mesh (1, 1) computes the one-device function bitwise.
+
+The backward follows the collectives' pairing (``launch/mesh.py``): where
+a tensor replicated over an axis enters rank-distinct work it passes
+``enter_split``, so its gradient is summed over that axis.  Over
+``model``, with the experts split there, that is the tokens entering the
+dispatch and the gates entering the partial combine (the router's
+gradient is then whole on every rank; its load-balance term reads the
+probabilities replicated); over ``data``, in the ``Fe``-block regime,
+the summed expert outputs before a rank keeps its own group's rows, and
+above the switch the dense expert weights gathered for a rank's tokens.
 """
 from __future__ import annotations
 
@@ -140,9 +150,12 @@ def _gather_ff(w, mesh):
     dim = -2 if k_split else -1
     if not k_split and pb.shape[1] == p.shape[1]:
         return p
+    from repro_torch.launch.mesh import enter_split
+
     field = "w" if p.kind == "dense" else "idx"
-    return dataclasses.replace(p, **{field: all_gather(getattr(p, field), mesh, DATA,
-                                                       dim=dim)})
+    # a dense stack's gathered weights enter this rank's own tokens
+    return dataclasses.replace(p, **{field: enter_split(
+        all_gather(getattr(p, field), mesh, DATA, dim=dim), mesh, DATA)})
 
 
 def capacity(T: int, cfg: MoEConfig, *, dropless: bool, n_groups: int = 1) -> tuple:
@@ -253,7 +266,9 @@ def _experts_sharded(buf, params, cfg: MoEConfig, act: str, impl: str, mesh, *,
     rows = n_groups * cap  # the unsharded expert GEMMs' rows
     y2 = _ffn(bufT, lambda h, n: _expert_block_matmul(h, ws[n], dt, impl, mesh, rows), act)
     if gather_buf:  # back to this rank's own group
-        y2 = y2.narrow(1, mesh.index(DATA) * C, C)
+        from repro_torch.launch.mesh import enter_split
+
+        y2 = enter_split(y2, mesh, DATA).narrow(1, mesh.index(DATA) * C, C)
     return y2.reshape(E_l, G_l, C, D).transpose(0, 1), e0
 
 
@@ -281,7 +296,7 @@ def moe_ffn(
     is this rank's own group of the ``n_groups``, else every token.  The
     output and aux are this rank's tokens' and the global ones.
     """
-    from repro_torch.launch.mesh import all_reduce
+    from repro_torch.launch.mesh import all_reduce, enter_split
 
     own_group = mesh is not None and bool(group_spec) and group_spec[0] is not None
     T_l, D = x.shape
@@ -292,9 +307,13 @@ def moe_ffn(
     Tl = T_l // G_l
 
     probs, top_w, top_i = route(x, params["router"], k)
-    xg = x.reshape(G_l, Tl, D)
+    xd, gates = x, top_w
+    if mesh is not None and _params.as_params(params["w1"])._lead[0] < E:
+        # this rank's experts: the replicated tokens and gates enter them
+        xd, gates = enter_split(x, mesh, MODEL), enter_split(top_w, mesh, MODEL)
+    xg = xd.reshape(G_l, Tl, D)
     ig = top_i.reshape(G_l, Tl, k)
-    wg = top_w.reshape(G_l, Tl, k)
+    wg = gates.reshape(G_l, Tl, k)
     groups = [_dispatch(xg[g], ig[g], E, cap) for g in range(G_l)]
     buf = torch.stack([b for b, _, _ in groups])  # (G, E, C, D)
 

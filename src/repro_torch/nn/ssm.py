@@ -64,10 +64,13 @@ def ssd_scan(
     cum = torch.cumsum(dA, dim=2)  # within-chunk cumulative log-decay
     seg_end = cum[:, :, -1, :]  # (B,nc,H)
 
-    # intra-chunk: L[t,s] = exp(cum_t − cum_s) for s ≤ t (log space)
+    # intra-chunk: L[t,s] = exp(cum_t − cum_s) for s ≤ t (log space).  The
+    # mask goes inside the exp: above the diagonal cum_t − cum_s > 0 and its
+    # exp can overflow, whose backward (0 · inf) would be NaN; the forward
+    # is the same bits
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,t,s,H)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    Lmat = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    Lmat = torch.exp(torch.where(tri[None, None, :, :, None], diff, -torch.inf))
     cb = einsum_f32("bctgn,bcsgn->bctsg", Cc, Bc)
     cb = torch.repeat_interleave(cb, rep, dim=-1)  # (B,nc,t,s,H)
     w = cb * Lmat * dtc[:, :, None, :, :]  # weight on x_s

@@ -8,10 +8,14 @@ probe) stays a device tensor, so a step needs no host synchronisation.
 
 Trees are those of :mod:`repro_torch.tree`: integer leaves (PASM indices)
 are frozen, their moments 0-d placeholders; decoupled weight decay applies
-to leaves with ``ndim >= 2``.  Under a mesh the trees hold a rank's blocks
-and the moments follow the params' layout: :func:`global_norm` and
-:func:`nonfinite_probe` take the mesh, so the clip scale is the one-device
-one and every rank takes the same skip.  The port's per-layer leaves are unstacked
+to leaves with ``ndim >= 2``.  Under a mesh the trees hold a rank's blocks:
+:func:`global_norm` and :func:`nonfinite_probe` take the mesh, so the clip
+scale is the one-device one and every rank takes the same skip.  The
+moments follow the params' layout, or with ``init_opt_state(mesh=)`` JAX's
+ZeRO-1 layout (:class:`ZeroOptState`, ``models/sharding.py::zero_specs``):
+a rank holds a ``1/data`` block of each moment, updates that block of its
+params and gathers them over ``data``; the update is elementwise, so the
+step is bitwise the one with whole moments.  The port's per-layer leaves are unstacked
 (ROADMAP Queue 3), so a layer's norm scale ``(D,)`` is not decayed where
 the JAX package's stacked ``(L, D)`` one is.
 """
@@ -23,9 +27,9 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
+from repro_torch.tree import flatten_with_path, tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update", "cosine_lr",
+__all__ = ["AdamWConfig", "OptState", "ZeroOptState", "init_opt_state", "adamw_update", "cosine_lr",
            "global_norm", "compress_grads", "nonfinite_probe", "tree_select"]
 
 
@@ -48,16 +52,39 @@ class OptState(NamedTuple):
     nu: Any
 
 
-def _f32_like(tree: Any) -> Any:
-    # integer leaves (PASM idx) get placeholder scalars — never updated
-    return tree_map(lambda x: torch.zeros(x.shape if x.is_floating_point() else (),
-                                          dtype=torch.float32, device=x.device), tree)
+class ZeroOptState(OptState):
+    """An :class:`OptState` whose moments are JAX's ZeRO-1 blocks of a
+    placed params tree (:func:`init_opt_state` with ``mesh=``): the type
+    marks the layout for ``models/sharding.py::placed_specs``."""
+
+    __slots__ = ()
 
 
-def init_opt_state(params: Any) -> OptState:
-    dev = tree_leaves(params)[0].device
-    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                    mu=_f32_like(params), nu=_f32_like(params))
+def _f32_like(params: Any, dims: dict, n: int) -> Any:
+    """f32 zeros shaped as ``params``' leaves, the leaf at each path of
+    ``dims`` cut to ``1/n`` along its dim; integer leaves (PASM idx) get
+    placeholder scalars — never updated."""
+    out = []
+    for path, x in flatten_with_path(params):
+        shape = list(x.shape) if x.is_floating_point() else []
+        if path in dims:
+            shape[dims[path]] //= n
+        out.append(torch.zeros(shape, dtype=torch.float32, device=x.device))
+    return tree_unflatten(params, out)
+
+
+def init_opt_state(params: Any, *, mesh=None) -> OptState:
+    """Zero moments with the params' layout; with ``mesh`` (``params``
+    placed by ``models/sharding.py::place_params``) JAX's ZeRO-1 layout
+    instead: a :class:`ZeroOptState` holding this rank's ``1/data`` block
+    of every moment ``zero_specs`` cuts over ``data``."""
+    step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+    if mesh is None:
+        return OptState(step, _f32_like(params, {}, 1), _f32_like(params, {}, 1))
+    from repro_torch.models.sharding import zero_dims
+
+    dims, n = zero_dims(params, mesh), mesh.size("data")
+    return ZeroOptState(step, _f32_like(params, dims, n), _f32_like(params, dims, n))
 
 
 def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -123,10 +150,25 @@ def tree_select(pred: torch.Tensor, on_true: Any, on_false: Any) -> Any:
     return tree_map(lambda a, b: torch.where(pred, a, b), on_true, on_false)
 
 
+def _aligned(params: Any, tree: Any) -> list:
+    """``tree``'s leaves in ``params``' leaf order, ``None`` where ``tree``
+    holds none (a gradient tree's integer leaves)."""
+    out: list = []
+    tree_map(lambda _, t: out.append(t), params, tree)
+    return out
+
+
 def adamw_update(params: Any, grads: Any, state: OptState,
-                 cfg: AdamWConfig, *, mesh=None, block_axes: Optional[dict] = None) -> tuple:
+                 cfg: AdamWConfig, *, mesh=None, block_axes: Optional[dict] = None,
+                 zero_dims: Optional[dict] = None) -> tuple:
     """One AdamW step.  Returns ``(new_params, new_state, metrics)``.
-    ``mesh``/``block_axes``: the placement :func:`global_norm` reads."""
+    ``mesh``/``block_axes``: the placement :func:`global_norm` reads.
+    ``zero_dims`` (``models/sharding.py::zero_dims``, for a
+    :class:`ZeroOptState` under ``mesh``): the leaf at each path updates
+    this rank's ``1/data`` block along its dim, from the same block of its
+    gradient, and is gathered over ``data`` (``zero_gather``)."""
+    from repro_torch.launch.mesh import all_gather
+
     gnorm = global_norm(grads, mesh=mesh, block_axes=block_axes)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -145,9 +187,21 @@ def adamw_update(params: Any, grads: Any, state: OptState,
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
 
-    out = tree_map(upd, params, grads, state.mu, state.nu)
-    pick = lambda i: tree_map(lambda _, o: o[i], params, out)  # noqa: E731
-    return pick(0), OptState(step, pick(1), pick(2)), {"grad_norm": gnorm, "lr": lr}
+    dims = zero_dims or {}
+    i = mesh.index("data") if dims else 0
+    out = []
+    for (path, p), g, m, v in zip(flatten_with_path(params), _aligned(params, grads),
+                                  _aligned(params, state.mu), _aligned(params, state.nu)):
+        d = dims.get(path) if g is not None else None
+        if d is None:
+            out.append(upd(p, g, m, v))
+            continue
+        n = m.shape[d]
+        p2, m, v = upd(p.narrow(d, i * n, n), g.narrow(d, i * n, n), m, v)
+        with torch.no_grad():
+            out.append((all_gather(p2, mesh, "data", dim=d, key="zero_gather"), m, v))
+    pick = lambda j: tree_unflatten(params, [o[j] for o in out])  # noqa: E731
+    return pick(0), type(state)(step, pick(1), pick(2)), {"grad_norm": gnorm, "lr": lr}
 
 
 # ---------------------------------------------------------------------------
@@ -155,25 +209,48 @@ def adamw_update(params: Any, grads: Any, state: OptState,
 # ---------------------------------------------------------------------------
 
 
-def compress_grads(grads: Any, bins: int = 256, *, mesh=None) -> Any:
+def compress_grads(grads: Any, bins: int = 256, *, mesh=None,
+                   block_axes: Optional[dict] = None) -> Any:
     """Quantize each gradient matrix to a symmetric uniform ``bins``-entry
     dictionary of ``max |g|`` before the data-parallel all-reduce — the
     PASM storage trick on the collective payload.  The error is bounded by
-    half a bin width.  ``mesh=`` raises: the JAX package compresses the
-    global gradient, and a block's ``max |g|`` is another dictionary
-    (ROADMAP Queue 1 item 13b)."""
+    half a bin width.
+
+    ``mesh=``: ``grads`` hold a rank's blocks (of a placed tree's
+    gradient, reduced).  As the JAX package compresses the global
+    gradient, each leaf's ``max |g|`` is the whole leaf's, a MAX
+    all-reduce over the axes its block splits on (``block_axes``, default
+    ``models/sharding.py::block_axes`` of ``grads``; counted under
+    ``grad_max``), so a rank's result is bitwise its block of
+    ``compress_grads(gather_params(grads))``."""
+    from repro_torch.launch.mesh import max_over
+
+    flat = flatten_with_path(grads)
+    amax = {}
+    for path, g in flat:
+        if g.ndim >= 2 and g.is_floating_point():
+            amax[path] = torch.max(torch.abs(g.to(torch.float32)))
     if mesh is not None:
-        from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
+        if block_axes is None:
+            from repro_torch.models.sharding import block_axes as _block_axes
 
-        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
+            block_axes = _block_axes(grads, mesh)
+        groups: dict = {}
+        for path in amax:
+            ax = block_axes.get(path, ())
+            if ax:
+                groups.setdefault(ax, []).append(path)
+        for ax, paths in groups.items():  # one all-reduce a group of axes
+            tot = max_over(torch.stack([amax[p] for p in paths]), mesh, ax)
+            for j, p in enumerate(paths):
+                amax[p] = tot[j]
 
-    def one(g):
-        if g.ndim < 2 or not g.is_floating_point():
+    def one(path, g):
+        if path not in amax:
             return g
-        gf = g.to(torch.float32)
-        amax = torch.max(torch.abs(gf)) + 1e-12
-        scale = (bins / 2 - 1) / amax
-        q = torch.clamp(torch.round(gf * scale), -(bins / 2 - 1), bins / 2 - 1)
+        scale = (bins / 2 - 1) / (amax[path] + 1e-12)
+        q = torch.clamp(torch.round(g.to(torch.float32) * scale), -(bins / 2 - 1),
+                        bins / 2 - 1)
         return (q / scale).to(g.dtype)
 
-    return tree_map(one, grads)
+    return tree_unflatten(grads, [one(p, g) for p, g in flat])

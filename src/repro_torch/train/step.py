@@ -16,16 +16,18 @@ modified.  Integer leaves (PASM indices) get no gradient (``None`` in the
 grads tree).  For bitwise reproducibility run them under
 :func:`deterministic`.
 
-Sharded, SPMD on a ``("data", "model")`` mesh (one process a rank): the
-dense LM family's step under an active ``ShardCtx`` on params placed by
+Sharded, SPMD on a ``("data", "model")`` mesh (one process a rank): every
+LM family's step under an active ``ShardCtx`` on params placed by
 ``models/sharding.py::place_params``, and the CNN QAT step with
 ``mesh=`` on a tree placed by ``cnn._place``.  Every rank passes the global
 batch and computes the global loss; the backward runs through the
 differentiable collectives, and between it and the update each gradient
 leaf is summed over the axes ``grad_reduce_axes`` names, so a rank holds
 the one-device gradient of its blocks.  The clip norm and the non-finite
-guard are taken over the whole mesh.  At mesh ``(1, 1)`` the step is
-bitwise the unsharded one.
+guard are taken over the whole mesh; compressed gradients take each
+leaf's global ``max |g|``; an optimizer state in JAX's ZeRO-1 layout
+(``init_opt_state(mesh=)``) updates a rank's moment blocks.  At mesh
+``(1, 1)`` the step is bitwise the unsharded one.
 """
 from __future__ import annotations
 
@@ -36,7 +38,6 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.params import NOT_PORTED_MESH_TRAIN
 from repro_torch.models import api
 from repro_torch.models.common import ShardCtx
 from repro_torch.train import optimizer as opt
@@ -105,14 +106,8 @@ def _split_scale(batch: dict) -> tuple:
     return {k: v for k, v in batch.items() if k != "loss_scale"}, batch["loss_scale"]
 
 
-def _check_sharded(cfg: ArchConfig, sctx: ShardCtx, batch: dict, microbatches: int):
-    """The dense family trains under an active context; MoE, vlm, the SSM,
-    hybrid and encdec families and KV heads cut by ``model`` (whole heads
-    on every rank: the per-head norms' reduction differs) do not (item
-    13b), and a microbatch's rows must still split over ``data``."""
-    if cfg.moe or cfg.frontend == "vit" or cfg.family in ("ssm", "hybrid", "audio") \
-            or (sctx.tp > 1 and cfg.n_kv_heads % sctx.tp):
-        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
+def _check_sharded(sctx: ShardCtx, batch: dict, microbatches: int):
+    """A microbatch's rows must split over ``data``."""
     rows = batch["tokens"].shape[0] // microbatches
     if sctx.batch_split and rows % sctx.dp:
         raise ValueError(f"a microbatch of {rows} rows does not split over the "
@@ -124,13 +119,12 @@ def loss_and_grads(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx = ShardC
     """``(loss, aux, grads)`` of the LM loss — what :func:`make_train_step`
     hands the optimizer.  ``microbatches > 1`` accumulates gradients over
     sequential slices of the batch (activation-memory relief at a fixed
-    global batch) and averages them.  Under an active ``sctx`` (the dense
-    family; the other families raise, ROADMAP Queue 1 item 13b) ``params`` are a
-    rank's placed blocks, every rank passes the global batch and gets the
+    global batch) and averages them.  Under an active ``sctx``
+    ``params`` are a rank's placed blocks, every rank passes the global batch and gets the
     global loss, and each gradient leaf comes back summed over its
     ``grad_reduce_axes``: the one-device gradient of the rank's block."""
     if sctx.active:
-        _check_sharded(cfg, sctx, batch, microbatches)
+        _check_sharded(sctx, batch, microbatches)
     loss, aux, grads = _accumulate(params, batch, cfg, sctx, microbatches)
     if sctx.active:
         from repro_torch.models import sharding as sh
@@ -161,12 +155,13 @@ def _accumulate(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx,
 
 
 def _guarded_update(params, opt_state, loss, grads, ocfg, *, guard: bool,
-                    mesh=None, block_axes=None):
+                    mesh=None, block_axes=None, zero_dims=None):
     """AdamW + the fused non-finite guard: ONE probe scalar decides between
     the updated tree and the bit-identical old one (under ``mesh``, one
     probe for every rank, and the clip norm over the placement)."""
     new_p, new_s, metrics = opt.adamw_update(params, grads, opt_state, ocfg,
-                                             mesh=mesh, block_axes=block_axes)
+                                             mesh=mesh, block_axes=block_axes,
+                                             zero_dims=zero_dims)
     if not guard:
         return new_p, new_s, dict(metrics, skipped=torch.zeros(
             (), dtype=torch.int32, device=loss.device))
@@ -192,26 +187,29 @@ def make_train_step(
     to the gradients before the optimizer.  ``guard_nonfinite`` (default
     on) folds the fused non-finite guard into the step.  An active ``sctx``
     runs the step SPMD on placed params (:func:`loss_and_grads`), with the
-    clip norm and the guard over the whole mesh; compressed gradients
-    under it raise (ROADMAP Queue 1 item 13b).
+    clip norm, the guard and each compressed leaf's ``max |g|`` over the
+    whole mesh; an ``opt_state`` from ``init_opt_state(params, mesh=)``
+    (JAX's ZeRO-1 moments) updates this rank's moment blocks.
     """
     mesh = sctx.mesh if sctx.active else None
-    if mesh is not None and compress_grads_bins:
-        raise NotImplementedError(NOT_PORTED_MESH_TRAIN)
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = loss_and_grads(params, batch, cfg, sctx,
                                           microbatches=microbatches)
-        if compress_grads_bins:
-            grads = opt.compress_grads(grads, compress_grads_bins)
-        blocks = None
+        blocks = zdims = None
         if mesh is not None:
-            from repro_torch.models.sharding import block_axes
+            from repro_torch.models import sharding as sh
 
-            blocks = block_axes(params, mesh)
+            specs = sh.placed_specs(params, mesh)
+            blocks = sh.block_axes(params, mesh, specs)
+            if isinstance(opt_state, opt.ZeroOptState):
+                zdims = sh.zero_dims(params, mesh, specs)
+        if compress_grads_bins:
+            grads = opt.compress_grads(grads, compress_grads_bins, mesh=mesh,
+                                       block_axes=blocks)
         params, opt_state, metrics = _guarded_update(
             params, opt_state, loss, grads, ocfg, guard=guard_nonfinite,
-            mesh=mesh, block_axes=blocks)
+            mesh=mesh, block_axes=blocks, zero_dims=zdims)
         return params, opt_state, dict(metrics, loss=loss, **aux)
 
     return train_step

@@ -33,6 +33,7 @@ from repro_torch.kernels import pas_histogram as ph
 from repro_torch.kernels import pasm_matmul as pm
 from repro_torch.launch.mesh import make_conv_mesh
 from repro_torch.models import cnn
+from repro_torch.models import sharding as tsh
 from repro_torch.train import optimizer as topt
 from repro_torch.tree import flatten_with_path, tree_leaves
 
@@ -125,14 +126,17 @@ def check_refusals(mesh, case):
             raised[what] = str(e)
         else:
             raise AssertionError(f"{what}: no {err.__name__}")
-    # sharded QAT trains (tests/test_torch_train_sharding.py); compressed
-    # gradients under a mesh do not (ROADMAP Queue 1 item 13b)
-    try:
-        topt.compress_grads({"w": torch.zeros((2, 2))}, 16, mesh=mesh)
-    except NotImplementedError as e:
-        raised["compress_grads"] = str(e)
-    else:
-        raise AssertionError("compress_grads: no NotImplementedError")
+    # sharded QAT trains (tests/test_torch_train_sharding.py), and compressed
+    # gradients under a mesh run: a rank's block of a (data, model)-split
+    # leaf compresses with the whole leaf's max |g|, bitwise its block of
+    # the global compression
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal((4, 6)).astype(np.float32))
+    spec = tsh.P("data", "model")
+    axes = tuple(a for a in ("data", "model") if mesh.size(a) > 1)
+    got = topt.compress_grads({"w": tsh.local_shard(g, spec, mesh).clone()}, 16, mesh=mesh,
+                              block_axes={("w",): axes})["w"]
+    want = tsh.local_shard(topt.compress_grads({"w": g}, 16)["w"], spec, mesh)
+    raised["compress_grads"] = bool(torch.equal(got, want))
     return raised
 
 

@@ -49,13 +49,14 @@ from repro_torch import configs as tconfigs
 from repro_torch import interop
 from repro_torch.core import params as tpar
 from repro_torch.launch.mesh import Mesh, make_conv_mesh
+from repro_torch.models import api as tapi
 from repro_torch.models import common as tcommon
 from repro_torch.models import sharding as tsh
 from repro_torch.models import transformer as TT
 from repro_torch.nn import moe as TM
 from repro_torch.train import optimizer as topt
 from repro_torch.train import step as tstep
-from repro_torch.tree import flatten_with_path
+from repro_torch.tree import flatten_with_path, tree_leaves
 
 ARCHS = ("qwen3-32b", "deepseek-moe-16b", "internvl2-26b")
 MESHES = [(2, 1), (1, 2), (2, 2)]
@@ -473,36 +474,41 @@ def test_active_ctx_and_dense_stack_block():
 
 
 def test_refusals_name_their_roadmap_items():
-    """Every family serves under an active context and a KV-head count the
-    model axis does not divide takes the sequence-sharded cache (no item
-    12b/12c refusal is left); training the SSM, hybrid and encdec families,
-    the MoE family, a transformer whose KV heads the axis cuts, and
-    compressed gradients raise, naming item 13b: nothing runs replicated
-    in silence."""
+    """No refusal is left (items 12b, 12c and 13b are ported): every family
+    serves and trains under an active context, a KV-head count the model
+    axis does not divide takes the sequence-sharded cache, and compressed
+    gradients run under a mesh.  The formerly refused train steps (the SSM,
+    hybrid, encdec and MoE families, a transformer whose KV heads the axis
+    cuts, compressed gradients) run here at mesh (1, 1), bitwise the
+    unsharded steps; the multi-rank checks are
+    ``tests/test_torch_family_train_sharding.py``'s."""
+    from repro_torch.models.common import quantize_params
+
+    assert not [n for n in dir(tpar) if n.startswith("NOT_PORTED")]
+    mesh = make_conv_mesh((1, 1), device="cpu")
+    sctx = tcommon.ShardCtx.for_mesh(mesh, 2)
+    toks = torch.arange(10).reshape(2, 5) % 7
+    batch = {"tokens": toks[:, :4], "labels": toks[:, 1:]}
+    cfg = tconfigs.get_config("qwen3-32b", smoke=True)
+    odd = dataclasses.replace(cfg, n_kv_heads=1, n_heads=4)  # KV 1 over model 2
+    archs = [tconfigs.get_config(a, smoke=True) for a in
+             ("mamba2-130m", "recurrentgemma-2b", "whisper-tiny", "deepseek-moe-16b")]
+    for c in archs + [odd]:
+        c = c.with_quant(enabled=True, min_weight_elems=1024)
+        params = quantize_params(tapi.get_model(c).init_params(
+            c, torch.Generator().manual_seed(0)), c, iters=2)
+        ocfg = topt.AdamWConfig(lr=1e-2, warmup_steps=1)
+        with tstep.deterministic():
+            a = tstep.make_train_step(c, ocfg, compress_grads_bins=16)(
+                params, topt.init_opt_state(params), batch)
+            placed = tsh.place_params(params, mesh)
+            b = tstep.make_train_step(c, ocfg, sctx, compress_grads_bins=16)(
+                placed, topt.init_opt_state(placed, mesh=mesh), batch)
+        la, lb = tree_leaves(a[:2]), tree_leaves(b[:2])
+        assert len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb)), c.name
+        assert torch.equal(a[2]["loss"], b[2]["loss"]), c.name
     mesh = _cpu_mesh((1, 2), (0, 0))
     sctx = tcommon.ShardCtx.for_mesh(mesh, 2)
-    toks = torch.zeros((2, 3), dtype=torch.long)
-    assert not [n for n in dir(tpar) if n.startswith("NOT_PORTED_MESH_") and
-                n != "NOT_PORTED_MESH_TRAIN"]
-    assert "SSM, hybrid and encoder-decoder" in tpar.NOT_PORTED_MESH_TRAIN
-    for arch in ("mamba2-130m", "recurrentgemma-2b", "whisper-tiny"):
-        cfg = tconfigs.get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, cfg, sctx)
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            tstep.make_train_step(cfg, topt.AdamWConfig(), sctx)({}, None, {
-                "tokens": toks, "labels": toks})
-    # the dense family trains under the context (tests/test_torch_train_sharding.py);
-    # the MoE family and compressed gradients do not
-    cfg = tconfigs.get_config("qwen3-32b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tstep.make_train_step(cfg, topt.AdamWConfig(), sctx, compress_grads_bins=16)
-    moe = tconfigs.get_config("deepseek-moe-16b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, moe, sctx)
-    odd = dataclasses.replace(cfg, n_kv_heads=1, n_heads=4)  # KV 1 over model 2
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tstep.loss_and_grads({}, {"tokens": toks, "labels": toks}, odd, sctx)
     # its cache is placed with the positions over model, not refused
     placed = tsh.place_caches(odd, TT.init_caches(odd, 2, 8, device="cpu"), mesh, sctx.batch)
     assert {c.seq_shards for c in placed["scan"]} == {2}

@@ -78,6 +78,32 @@ def test_ssd_scan_matches_jax(T, chunk, G, init):
     assert yb.dtype == torch.bfloat16
 
 
+def test_ssd_scan_gradient_finite_where_a_chunk_decays_fast():
+    """A chunk whose cumulative decay passes exp's f32 range (dt·A summing
+    below −88): the masked half of ``exp(cum_t − cum_s)`` overflows, and a
+    ``where`` after the exp gave the backward 0 · inf = NaN (the JAX scan
+    does too; the port masks inside the exp, the same forward).  The
+    gradients are finite and the token-by-token decode steps' within f32
+    noise."""
+    x, dt, A, Bm, Cm, D, h0 = map(torch.from_numpy, _ssd_inputs(T=16, G=1))
+    dt = dt * 0 + 8.0  # dt·A ≤ −8 a step: −128 over a chunk of 16
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    y, _ = TSSM.ssd_scan(*leaves, chunk=16)
+    got = torch.autograd.grad((y * torch.cos(y)).sum(), leaves)
+    ref = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    h, ys = torch.zeros_like(h0), []
+    for t in range(16):
+        yt, h = TSSM.ssd_decode_step(ref[0][:, t], ref[1][:, t], ref[2], ref[3][:, t],
+                                     ref[4][:, t], ref[5], h)
+        ys.append(yt)
+    yr = torch.stack(ys, dim=1)
+    want = torch.autograd.grad((yr * torch.cos(yr)).sum(), ref)
+    assert torch.allclose(y, yr, rtol=1e-4, atol=1e-5)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+
+
 @pytest.mark.parametrize("G", [1, 2])
 def test_ssd_decode_step_matches_jax_and_the_scan(G):
     x, dt, A, Bm, Cm, D, h0 = _ssd_inputs(T=6, G=G)

@@ -410,24 +410,53 @@ def test_gather_params_inverts_the_placements(cases):
         [tuple(x.shape) for x in tree_leaves(tree)]
 
 
-def test_sharded_training_refusals_name_item_13b():
-    """MoE and vlm training under an active context, compressed gradients
-    under a mesh, and dictionaries drawn from placed masters all raise."""
-    mesh = _cpu_mesh((1, 2), (0, 0))
+def test_sharded_training_refusals_name_item_13b(cases):
+    """Formerly refused under a mesh (ROADMAP item 13b, now ported): MoE and
+    vlm training under an active context and compressed gradients run, at
+    mesh (1, 1) bitwise the unsharded calls (the multi-rank checks are
+    ``tests/test_torch_family_train_sharding.py``'s), and no refusal names
+    the item; dictionaries drawn from placed masters still raise (they need
+    the global masters)."""
+    from repro_torch.core import params as tpar
+    from repro_torch.models import api as tapi
+    from repro_torch.models.common import quantize_params
+
+    assert not [n for n in dir(tpar) if n.startswith("NOT_PORTED")]
+    mesh = make_conv_mesh((1, 1), device="cpu")
     sctx = ShardCtx.for_mesh(mesh, 2)
-    toks = torch.zeros((2, 3), dtype=torch.long)
+    toks = torch.arange(8).reshape(2, 4) % 7
+    rng = np.random.default_rng(2)
     for arch in ("deepseek-moe-16b", "internvl2-26b"):
-        cfg = worker.get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            st.loss_and_grads({}, {"tokens": toks, "labels": toks}, cfg, sctx)
-    cfg = worker.get_config("qwen3-32b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        st.make_train_step(cfg, opt.AdamWConfig(), sctx, compress_grads_bins=16)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        opt.compress_grads({}, 16, mesh=mesh)
+        cfg = worker.get_config(arch, smoke=True).with_quant(enabled=True,
+                                                             min_weight_elems=1024)
+        params = quantize_params(tapi.get_model(cfg).init_params(
+            cfg, torch.Generator().manual_seed(0)), cfg, iters=2)
+        batch = {"tokens": toks[:, :3], "labels": toks[:, 1:]}
+        if cfg.frontend == "vit":
+            batch["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32))
+        with st.deterministic():
+            a = st.loss_and_grads(params, batch, cfg)
+            b = st.loss_and_grads(tsh.place_params(params, mesh), batch, cfg, sctx)
+        assert torch.equal(a[0], b[0]) and _same(a[2], b[2]), arch
+    cfg = worker.lm_config("dequant")
+    params = interop.lm_params_from_numpy(cases[0]["lm"]["dequant"]["params"], device="cpu")
+    batch = worker.lm_batch(cases[0]["lm"]["dequant"])
+    w = {"w": torch.from_numpy(rng.standard_normal((6, 4)).astype(np.float32)),
+         "b": torch.from_numpy(rng.standard_normal(4).astype(np.float32))}
+    assert _same(opt.compress_grads(w, 16, mesh=mesh), opt.compress_grads(w, 16))
+    with st.deterministic():
+        a = st.make_train_step(cfg, worker.OCFG, compress_grads_bins=16)(
+            params, opt.init_opt_state(params), batch)
+        placed = tsh.place_params(params, mesh)
+        b = st.make_train_step(cfg, worker.OCFG, ShardCtx.for_mesh(mesh, B),
+                               compress_grads_bins=16)(
+            placed, opt.init_opt_state(placed), batch)
+    assert _same(a[:2], b[:2])
     tree = worker.cnn_tree({"kernels": [np.zeros((4, 1, 3, 3), np.float32)],
                             "biases": [np.zeros(4, np.float32)],
                             "head_w": np.zeros((36, 4), np.float32),
                             "head_b": np.zeros(4, np.float32), "codebooks": []})
+    m2 = _cpu_mesh((1, 2), (0, 0))
     with pytest.raises(ValueError, match="global masters"):
-        cnn.qat_codebooks(cnn._place(tree, mesh)["params"], worker.TINY)
+        cnn.qat_codebooks(cnn._place(tree, m2)["params"], worker.TINY)
