@@ -29,7 +29,8 @@ Phases (every one unguarded: any failure exits non-zero):
 5. CUDA-event timings at batch 32 per stage: kernel, plain version, a
    library yardstick (timed only: ``torch.matmul`` on the dequantized weight
    for K1/K3, ``F.conv2d`` with TF32 off for K2/K4) and the bound
-   ``max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)`` of the function (K3's is
+   ``max(flops / 67 TFLOP/s, bytes / 3.35 TB/s)`` of the function
+   (``repro_torch.roofline.bound_ms``, every bound of the script; K3's is
    K1's, K4's is K2's); K3/K4 also print their rate in adds/s (flops / 2:
    one add per (m, k, n)), K1/K2 their plan (tile, split-K count, blocks:
    ``pasm_matmul.simt_plan``);
@@ -254,8 +255,19 @@ Phases (every one unguarded: any failure exits non-zero):
     bitwise the uninterrupted run; (c) phi3-medium-14b (4 of 40 layers) on
     four gloo ranks at (1, 4), its 10 KV heads cut by ``model``, one step
     held the same way;
-18. one ``{"kernels": [...]}`` JSON line;
-19. last line: ``{"ok": true, "device": {...}}``.
+18. the tooling (``tooling_phase``): (a) ``examples/torch/quickstart.py``,
+    ``paper_conv.py`` (the paper's §4 accelerator on the four kernel
+    engines: K1–K4 launch, counted) and ``train_lm.py`` (the ~100M-param
+    LM, ``TOOL_TRAIN_STEPS`` steps, then served on K1) on the card through
+    their own checks; (b) ``launch/dryrun.py`` on phase 7's qwen3-32b (4 of
+    64 layers) at mesh (1, 1), its 4 × 384 prefill and a decode step:
+    its argument bytes within ``TOOL_ARG_TOL`` of the ``memory_allocated``
+    growth as those params, caches and tokens are built on the card (a
+    check), its peak live bytes beside ``max_memory_allocated``; (c) the
+    roofline terms of both steps beside their wall and device ms on
+    ``kernel`` (``time_step``, K1 counted) — printed, not checked;
+19. one ``{"kernels": [...]}`` JSON line;
+20. last line: ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, when CUDA is unavailable or when the
 repository's ``src/`` is not beside it.
@@ -290,7 +302,6 @@ K5_GQA_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # order in f32, then rounded to bf16 after every linear; a one-ulp flip
 # moves through 4 layers and the head: |Δ| <= LM_LOGIT_TOL · max|logit|
 LM_LOGIT_TOL = 0.025
-BF16_TFLOPS = 989.0  # H100 SXM dense bf16 tensor-core peak
 # the K1 M-sweep (phase 8): decode slots up to the Engine's largest bucket
 K1_SWEEP_M = (1, 2, 4, 8, 16, 32, 64, 128, 256, 384, 512)
 L2_FLUSH_BYTES = 128 << 20  # over the H100's 50 MB L2
@@ -302,8 +313,6 @@ LM_NEW = 16
 LM_PROMPTS = (8, 384, 37, 200, 100, 17, 300, 64)
 K5_TIME_S = 4096
 LOGIT_TOL = 1e-3  # served logits vs the einsum engine (five layers + head)
-F32_TFLOPS = 67.0  # H100 SXM f32 (non-tensor-core) peak
-HBM_TBPS = 3.35  # H100 SXM HBM3
 TIME_BATCH = 32
 KERNELS = ("pasm_matmul", "pasm_conv", "pas_matmul", "pas_conv")
 ALL_KERNELS = KERNELS + ("flash_attention",)
@@ -393,6 +402,12 @@ FAM_SHARD_TIMEOUT_S = 600  # the ranks of (b) or (c), every check
 # the rows split over data, the GEMMs planned by cuBLAS for the blocks
 QAT_LOSS_TOL = 1e-5
 QAT_GRAD_TOL = BWD_TOL["float32"]
+# phase 18: the tooling; train_lm's steps on the card, the dry-run cells (phase
+# 7's 4 x 384 prefill, a decode step against its 512-slot cache), and the
+# argument-bytes check: the dry run's bytes against the card's allocation
+TOOL_TRAIN_STEPS = 20
+TOOL_PREFILL = (LM_SLOTS, 384)
+TOOL_ARG_TOL = 0.01
 
 
 def log(*a) -> None:
@@ -714,20 +729,54 @@ def stage_cases(cfg, qparams, batch: int, gen) -> list:
 
 
 def bound(case: Case, explicit: bool) -> tuple:
-    """(ops_ms, bytes_ms, flops) of one stage launch: the flops over the f32
-    peak, and each input byte read once plus the output written once over
-    the memory rate; the bound is the larger of the two."""
+    """(ops_ms, bytes_ms, flops) of one stage launch (``roofline.bound_ms``):
+    the GEMM's flops (``ops.matmul_flops``) over the f32 peak, and the
+    function's plan-free bytes (``hwmodel.conv_hbm_traffic``: the image, or
+    on the explicit route the patch matrix, read once; the weights; the
+    pooled output) over the memory rate; the bound is the larger."""
+    import torch
+
+    from repro_torch import roofline as RL
+    from repro_torch.core import hwmodel as hw
+    from repro_torch.kernels import ops
+
     g = case.geom()
     t = case.params.gemm_tensor(case.conv.layout)
     B = case.img.shape[0]
     N = t.shape[1]
-    flops = 2 * B * g.P_rows * g.conv_k * N
-    w_bytes = t.idx.numel() + t.codebook.numel() * 4 + N * 4
-    x_bytes = (B * g.P_rows * t.shape[0] * 4) if explicit else case.img.numel() * 4
-    nbytes = x_bytes + w_bytes + B * g.P_out * N * 4
-    return (flops / (F32_TFLOPS * 1e12) * 1e3, nbytes / (HBM_TBPS * 1e12) * 1e3,
-            flops)
+    flops = ops.matmul_flops(B * g.P_rows, g.conv_k, N)
+    (plh, phh), (plw, phw) = g.pad
+    ih, iw = case.img.shape[-2:] if case.conv.layout == "NCHW" else case.img.shape[1:3]
+    nbytes = hw.conv_hbm_traffic(
+        IH=ih, IW=iw, C=g.c_in, KY=g.ky, KX=g.kx, M=N, stride=g.stride, batch=B,
+        bins=t.codebook.shape[-1], pad=(plh, phh, plw, phw), act_bytes=4,
+        packed=t.packed, implicit=not explicit, pool=g.pool)
+    if explicit:  # K1/K3 read the patch matrix once; its store is the front end's
+        nbytes -= B * g.P_rows * g.conv_k * 4
+    b = RL.bound_ms(flops, nbytes, torch.float32)
+    return b.ops_ms, b.bytes_ms, flops
 
+
+def k1_bound(t, M: int, act_bytes: int):
+    """K1's bound at ``M`` rows of ``x`` (``roofline.bound_ms``): the
+    GEMM's flops (``ops.matmul_flops``) over the peak of x's type, and the
+    plan-free bytes of ``hwmodel.dense_hbm_traffic`` with K1's store in f32
+    (x, the stored indices and dictionaries, the output; no split-K
+    partials: the least the card could do).  Returns ``(bound, flops,
+    bytes)``."""
+    import torch
+
+    from repro_torch import roofline as RL
+    from repro_torch.core import hwmodel as hw
+    from repro_torch.kernels import ops
+
+    K, N = t.shape
+    nbytes = hw.dense_hbm_traffic(T=M, K=K, N=N, bins=t.codebook.shape[-1],
+                                  groups=t.codebook.shape[0], act_bytes=act_bytes,
+                                  packed=t.packed) + M * N * (4 - act_bytes)
+    flops = ops.matmul_flops(M, K, N)
+    return (RL.bound_ms(flops, nbytes, torch.bfloat16 if act_bytes == 2 else torch.float32),
+            flops, nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -973,12 +1022,18 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
             "routes": runs["kernel"][2]}
 
 
-def k5_bound(B, S, H, KV, hd, nbytes: int, tflops: float) -> tuple:
-    """(ops_ms, bytes_ms) of causal attention: 2·B·H·S²·hd flops (half of
-    QKᵀ and PV each), q, k, v read once and the output written once."""
-    flops = 2 * B * H * S * S * hd
-    moved = B * S * (2 * H + 2 * KV) * hd * nbytes
-    return flops / (tflops * 1e12) * 1e3, moved / (HBM_TBPS * 1e12) * 1e3
+def k5_bound(B, S, H, KV, hd, dtype, causal: bool = True):
+    """Attention's bound (``roofline.bound_ms``): QKᵀ and PV over every
+    (query, key) pair, half of them causal (``ops.matmul_flops``), at the
+    peak of ``dtype``; q, k, v read once and the output written once."""
+    import torch
+
+    from repro_torch import roofline as RL
+    from repro_torch.kernels import ops
+
+    flops = ops.matmul_flops(B * H * S, hd, S) * (1 if causal else 2)
+    moved = B * S * (2 * H + 2 * KV) * hd * torch.empty((), dtype=dtype).element_size()
+    return RL.bound_ms(flops, moved, dtype)
 
 
 def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
@@ -986,6 +1041,7 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch import roofline as RL
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import pasm_matmul as pm
@@ -994,7 +1050,8 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
     B, S, H, KV, hd = 1, K5_TIME_S, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     log(f"phase 8: CUDA-event timings at the LM shapes ({card})")
     rows = {}
-    for dtype, tflops in ((torch.bfloat16, BF16_TFLOPS), (torch.float32, F32_TFLOPS)):
+    hw_ = RL.HW()
+    for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
         v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(dtype)
@@ -1009,16 +1066,14 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
                         what="K5 timing")
         errs["flash_attention"] = max(errs["flash_attention"], e)
         ms, plain_ms, lib_ms = time_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
-        ops_ms, bytes_ms = k5_bound(B, S, H, KV, hd, q.element_size(), tflops)
+        bd = k5_bound(B, S, H, KV, hd, dtype)
         dt = str(dtype).split(".")[-1]
         rows[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=max(ops_ms, bytes_ms),
-                        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                        max_abs_err=e)
+                        bound_ms=bd.ms, bound_by=bd.by, max_abs_err=e)
         log(f"  K5 B{B} S{S} H{H}/{KV} hd{hd} causal {dt:<8}: kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f}, library (SDPA) {lib_ms:.4f}, bound "
-            f"{max(ops_ms, bytes_ms):.4f} by {rows[dt]['bound_by']} ({tflops:.0f} "
-            f"TFLOP/s, {HBM_TBPS} TB/s), {2 * B * H * S * S * hd / ms / 1e9:.1f} "
+            f"{bd.ms:.4f} by {bd.by} ({hw_.flops_rate(dtype) / 1e12:.0f} "
+            f"TFLOP/s, {hw_.hbm_bw / 1e12} TB/s), {2 * B * H * S * S * hd / ms / 1e9:.1f} "
             f"TFLOP/s [{card}]")
         del q, k, v, qg, kg, vg, qh, kh, vh
     lp = params["layers"][0]
@@ -1049,20 +1104,16 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
             (ms, host_us), plain_ms = time_ms_host(k_fn), time_ms(p_fn)
             lib_ms, lib_host_us = time_ms_host(l_fn)
             ms_c, lib_c = time_cold_ms(k_fn), time_cold_ms(l_fn)
-            flops = 2 * M * K * N
-            moved = M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4
-            ops_ms = flops / (BF16_TFLOPS * 1e12) * 1e3
-            bytes_ms = moved / (HBM_TBPS * 1e12) * 1e3
+            bd, flops, moved = k1_bound(t, M, 2)
             for key, val in (("ms", ms), ("ms_cold", ms_c), ("plain_ms", plain_ms),
                              ("library_ms", lib_ms), ("library_ms_cold", lib_c),
-                             ("bound_ms", max(ops_ms, bytes_ms))):
+                             ("bound_ms", bd.ms)):
                 tot[key] += val
             log(f"  K1 M{M:<4} {name:<8} K{K} N{N} bf16 x, route {route}: kernel "
                 f"{ms:.4f} ms (cold {ms_c:.4f}, host {host_us:.1f} µs), plain "
                 f"{plain_ms:.4f}, library (bf16 matmul) {lib_ms:.4f} (cold "
                 f"{lib_c:.4f}, host {lib_host_us:.1f} µs), bound "
-                f"{max(ops_ms, bytes_ms):.4f} by "
-                f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, "
+                f"{bd.ms:.4f} by {bd.by}, "
                 f"{flops / ms / 1e9:.2f} TFLOP/s, {moved / ms_c / 1e6:.1f} GB/s cold, "
                 f"max |Δ| vs plain {e:.2e} (|Δ|/(|x|@|W|) {tm:.2e}) [{card}]")
             del w
@@ -1094,8 +1145,7 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
             e, _ = check_k1_bf16(k_fn(), x, t, what=f"K1 sweep {name} M{M}")
             errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
             ms, old_ms, lib_ms = time_cold_ms(k_fn), time_cold_ms(o_fn), time_cold_ms(l_fn)
-            bound = max(2 * M * K * N / (BF16_TFLOPS * 1e12),
-                        (M * K * 2 + t.idx.numel() + M * N * 4) / (HBM_TBPS * 1e12)) * 1e3
+            bound = k1_bound(t, M, 2)[0].ms
             log(f"    {name:<8} M{M:<4} route {plan.route:<6} (splits {plan.splits}, "
                 f"tile {plan.tile}, {plan.blocks} blocks): kernel {ms:.4f} ms, old "
                 f"route {old_ms:.4f} ({old_ms / ms:.1f}x), bf16 matmul {lib_ms:.4f} "
@@ -2067,9 +2117,7 @@ def moe_phase(gen, errs: dict, card: str) -> dict:
             errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
             ms_c = time_cold_ms(k_fn)
             lib_c = time_cold_ms(lambda: torch.matmul(x, w))
-            bound = max(2 * M * K * N / (BF16_TFLOPS * 1e12),
-                        (M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4)
-                        / (HBM_TBPS * 1e12)) * 1e3
+            bound = k1_bound(t, M, 2)[0].ms
             log(f"    K1 expert {name} K{K} N{N} M{M:<4} route "
                 f"{pm.k1_plan(M, K, N, x.dtype, packed=t.packed, groups=t.codebook.shape[0]).route:<6}"
                 f": {ms_c:.4f} ms cold (bf16 matmul {lib_c:.4f}), bound {bound:.4f}")
@@ -2381,16 +2429,12 @@ def recurrent_phase(arch: str, full_layers: int, gen, errs: dict, card: str) -> 
             errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
             ms, host = time_ms_host(k_fn)
             ms_c, lib, lib_c = time_cold_ms(k_fn), time_ms(l_fn), time_cold_ms(l_fn)
-            ops_ms = 2 * M * K * N / (BF16_TFLOPS * 1e12) * 1e3
-            bytes_ms = (M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4) \
-                / (HBM_TBPS * 1e12) * 1e3
+            bd = k1_bound(t, M, 2)[0]
             route = pm.k1_plan(M, K, N, x.dtype, packed=t.packed,
                                groups=t.codebook.shape[0]).route
             log(f"    K1 {name} K{K} N{N} M{M:<4} route {route:<6}: {ms:.4f} ms warm / "
                 f"{ms_c:.4f} cold (bf16 torch.matmul {lib:.4f} / {lib_c:.4f}), bound "
-                f"{max(ops_ms, bytes_ms):.4f} by "
-                f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, host {host:.1f} µs "
-                f"[{card}]")
+                f"{bd.ms:.4f} by {bd.by}, host {host:.1f} µs [{card}]")
             del x
         del wd
     del params
@@ -2657,15 +2701,12 @@ def whisper_phase(gen, errs: dict, card: str) -> dict:
         ms, host = time_ms_host(k_fn)
         ms_c, lib, lib_c, conv_ms = time_cold_ms(k_fn), time_ms(l_fn), time_cold_ms(l_fn), \
             time_ms(c_fn)
-        ops_ms = 2 * M * K * N / (F32_TFLOPS * 1e12) * 1e3
-        bytes_ms = (M * K * 4 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4) \
-            / (HBM_TBPS * 1e12) * 1e3
+        bd = k1_bound(t, M, 4)[0]
         plan = pm.simt_plan(M, K, N, 1)
         log(f"    K1 {case.name} M{M} K{K} N{N} f32, route simt (tile {plan.tile}x"
             f"{plan.cols}, splits {plan.splits}, {plan.blocks} blocks): {ms:.4f} / "
             f"{ms_c:.4f} ms (torch.matmul {lib:.4f} / {lib_c:.4f}, F.conv2d {conv_ms:.4f}), "
-            f"bound {max(ops_ms, bytes_ms):.4f} by "
-            f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, host {host:.1f} µs, "
+            f"bound {bd.ms:.4f} by {bd.by}, host {host:.1f} µs, "
             f"max |Δ| vs plain {e:.2e}")
         del x, w, img
     lp0, dp0 = params["enc_layers"][0], params["dec_layers"][0]
@@ -2682,15 +2723,12 @@ def whisper_phase(gen, errs: dict, card: str) -> dict:
             errs["pasm_matmul"] = max(errs["pasm_matmul"], e)
             ms, host = time_ms_host(k_fn)
             ms_c, lib, lib_c = time_cold_ms(k_fn), time_ms(l_fn), time_cold_ms(l_fn)
-            ops_ms = 2 * M * K * N / (BF16_TFLOPS * 1e12) * 1e3
-            bytes_ms = (M * K * 2 + t.idx.numel() + t.codebook.numel() * 4 + M * N * 4) \
-                / (HBM_TBPS * 1e12) * 1e3
+            bd = k1_bound(t, M, 2)[0]
             route = pm.k1_plan(M, K, N, x.dtype, packed=t.packed,
                                groups=t.codebook.shape[0]).route
             log(f"    K1 {name:<8} K{K} N{N} M{M:<4} bf16, route {route:<6}: {ms:.4f} / "
                 f"{ms_c:.4f} ms (bf16 torch.matmul {lib:.4f} / {lib_c:.4f}), bound "
-                f"{max(ops_ms, bytes_ms):.4f} by "
-                f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, host {host:.1f} µs")
+                f"{bd.ms:.4f} by {bd.by}, host {host:.1f} µs")
             del x
         del wd
 
@@ -2708,12 +2746,10 @@ def whisper_phase(gen, errs: dict, card: str) -> dict:
     errs["flash_attention"] = max(errs["flash_attention"], e)
     ms, plain_ms, lib_ms = time_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
     flops = 4 * H * S * S * hd  # QKᵀ and PV over every (query, key) pair
-    ops_ms = flops / (BF16_TFLOPS * 1e12) * 1e3
-    bytes_ms = 4 * S * H * hd * 2 / (HBM_TBPS * 1e12) * 1e3
+    bd = k5_bound(1, S, H, H, hd, torch.bfloat16, causal=False)
     log(f"  K5 B1 S{S} H{H}/{H} hd{hd} non-causal bf16: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f}, library (SDPA) {lib_ms:.4f}, bound {max(ops_ms, bytes_ms):.4f} by "
-        f"{'operations' if ops_ms >= bytes_ms else 'bytes'}, {flops / ms / 1e9:.1f} "
-        f"TFLOP/s, max |Δ| vs plain {e:.2e} [{card}]")
+        f"{plain_ms:.4f}, library (SDPA) {lib_ms:.4f}, bound {bd.ms:.4f} by {bd.by}, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, max |Δ| vs plain {e:.2e} [{card}]")
     del params, q, k, v, qg, kg, vg, qh, kh, vh
     torch.cuda.empty_cache()
     if failed:
@@ -4940,6 +4976,156 @@ def family_train_shard_phase(gen, errs: dict, card: str) -> dict:
     return {"launches": sum(k1.values()), "routes": k1}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the tooling (the examples, the dry run, the roofline terms)
+# ---------------------------------------------------------------------------
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """``examples/torch/<name>.py``'s ``main(argv)`` in this process (the
+    kernels are built), its output captured: ``(last line, launches by
+    kernel, K1 launches by route)``.  A failed check raises."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+
+    from repro_torch.kernels import pasm_matmul as pm
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    pm.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0 or not lines:
+        raise AssertionError(f"examples/torch/{name}.py exited {rc}:\n{buf.getvalue()}")
+    return lines[-1], dict(pm.launches), dict(pm.k1_routes)
+
+
+def tooling_phase(gen, card: str) -> dict:
+    """Phase 18: (a) the three examples on the card through their own
+    checks, K1–K4 counted; (b) the dry run of phase 7's qwen3-32b (4 of 64
+    layers) at mesh (1, 1) for its 4 × 384 prefill and one decode step
+    against a 512-slot cache: its argument bytes held within
+    ``TOOL_ARG_TOL`` of the growth of ``memory_allocated`` as those params,
+    caches and tokens are built on the card, its peak live bytes beside
+    ``max_memory_allocated`` of the same call on ``dequant`` (what the dry
+    run counts); (c) the roofline terms of those two steps beside their
+    measured wall and device ms on ``kernel`` (``time_step``; K1 counted)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import pasm_matmul as pm
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import api
+    from repro_torch.models.common import ShardCtx, quantize_params
+
+    t_phase = time.perf_counter()
+    log(f"phase 18: the tooling ({card})")
+    launches = dict.fromkeys(ALL_KERNELS, 0)
+    routes = dict.fromkeys(pm.K1_ROUTES, 0)
+
+    def add(counts, by_route):
+        for k, v in counts.items():
+            launches[k] += v
+        for k, v in by_route.items():
+            routes[k] += v
+
+    # (a) the examples
+    for name, argv in (("quickstart", []), ("paper_conv", []),
+                       ("train_lm", ["--steps", str(TOOL_TRAIN_STEPS)])):
+        t0 = time.perf_counter()
+        last, counts, by_route = run_example(name, ["--device", "cuda"] + argv)
+        add(counts, by_route)
+        log(f"  (a) examples/torch/{name}.py {' '.join(argv)}: {last} ({time.perf_counter() - t0:.1f} s, "
+            f"launches {counts}, K1 by route {by_route})")
+        if name == "paper_conv" and not all(counts[k] for k in KERNELS):
+            raise AssertionError(f"paper_conv: a kernel of K1-K4 never launched: {counts}")
+
+    # (b) the dry run at mesh (1, 1), and the same trees on the card
+    cfg = lm_config()
+    model = api.get_model(cfg)
+    cells = {"prefill": ShapeSpec("prefill_384", TOOL_PREFILL[1], TOOL_PREFILL[0], "prefill"),
+             "decode": ShapeSpec("decode_512", LM_MAX_SEQ, TOOL_PREFILL[0], "decode")}
+    mesh = M.make_conv_mesh((1, 1), device="meta")
+    reports = {}
+    for kind, shape in cells.items():
+        t0 = time.perf_counter()
+        reports[kind] = dryrun.lower_cell(cfg, shape, mesh=mesh, quant="pasm",
+                                          verbose=False)["report"]
+        log(f"  (b) dry run {cfg.name} ({cfg.n_layers} layers) {shape.name} "
+            f"(batch {shape.global_batch}) at mesh 1x1: {time.perf_counter() - t0:.1f} s on "
+            f"the CPU (meta tensors), args {reports[kind].extra['argument_bytes_by_kind']}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = quantize_params(model.init_params(cfg, gen, torch.bfloat16), cfg)
+    torch.cuda.synchronize()
+    B = TOOL_PREFILL[0]
+    step_inputs = {
+        "prefill": lambda: (model.init_caches(cfg, B, TOOL_PREFILL[1], device="cuda"),
+                            torch.randint(0, cfg.vocab, TOOL_PREFILL, generator=gen,
+                                          device="cuda", dtype=torch.int32)),
+        "decode": lambda: (model.init_caches(cfg, B, LM_MAX_SEQ, device="cuda"),
+                           torch.randint(0, cfg.vocab, (B, 1), generator=gen,
+                                         device="cuda", dtype=torch.int32)),
+    }
+    run = {"prefill": model.prefill, "decode": model.decode_step}
+    out = {"reports": {}, "times": {}}
+    for kind, report in reports.items():
+        caches, toks = step_inputs[kind]()
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - base
+        want = report.extra["argument_bytes_per_device"]
+        log(f"  (b) {kind}: dry-run argument bytes {want} vs memory_allocated growth "
+            f"{grown} building them on the card ({(grown - want) / want * 100:+.3f} %, "
+            f"held to {TOOL_ARG_TOL * 100:.0f} %)")
+        if abs(grown - want) > TOOL_ARG_TOL * want:
+            raise AssertionError(f"dry run {kind}: argument bytes {want} off the card's {grown}")
+        dq = cfg.with_quant(impl="dequant")
+        torch.cuda.reset_peak_memory_stats()
+        run[kind](params, toks, caches, dq, ShardCtx())
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"  (b) {kind}: dry-run peak live bytes {report.extra['peak_live_bytes_per_device']} "
+            f"beside max_memory_allocated {peak} of the same call on dequant "
+            f"({peak / report.extra['peak_live_bytes_per_device']:.3f}x)")
+        # (c) the roofline terms beside the step measured on kernel
+        pm.reset_launches()
+        t = time_step(lambda: run[kind](params, toks, caches, cfg, ShardCtx()))
+        add(dict(pm.launches), dict(pm.k1_routes))
+        ideal = report.model_flops / report.n_devices / report.hw.peak_flops
+        dev_ms = t["device_ms"]
+        log(f"  (c) {kind}: terms compute {report.compute_s * 1e3:.4f} ms | memory "
+            f"{report.memory_s * 1e3:.4f} ms | collective {report.collective_s * 1e3:.4f} ms"
+            f" → {report.bottleneck}-bound, roofline step {report.step_time_s * 1e3:.4f} ms,"
+            f" roofline_fraction {report.roofline_fraction:.4f}; measured on kernel: "
+            f"{fmt_step(t)}; model FLOPs at the bf16 peak / device time "
+            f"{ideal * 1e3 / dev_ms if dev_ms else float('nan'):.4f} (K1 launches "
+            f"{pm.launches['pasm_matmul']}) [{card}]")
+        out["reports"][kind] = report
+        out["times"][kind] = t
+        del caches, toks
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"], out["routes"] = launches, routes
+    out["s"] = time.perf_counter() - t_phase
+    log(f"  phase 18 took {out['s']:.1f} s; launches {launches}, K1 by route {routes}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5201,6 +5387,10 @@ def main() -> int:
     # 17. sharded training of the MoE, vlm, SSM, hybrid and encdec families -------
     fsh = family_train_shard_phase(gen, errs, card)
 
+    # 18. the tooling: the examples, the dry run, the roofline terms ------------
+    tool = tooling_phase(gen, card)
+    tl = tool["launches"]
+
     # the kernels line -----------------------------------------------------------
     replaces = {
         "pasm_matmul": "src/repro/kernels/pasm_matmul.py:308",
@@ -5214,11 +5404,13 @@ def main() -> int:
                 + TRAIN_K1 + train["qat"]["k1"] + moe["launches"] + vlm["launches"]
                 + ssm["launches"] + hyb["launches"] + wsp["launches"] + sl["pasm_matmul"]
                 + lsh["launches"] + train["families"]["launches"] + trs["launches"]
-                + rsh["launches"] + fsh["launches"],
+                + rsh["launches"] + fsh["launches"] + tl["pasm_matmul"],
                 "pasm_conv": counts["kernel_implicit"]["pasm_conv"] + train["qat"]["k2"]
-                + sl["pasm_conv"],
-                "pas_matmul": counts["pas_kernel"]["pas_matmul"] + sl["pas_matmul"],
-                "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"] + sl["pas_conv"],
+                + sl["pasm_conv"] + tl["pasm_conv"],
+                "pas_matmul": counts["pas_kernel"]["pas_matmul"] + sl["pas_matmul"]
+                + tl["pas_matmul"],
+                "pas_conv": counts["pas_kernel_implicit stages"]["pas_conv"] + sl["pas_conv"]
+                + tl["pas_conv"],
                 "flash_attention": lm["k5"] + moe["k5"] + vlm["k5"] + hyb["k5"] + wsp["k5"]}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
@@ -5236,7 +5428,8 @@ def main() -> int:
                                                  + sl["pasm_matmul"]
                                                  + train["families"]["routes"]["simt"]
                                                  + rsh["routes"]["simt"]
-                                                 + fsh["routes"]["simt"])
+                                                 + fsh["routes"]["simt"]
+                                                 + tool["routes"]["simt"])
     routes["pasm_matmul"]["simt"].update(
         {k: tot["pasm_matmul"][k] for k in timed if k != "bound_by"},
         bound_by="operations")
@@ -5245,7 +5438,7 @@ def main() -> int:
             k5_rows["k1"][r], launches=lm["routes"][r] + moe["routes"][r] + vlm["routes"][r]
             + ssm["routes"][r] + hyb["routes"][r] + wsp["routes"][r] + lsh["routes"][r]
             + train["families"]["routes"][r] + trs["routes"][r] + rsh["routes"][r]
-            + fsh["routes"][r] + (TRAIN_K1 if r == "mma" else 0),
+            + fsh["routes"][r] + tool["routes"][r] + (TRAIN_K1 if r == "mma" else 0),
             source=csrc + "pasm_matmul_bf16.cu")
     routes["flash_attention"] = {
         dt: dict(k5_rows[dt], launches=launches["flash_attention"] if dt == "bfloat16" else 0,
@@ -5294,7 +5487,8 @@ def main() -> int:
         f"frozen QAT AlexNet {train['qat']['k1']} + the recurrent and encoder-decoder "
         f"families' grads {train['families']['launches']} + the sharded qwen3 steps of "
         f"phase 15 {trs['launches']} + the sharded family steps of phase 17 "
-        f"{fsh['launches']}; K2: {train['qat']['k2']}); "
+        f"{fsh['launches']}; K2: {train['qat']['k2']}) and the tooling of phase 18 "
+        f"(the examples and the timed qwen3 steps: {tl}); "
         f"max_abs_err is the largest over every forward check [{card}]")
     log(f"train step at full width: kernel {train['kernel']['ms']:.1f} ms, dequant "
         f"{train['dequant']['ms']:.1f} ms; peak memory {train['kernel']['peak_gb']:.2f} / "

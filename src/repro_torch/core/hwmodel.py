@@ -21,11 +21,17 @@ the reproduction vehicle for those claims (DESIGN.md §2):
    longer offers a good return").
 3. **Cycle/latency model** — §2.2/§4: MAC ≈ N cycles, PASM ≈ N + P·B.
 
-All paper-quoted numbers live in :data:`PAPER_CLAIMS`.  The JAX package's
-HBM traffic terms (``conv_hbm_traffic``, ``dense_hbm_traffic``,
-``dense_weight_stream_bytes``) model its TPU tile plan and VMEM slab
-schedule; they are not ported here (ROADMAP Queue 1 item 11 re-derives them
-for the Hopper dataflow).
+4. **HBM traffic** — the plan-free bytes one conv or linear layer must move
+   (:func:`conv_hbm_traffic`, :func:`dense_hbm_traffic`,
+   :func:`dense_weight_stream_bytes`): each input read once, each output
+   written once.  The dense terms and the explicit-im2col conv term equal
+   the JAX package's.  The implicit conv term follows the port's dataflow:
+   K2/K4 read the unpadded image once and mask the padding, with no VMEM
+   slab schedule, so it has no budget argument.  The tile-plan aware
+   counterparts are ``repro_torch.kernels.ops.pasm_hbm_bytes`` and
+   ``conv_hbm_bytes``.
+
+All paper-quoted numbers live in :data:`PAPER_CLAIMS`.
 """
 from __future__ import annotations
 
@@ -47,6 +53,9 @@ __all__ = [
     "accel_ratio_fpga",
     "conv_latency_cycles",
     "conv_latency_ratio",
+    "conv_hbm_traffic",
+    "dense_hbm_traffic",
+    "dense_weight_stream_bytes",
     "im2col_inflation",
     "fpga_resources",
     "PAPER_CLAIMS",
@@ -308,7 +317,7 @@ def conv_latency_ratio(bins: int, conv: dict = PAPER_CONV) -> float:
 
 
 # ---------------------------------------------------------------------------
-# 4. the im2col activation inflation
+# 4. conv HBM traffic (im2col dataflow: explicit vs implicit)
 # ---------------------------------------------------------------------------
 
 
@@ -319,3 +328,87 @@ def im2col_inflation(KY: int, KX: int, stride: int = 1) -> float:
     AlexNet conv1: 11·11/4² = 7.5625) — the factor implicit-GEMM removes.
     """
     return KY * KX / stride ** 2
+
+
+def conv_hbm_traffic(
+    *, IH: int, IW: int, C: int, KY: int, KX: int, M: int, stride: int = 1,
+    batch: int = 1, bins: int = 16, pad: tuple = (0, 0, 0, 0),
+    act_bytes: int = 4, packed: bool = True, implicit: bool = True,
+    pool: int = 1, dense: bool = False,
+) -> int:
+    """Logical-shape HBM bytes of one conv layer on the PASM GEMM.
+
+    Weights stream as ``log2(B)``-bit indices (int4-``packed`` halves them)
+    plus a ``bins``-entry f32 dictionary on either path, and the f32 output
+    (pooled when ``pool > 1``: the fused conv/ReLU/max-pool stage) is
+    stored once, so the paths differ only in the activation term:
+
+    * ``implicit=False`` (explicit im2col): the ``(B·P, K)`` patch matrix is
+      written by the front-end and read back by K1/K3 — ``2·B·P·K``
+      elements, as in the JAX package;
+    * ``implicit=True``: K2/K4 gather the patches in the kernel from the
+      **unpadded** image, masking the padding, so the image is read once:
+      ``B·C·IH·IW`` elements.  The JAX package's TPU kernels read the padded
+      image in VMEM slabs instead; the two agree where ``pad`` is 0 and the
+      image fits JAX's slab budget.
+
+    ``dense=True`` models the einsum reference: a dense f32 weight stream
+    (``K·M·4`` B, no indices, no dictionary).
+    """
+    plh, phh, plw, phw = pad
+    hp, wp = IH + plh + phh, IW + plw + phw
+    OH = (hp - KY) // stride + 1
+    OW = (wp - KX) // stride + 1
+    K = C * KY * KX
+    OHp, OWp = OH // pool, OW // pool
+    P = OHp * OWp * pool * pool  # GEMM rows; == OH·OW when pool == 1
+    if dense:
+        idx_bytes, cb_bytes = K * M * 4, 0  # dense f32 weights, no dictionary
+    else:
+        idx_bytes = K * M // 2 if packed else K * M
+        cb_bytes = bins * 4
+    out_bytes = batch * OHp * OWp * M * 4  # f32 store (pooled when pool > 1)
+    if implicit:
+        x_bytes = batch * C * IH * IW * act_bytes
+    else:
+        x_bytes = 2 * batch * P * K * act_bytes  # im2col store + kernel stream
+    return x_bytes + idx_bytes + cb_bytes + out_bytes
+
+
+# ---------------------------------------------------------------------------
+# 5. dense-layer HBM traffic (the weight-stream argument beyond conv)
+# ---------------------------------------------------------------------------
+
+
+def dense_weight_stream_bytes(
+    K: int, N: int, *, bins: int = 16, groups: int = 1,
+    packed: bool = True, dense: bool = False, dense_dtype_bytes: int = 2,
+) -> int:
+    """HBM bytes a ``(K, N)`` weight matrix streams per GEMM pass.
+
+    A dense stream costs ``K·N·dense_dtype_bytes``; the PASM stream is
+    ``log2(B)``-bit indices (int4-``packed`` halves uint8) plus the
+    ``(G, B)`` f32 dictionary — the accounting ``PasmParams.nbytes_weights``
+    reports for a stored tree, in closed form.
+    """
+    if dense:
+        return K * N * dense_dtype_bytes
+    return (K * N // 2 if packed else K * N) + groups * bins * 4
+
+
+def dense_hbm_traffic(
+    *, T: int, K: int, N: int, bins: int = 16, groups: int = 1,
+    act_bytes: int = 2, packed: bool = True, dense: bool = False,
+) -> int:
+    """Logical-shape HBM bytes of one dense (linear) layer on the PASM GEMM.
+
+    ``T`` tokens of ``(T, K)`` activations stream in, the weight matrix
+    streams per :func:`dense_weight_stream_bytes`, and the ``(T, N)`` result
+    stores back at ``act_bytes`` — the decode-time regime where the weight
+    stream dominates and weight sharing pays.
+    """
+    w = dense_weight_stream_bytes(
+        K, N, bins=bins, groups=groups, packed=packed, dense=dense,
+        dense_dtype_bytes=2,
+    )
+    return T * K * act_bytes + w + T * N * act_bytes

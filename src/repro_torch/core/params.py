@@ -112,11 +112,17 @@ class PasmParams:
     def quantize(cls, w: torch.Tensor, bins: int = 16, *, groups: int = 1,
                  bias: Optional[torch.Tensor] = None, iters: int = 16):
         """K-means weight-share a dense ``(…, K, N)`` matrix (per leading
-        slice).  Does not pack — call :meth:`pack` for the int4 payload."""
+        slice).  Does not pack — call :meth:`pack` for the int4 payload.
+        A ``meta`` matrix gives ``meta`` indices and dictionaries of the
+        shapes k-means would give, and :meth:`pack` then the packed ones:
+        the shape-only tree of the port's dry run."""
         if w.ndim < 2:
             raise ValueError(f"quantize needs a (…, K, N) matrix, got {tuple(w.shape)}")
         K, N = w.shape[-2:]
         lead = tuple(w.shape[:-2])
+        if w.is_meta:
+            return cls.shared(torch.empty(lead + (K, N), dtype=torch.uint8, device="meta"),
+                              torch.empty(lead + (groups, bins), device="meta"), bias=bias)
         cbs, idxs = zip(*(
             _pasm.kmeans_codebook(m, bins, groups=groups, iters=iters)
             for m in w.reshape(-1, K, N)

@@ -35,8 +35,10 @@ them here:
   :class:`~repro_torch.train.optimizer.OptState`, each moment tree through
   the converter of its params tree.
 
-Arrays keep their dtype (uint8 indices, float32 values) and are placed on
-``device`` (default the card).
+Arrays keep their dtype (uint8 indices, float32 or bfloat16 values; a
+bfloat16 array, ``ml_dtypes.bfloat16`` as JAX hands it to numpy, crosses
+bitwise through an ``int16`` view) and are placed on ``device`` (default
+the card).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ from repro_torch.core.conv import ConvParams
 from repro_torch.core.params import PasmParams
 from repro_torch.core.pasm import PASMTensor
 from repro_torch.train.optimizer import OptState
+from repro_torch.tree import STACKED
 
 __all__ = ["pasm_tensor_from_numpy", "conv_params_from_numpy",
            "cnn_params_from_numpy", "lm_params_from_numpy",
@@ -59,7 +62,10 @@ __all__ = ["pasm_tensor_from_numpy", "conv_params_from_numpy",
 def _t(a: Optional[np.ndarray], dev: torch.device) -> Optional[torch.Tensor]:
     if a is None:
         return None
-    return torch.from_numpy(np.array(a, order="C")).to(dev)  # a writable copy
+    a = np.array(a, order="C")  # a writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carried bitwise
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
 
 
 def pasm_tensor_from_numpy(d: dict, *, device=None) -> PASMTensor:
@@ -124,15 +130,11 @@ def _n_layers(tree) -> int:
     return int(np.shape(tree)[0])
 
 
-# the keys whose leaves carry a leading layer (or group) axis in JAX
-_STACKED = ("layers", "groups", "enc_layers", "dec_layers")
-
-
 def lm_params_from_numpy(tree: dict, *, device=None) -> dict:
     dev = resolve_device(device)
     out = {}
     for k, v in tree.items():
-        if k in _STACKED:
+        if k in STACKED:
             out[k] = [_lm_leaf(v, dev, i) for i in range(_n_layers(v))]
         else:
             out[k] = _lm_leaf(v, dev, None)

@@ -71,18 +71,22 @@ from repro_torch.kernels.flash_attention import flash_attention_kernel_call
 from repro_torch.kernels.pas_histogram import (
     pas_conv_kernel_call,
     pas_matmul_kernel_call,
+    pas_plan,
 )
 from repro_torch.kernels.pasm_matmul import (
     ConvGeom,
+    k1_plan,
     pasm_conv_kernel_call,
     pasm_matmul_kernel_call,
     pool_plan_exists,
+    simt_plan,
 )
 from repro_torch.launch.mesh import all_gather, data_model_sizes, enter_split, n_shard_axis
 from repro_torch.models.sharding import DATA, MODEL, P, local_shard
 
 __all__ = ["pasm_matmul", "pas_matmul", "pasm_conv2d", "pas_conv2d",
-           "flash_attention", "shard_gemm", "ConvGeom", "pool_plan_exists"]
+           "flash_attention", "shard_gemm", "ConvGeom", "pool_plan_exists",
+           "matmul_flops", "pasm_hbm_bytes", "conv_hbm_bytes"]
 
 
 # ---------------------------------------------------------------------------
@@ -525,3 +529,87 @@ def flash_attention(
     o = flash_attention_kernel_call(qg.contiguous(), kg.contiguous(),
                                     vg.contiguous(), causal=causal, sk_orig=Sk)
     return o.reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# roofline bookkeeping: the bytes the kernels move, on the port's plans
+# ---------------------------------------------------------------------------
+
+
+def matmul_flops(M: int, K: int, N: int) -> int:
+    return 2 * M * K * N
+
+
+def _k_rows(t: _pasm.PASMTensor) -> int:
+    """The reduction rows the stored indices hold (the §3 ``pad_k`` row
+    included): what the kernels' x and idx span."""
+    return int(t.idx.shape[0]) * (2 if t.packed else 1)
+
+
+def pasm_hbm_bytes(t: _pasm.PASMTensor, M: int, act_bytes: int = 2) -> int:
+    """Bytes one ``(M, K) @ (K, N)`` call of K1 moves: x, the stored
+    indices, the dictionaries and the f32 output, plus the split-K partials K1 writes and its second pass reads back
+    (``2 · K1Plan.scratch · 4``).  Plan-aware on the port's plan
+    (``pasm_matmul.k1_plan``: ``act_bytes`` 2 is a bf16 x, 4 an f32 one);
+    the kernels mask ragged edges, so no operand is padded.  On a shape
+    with no split it is ``M·K·act_bytes + t.nbytes_weights + M·N·4``."""
+    K, N = _k_rows(t), t.shape[1]
+    plan = k1_plan(M, K, N, torch.bfloat16 if act_bytes == 2 else torch.float32,
+                   packed=t.packed, groups=t.groups)
+    return M * K * act_bytes + t.nbytes_weights + M * N * 4 + 2 * plan.scratch * 4
+
+
+def conv_hbm_bytes(
+    t: _pasm.PASMTensor,
+    geom: ConvGeom,
+    batch: int,
+    ih: int,
+    iw: int,
+    *,
+    implicit: bool,
+    act_bytes: int = 4,
+    shards: tuple = (1, 1),
+    use_pas: bool = False,
+) -> int:
+    """Bytes one conv layer moves on a device, on the port's kernels and
+    plans.
+
+    ``implicit=True`` (K2, or K4 with ``use_pas``): the unpadded image is
+    read once (the padding is masked in the kernel), ``batch·C·ih·iw``
+    elements.  ``implicit=False`` (K1, or K3): the ``(B·P_rows, Kp)`` patch
+    matrix is written by the front-end and read back by the kernel.  Both
+    add the indices the kernel reads (K1/K2 the stored ones, K3/K4 one
+    uint8 a weight), the f32 dictionaries, the f32 store of the pooled map
+    and the split-K partials written and read back, on
+    ``pasm_matmul.simt_plan`` (K2; ``k1_plan`` for K1) or
+    ``pas_histogram.pas_plan`` (K3/K4).
+
+    ``shards = (n_data, n_model)``: the bytes of one device on the sharded
+    path — the batch over ``data`` (a remainder rounded up), N over
+    ``model`` when it divides (else the weights replicate), the
+    dictionaries on every device; the split count follows the whole
+    call's N (``whole=``), as each shard's launch does.
+    """
+    Kp, N = _k_rows(t), t.shape[1]
+    n_data, n_model = shards
+    whole_m = batch * geom.P_rows
+    batch = -(-batch // n_data)
+    n = N // n_model if n_model > 1 and N % n_model == 0 else N
+    M = batch * geom.P_rows
+    if use_pas:
+        idx_bytes = Kp * n
+        plan = pas_plan(M, Kp, n, int(t.codebook.shape[-1]), geom.pool, whole=(whole_m, N))
+    else:
+        idx_bytes = int(t.idx.shape[0]) * n
+        if implicit:
+            plan = simt_plan(M, Kp, n, geom.pool, whole=(whole_m, N))
+        else:
+            plan = k1_plan(M, Kp, n, torch.bfloat16 if act_bytes == 2 else torch.float32,
+                           geom.pool, packed=t.packed, groups=t.groups, whole=(whole_m, N))
+    cb_bytes = int(t.codebook.numel()) * 4
+    out_bytes = batch * geom.P_out * n * 4
+    if implicit:
+        x_bytes = batch * geom.c_in * ih * iw * act_bytes
+    else:
+        x_bytes = 2 * M * Kp * act_bytes  # im2col store + kernel stream
+    return x_bytes + idx_bytes + cb_bytes + out_bytes + 2 * plan.scratch * 4

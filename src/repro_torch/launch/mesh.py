@@ -42,6 +42,7 @@ __all__ = [
     "max_over",
     "barrier",
     "collective_bytes",
+    "collective_ops",
     "reset_collective_bytes",
     "SINGLE_POD",
     "MULTI_POD",
@@ -204,9 +205,24 @@ collective_bytes = {"all_gather": 0, "all_reduce": 0, "all_reduce_bwd": 0,
                     "cache_rows": 0, "grad_max": 0, "zero_gather": 0}
 
 
+# the same results by collective kind ("all-gather" / "all-reduce") and
+# group size: ``[bytes, calls]``, what the roofline's ring weights read
+# (``repro_torch.roofline.collective_stats``)
+collective_ops: dict = {}
+
+
 def reset_collective_bytes() -> None:
     for k in collective_bytes:
         collective_bytes[k] = 0
+    collective_ops.clear()
+
+
+def _count(key: str, kind: str, g, out: torch.Tensor) -> None:
+    n = out.numel() * out.element_size()
+    collective_bytes[key] += n
+    rec = collective_ops.setdefault((kind, dist.get_world_size(g)), [0, 0])
+    rec[0] += n
+    rec[1] += 1
 
 
 def _group(mesh: Mesh, axis: str):
@@ -218,14 +234,14 @@ def _gather(t: torch.Tensor, g, dim: int, key: str = "all_gather") -> torch.Tens
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
     dist.all_gather(parts, t, group=g)
     out = torch.cat(parts, dim=dim)
-    collective_bytes[key] += out.numel() * out.element_size()
+    _count(key, "all-gather", g, out)
     return out
 
 
 def _sum(t: torch.Tensor, g, key: str, op=None) -> torch.Tensor:
     out = t.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op, group=g)
-    collective_bytes[key] += out.numel() * out.element_size()
+    _count(key, "all-reduce", g, out)
     return out
 
 

@@ -79,9 +79,10 @@ def feature_shape(cfg: CNNConfig) -> tuple:
 
 def init_params(cfg: CNNConfig, gen: torch.Generator, *, device=None) -> dict:
     """Dense master weights drawn from ``gen`` (on its own device), placed on
-    ``device`` (default the card): per-layer ConvParams + head matrix."""
+    ``device`` (default the card): per-layer ConvParams + head matrix.
+    ``device="meta"``: the shapes only, no generator needed."""
     dev = resolve_device(device)
-    ini = Initializer(gen)
+    ini = Initializer(gen, device)
     convs = []
     for conv, _pool in stages(cfg):
         fan_in = conv.c_in * conv.ky * conv.kx

@@ -50,23 +50,35 @@ __all__ = [
 _CONTAINERS = (_params.PasmParams, _pasm.PASMTensor)
 
 
-def trunc_normal(gen: torch.Generator, shape, std, dtype=torch.float32) -> torch.Tensor:
+def trunc_normal(gen: Optional[torch.Generator], shape, std, dtype=torch.float32, *,
+                 device=None) -> torch.Tensor:
     """Standard normal truncated to ``[-2, 2]``, times ``std``, drawn on the
-    generator's device."""
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    generator's device (or on ``device``: ``"meta"`` draws nothing)."""
+    dev = gen.device if device is None else device
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=dev)
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=gen)
     return (t * std).to(dtype)
 
 
 class Initializer:
-    """Draws every init from one generator, so init code reads linearly."""
+    """Draws every init from one generator, so init code reads linearly.
 
-    def __init__(self, gen: torch.Generator):
-        self.gen = gen
+    ``device="meta"`` builds shapes and dtypes only, with no generator and
+    no draws: the port's ``jax.eval_shape`` of an ``init_params`` (the dry
+    run's trees).  Otherwise everything lands on the generator's device."""
+
+    def __init__(self, gen: Optional[torch.Generator], device=None):
+        meta = device is not None and torch.device(device).type == "meta"
+        self.gen = None if meta else gen
+        self.device = torch.device("meta") if meta else gen.device
 
     def dense(self, shape, fan_in=None, dtype=torch.float32) -> torch.Tensor:
         fan_in = fan_in or shape[0]
-        return trunc_normal(self.gen, shape, fan_in ** -0.5, dtype)
+        return trunc_normal(self.gen, shape, fan_in ** -0.5, dtype, device=self.device)
+
+    def normal(self, shape) -> torch.Tensor:
+        """Standard normal draws of ``shape``, f32."""
+        return torch.randn(tuple(shape), generator=self.gen, device=self.device)
 
 
 def maybe_scan(body: Callable, carry, stacked, use_scan: bool = True):

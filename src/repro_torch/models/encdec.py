@@ -93,7 +93,7 @@ def _init_attn(cfg: ArchConfig, ini: Initializer) -> dict:
 
 
 def _init_mlp(cfg: ArchConfig, ini: Initializer) -> dict:
-    dev = ini.gen.device
+    dev = ini.device
     return {
         "w1": ini.dense((cfg.d_model, cfg.d_ff)),
         "bias1": torch.zeros((cfg.d_ff,), device=dev),
@@ -107,26 +107,28 @@ def _ln(d: int, dev) -> dict:
 
 
 def _init_enc_layer(cfg: ArchConfig, ini: Initializer) -> dict:
-    dev = ini.gen.device
+    dev = ini.device
     return {"ln1": _ln(cfg.d_model, dev), "attn": _init_attn(cfg, ini),
             "ln2": _ln(cfg.d_model, dev), "mlp": _init_mlp(cfg, ini)}
 
 
 def _init_dec_layer(cfg: ArchConfig, ini: Initializer) -> dict:
-    dev = ini.gen.device
+    dev = ini.device
     return {"ln1": _ln(cfg.d_model, dev), "attn": _init_attn(cfg, ini),
             "ln_cross": _ln(cfg.d_model, dev), "cross": _init_attn(cfg, ini),
             "ln2": _ln(cfg.d_model, dev), "mlp": _init_mlp(cfg, ini)}
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> dict:
+def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
+                dtype=torch.float32, *, device=None) -> dict:
     """Seeded random weights on the generator's device (the JAX package's
-    init laws).  Use a CUDA generator for the card."""
-    ini = Initializer(gen)
-    D, dev = cfg.d_model, gen.device
+    init laws).  Use a CUDA generator for the card.  ``device="meta"``: the
+    shapes and dtypes only, no generator needed."""
+    ini = Initializer(gen, device)
+    D, dev = cfg.d_model, ini.device
     params = {
-        "embed": torch.randn((cfg.vocab, D), generator=gen, device=dev) * 0.02,
-        "pos_embed": torch.randn((cfg.max_seq, D), generator=gen, device=dev) * 0.01,
+        "embed": ini.normal((cfg.vocab, D)) * 0.02,
+        "pos_embed": ini.normal((cfg.max_seq, D)) * 0.01,
         # Whisper stem: two kernel-3 time convs, the second at stride 2.
         # The "conv" in the names keeps quantize_params' _EXCLUDE away:
         # weight-sharing the stem is an explicit quantize_frontend() opt-in

@@ -37,6 +37,8 @@ batch (``cache_pspecs``): a rank updates its rows and gathers them over
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -74,12 +76,11 @@ def _init_mlp(cfg: ArchConfig, ini: Initializer) -> dict:
 
 def _init_recurrent(cfg: ArchConfig, ini: Initializer) -> dict:
     D, W = cfg.d_model, _width(cfg)
-    dev = ini.gen.device
+    dev = ini.device
     return {
         "rec_norm": torch.zeros((D,), device=dev),
         "rec_in": ini.dense((D, 2 * W)),  # [lru branch, gate branch]
-        "conv_w": torch.randn((cfg.hybrid.conv_width, W), generator=ini.gen,
-                              device=dev) * 0.1,
+        "conv_w": ini.normal((cfg.hybrid.conv_width, W)) * 0.1,
         "conv_b": torch.zeros((W,), device=dev),
         "w_a": ini.dense((W, W)),
         "b_a": torch.zeros((W,), device=dev),
@@ -94,7 +95,7 @@ def _init_recurrent(cfg: ArchConfig, ini: Initializer) -> dict:
 
 def _init_attention(cfg: ArchConfig, ini: Initializer) -> dict:
     D, hd = cfg.d_model, cfg.hd
-    dev = ini.gen.device
+    dev = ini.device
     return {
         "attn_norm": torch.zeros((D,), device=dev),
         "attn": {
@@ -108,19 +109,21 @@ def _init_attention(cfg: ArchConfig, ini: Initializer) -> dict:
     }
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> dict:
+def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
+                dtype=torch.float32, *, device=None) -> dict:
     """Seeded random weights on the generator's device (the JAX package's
-    init laws)."""
-    ini = Initializer(gen)
+    init laws).  ``device="meta"``: the shapes and dtypes only, no
+    generator needed."""
+    ini = Initializer(gen, device)
     pat, n_groups, tail = _pattern(cfg)
-    dev = gen.device
+    dev = ini.device
 
     def group():
         return {f"l{i}": _init_recurrent(cfg, ini) if kind == "recurrent"
                 else _init_attention(cfg, ini) for i, kind in enumerate(pat)}
 
     params = {
-        "embed": torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev) * 0.02,
+        "embed": ini.normal((cfg.vocab, cfg.d_model)) * 0.02,
         "groups": [group() for _ in range(n_groups)],
         "tail": [_init_recurrent(cfg, ini) for _ in range(tail)],
         "final_norm": torch.zeros((cfg.d_model,), device=dev),
@@ -410,16 +413,18 @@ def _fill_attn(kv, cache: dict, sctx: ShardCtx) -> dict:
     off, win = _ring_block(cache, sctx)
     held, S = cache["k"].shape[1], k.shape[1]
     n = min(S, win)
-    pos = torch.arange(S - n, S, device=k.device)
+    # the slots follow from the shapes alone: worked out on the host, so a
+    # shape-only (meta) prefill needs no data-dependent selection
+    pos = torch.arange(S - n, S)
     slots = pos % win
     ck, cv, spos = cache["k"].clone(), cache["v"].clone(), cache["slot_pos"].clone()
-    spos[:, slots] = pos.to(spos.dtype)
+    spos[:, slots.to(spos.device)] = pos.to(spos.device, spos.dtype)
     k, v = k[:, -n:], v[:, -n:]
     if held != win:  # the positions whose slots this rank holds
-        own = (slots >= off) & (slots < off + held)
-        slots, k, v = slots[own] - off, k[:, own], v[:, own]
-    ck[:, slots] = k.to(ck.dtype)
-    cv[:, slots] = v.to(cv.dtype)
+        own = ((slots >= off) & (slots < off + held)).nonzero()[:, 0]
+        slots, k, v = slots[own] - off, k[:, own.to(k.device)], v[:, own.to(k.device)]
+    ck[:, slots.to(ck.device)] = k.to(ck.dtype)
+    cv[:, slots.to(cv.device)] = v.to(cv.dtype)
     return {"k": ck, "v": cv, "slot_pos": spos}
 
 

@@ -38,6 +38,7 @@ transformer.  Mesh (1, 1) runs the unsharded arithmetic.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -67,12 +68,12 @@ def _dims(cfg: ArchConfig):
 def _init_layer(cfg: ArchConfig, ini: Initializer) -> dict:
     s = cfg.ssm
     D = cfg.d_model
-    dev = ini.gen.device
+    dev = ini.device
     d_in, H, conv_dim, proj_out = _dims(cfg)
     return {
         "attn_norm": torch.zeros((D,), device=dev),
         "in_proj": ini.dense((D, proj_out)),
-        "conv_w": torch.randn((s.d_conv, conv_dim), generator=ini.gen, device=dev) * 0.1,
+        "conv_w": ini.normal((s.d_conv, conv_dim)) * 0.1,
         "conv_b": torch.zeros((conv_dim,), device=dev),
         "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=dev)),
         "ssm_D": torch.ones((H,), device=dev),
@@ -82,13 +83,15 @@ def _init_layer(cfg: ArchConfig, ini: Initializer) -> dict:
     }
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> dict:
+def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
+                dtype=torch.float32, *, device=None) -> dict:
     """Seeded random weights on the generator's device (the JAX package's
-    init laws)."""
-    ini = Initializer(gen)
-    dev = gen.device
+    init laws).  ``device="meta"``: the shapes and dtypes only, no
+    generator needed."""
+    ini = Initializer(gen, device)
+    dev = ini.device
     params = {
-        "embed": torch.randn((cfg.vocab, cfg.d_model), generator=gen, device=dev) * 0.02,
+        "embed": ini.normal((cfg.vocab, cfg.d_model)) * 0.02,
         "layers": [_init_layer(cfg, ini) for _ in range(cfg.n_layers)],
         "final_norm": torch.zeros((cfg.d_model,), device=dev),
         "lm_head": ini.dense((cfg.d_model, cfg.vocab)),

@@ -80,7 +80,7 @@ __all__ = [
 
 def _init_attn(cfg: ArchConfig, ini: Initializer) -> dict:
     D, hd = cfg.d_model, cfg.hd
-    dev = ini.gen.device
+    dev = ini.device
     p = {
         "wq": ini.dense((D, cfg.n_heads * hd)),
         "wk": ini.dense((D, cfg.n_kv_heads * hd)),
@@ -120,7 +120,7 @@ def _init_moe(cfg: ArchConfig, ini: Initializer) -> dict:
 
 def _init_layer(cfg: ArchConfig, ini: Initializer, moe: bool = False) -> dict:
     D = cfg.d_model
-    dev = ini.gen.device
+    dev = ini.device
     p = {
         "attn_norm": torch.zeros((D,), device=dev),
         "ffn_norm": torch.zeros((D,), device=dev),
@@ -142,15 +142,17 @@ def _n_dense(cfg: ArchConfig) -> int:
     return min(cfg.moe.first_dense_layers, cfg.n_layers) if _moe_on(cfg) else 0
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32) -> dict:
+def init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
+                dtype=torch.float32, *, device=None) -> dict:
     """Seeded random weights on the generator's device (the JAX package's
     init laws: truncated normal at ``fan_in ** -0.5``, embeddings N(0, 0.02²),
-    zero norm scales).  Use a CUDA generator for the card."""
-    ini = Initializer(gen)
+    zero norm scales).  Use a CUDA generator for the card.  ``device="meta"``:
+    the shapes and dtypes only, no generator needed."""
+    ini = Initializer(gen, device)
     D, V = cfg.d_model, cfg.vocab
-    dev = gen.device
+    dev = ini.device
     n_dense = _n_dense(cfg)
-    params: dict = {"embed": torch.randn((V, D), generator=gen, device=dev) * 0.02}
+    params: dict = {"embed": ini.normal((V, D)) * 0.02}
     if n_dense:
         params["dense_layers"] = [_init_layer(cfg, ini) for _ in range(n_dense)]
     params["layers"] = [_init_layer(cfg, ini, moe=_moe_on(cfg))

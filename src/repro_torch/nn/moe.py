@@ -272,6 +272,15 @@ def _experts_sharded(buf, params, cfg: MoEConfig, act: str, impl: str, mesh, *,
     return y2.reshape(E_l, G_l, C, D).transpose(0, 1), e0
 
 
+def _expert_counts(top_i: torch.Tensor, E: int) -> torch.Tensor:
+    """Rows routed to each of ``E`` experts, exact integers: ``bincount``'s
+    counts from a sort and two searches, whose length follows from ``E``
+    alone (so a shape-only run has them too), deterministic on the card."""
+    s = torch.sort(top_i.reshape(-1)).values
+    e = torch.arange(E, device=s.device, dtype=s.dtype)
+    return torch.searchsorted(s, e, right=True) - torch.searchsorted(s, e)
+
+
 def moe_ffn(
     x: torch.Tensor,
     params: dict,
@@ -341,7 +350,7 @@ def moe_ffn(
         # the global means: this group's sums added over data
         kept = torch.stack([kp for _, _, kp in groups]).float().sum()
         s = all_reduce(torch.cat([probs.sum(dim=0),
-                                  torch.bincount(top_i.reshape(-1), minlength=E).float(),
+                                  _expert_counts(top_i, E).float(),
                                   kept[None]]), mesh, DATA)
         me, ce = s[:E] / T, s[E:2 * E] / (T * k)
         aux = {"moe_load_balance": E * torch.sum(me * ce),
@@ -349,7 +358,7 @@ def moe_ffn(
     else:
         me = probs.mean(dim=0)
         # integer counts: exact, and deterministic on the card
-        ce = torch.bincount(top_i.reshape(-1), minlength=E).float() / (T * k)
+        ce = _expert_counts(top_i, E).float() / (T * k)
         keep_frac = torch.stack([kp for _, _, kp in groups]).float().mean()
         aux = {"moe_load_balance": E * torch.sum(me * ce),
                "moe_drop_frac": 1.0 - keep_frac}

@@ -15,9 +15,10 @@ moments follow the params' layout, or with ``init_opt_state(mesh=)`` JAX's
 ZeRO-1 layout (:class:`ZeroOptState`, ``models/sharding.py::zero_specs``):
 a rank holds a ``1/data`` block of each moment, updates that block of its
 params and gathers them over ``data``; the update is elementwise, so the
-step is bitwise the one with whole moments.  The port's per-layer leaves are unstacked
-(ROADMAP Queue 3), so a layer's norm scale ``(D,)`` is not decayed where
-the JAX package's stacked ``(L, D)`` one is.
+step is bitwise the one with whole moments.  The port's per-layer leaves
+are unstacked, so a layer's norm scale ``(D,)`` is not decayed where the
+JAX package's stacked ``(L, D)`` one is (a deliberate difference);
+:func:`compress_grads` does read the lists as JAX's stacked leaves.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.tree import flatten_with_path, tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import STACKED, flatten_with_path, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["AdamWConfig", "OptState", "ZeroOptState", "init_opt_state", "adamw_update", "cosine_lr",
            "global_norm", "compress_grads", "nonfinite_probe", "tree_select"]
@@ -209,6 +210,15 @@ def adamw_update(params: Any, grads: Any, state: OptState,
 # ---------------------------------------------------------------------------
 
 
+def _stacked_path(path: tuple) -> tuple:
+    """``(JAX leaf path, stacked)``: the path with a per-layer list's index
+    dropped, and whether it had one."""
+    for i, k in enumerate(path[:-1]):
+        if k in STACKED and path[i + 1].isdigit():
+            return path[:i + 1] + path[i + 2:], True
+    return path, False
+
+
 def compress_grads(grads: Any, bins: int = 256, *, mesh=None,
                    block_axes: Optional[dict] = None) -> Any:
     """Quantize each gradient matrix to a symmetric uniform ``bins``-entry
@@ -216,39 +226,54 @@ def compress_grads(grads: Any, bins: int = 256, *, mesh=None,
     PASM storage trick on the collective payload.  The error is bounded by
     half a bin width.
 
+    The dictionary is JAX's, leaf for leaf: JAX stacks a per-layer list's
+    leaves (``layers``, ``groups``, ``enc_layers``, ``dec_layers``) on a
+    leading axis, so one ``max |g|`` covers a path over every layer of the
+    list, and a per-layer leaf is compressed whenever its stacked form has
+    ``ndim >= 2`` (a layer's ``(D,)`` norm scale too).  Other leaves
+    (``dense_layers``, the hybrid's ``tail``, the embeddings) are
+    compressed alone when ``ndim >= 2``.
+
     ``mesh=``: ``grads`` hold a rank's blocks (of a placed tree's
     gradient, reduced).  As the JAX package compresses the global
-    gradient, each leaf's ``max |g|`` is the whole leaf's, a MAX
-    all-reduce over the axes its block splits on (``block_axes``, default
+    gradient, each dictionary's ``max |g|`` is the whole leaf's, a MAX
+    all-reduce over the axes its blocks split on (``block_axes``, default
     ``models/sharding.py::block_axes`` of ``grads``; counted under
     ``grad_max``), so a rank's result is bitwise its block of
     ``compress_grads(gather_params(grads))``."""
     from repro_torch.launch.mesh import max_over
 
     flat = flatten_with_path(grads)
-    amax = {}
+    key_of, local = {}, {}
     for path, g in flat:
-        if g.ndim >= 2 and g.is_floating_point():
-            amax[path] = torch.max(torch.abs(g.to(torch.float32)))
+        if not g.is_floating_point():
+            continue
+        key, stacked = _stacked_path(path)
+        if g.ndim + stacked >= 2:
+            key_of[path] = key
+            m = torch.max(torch.abs(g.to(torch.float32)))
+            local[key] = m if key not in local else torch.maximum(local[key], m)
     if mesh is not None:
         if block_axes is None:
             from repro_torch.models.sharding import block_axes as _block_axes
 
             block_axes = _block_axes(grads, mesh)
+        axes: dict = {}
+        for path, key in key_of.items():
+            axes[key] = tuple(sorted(set(axes.get(key, ())) | set(block_axes.get(path, ()))))
         groups: dict = {}
-        for path in amax:
-            ax = block_axes.get(path, ())
+        for key, ax in axes.items():
             if ax:
-                groups.setdefault(ax, []).append(path)
-        for ax, paths in groups.items():  # one all-reduce a group of axes
-            tot = max_over(torch.stack([amax[p] for p in paths]), mesh, ax)
-            for j, p in enumerate(paths):
-                amax[p] = tot[j]
+                groups.setdefault(ax, []).append(key)
+        for ax, keys in groups.items():  # one all-reduce a group of axes
+            tot = max_over(torch.stack([local[k] for k in keys]), mesh, ax)
+            for j, k in enumerate(keys):
+                local[k] = tot[j]
 
     def one(path, g):
-        if path not in amax:
+        if path not in key_of:
             return g
-        scale = (bins / 2 - 1) / (amax[path] + 1e-12)
+        scale = (bins / 2 - 1) / (local[key_of[path]] + 1e-12)
         q = torch.clamp(torch.round(g.to(torch.float32) * scale), -(bins / 2 - 1),
                         bins / 2 - 1)
         return (q / scale).to(g.dtype)

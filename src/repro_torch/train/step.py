@@ -147,8 +147,10 @@ def _accumulate(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx,
               for k, v in batch.items()}
         l, _, g = _value_and_grad(
             lambda p: _lm_loss(p, mb, cfg, sctx, model, scale), params)
-        grads = g if grads is None else tree_map(
-            lambda a, b: None if a is None else a + b, grads, g)
+        if grads is None:  # summed in f32 whatever the params' dtype, as JAX does
+            grads = tree_map(lambda a: None if a is None else a.to(torch.float32), g)
+        else:
+            grads = tree_map(lambda a, b: None if a is None else a + b, grads, g)
         loss = l if loss is None else loss + l
     grads = tree_map(lambda g: None if g is None else g / microbatches, grads)
     return loss / microbatches, {}, grads

@@ -15,7 +15,12 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "flatten_with_path", "tree_unflatten"]
+__all__ = ["tree_map", "tree_leaves", "flatten_with_path", "tree_unflatten", "STACKED"]
+
+# the per-layer (per-group) lists of the LM params trees, which the JAX
+# package stacks on a leading axis: its one leaf at a path is the list's
+# leaves there, layer after layer
+STACKED = ("layers", "groups", "enc_layers", "dec_layers")
 
 
 def _is_node(t: Any) -> bool:
