@@ -213,7 +213,8 @@ Phases (every one unguarded: any failure exits non-zero):
     (codebooks, norms, the embedding's rows) within ``LM_GRAD_TOL`` of max,
     57 K1 launches a step, every distinct block K1 ran held to the plain
     version (``check_blocks``), the collective bytes of a forward and of a
-    step, the step's wall time and peak memory a rank;
+    step, the step's wall time and peak memory a rank (and the peak of its
+    loss and gradients, before the update);
 16. tensor parallelism of the recurrent and encoder-decoder families and
     the sequence-sharded KV cache (``rec_shard_phase``), under an active
     ``ShardCtx`` at full width: (a) NCCL at world size 1, mesh (1, 1):
@@ -248,8 +249,10 @@ Phases (every one unguarded: any failure exits non-zero):
     within ``max(LM_GRAD_TOL, the floor)`` of one device's by leaf kind,
     K1 launches a step, every distinct block K1 ran held to the plain
     version (``check_blocks``), collective bytes, the step's wall time and
-    peak memory; at (2, 1) the step with JAX's ZeRO-1 moments
-    (``init_opt_state(mesh=)``) bitwise the step with whole ones, its
+    peak memory (and its loss and gradients' peak, before the update); at
+    (2, 1) the step with JAX's ZeRO-1 moments (``init_opt_state(mesh=)``),
+    from the same bytes on the card (the first step's result moved to the
+    host), bitwise the step with whole ones, its
     moment bytes beside theirs, ``compress_grads(mesh=)`` bitwise the block
     of the compressed gathered gradient, and whisper's ZeRO crash-resume
     bitwise the uninterrupted run; (c) phi3-medium-14b (4 of 40 layers) on
@@ -258,8 +261,10 @@ Phases (every one unguarded: any failure exits non-zero):
 18. the tooling (``tooling_phase``): (a) ``examples/torch/quickstart.py``,
     ``paper_conv.py`` (the paper's §4 accelerator on the four kernel
     engines: K1–K4 launch, counted) and ``train_lm.py`` (the ~100M-param
-    LM, ``TOOL_TRAIN_STEPS`` steps, then served on K1) on the card through
-    their own checks; (b) ``launch/dryrun.py`` on phase 7's qwen3-32b (4 of
+    LM, ``TOOL_TRAIN_STEPS`` steps, then served on K1) and
+    ``serve_pasm.py`` (stablelm-3b's smoke config, dense and 256-bin
+    weight-shared on K1, 6 LM requests over 3 slots beside 4 staggered CNN
+    images) on the card through their own checks; (b) ``launch/dryrun.py`` on phase 7's qwen3-32b (4 of
     64 layers) at mesh (1, 1), its 4 × 384 prefill and a decode step:
     its argument bytes within ``TOOL_ARG_TOL`` of the ``memory_allocated``
     growth as those params, caches and tokens are built on the card (a
@@ -406,6 +411,11 @@ QAT_GRAD_TOL = BWD_TOL["float32"]
 # 7's 4 x 384 prefill, a decode step against its 512-slot cache), and the
 # argument-bytes check: the dry run's bytes against the card's allocation
 TOOL_TRAIN_STEPS = 20
+# k-means iterations of every LM's dictionaries drawn here (build_lm, phase
+# 18): the weights are random and every hold compares two paths on the same
+# dictionaries, so two Lloyd iterations (the CPU tests' count) serve; at the
+# library's 8 the run spent ~170 s in k-means
+QUANT_ITERS = 2
 TOOL_PREFILL = (LM_SLOTS, 384)
 TOOL_ARG_TOL = 0.01
 
@@ -1899,7 +1909,7 @@ def build_lm(cfg, gen, phase: str, full_layers: int) -> dict:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    params = quantize_params(dense, cfg)
+    params = quantize_params(dense, cfg, iters=QUANT_ITERS)
     torch.cuda.synchronize()
     t_quant = time.perf_counter() - t0
     del dense
@@ -3860,11 +3870,15 @@ def train_shard_lm(rank: int, mesh, data: Path, report: dict) -> None:
     state = opt.init_opt_state(placed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     pm.reset_launches()
     t0 = time.perf_counter()
-    new = step(placed, state, batch)
-    torch.cuda.synchronize()
+    with GradSpy() as spy:
+        new = step(placed, state, batch)
+        torch.cuda.synchronize()
     ms, peak = (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated()
+    grads_peak = spy.peak
+    del spy
     if int(new[2]["skipped"]) or not np.isfinite(float(new[2]["loss"])) or \
             pm.launches["pasm_matmul"] != TRAIN_K1:
         raise AssertionError(f"qwen3 {mesh.shape} step: {new[2]}, K1 "
@@ -3878,7 +3892,8 @@ def train_shard_lm(rank: int, mesh, data: Path, report: dict) -> None:
         f"vs the plain version: max |Δ| {bc['max_abs_err']:.3e}, |Δ|/(|x|@|W|) "
         f"{bc['t']:.2e}; collective bytes: a forward {fwd}, loss and grads (forward + "
         f"remat's recompute + backward + reduction) {both}; loss and grads {t_grads:.2f} s, "
-        f"the step {ms:.1f} ms wall, peak {peak / 1e9:.2f} GB (max_memory_allocated)")
+        f"the step {ms:.1f} ms wall, peak {peak / 1e9:.2f} GB (max_memory_allocated) from "
+        f"{base / 1e9:.2f} GB at its start (loss and grads {grads_peak / 1e9:.2f} GB)")
     del new, state, step, placed
     torch.cuda.empty_cache()
 
@@ -4622,7 +4637,9 @@ def fam_check_grads(cfg, grads, placed, mesh, ref: dict, hold: float, what: str)
 class GradSpy:
     """Wraps ``train.step._guarded_update`` while active and keeps the loss
     and the (reduced) gradients of the last step it saw, so a timed train
-    step is also the one whose gradients are checked."""
+    step is also the one whose gradients are checked, and ``peak``, the
+    card's ``max_memory_allocated`` when the update began: the peak of the
+    forward, the loss, the backward and the gradients' reduction."""
 
     def __enter__(self):
         from repro_torch.train import step as st
@@ -4635,7 +4652,10 @@ class GradSpy:
         self.mod._guarded_update = self.inner
 
     def __call__(self, params, opt_state, loss, grads, ocfg, **kw):
+        import torch
+
         self.loss, self.grads = loss, grads
+        self.peak = torch.cuda.max_memory_allocated()
         return self.inner(params, opt_state, loss, grads, ocfg, **kw)
 
 
@@ -4656,7 +4676,7 @@ def fam_rank_model(rank: int, key: str, shape, data: Path, report: dict) -> None
     from repro_torch.models.common import ShardCtx
     from repro_torch.train import optimizer as opt
     from repro_torch.train import step as st
-    from repro_torch.tree import flatten_with_path, tree_leaves
+    from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
     say = report["lines"].append
     tree = torch.load(data / f"{key}.pt", map_location="cpu", mmap=True, weights_only=False)
@@ -4677,6 +4697,7 @@ def fam_rank_model(rank: int, key: str, shape, data: Path, report: dict) -> None
     def timed(state, spies=()):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         pm.reset_launches()
         lmesh.reset_collective_bytes()
         t0 = time.perf_counter()
@@ -4692,7 +4713,7 @@ def fam_rank_model(rank: int, key: str, shape, data: Path, report: dict) -> None
         ms = (time.perf_counter() - t0) * 1e3
         if int(new[2]["skipped"]) or not np.isfinite(float(new[2]["loss"])):
             raise AssertionError(f"{what} step: {new[2]}")
-        return new, {"ms": ms, "peak": torch.cuda.max_memory_allocated(),
+        return new, {"ms": ms, "peak": torch.cuda.max_memory_allocated(), "base": base,
                      "k1": pm.launches["pasm_matmul"], "routes": dict(pm.k1_routes),
                      "bytes": dict(lmesh.collective_bytes), "moments": nb(new[1]),
                      "replay": rs.calls}
@@ -4726,6 +4747,7 @@ def fam_rank_model(rank: int, key: str, shape, data: Path, report: dict) -> None
                                  "compressed gathered gradient")
         zero["grad_max"] = lmesh.collective_bytes["grad_max"]
         del c, want
+    grads_peak = grads.peak
     del grads
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -4736,15 +4758,23 @@ def fam_rank_model(rank: int, key: str, shape, data: Path, report: dict) -> None
     del blocks
     torch.cuda.empty_cache()
     if mesh.size("data") > 1:  # JAX's ZeRO-1 moments: the same step, bitwise
-        znew, zt = timed(opt.init_opt_state(placed, mesh=mesh))
+        # the whole-moment step's result waits on the host, so both steps
+        # start from the same bytes on the card
+        new = tuple(tree_map(lambda x: x.cpu(), n) for n in new[:2]) + (new[2],)
+        torch.cuda.empty_cache()
+        zspy = GradSpy()
+        znew, zt = timed(opt.init_opt_state(placed, mesh=mesh), (zspy,))
+        zt["grads_peak"] = zspy.peak
+        del zspy
         dims, i = sh.zero_dims(placed, mesh), mesh.index("data")
-        same = same_tree(znew[0], new[0]) and torch.equal(znew[2]["loss"], new[2]["loss"])
+        same = same_tree(znew[0], new[0]) and torch.equal(znew[2]["loss"].cpu(),
+                                                          new[2]["loss"].cpu())
         for (path, m), (_, zm) in zip(flatten_with_path(new[1]), flatten_with_path(znew[1])):
             d = dims.get(path[1:])
             if d is not None:
                 n = zm.shape[d]
                 m = m.narrow(d, i * n, n)
-            same = same and torch.equal(m, zm)
+            same = same and torch.equal(m, zm.cpu())
         if not same or zt["k1"] != k1:
             raise AssertionError(f"{what}: the ZeRO-1 step is not bitwise the step with "
                                  f"whole moments (K1 {zt['k1']} vs {k1})")
@@ -4756,11 +4786,14 @@ def fam_rank_model(rank: int, key: str, shape, data: Path, report: dict) -> None
         f"|Δ|/max by kind {', '.join(f'{k} {v:.2e}' for k, v in sorted(worst.items()))} "
         f"(<= {ref['hold']:.4f}){flips}; K1 {k1} a step, all mma; {bc['checks']} distinct "
         f"blocks vs the plain version: max |Δ| {bc['max_abs_err']:.3e}, |Δ|/(|x|@|W|) "
-        f"{bc['t']:.2e}; the step {t['ms']:.1f} ms wall, peak {t['peak'] / 1e9:.2f} GB, "
-        f"moments {t['moments']} B a rank (the params' layout), collective bytes "
-        f"{t['bytes']}"
+        f"{bc['t']:.2e}; the step {t['ms']:.1f} ms wall, peak {t['peak'] / 1e9:.2f} GB "
+        f"from {t['base'] / 1e9:.2f} GB at its start (loss and grads "
+        f"{grads_peak / 1e9:.2f} GB), moments {t['moments']} B a rank (the params' layout), "
+        f"collective bytes {t['bytes']}"
         + (f"; ZeRO-1 ({zero['leaves']} moments cut over data): bitwise, {zero['ms']:.1f} ms "
-           f"wall, peak {zero['peak'] / 1e9:.2f} GB, moments {zero['moments']} B a rank, "
+           f"wall, peak {zero['peak'] / 1e9:.2f} GB from {zero['base'] / 1e9:.2f} GB at its "
+           f"start (loss and grads {zero['grads_peak'] / 1e9:.2f} GB), moments "
+           f"{zero['moments']} B a rank, "
            f"zero_gather {zero['bytes']['zero_gather']} B; compress_grads(mesh=) bitwise the "
            f"block of the gathered compression (grad_max {zero['grad_max']} B)"
            if zero else ""))
@@ -5010,8 +5043,8 @@ def run_example(name: str, argv: list) -> tuple:
 
 
 def tooling_phase(gen, card: str) -> dict:
-    """Phase 18: (a) the three examples on the card through their own
-    checks, K1–K4 counted; (b) the dry run of phase 7's qwen3-32b (4 of 64
+    """Phase 18: (a) the four examples on the card through their own
+    checks, K1–K4 counted (``serve_pasm`` must launch K1); (b) the dry run of phase 7's qwen3-32b (4 of 64
     layers) at mesh (1, 1) for its 4 × 384 prefill and one decode step
     against a 512-slot cache: its argument bytes held within
     ``TOOL_ARG_TOL`` of the growth of ``memory_allocated`` as those params,
@@ -5043,7 +5076,7 @@ def tooling_phase(gen, card: str) -> dict:
 
     # (a) the examples
     for name, argv in (("quickstart", []), ("paper_conv", []),
-                       ("train_lm", ["--steps", str(TOOL_TRAIN_STEPS)])):
+                       ("train_lm", ["--steps", str(TOOL_TRAIN_STEPS)]), ("serve_pasm", [])):
         t0 = time.perf_counter()
         last, counts, by_route = run_example(name, ["--device", "cuda"] + argv)
         add(counts, by_route)
@@ -5051,6 +5084,8 @@ def tooling_phase(gen, card: str) -> dict:
             f"launches {counts}, K1 by route {by_route})")
         if name == "paper_conv" and not all(counts[k] for k in KERNELS):
             raise AssertionError(f"paper_conv: a kernel of K1-K4 never launched: {counts}")
+        if name == "serve_pasm" and not counts["pasm_matmul"]:
+            raise AssertionError(f"serve_pasm: the weight-shared LM never launched K1: {counts}")
 
     # (b) the dry run at mesh (1, 1), and the same trees on the card
     cfg = lm_config()
@@ -5070,7 +5105,8 @@ def tooling_phase(gen, card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    params = quantize_params(model.init_params(cfg, gen, torch.bfloat16), cfg)
+    params = quantize_params(model.init_params(cfg, gen, torch.bfloat16), cfg,
+                             iters=QUANT_ITERS)
     torch.cuda.synchronize()
     B = TOOL_PREFILL[0]
     step_inputs = {
@@ -5151,6 +5187,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
 
+    t_run = [time.perf_counter()] * 2
+
+    def lap(what: str) -> None:
+        """How long ``what`` took, and the run so far (the run must end
+        inside its limit)."""
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - t_run[1]:.1f} s, {now - t_run[0]:.1f} s into the run")
+        t_run[1] = now
+
     # 1. the card ----------------------------------------------------------
     card = card_line()
     log(f"card: {card}")
@@ -5179,6 +5224,8 @@ def main() -> int:
     log(f"model: {cfg.name} {cfg.in_chw} -> {cfg.classes} classes, "
         f"{cfg.bins} bins, quantized on the card in {time.perf_counter() - t0:.2f} s")
     packed = [p.pack(layout=cfg.layout) for p in qparams["conv"]]
+
+    lap("phases 1-2 (the card, the build, AlexNet's weights)")
 
     # 3. kernels vs plain versions -----------------------------------------
     errs = dict.fromkeys(ALL_KERNELS, 0.0)
@@ -5218,6 +5265,8 @@ def main() -> int:
         first, name=f"bigimg_conv1 {C0}x512x512",
         img=torch.randn((2, C0, 512, 512), generator=gen, device="cuda")),
         errs, k1=False)
+
+    lap("phase 3")
 
     # 4. serve the full-width model ----------------------------------------
     rng = np.random.default_rng(SEED)
@@ -5292,6 +5341,8 @@ def main() -> int:
     if not (np.all(d <= LOGIT_TOL + LOGIT_TOL * np.abs(want4)) and agree == 1.0):
         raise AssertionError("pas_kernel_implicit stage logits off the einsum engine")
 
+    lap("phase 4")
+
     # 5. timings at batch 32 -------------------------------------------------
     log(f"phase 5: CUDA-event timings at batch {TIME_BATCH} ({card})")
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
@@ -5350,46 +5401,59 @@ def main() -> int:
                         f"{flops / ms / 1e9:.1f} TFLOP/s{rate})")
         log(f"  {case.name:<18} " + "\n    ".join(rows) + f" [{card}]")
 
+    lap("phase 5")
+
     # 6-8. K5, the LM served on K1, K5 on the served attention, timings --------
     k5_phase(gen, errs)
     lm = lm_phase(gen, errs, card)
     k5_rows = lm_timings(lm, gen, card, errs)
+    lap("phases 6-8")
 
     # 9. training --------------------------------------------------------------
     train = train_phase(cfg, params, qparams, lm, gen, card)
+    lap("phase 9")
 
     # 10. the MoE family and the vit prefix at full width ------------------------
     del lm["params"]  # qwen3's weights: the card's memory goes to the next models
     torch.cuda.empty_cache()
     moe = moe_phase(gen, errs, card)
     vlm = vlm_phase(gen, errs, card)
+    lap("phase 10")
 
     # 11. the recurrent families at full width and full depth --------------------
     ssm = recurrent_phase("mamba2-130m", 24, gen, errs, card)
     hyb = recurrent_phase("recurrentgemma-2b", 26, gen, errs, card)
+    lap("phase 11")
 
     # 12. the encoder-decoder family at full width and full depth --------------
     wsp = whisper_phase(gen, errs, card)
+    lap("phase 12")
 
     # 13. the sharded CNN at full width --------------------------------------------
     shd = shard_phase(cfg, params, qparams, gen, card)
+    lap("phase 13")
 
     # 14. the sharded LM at full width ---------------------------------------------
     lsh = lm_shard_phase(gen, errs, card)
+    lap("phase 14")
 
     # 15. sharded training -----------------------------------------------------------
     trs = train_shard_phase(cfg, params, gen, card)
     errs["pasm_matmul"] = max(errs["pasm_matmul"], trs["max_abs_err"])
+    lap("phase 15")
 
     # 16. TP for the recurrent and encdec families, the sequence-sharded cache ----
     rsh = rec_shard_phase(gen, errs, card)
+    lap("phase 16")
 
     # 17. sharded training of the MoE, vlm, SSM, hybrid and encdec families -------
     fsh = family_train_shard_phase(gen, errs, card)
+    lap("phase 17")
 
     # 18. the tooling: the examples, the dry run, the roofline terms ------------
     tool = tooling_phase(gen, card)
     tl = tool["launches"]
+    lap("phase 18")
 
     # the kernels line -----------------------------------------------------------
     replaces = {

@@ -199,10 +199,13 @@ def n_shard_axis(mesh: Mesh, n: int) -> Optional[str]:
 # the batch, gathered over ``data`` after a rank updated its rows.  Two
 # are the optimizer's: ``grad_max`` the MAX all-reduce of a split leaf's
 # ``max |g|`` (``compress_grads(mesh=)``), ``zero_gather`` the updated
-# params gathered over ``data`` from their ZeRO-1 blocks.
+# params gathered over ``data`` from their ZeRO-1 blocks.  ``lm_loss`` is
+# the train step's loss on a rank's logits block
+# (``models/api.py::sharded_lm_loss``): its row max, exp sums and label
+# logits over ``model``, and its sum and count over ``data``.
 collective_bytes = {"all_gather": 0, "all_reduce": 0, "all_reduce_bwd": 0,
                     "grad_reduce": 0, "relayout": 0, "softmax_combine": 0,
-                    "cache_rows": 0, "grad_max": 0, "zero_gather": 0}
+                    "cache_rows": 0, "grad_max": 0, "zero_gather": 0, "lm_loss": 0}
 
 
 # the same results by collective kind ("all-gather" / "all-reduce") and
@@ -230,10 +233,16 @@ def _group(mesh: Mesh, axis: str):
 
 
 def _gather(t: torch.Tensor, g, dim: int, key: str = "all_gather") -> torch.Tensor:
+    """Every rank's ``t`` in rank order on ``dim``, received into one
+    tensor: on dim 0 it is the result (no copy); on another dim the rank
+    axis moves beside it and one copy lays it out."""
     t = t.contiguous()  # a strided view (a slice of the last dim) is sent packed
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(g))]
-    dist.all_gather(parts, t, group=g)
-    out = torch.cat(parts, dim=dim)
+    n = dist.get_world_size(g)
+    buf = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    dist.all_gather_into_tensor(buf, t, group=g)
+    dim %= t.ndim
+    shape = t.shape[:dim] + (n * t.shape[dim],) + t.shape[dim + 1:]
+    out = buf.view((n,) + tuple(t.shape)).movedim(0, dim).reshape(shape)
     _count(key, "all-gather", g, out)
     return out
 
@@ -279,14 +288,14 @@ class _AllReduce(torch.autograd.Function):
     consumer is replicated, so each partial's gradient is the sum's)."""
 
     @staticmethod
-    def forward(ctx, t, g):
+    def forward(ctx, t, g, key):
         ctx.shape = t.shape
-        return _sum(t, g, "all_reduce")
+        return _sum(t, g, key)
 
     @staticmethod
     def backward(ctx, grad):
         _check_grad(grad, ctx.shape, "all_reduce")
-        return grad, None
+        return grad, None, None
 
 
 class _EnterSplit(torch.autograd.Function):
@@ -323,17 +332,19 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0,
     return _gather(t, g, dim, key)
 
 
-def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str,
+               key: str = "all_reduce") -> torch.Tensor:
     """The sum over ``axis`` of every rank's ``t`` (a new tensor; ``t`` is
-    not changed), the same on every rank of the group.  The row-parallel
-    linears' partials and the expert combine take it in f32.  An axis of
-    size 1 returns ``t``.  Differentiable: the backward is the identity."""
+    not changed), the same on every rank of the group, counted under
+    ``key``.  The row-parallel linears' partials and the expert combine
+    take it in f32.  An axis of size 1 returns ``t``.  Differentiable: the
+    backward is the identity."""
     g = _group(mesh, axis)
     if g is None:
         return t
     if _differentiable(t):
-        return _AllReduce.apply(t, g)
-    return _sum(t, g, "all_reduce")
+        return _AllReduce.apply(t, g, key)
+    return _sum(t, g, key)
 
 
 def enter_split(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:

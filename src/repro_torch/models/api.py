@@ -12,8 +12,10 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.models.common import ShardCtx, local_rows
 
-__all__ = ["get_model", "cache_len", "frontend_spec", "input_specs", "lm_loss"]
+__all__ = ["get_model", "cache_len", "frontend_spec", "input_specs", "lm_loss",
+           "sharded_lm_loss"]
 
 
 def get_model(cfg):
@@ -88,3 +90,50 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
         mask = torch.ones_like(ll)
     mask = mask.float()
     return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def sharded_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                    mask: Optional[torch.Tensor], cfg: ArchConfig,
+                    sctx: ShardCtx) -> torch.Tensor:
+    """:func:`lm_loss` of the global logits, from this rank's block of them.
+
+    Under an active ``sctx`` ``logits`` is what a family's ``forward(...,
+    logits_block=True)`` returns: this rank's rows (when the batch splits
+    over ``data``) by its ``V / model`` vocab columns, or by the whole
+    vocab where the head is replicated; ``labels`` and ``mask`` are the
+    global ones.  A vocab block takes the log-softmax over ``model``: the
+    row max (no gradient: the result does not depend on it), the sums of
+    ``exp(z - max)`` and the label's logit from the rank whose columns hold
+    it, summed over ``model``.  The masked sum and the mask's count are
+    summed over ``data``; the count is clamped to 1 after that sum.  The
+    sums are the differentiable :func:`~repro_torch.launch.mesh.all_reduce`,
+    whose backward is the identity, so a rank's gradient is its block of
+    the global logits' gradient.  Nothing is reduced over an axis of one
+    rank: at mesh ``(1, 1)`` (or inactive) this is :func:`lm_loss`, op for
+    op.  Works in f32, as :func:`lm_loss` does."""
+    if not sctx.active or (not sctx.batch_split and logits.shape[-1] == cfg.vocab):
+        return lm_loss(logits, labels, mask)
+    from repro_torch.launch.mesh import all_reduce, max_over
+
+    mesh, model = sctx.mesh, sctx.model
+    labels, mask = local_rows(labels, sctx), local_rows(mask, sctx)
+    z = logits.float()
+    if z.shape[-1] == cfg.vocab:  # a replicated head: this rank's rows, every column
+        ll = torch.gather(torch.log_softmax(z, dim=-1), -1, labels[..., None].long())[..., 0]
+    else:
+        n = z.shape[-1]
+        with torch.no_grad():
+            m = max_over(z.amax(-1), mesh, (model,), key="lm_loss")
+        loc = labels.long() - mesh.index(model) * n
+        own = (loc >= 0) & (loc < n)
+        zl = torch.gather(z, -1, torch.where(own, loc, torch.zeros_like(loc))[..., None])[..., 0]
+        parts = torch.stack([torch.exp(z - m[..., None]).sum(-1),
+                             torch.where(own, zl, torch.zeros_like(zl))], dim=-1)
+        s, zl = all_reduce(parts, mesh, model, key="lm_loss").unbind(-1)
+        ll = zl - m - torch.log(s)
+    mask = torch.ones_like(ll) if mask is None else mask.float()
+    num_den = torch.stack([-(ll * mask).sum(), mask.sum()])
+    if sctx.batch_split:
+        num_den = all_reduce(num_den, mesh, "data", key="lm_loss")
+    num, den = num_den.unbind()
+    return num / torch.clamp(den, min=1.0)

@@ -298,10 +298,13 @@ def tied_head(embed, cfg: ArchConfig, sctx: ShardCtx):
     return w
 
 
-def global_logits(logits: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx) -> torch.Tensor:
+def global_logits(logits: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx, *,
+                  block: bool = False) -> torch.Tensor:
     """This rank's logits block → the global logits: the vocab gathered over
-    ``model`` (a column-parallel head), then the rows over ``data``."""
-    if not sctx.active:
+    ``model`` (a column-parallel head), then the rows over ``data``.  With
+    ``block`` (a family's ``forward(logits_block=True)``, what the train
+    step's ``api.sharded_lm_loss`` reads) the block comes back as is."""
+    if block or not sctx.active:
         return logits
     from repro_torch.launch.mesh import all_gather
 

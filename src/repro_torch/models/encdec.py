@@ -263,12 +263,14 @@ def _embed(params: dict, tokens: torch.Tensor, pos: torch.Tensor,
     return x + embed_tokens(params["pos_embed"], pos.long(), sctx).to(_ACT)
 
 
-def _head(params: dict, x: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx) -> torch.Tensor:
+def _head(params: dict, x: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx,
+          block: bool = False) -> torch.Tensor:
     """The tied head: ``x @ embedᵀ``, a dense product outside any kernel;
-    the global logits of this rank's rows."""
+    the global logits of this rank's rows (with ``block`` this rank's
+    block of them)."""
     x = _lnorm(x, params["dec_ln"])
     return global_logits(shard_linear(x, tied_head(params["embed"], cfg, sctx), "dense", sctx),
-                         cfg, sctx)
+                         cfg, sctx, block=block)
 
 
 def _self_local(cache, sctx: ShardCtx):
@@ -296,9 +298,11 @@ def _cross_shards(cfg: ArchConfig, sctx: ShardCtx) -> int:
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             sctx: ShardCtx = ShardCtx(), *,
-            frontend_embeds: Optional[torch.Tensor] = None) -> tuple:
+            frontend_embeds: Optional[torch.Tensor] = None,
+            logits_block: bool = False) -> tuple:
     """Teacher-forced decode over ``tokens`` given log-mel
-    ``frontend_embeds`` (silence when None).  Returns ``(logits, {})``."""
+    ``frontend_embeds`` (silence when None).  Returns ``(logits, {})``:
+    global on every rank, or with ``logits_block`` this rank's block."""
     impl = _impl(cfg)
     B, S = tokens.shape
     if frontend_embeds is None:
@@ -316,7 +320,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
     x, _ = maybe_scan(lambda h, lp: (_remat(layer, cfg, h, lp), None), x,
                       params["dec_layers"], cfg.scan_layers)
-    return _head(params, x, cfg, sctx), {}
+    return _head(params, x, cfg, sctx, logits_block), {}
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,

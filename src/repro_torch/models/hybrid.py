@@ -232,10 +232,12 @@ def _embed(params, tokens, sctx: ShardCtx):
     return sctx.act_btd(embed_tokens(params["embed"], local_rows(tokens, sctx), sctx).to(_ACT))
 
 
-def _head(params, x, cfg: ArchConfig, impl: str, sctx: ShardCtx):
-    """The global logits of this rank's rows ``x``."""
+def _head(params, x, cfg: ArchConfig, impl: str, sctx: ShardCtx, block: bool = False):
+    """The global logits of this rank's rows ``x`` (with ``block`` this
+    rank's block of them)."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return global_logits(shard_linear(x, params["lm_head"], impl, sctx), cfg, sctx)
+    return global_logits(shard_linear(x, params["lm_head"], impl, sctx), cfg, sctx,
+                         block=block)
 
 
 def _rope_seq(S: int, cfg: ArchConfig, device) -> tuple:
@@ -244,8 +246,10 @@ def _rope_seq(S: int, cfg: ArchConfig, device) -> tuple:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            sctx: ShardCtx = ShardCtx(), *, frontend_embeds=None) -> tuple:
-    """Full forward (training / prefill-style).  Returns ``(logits, {})``.
+            sctx: ShardCtx = ShardCtx(), *, frontend_embeds=None,
+            logits_block: bool = False) -> tuple:
+    """Full forward (training / prefill-style).  Returns ``(logits, {})``:
+    global on every rank, or with ``logits_block`` this rank's block.
     With ``cfg.remat`` a differentiated call recomputes each group in the
     backward."""
     del frontend_embeds
@@ -264,7 +268,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     x, _ = maybe_scan(body, x, params["groups"], cfg.scan_layers)
     for p in params["tail"]:
         x, _ = _recurrent_fwd(x, p, cfg, sctx, impl)
-    return _head(params, x, cfg, impl, sctx), {}
+    return _head(params, x, cfg, impl, sctx, logits_block), {}
 
 
 # ---------------------------------------------------------------------------

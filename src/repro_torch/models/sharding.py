@@ -468,15 +468,22 @@ def _split_axes(spec, mesh) -> tuple:
     return tuple(a for d in spec if d is not None for a in _axes(d) if mesh.size(a) > 1)
 
 
+def _meta(shape, dtype=torch.float32) -> torch.Tensor:
+    """A shape-only stand-in for a spec rule: a ``meta`` tensor, made out
+    of sight of any active dispatch mode (the dry run's
+    ``roofline.StepCounter``), since it holds no storage on any device."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
 def _global_like(placed: Any) -> Any:
     """The global tree a self-describing placed LM tree was placed from, as
     meta tensors: a ``PasmParams`` takes its arrays' global shapes from its
     logical ``shape`` (a dense block unwrapped to the plain matrix it came
     from); a plain tensor is whole (:func:`place_params` wraps every
     dense matrix it splits)."""
-    def meta(shape, dtype):
-        return torch.empty(tuple(shape), dtype=dtype, device="meta")
-
     def one(node):
         if isinstance(node, dict):
             return {k: one(v) for k, v in node.items()}
@@ -485,7 +492,7 @@ def _global_like(placed: Any) -> Any:
         if isinstance(node, (list, tuple)):
             return type(node)(one(v) for v in node)
         if isinstance(node, torch.Tensor):
-            return meta(node.shape, node.dtype)
+            return _meta(node.shape, node.dtype)
         if not isinstance(node, PasmParams):
             return node
         K, N = node.shape
@@ -495,19 +502,19 @@ def _global_like(placed: Any) -> Any:
 
         if node.kind == "dense" and node.w is not None and node.w.ndim >= 2 \
                 and (tuple(node.w.shape[-2:]) != (K, N) or node.lead is not None):
-            return meta(_lead(node.w) + (K, N), node.w.dtype)
+            return _meta(_lead(node.w) + (K, N), node.w.dtype)
 
         def field(t, rows):
             if t is None or t.ndim < 2:  # a moment's 0-d placeholder
-                return None if t is None else meta(t.shape, t.dtype)
-            return meta(_lead(t) + (rows, N), t.dtype)
+                return None if t is None else _meta(t.shape, t.dtype)
+            return _meta(_lead(t) + (rows, N), t.dtype)
 
         rows = (K + node.pad_k) // 2 if node.packed else K
         return dataclasses.replace(
             node, lead=None, w=field(node.w, K), idx=field(node.idx, rows),
-            codebook=None if node.codebook is None else meta(node.codebook.shape,
-                                                            node.codebook.dtype),
-            bias=None if node.bias is None else meta(node.bias.shape, node.bias.dtype))
+            codebook=None if node.codebook is None else _meta(node.codebook.shape,
+                                                             node.codebook.dtype),
+            bias=None if node.bias is None else _meta(node.bias.shape, node.bias.dtype))
 
     return one(placed)
 
@@ -598,7 +605,7 @@ def zero_specs(placed: Any, mesh, specs: Any = None) -> Any:
             return P()
         if not n_layers:
             return opt_state_pspecs(leaf, spec, sizes)
-        stacked = torch.empty((n_layers,) + tuple(leaf.shape), device="meta")
+        stacked = _meta((n_layers,) + tuple(leaf.shape))
         z = opt_state_pspecs(stacked, P(None, *spec), sizes)
         if z[0] is None:
             return P(*z[1:])
@@ -630,8 +637,7 @@ def zero_specs(placed: Any, mesh, specs: Any = None) -> Any:
             for f in dataclasses.fields(node)
             if isinstance(getattr(node, f.name), torch.Tensor)})
 
-    like = tree_map(lambda t: t if t.is_floating_point() else
-                    torch.empty((), dtype=torch.float32, device="meta"),
+    like = tree_map(lambda t: t if t.is_floating_point() else _meta(()),
                     global_like(placed, mesh, specs))
     return walk(like, specs, 0, False)
 
@@ -718,7 +724,7 @@ def global_like(placed: Any, mesh, specs: Any = None) -> Any:
     def grow(t, spec):
         shape = [d * _size(ax, mesh) if ax is not None else d
                  for d, ax in zip(t.shape, tuple(spec) + (None,) * t.ndim)]
-        return torch.empty(shape, dtype=t.dtype, device="meta")
+        return _meta(shape, t.dtype)
 
     specs = placed_specs(placed, mesh) if specs is None else specs
     return _map_logical(placed, specs, mesh, grow)

@@ -213,15 +213,19 @@ def _embed(params, tokens, sctx: ShardCtx):
     return sctx.act_btd(embed_tokens(params["embed"], local_rows(tokens, sctx), sctx).to(_ACT))
 
 
-def _head(params, x, cfg: ArchConfig, impl: str, sctx: ShardCtx):
-    """The global logits of this rank's rows ``x``."""
+def _head(params, x, cfg: ArchConfig, impl: str, sctx: ShardCtx, block: bool = False):
+    """The global logits of this rank's rows ``x`` (with ``block`` this
+    rank's block of them)."""
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return global_logits(shard_linear(x, params["lm_head"], impl, sctx), cfg, sctx)
+    return global_logits(shard_linear(x, params["lm_head"], impl, sctx), cfg, sctx,
+                         block=block)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            sctx: ShardCtx = ShardCtx(), *, frontend_embeds=None) -> tuple:
-    """Full forward (training / prefill-style).  Returns ``(logits, {})``.
+            sctx: ShardCtx = ShardCtx(), *, frontend_embeds=None,
+            logits_block: bool = False) -> tuple:
+    """Full forward (training / prefill-style).  Returns ``(logits, {})``:
+    global on every rank, or with ``logits_block`` this rank's block.
     With ``cfg.remat`` a differentiated call recomputes each layer in the
     backward."""
     del frontend_embeds
@@ -237,7 +241,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
         return layer(h, lp), None
 
     x, _ = maybe_scan(body, x, params["layers"], cfg.scan_layers)
-    return _head(params, x, cfg, impl, sctx), {}
+    return _head(params, x, cfg, impl, sctx, logits_block), {}
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,

@@ -297,11 +297,14 @@ def _global_caches(new: dict, old: dict, sctx: ShardCtx, adv) -> dict:
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            sctx: ShardCtx = ShardCtx(), *, frontend_embeds=None) -> tuple:
+            sctx: ShardCtx = ShardCtx(), *, frontend_embeds=None,
+            logits_block: bool = False) -> tuple:
     """Full forward (training / prefill-style).  Returns ``(logits, aux)``;
     ``aux`` holds the MoE terms summed over the scanned layers (zero for
     the dense family).  With ``frontend_embeds`` (vit) the logits cover the
-    token positions only: the patch prefix is sliced off."""
+    token positions only: the patch prefix is sliced off.  Under an active
+    ``sctx`` the logits are global on every rank, or with ``logits_block``
+    this rank's block of them (``common.global_logits``)."""
     x, n_prefix = _prep_inputs(params, cfg, sctx, local_rows(tokens, sctx),
                                local_rows(frontend_embeds, sctx))
     B, S, D = x.shape
@@ -333,7 +336,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     logits = shard_linear(x, _lm_head(params, cfg, sctx), _head_impl(cfg), sctx)
     if n_prefix:
         logits = logits[:, n_prefix:]
-    return global_logits(logits, cfg, sctx), dict(zip(_AUX_KEYS, aux))
+    return global_logits(logits, cfg, sctx, block=logits_block), dict(zip(_AUX_KEYS, aux))
 
 
 def init_caches(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16, *,

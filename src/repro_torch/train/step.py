@@ -20,7 +20,11 @@ Sharded, SPMD on a ``("data", "model")`` mesh (one process a rank): every
 LM family's step under an active ``ShardCtx`` on params placed by
 ``models/sharding.py::place_params``, and the CNN QAT step with
 ``mesh=`` on a tree placed by ``cnn._place``.  Every rank passes the global
-batch and computes the global loss; the backward runs through the
+batch.  An LM rank keeps its own block of the logits (its rows, its vocab
+columns where the head splits) and computes the global loss from it
+(``api.sharded_lm_loss``: the log-softmax and the mean summed over the
+axes), as JAX's step does on logits constrained to ``(batch, None,
+model)``: no rank holds the global logits.  The backward runs through the
 differentiable collectives, and between it and the update each gradient
 leaf is summed over the axes ``grad_reduce_axes`` names, so a rank holds
 the one-device gradient of its blocks.  The clip norm and the non-finite
@@ -89,8 +93,8 @@ def _lm_loss(params, batch, cfg: ArchConfig, sctx: ShardCtx, model, scale=None):
     kw = {}
     if "frontend_embeds" in batch:
         kw["frontend_embeds"] = batch["frontend_embeds"]
-    logits, aux = model.forward(params, batch["tokens"], cfg, sctx, **kw)
-    loss = api.lm_loss(logits, batch["labels"], batch.get("loss_mask"))
+    logits, aux = model.forward(params, batch["tokens"], cfg, sctx, logits_block=True, **kw)
+    loss = api.sharded_lm_loss(logits, batch["labels"], batch.get("loss_mask"), cfg, sctx)
     if aux.get("moe_load_balance") is not None and cfg.moe:
         loss = loss + 0.01 * aux["moe_load_balance"] / max(cfg.n_layers, 1)
     if scale is not None:
@@ -121,7 +125,7 @@ def loss_and_grads(params, batch: dict, cfg: ArchConfig, sctx: ShardCtx = ShardC
     sequential slices of the batch (activation-memory relief at a fixed
     global batch) and averages them.  Under an active ``sctx``
     ``params`` are a rank's placed blocks, every rank passes the global batch and gets the
-    global loss, and each gradient leaf comes back summed over its
+    global loss from its own logits block, and each gradient leaf comes back summed over its
     ``grad_reduce_axes``: the one-device gradient of the rank's block."""
     if sctx.active:
         _check_sharded(sctx, batch, microbatches)

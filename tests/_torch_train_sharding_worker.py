@@ -3,8 +3,10 @@
 Each rank builds the ``("data", "model")`` mesh and trains the tiny QAT CNN
 (``TINY``, the config of ``tests/test_train_faults.py``) and qwen3-32b's
 smoke config (2 layers) sharded, holding every step against the port's
-one-device step in the same process; what each check returned (or its
-traceback) goes to ``rank<r>.pkl``.  No JAX here: the parent handed the
+one-device step in the same process, and computes the train step's loss
+on its block of seeded logits (``api.sharded_lm_loss``) with that block's
+gradient; what each check returned (or its traceback) goes to
+``rank<r>.pkl``.  No JAX here: the parent handed the
 weights and batches over as numpy (``cases.pkl``) and holds the gathered
 results against the JAX package.
 
@@ -47,9 +49,9 @@ from repro_torch.core import params as tpar
 from repro_torch.core.conv import Conv2D, ConvParams
 from repro_torch.data.pipeline import DataConfig, synthetic_image_batch
 from repro_torch.launch import mesh as tmesh
-from repro_torch.models import cnn
+from repro_torch.models import api, cnn
 from repro_torch.models import sharding as tsh
-from repro_torch.models.common import ShardCtx
+from repro_torch.models.common import ShardCtx, block_of, local_rows
 from repro_torch.train import optimizer as opt
 from repro_torch.train import step as st
 from repro_torch.train.faults import TrainFaultPlan, TrainFaultSpec
@@ -398,8 +400,34 @@ def check_elastic(mesh, case, out_dir: Path):
     return out
 
 
+def check_loss(mesh, case):
+    """``api.sharded_lm_loss`` on this rank's block of each case's global
+    logits (its rows over ``data``; its ``V / model`` columns, or every
+    column where ``model`` does not divide the vocab: a replicated head)
+    with the global labels and mask: the loss, the block's gradient, where
+    the block lies, and the bytes the loss's collectives moved.  The parent
+    holds them against JAX's ``lm_loss`` on the global logits."""
+    out = {}
+    for name, c in case.items():
+        B, _, V = c["logits"].shape
+        cfg = dataclasses.replace(get_config("qwen3-32b", smoke=True), vocab=V)
+        sctx = ShardCtx.for_mesh(mesh, B)
+        nm = mesh.size("model")
+        rows = local_rows(torch.arange(B), sctx)
+        cols = block_of(V, V // nm if V % nm == 0 else V, sctx)
+        block = torch.from_numpy(c["logits"])[rows][..., cols].clone().requires_grad_()
+        mask = None if c["mask"] is None else torch.from_numpy(c["mask"])
+        tmesh.reset_collective_bytes()
+        loss = api.sharded_lm_loss(block, torch.from_numpy(c["labels"]), mask, cfg, sctx)
+        (grad,) = torch.autograd.grad(loss, block)
+        out[name] = {"loss": float(loss.detach()), "grad": grad.numpy(), "rows": rows.numpy(),
+                     "cols": (cols.start, cols.stop),
+                     "bytes": tmesh.collective_bytes["lm_loss"]}
+    return out
+
+
 def checks(shape):
-    out = {"cnn": check_cnn, "bias_linear": check_bias_linear}
+    out = {"cnn": check_cnn, "bias_linear": check_bias_linear, "loss": check_loss}
     for impl in LM_IMPLS:
         out[f"lm_{impl}"] = lambda mesh, case, impl=impl: check_lm(mesh, case, impl)
     return out
@@ -423,8 +451,8 @@ def run(rank: int, world: int, shape: tuple, store: str, cases: str, out_dir: st
         results = {}
         for name, check in todo.items():
             tmesh.reset_collective_bytes()
-            case = data["cnn"] if name.startswith("cnn") else \
-                data["lm"]["dequant" if name == "lm_dequant" else "kernel"]
+            case = data["cnn"] if name.startswith("cnn") else data["loss"] \
+                if name == "loss" else data["lm"]["dequant" if name == "lm_dequant" else "kernel"]
             try:
                 results[name] = ("ok", check(mesh, case))
             except Exception:  # recorded: the parent reports it per check

@@ -120,4 +120,4 @@ def test_the_tooling_is_ported():
     for rel in ("roofline.py", "launch/dryrun.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
     assert {p.name for p in (ROOT / "examples" / "torch").glob("*.py")} >= {
-        "quickstart.py", "paper_conv.py", "train_lm.py"}
+        "quickstart.py", "paper_conv.py", "train_lm.py", "serve_pasm.py"}

@@ -22,6 +22,11 @@ port's one-device step, in its own process:
   within tolerance of one device's from the same checkpoint;
 - two microbatches, and ``tp_linear`` with a narrowed bias.
 
+Each rank also computes the train step's loss on its block of seeded
+logits (``api.sharded_lm_loss``); here its value and each block's
+gradient are held against JAX's ``lm_loss`` on the global logits and its
+``jax.grad``.
+
 Here the gathered gradients and updated trees are held against the JAX
 package's unsharded steps on the same numpy weights (``allow_int=True``,
 as ``tests/test_torch_train.py`` does), and in one process (a mesh of one
@@ -147,6 +152,38 @@ def cases():
             out[name] = jax_flat((p, s_))
             out["grads"], out["loss"] = jax_flat(g), float(m["loss"])
         refs["lm"][impl] = out
+    data["loss"], refs["loss"] = _loss_cases()
+    return data, refs
+
+
+# the sharded loss vs JAX's on the global f32 logits: both take the same
+# f32 log-softmax, a rank's in parts summed over the axes, so they differ
+# by the reordered f32 sums
+LOSS_RTOL, LOSS_GRAD_ATOL = 1e-6, 1e-6
+
+
+def _loss_cases():
+    """Seeded global logits ``(4, 5, V)``, labels and masks, and JAX's
+    ``lm_loss`` on them with its gradient: V = 32 (a block of 16 columns a
+    rank at ``model`` 2) and V = 33 (``model`` does not divide it: the head
+    is replicated); labels in every vocab block; a mask that zeroes all the
+    rows of ``data`` rank 1 (rows 2 and 3), and no mask."""
+    rng = np.random.default_rng(7)
+    data, refs = {}, {}
+    for name, V, masked in (("v32_mask", 32, True), ("v32", 32, False),
+                            ("v33_mask", 33, True)):
+        logits = (3 * rng.standard_normal((4, 5, V))).astype(np.float32)
+        labels = rng.integers(0, V, (4, 5)).astype(np.int32)
+        labels[:, 0], labels[:, 1] = 0, V - 1  # the first and the last block
+        mask = None
+        if masked:
+            mask = (rng.random((4, 5)) < 0.7).astype(np.float32)
+            mask[0, 0] = 1.0
+            mask[2:] = 0.0
+        data[name] = {"logits": logits, "labels": labels, "mask": mask}
+        lb, m = jnp.asarray(labels), None if mask is None else jnp.asarray(mask)
+        loss, grad = jax.value_and_grad(lambda z: japi.lm_loss(z, lb, m))(jnp.asarray(logits))
+        refs[name] = {"loss": float(loss), "grad": np.asarray(grad)}
     return data, refs
 
 
@@ -296,6 +333,34 @@ def test_lm_step_matches_one_device_and_jax(runs, cases, shape, impl):
     by = got["bytes"]
     assert (by["all_reduce_bwd"] > 0) == (nm > 1)  # replicated x into N/K blocks
     assert by["grad_reduce"] > 0
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
+def test_sharded_loss_matches_jax(runs, cases, shape):
+    """``api.sharded_lm_loss`` on each rank's block of the logits: the
+    global loss of JAX's ``lm_loss`` on the global logits within 1e-6
+    relative on every rank, and each rank's gradient its block of
+    ``jax.grad`` within 1e-6; the blocks cover every row and column; the
+    loss's collectives moved bytes exactly where a dim of the logits split
+    (``model`` where it divides the vocab, ``data`` on the rows)."""
+    outs = _result(runs, shape, "loss")
+    nd, nm = shape
+    for name, ref in cases[1]["loss"].items():
+        V = ref["grad"].shape[-1]
+        seen = np.zeros(ref["grad"].shape, bool)
+        for r, o in enumerate(outs):
+            got = o[name]
+            np.testing.assert_allclose(got["loss"], ref["loss"], rtol=LOSS_RTOL,
+                                       err_msg=(name, r))
+            cols = slice(*got["cols"])
+            want = ref["grad"][got["rows"]][..., cols]
+            assert got["grad"].shape == want.shape, (name, r)
+            np.testing.assert_allclose(got["grad"], want, rtol=0, atol=LOSS_GRAD_ATOL,
+                                       err_msg=(name, r))
+            seen[got["rows"], :, cols] = True
+            split = nd > 1 or (nm > 1 and V % nm == 0)
+            assert (got["bytes"] > 0) == split, (name, r, got["bytes"])
+        assert seen.all(), name
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
