@@ -40,7 +40,7 @@ Phases (every one unguarded: any failure exits non-zero):
    hd 64, 192 and 256 (so bf16 runs at every head dim the kernel is built
    for) and qwen3-32b's prefill shape (64 heads over 8 KV heads, hd 128) at
    S = 512 and 1000, and against the port's ``gqa_attention`` with
-   ``chunk < S`` (the online-softmax loop);
+   ``chunk < S`` (the online-softmax loop); the f32 route timed at each;
 7. LM serving: qwen3-32b at full width (d_model 5120, 64/8 heads, hd 128,
    qk-norm, SwiGLU d_ff 25600, vocab 151936) cut to 4 of its 64 layers,
    seeded weights drawn on the card and quantized there (16 bins, int4
@@ -59,7 +59,7 @@ Phases (every one unguarded: any failure exits non-zero):
 8. CUDA-event timings at the LM's shapes: K5 at the qwen3 prefill shape
    (B 1, S 4096, causal) in bf16 and f32 against its plain version, the
    library yardstick ``F.scaled_dot_product_attention`` (timed only) and the
-   bound; K1 at the decode (M = 4) and prefill (M = 384) rows of ``wq``,
+   bound (f32 beside its first design's time); K1 at the decode (M = 4) and prefill (M = 384) rows of ``wq``,
    ``w1``, ``w2`` and ``lm_head`` with bf16 activations against
    ``torch.matmul`` on the dequantized bf16 weight and the bound, warm (as
    before) and with the L2 cache flushed before every call (cold: the
@@ -231,9 +231,12 @@ Phases (every one unguarded: any failure exits non-zero):
     key, wall ms, the logits within ``max(LM_LOGIT_TOL, the one-ulp
     floor)`` of one device's; (c) phi3-medium-14b at full width, 4 of its
     40 layers, on four gloo ranks at (1, 4): its 10 KV heads do not divide
-    4, so q, k and v are gathered and the KV cache's positions split over
-    the ranks; the same traffic on the bf16 and the int8 KV cache, held
-    the same way;
+    4, so k and v are gathered, a rank's attention runs on its block of
+    the q heads (``models/common.py::head_block``: 10 of 40, reading KV
+    heads 0-2, 2-4, 5-7, 7-9) and the KV cache's positions split over the
+    ranks; the same traffic on the bf16 and the int8 KV cache, held the
+    same way; every rank of (b) and (c) prints its head block and the
+    heads its attention ran on (recurrentgemma at (1, 2): 5 of 10);
 17. sharded training of the other families (``family_train_shard_phase``),
     under deterministic algorithms, 16 bins int4 on K1, 8 × 128 a step:
     (a) NCCL at world size 1, mesh (1, 1): deepseek-moe-16b (4 of 28
@@ -257,7 +260,8 @@ Phases (every one unguarded: any failure exits non-zero):
     of the compressed gathered gradient, and whisper's ZeRO crash-resume
     bitwise the uninterrupted run; (c) phi3-medium-14b (4 of 40 layers) on
     four gloo ranks at (1, 4), its 10 KV heads cut by ``model``, one step
-    held the same way;
+    held the same way; every rank prints its head block and the heads its
+    attention ran on;
 18. the tooling (``tooling_phase``): (a) ``examples/torch/quickstart.py``,
     ``paper_conv.py`` (the paper's §4 accelerator on the four kernel
     engines: K1–K4 launch, counted) and ``train_lm.py`` (the ~100M-param
@@ -317,6 +321,10 @@ LM_MAX_SEQ = 512
 LM_NEW = 16
 LM_PROMPTS = (8, 384, 37, 200, 100, 17, 300, 64)
 K5_TIME_S = 4096
+# K5's f32 route at that shape before its register-blocked redesign (four
+# threads a query row, one LDS.128 per four FMAs): phase 8 of this script on
+# an H100 80GB HBM3 at 700 W, printed beside the new time
+K5_F32_FIRST_MS = 20.4523
 LOGIT_TOL = 1e-3  # served logits vs the einsum engine (five layers + head)
 TIME_BATCH = 32
 KERNELS = ("pasm_matmul", "pasm_conv", "pas_matmul", "pas_conv")
@@ -882,6 +890,8 @@ def k5_phase(gen, errs: dict) -> None:
         f"tensor-core route |Δ| <= t·(|plain| + Σp|v|) + 1e-5; t = {K5_TOL}) "
         f"and vs gqa_attention (chunk < S; |Δ| <= t·(|gqa| + max|v|) + 1e-5, "
         f"t = {K5_GQA_TOL})")
+    from repro_torch.kernels import flash_attention as fa
+
     for name, B, S, H, KV, hd in shapes:
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda")
         k = torch.randn((B, S, KV, hd), generator=gen, device="cuda")
@@ -890,6 +900,11 @@ def k5_phase(gen, errs: dict) -> None:
             for causal in (True, False):
                 res = check_k5(q.to(dtype), k.to(dtype), v.to(dtype), causal,
                                f"{name} {dtype} causal={causal}", errs)
+                if dtype == torch.float32:  # the redesigned SIMT route, timed
+                    qg, kg, vg = regroup(q, k, v)
+                    ms = time_ms(lambda: fa.flash_attention_kernel_call(  # noqa: B023
+                        qg, kg, vg, causal=causal), 0.05)
+                    res += f"; f32 kernel {ms:.4f} ms"
                 log(f"  {name:<26} B{B} S{S} H{H}/{KV} hd{hd} "
                     f"{str(dtype).split('.')[-1]:<8} causal={causal!s:<5} {res}")
 
@@ -1084,7 +1099,9 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
             f"plain {plain_ms:.4f}, library (SDPA) {lib_ms:.4f}, bound "
             f"{bd.ms:.4f} by {bd.by} ({hw_.flops_rate(dtype) / 1e12:.0f} "
             f"TFLOP/s, {hw_.hbm_bw / 1e12} TB/s), {2 * B * H * S * S * hd / ms / 1e9:.1f} "
-            f"TFLOP/s [{card}]")
+            f"TFLOP/s, {bd.ms / ms:.1%} of the bound [{card}]"
+            + (f"; the f32 route's first design (four threads a query row) took "
+               f"{K5_F32_FIRST_MS} ms here" if dtype == torch.float32 else ""))
         del q, k, v, qg, kg, vg, qh, kh, vh
     lp = params["layers"][0]
     mats = {"wq": lp["attn"]["wq"], "w1": lp["mlp"]["w1"], "w2": lp["mlp"]["w2"],
@@ -1989,6 +2006,45 @@ class AttnSpy:
 
     def __exit__(self, *exc):
         self.mod.gqa_attention = self.inner
+
+
+class HeadSpy:
+    """Records the ``(q heads, KV heads)`` of every ``gqa_attention`` call
+    while active (shapes only, no tensors)."""
+
+    def __enter__(self):
+        from repro_torch.nn import attention as A
+
+        self.mod, self.inner, self.seen = A, A.gqa_attention, set()
+
+        def spy(q, k, v, **kw):
+            self.seen.add((q.shape[2], k.shape[2]))
+            return self.inner(q, k, v, **kw)
+
+        A.gqa_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gqa_attention = self.inner
+
+
+def head_line(cfg, sctx, spy: HeadSpy, what: str) -> str:
+    """A rank's block of the q heads (``models/common.py::head_block``,
+    GSPMD's ``gcd(n_heads, model)`` blocks) and the heads its attention ran
+    on; raises where they are not the block's."""
+    import math
+
+    from repro_torch.models.common import head_block
+
+    hb = head_block(cfg, sctx)
+    g = math.gcd(cfg.n_heads, sctx.tp)
+    kv = sorted({h // (cfg.n_heads // cfg.n_kv_heads) for h in range(hb.q0, hb.q0 + hb.nq)})
+    if hb.nq != cfg.n_heads // g or any(q != hb.nq for q, _ in spy.seen):
+        raise AssertionError(f"{what}: attention on (q, KV) heads {sorted(spy.seen)}, "
+                             f"not the block of {cfg.n_heads // g} q heads")
+    return (f"q heads {hb.q0}-{hb.q0 + hb.nq - 1} of {cfg.n_heads} (block {hb.q0 // hb.nq} "
+            f"of {hb.g} over model {sctx.tp}), reading KV heads {kv[0]}-{kv[-1]} of "
+            f"{cfg.n_kv_heads}; attention on (q, KV) heads {sorted(spy.seen)}")
 
 
 def moe_phase(gen, errs: dict, card: str) -> dict:
@@ -4238,8 +4294,11 @@ def rec_shard_rank_model(rank: int, key: str, data: Path, report: dict) -> None:
             raise AssertionError(f"{shape}: a split leaf holds {sorted(frac)} of its bytes, "
                                  f"not 1/{shape[1]}")
         torch.cuda.synchronize()
-        with BlockSpy() as blocks:
+        with BlockSpy() as blocks, HeadSpy() as heads:
             logits, calls = rec_shard_traffic(cfg, placed, sctx, ref["inputs"], ring)
+        if cfg.n_heads:
+            say(f"  rank {rank} {cfg.name} {tag} mesh {shape}: "
+                + head_line(cfg, sctx, heads, f"rank {rank} {cfg.name} {shape}"))
         bc = check_blocks(blocks, f"rank {rank} {cfg.name} {tag} {shape}")
         report["checks"] += bc["checks"]
         report["check_launches"] += bc["launches"]
@@ -4428,8 +4487,8 @@ def rec_shard_phase(gen, errs: dict, card: str) -> dict:
         "the dispatch and its collectives, not a speedup")
     tot_b = rec_shard_spawn(keys, 2, data, "(b)")
     log(f"  (c) {SEQ_SHARD_MESH[1]} ranks on gloo sharing the card, mesh {SEQ_SHARD_MESH}: "
-        f"{SEQ_SHARD_ARCH}'s 10 KV heads over model {SEQ_SHARD_MESH[1]}, the KV positions "
-        "split")
+        f"{SEQ_SHARD_ARCH}'s 10 KV heads over model {SEQ_SHARD_MESH[1]}: k and v gathered "
+        "whole, a rank's attention on its block of the q heads, the KV positions split")
     tot_c = rec_shard_spawn(["phi3"], SEQ_SHARD_MESH[1], data, "(c)")
     checks = {"checks": 0, "launches": 0}
     for tot in (tot_b, tot_c):
@@ -4718,8 +4777,10 @@ def fam_rank_model(rank: int, key: str, shape, data: Path, report: dict) -> None
                      "bytes": dict(lmesh.collective_bytes), "moments": nb(new[1]),
                      "replay": rs.calls}
 
-    blocks, grads = BlockSpy(), GradSpy()
-    new, t = timed(opt.init_opt_state(placed), (blocks, grads))
+    blocks, grads, heads = BlockSpy(), GradSpy(), HeadSpy()
+    new, t = timed(opt.init_opt_state(placed), (blocks, grads, heads))
+    if cfg.n_heads:
+        say(f"{what}: " + head_line(cfg, sctx, heads, what))
     k1 = t["k1"]
     if not k1 or t["routes"]["simt"] or t["routes"]["stream"]:
         raise AssertionError(f"{what}: K1 {k1} by route {t['routes']}")
@@ -4993,7 +5054,8 @@ def family_train_shard_phase(gen, errs: dict, card: str) -> dict:
     plan = [(key, shape) for shape in FAM_SHARD_MESHES for key in keys] + [("resume", None)]
     tot_b = fam_spawn(plan, 2, data, "(b)")
     log(f"  (c) {FAM_SEQ_MESH[1]} ranks on gloo sharing the card, mesh {FAM_SEQ_MESH}: "
-        f"{arch}'s 10 KV heads over model {FAM_SEQ_MESH[1]}, q, k and v gathered whole")
+        f"{arch}'s 10 KV heads over model {FAM_SEQ_MESH[1]}: k and v gathered whole, a "
+        "rank's attention on its block of the q heads")
     tot_c = fam_spawn([("phi3", FAM_SEQ_MESH)], FAM_SEQ_MESH[1], data, "(c)")
     checks = {"checks": 0, "launches": 0}
     for tot in (tot_b, tot_c):

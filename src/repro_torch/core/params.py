@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import pasm as _pasm
-from repro_torch.core._f32 import matmul_f32
+from repro_torch.core._f32 import widened_matmul
 
 __all__ = [
     "PasmParams",
@@ -357,7 +357,7 @@ def _matmul_f32(x: torch.Tensor, p: "PasmParams", impl: str, bias, relu: bool,
 
         # the weight in x's dtype, every product exact in f32 and the sum
         # taken in f32 (the JAX dot's preferred_element_type), for bf16 too
-        y = matmul_f32(x.float(), p.dense_matrix(x.dtype).float())
+        y = widened_matmul(x, p.dense_matrix(x.dtype))
         return apply_epilogue(y, bias, relu)
     from repro_torch.kernels import ops as _kops
 

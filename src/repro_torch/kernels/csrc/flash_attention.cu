@@ -16,22 +16,37 @@
 // (2·S²·hd causal) on 4·S·hd values: hundreds of flops per byte, so it is
 // bound by operations: 67 TFLOP/s in f32 outside the tensor cores, 989 in
 // bf16 on them.  The f32 route is plain SIMT (no tensor cores: they would
-// round the f32 inputs).  What its design does:
+// round the f32 inputs), so it is bound by the FMA pipes and by the
+// shared-memory reads and other instructions that feed them.  What its
+// design does:
 //  - The TPU kept the whole (Sk, hd) K/V block resident in VMEM (8 MiB each
 //    at 32 k x 128 bf16); no SM holds that.  Here a block owns one
-//    (b·kv, g, 64-row q tile) and streams K/V through shared memory in
-//    32-key tiles, in a loop inside the block, so any Sk runs.
-//  - Four threads own a query row; each keeps a quarter of q (pre-scaled)
-//    and of the f32 accumulator in registers, as float4 chunks interleaved
-//    so a warp's shared-memory reads of one key never conflict; a score is
-//    the four partial dots summed by two shuffles.  m and l live in
-//    registers too; nothing of the running state goes to device memory.
+//    (b·kv, g, q tile) and streams K/V through shared memory in 64-key
+//    tiles (32 above hd 128) in a loop inside the block, so any Sk runs.
+//    The tiles arrive by cp.async into a two-stage ring: K(t + 1) and
+//    V(t + 1) are in flight while tile t is computed (at hd 128 V has one
+//    stage, refilled after P·V: its copy overlaps the next Q·Kᵀ).
+//  - Register-blocked like an SGEMM.  A thread owns 4 query rows x BK/CL
+//    keys of S = Q·Kᵀ, then the same 4 rows x hd/CL dims of O += P·V; CL
+//    lanes share a row (8 at hd 128: 128-row q tiles; 16 elsewhere: 64
+//    rows).  Every float4 a thread reads from shared memory feeds 4 FMAs
+//    per row or key it owns (at hd 128: 12 LDS.128 a 128-FMA step of S,
+//    20 a 256-FMA step of O).  Rows and keys are interleaved and rows
+//    padded, so a warp's reads of its q rows, a key's row or a V row are
+//    conflict-free.  (A first design gave four threads a row, one LDS.128
+//    per four FMAs: shared-memory bound at 20 % of the bound on an H100,
+//    where this one runs at about half of it at hd 128.)
+//  - A row's CL lanes sit in one warp: its max is log2(CL) shuffles, and P
+//    goes through the warp's own rows of shared memory (__syncwarp where V
+//    is already resident).  The sum l stays per thread until the end.  Q
+//    is pre-scaled by scale·log2(e), so the softmax is exp2.
 //  - The causal bound stops the key loop at the last key the tile's last
-//    row may see, as the TPU kernel's loop bound did; inside the last tiles
-//    the mask is per element.
+//    row may see, as the TPU kernel's loop bound did; only the tiles that
+//    cross the diagonal or the valid end mask per element.  The longest
+//    causal q tiles are launched first.
 //  - The ragged Sq and Sk edges are masked here (rows past Sq compute but
-//    never store; keys past the valid count read 0 and weigh 0), so the
-//    wrapper pads nothing.
+//    never store; keys past the valid count are zero-filled by cp.async
+//    and weigh 0), so the wrapper pads nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,136 +56,297 @@
 
 namespace fa {
 
-constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 32;            // keys per shared-memory tile
-constexpr int TPR = 4;            // threads per query row
-constexpr int THREADS = BQ * TPR;  // 256
-constexpr float NEG = -1e30f;     // the running max before any valid key
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int RPT = 4;             // query rows a thread owns
+constexpr float NEG = -1e30f;      // the running max before any valid key
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float4 load4(const float* p) {
+template <int HD>
+struct Cfg {
+  // lanes that share a query row (its columns of S, its dims of O); a
+  // warp holds 32 / CL row groups of RPT rows each
+  static constexpr int CL = HD == 128 ? 8 : 16;
+  static constexpr int BQ = WARPS * (32 / CL) * RPT;  // query rows per block
+  static constexpr int BK = HD <= 128 ? 64 : 32;      // keys per tile
+  static constexpr int KPT = BK / CL;                  // keys of S a thread owns
+  // O's dims a thread owns: NCH vectors of VW floats, at VW·(col + CL·c)
+  static constexpr int VW = HD % (4 * CL) == 0 ? 4 : HD % (2 * CL) == 0 ? 2 : 1;
+  static constexpr int NCH = HD / (CL * VW);
+  static constexpr int LD = HD + 4;    // padded row of Q, K, V (floats)
+  static constexpr int LDP = BK + CL;  // padded row of P
+  static constexpr int TILE = BK * LD;
+  // Q, the K ring (2 tiles), V (a ring of 2 where it fits, else 1), P
+  static constexpr size_t FIXED =
+      sizeof(float) * ((size_t)BQ * LD + 2 * TILE + (size_t)BQ * LDP);
+  static constexpr bool VRING = FIXED + sizeof(float) * 2 * TILE <= 232448;
+  static constexpr size_t SMEM = FIXED + sizeof(float) * (VRING ? 2 : 1) * TILE;
+  static_assert(SMEM <= 232448, "one block's shared memory");
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+template <int VW>
+__device__ __forceinline__ void ldv(float (&r)[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 t = ld4(p);
+    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
+  } else if constexpr (VW == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x, r[1] = t.y;
+  } else {
+    r[0] = *p;
+  }
 }
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(THREADS)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out, int G, int Sq,
-              int Sk, int kvalid, int causal, float scale) {
-  constexpr int H4 = HD / 4;    // float4 slots of one key row
-  constexpr int C = HD / 16;    // float4 chunks a thread owns
-  extern __shared__ float4 smem[];
-  float4* ks = smem;            // [BK][H4]
-  float4* vs = smem + BK * H4;  // [BK][H4]
+template <int VW>
+__device__ __forceinline__ void stv(float* p, const float (&r)[VW]) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  } else {
+    *p = r[0];
+  }
+}
 
-  const int part = threadIdx.x % TPR;
-  const int qi = blockIdx.x * BQ + threadIdx.x / TPR;
-  const bool live = qi < Sq;
+__device__ __forceinline__ float part(const float4& t, int i) {
+  return i == 0 ? t.x : i == 1 ? t.y : i == 2 ? t.z : t.w;
+}
+
+// the max (or sum) over the CL lanes of a row group
+template <int CL>
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < CL; o *= 2)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <int CL>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < CL; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// keys [j0, j0 + BK) of one (Sk, HD) matrix into a padded tile; keys at or
+// past kend are zero-filled (nothing is read); one cp.async group
+template <int HD>
+__device__ __forceinline__ void stage(float* dst, const float* src, int j0,
+                                      int kend) {
+  using C = Cfg<HD>;
+  constexpr int CH = HD / 4;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < C::BK * CH; e += THREADS) {
+    const int r = e / CH, c = e % CH;
+    const bool in = j0 + r < kend;
+    tc::cp_async16(dst + r * C::LD + 4 * c,
+                   src + (in ? (size_t)(j0 + r) * HD + 4 * c : 0), in ? 16 : 0);
+  }
+  tc::cp_async_commit();
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS)
+    flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, int G,
+              int Sq, int Sk, int kvalid, int causal, float scale_log2) {
+  using C = Cfg<HD>;
+  constexpr int CL = C::CL, BQ = C::BQ, BK = C::BK, KPT = C::KPT;
+  constexpr int VW = C::VW, NCH = C::NCH, LD = C::LD, LDP = C::LDP;
+  constexpr int RG = 32 / CL;  // row groups a warp holds
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);  // [BQ][LD]
+  float* sK = sQ + BQ * LD;                     // 2 x [BK][LD]
+  float* sV = sK + 2 * C::TILE;                 // (1 or 2) x [BK][LD]
+  float* sP = sV + (C::VRING ? 2 : 1) * C::TILE;  // [BQ][LDP]
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int grp = lane / CL;         // the warp's row group
+  const int col = lane % CL;         // keys col + CL j of S, dims of O
+  const int rg = RG * warp + grp;    // query rows rg + (BQ / RPT) i
+  constexpr int RS = BQ / RPT;       // row stride of a thread's rows
+  float* myP = sP + RG * RPT * warp * LDP;  // the warp's rows: RG i + grp
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // long causal rows first
+  const int q0 = qt * BQ;
   const long long bkv = blockIdx.z;
   const long long head = bkv * G + blockIdx.y;
+  const float* qb = q + head * Sq * HD;
+  const float* kb = k + bkv * Sk * HD;
+  const float* vb = v + bkv * Sk * HD;
 
-  float4 qr[C], acc[C];
-  const T* qp = q + (head * Sq + (live ? qi : 0)) * HD;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float4 t = live ? load4(qp + 4 * (part + TPR * c)) : make_float4(0, 0, 0, 0);
-    qr[c] = make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale);
-    acc[c] = make_float4(0, 0, 0, 0);
-  }
-  float m = NEG, l = 0.f;
+  int kend = min(Sk, kvalid);  // keys this block's rows may see
+  if (causal) kend = min(kend, q0 + BQ);
+  const int ntiles = (kend + BK - 1) / BK;
+  // cp.async groups, in order: K0, V0, then per tile t: K(t+1), V(t+1)
+  stage<HD>(sK, kb, 0, kend);
+  stage<HD>(sV, vb, 0, kend);
 
-  // keys this tile of rows may see: the causal bound ends the loop early
-  int kend = min(Sk, kvalid);
-  if (causal) kend = min(kend, (int)blockIdx.x * BQ + BQ);
-  const T* kb = k + bkv * Sk * HD;
-  const T* vb = v + bkv * Sk * HD;
-
-  for (int j0 = 0; j0 < kend; j0 += BK) {
-    __syncthreads();  // the previous tile has been consumed
-    for (int e = threadIdx.x; e < BK * H4; e += THREADS) {
-      const int kj = j0 + e / H4;
-      const long long off = (long long)kj * HD + 4 * (e % H4);
-      const bool in = kj < kend;
-      ks[e] = in ? load4(kb + off) : make_float4(0, 0, 0, 0);
-      vs[e] = in ? load4(vb + off) : make_float4(0, 0, 0, 0);
-    }
-    __syncthreads();
-
-    float s[BK];
-    float mt = m;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float4 kk = ks[j * H4 + part + TPR * c];
-        d = fmaf(qr[c].x, kk.x, d);
-        d = fmaf(qr[c].y, kk.y, d);
-        d = fmaf(qr[c].z, kk.z, d);
-        d = fmaf(qr[c].w, kk.w, d);
-      }
-      d += __shfl_xor_sync(0xffffffffu, d, 1);
-      d += __shfl_xor_sync(0xffffffffu, d, 2);
-      const int kj = j0 + j;
-      const bool ok = kj < kend && (!causal || kj <= qi);
-      s[j] = ok ? d : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float alpha = expf(m - mt);
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      acc[c].x *= alpha;
-      acc[c].y *= alpha;
-      acc[c].z *= alpha;
-      acc[c].w *= alpha;
-    }
-    float ps = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - mt);  // a masked key: exp(-inf) = 0
-      ps += p;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float4 vv = vs[j * H4 + part + TPR * c];
-        acc[c].x = fmaf(p, vv.x, acc[c].x);
-        acc[c].y = fmaf(p, vv.y, acc[c].y);
-        acc[c].z = fmaf(p, vv.z, acc[c].z);
-        acc[c].w = fmaf(p, vv.w, acc[c].w);
-      }
-    }
-    l = l * alpha + ps;
-    m = mt;
+  // Q, pre-scaled by scale·log2(e): the scores come out in base 2
+  for (int e = threadIdx.x; e < BQ * (HD / 4); e += THREADS) {
+    const int r = e / (HD / 4), c = e % (HD / 4);
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq) t = ld4(qb + (size_t)(q0 + r) * HD + 4 * c);
+    *reinterpret_cast<float4*>(sQ + r * LD + 4 * c) =
+        make_float4(t.x * scale_log2, t.y * scale_log2, t.z * scale_log2,
+                    t.w * scale_log2);
   }
 
-  if (!live) return;
-  const float den = fmaxf(l, 1e-30f);
-  T* op = out + (head * Sq + qi) * HD;
+  float o[RPT][NCH][VW];
+  float m[RPT], l[RPT];
 #pragma unroll
-  for (int c = 0; c < C; ++c)
-    store4(op + 4 * (part + TPR * c),
-           make_float4(acc[c].x / den, acc[c].y / den, acc[c].z / den,
-                       acc[c].w / den));
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = NEG;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int w = 0; w < VW; ++w) o[i][c][w] = 0.f;
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const bool next = t + 1 < ntiles;
+    const float* tK = sK + (t & 1) * C::TILE;
+    const float* tV = sV + (C::VRING ? (t & 1) * C::TILE : 0);
+    const int j0 = t * BK;
+    if (next) {  // K(t+1) into the other half of the ring (read at t - 1)
+      stage<HD>(sK + ((t + 1) & 1) * C::TILE, kb, j0 + BK, kend);
+      if (C::VRING) stage<HD>(sV + ((t + 1) & 1) * C::TILE, vb, j0 + BK, kend);
+    }
+    // K(t) has landed: pending may be V(t) (single V), K(t+1), V(t+1)
+    if (!next)
+      tc::cp_async_wait<C::VRING ? 0 : 1>();
+    else
+      tc::cp_async_wait<2>();
+    __syncthreads();  // K(t) (and, the first time, Q) seen by every thread
+
+    // S = Q·Kᵀ on the thread's RPT x KPT scores
+    float s[RPT][KPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float4 qv[RPT], kv[KPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) qv[i] = ld4(sQ + (rg + RS * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) kv[j] = ld4(tK + (col + CL * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+    // per-element masks only where the tile crosses the valid end or the
+    // causal diagonal
+    if (j0 + BK > kend || (causal && j0 + BK - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < KPT; ++j) {
+          const int kj = j0 + col + CL * j, qi = q0 + rg + RS * i;
+          if (kj >= kend || (causal && kj > qi)) s[i][j] = -INFINITY;
+        }
+    }
+    // the online softmax: one max per row over its CL lanes; P to the
+    // warp's rows of shared memory
+    __syncwarp();  // the warp has read the previous tile's P
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      float mt = s[i][0];
+#pragma unroll
+      for (int j = 1; j < KPT; ++j) mt = fmaxf(mt, s[i][j]);
+      mt = fmaxf(m[i], row_max<CL>(mt));
+      const float alpha = exp2f(m[i] - mt);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float p = exp2f(s[i][j] - mt);  // a masked key: 2^-inf = 0
+        ps += p;
+        myP[(RG * i + grp) * LDP + col + CL * j] = p;
+      }
+      l[i] = l[i] * alpha + ps;
+      m[i] = mt;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int w = 0; w < VW; ++w) o[i][c][w] *= alpha;
+    }
+    if (!C::VRING) {  // V(t) has landed (pending: K(t+1))
+      if (next)
+        tc::cp_async_wait<1>();
+      else
+        tc::cp_async_wait<0>();
+      __syncthreads();
+    } else {
+      __syncwarp();  // the warp's P rows are written
+    }
+
+    // O += P·V on the thread's RPT rows x NCH·VW dims
+#pragma unroll
+    for (int j = 0; j < BK; j += 4) {
+      float4 pv[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) pv[i] = ld4(myP + (RG * i + grp) * LDP + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+          float vv[VW];
+          ldv<VW>(vv, tV + (j + jj) * LD + VW * (col + CL * c));
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const float p = part(pv[i], jj);
+#pragma unroll
+            for (int w = 0; w < VW; ++w) o[i][c][w] = fmaf(p, vv[w], o[i][c][w]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // K(t) and V(t) are consumed before they are refilled
+    if (!C::VRING && next) stage<HD>(sV, vb, j0 + BK, kend);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const float den = fmaxf(row_sum<CL>(l[i]), 1e-30f);
+    const int qi = q0 + rg + RS * i;
+    if (qi >= Sq) continue;
+    float* op = out + (head * Sq + qi) * HD;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      float r[VW];
+#pragma unroll
+      for (int w = 0; w < VW; ++w) r[w] = o[i][c][w] / den;
+      stv<VW>(op + VW * (col + CL * c), r);
+    }
+  }
 }
 
-template <int HD, typename T>
+template <int HD>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int BKV, int G, int Sq, int Sk, int kvalid, int causal,
                   float scale, cudaStream_t stream) {
-  const size_t smem = 2 * BK * HD * sizeof(float);
+  constexpr size_t smem = Cfg<HD>::SMEM;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((Sq + BQ - 1) / BQ, G, BKV);
-  flash_fwd<HD, T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), G, Sq, Sk, kvalid,
-      causal, scale);
+  dim3 grid((Sq + Cfg<HD>::BQ - 1) / Cfg<HD>::BQ, G, BKV);
+  flash_fwd<HD><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), G, Sq, Sk,
+      kvalid, causal, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -180,7 +356,7 @@ static int dispatch_f32(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
 #define FA_HD(n) \
   case n:        \
-    return launch<n, float>(q, k, v, out, BKV, G, Sq, Sk, kvalid, causal, scale, s);
+    return launch<n>(q, k, v, out, BKV, G, Sq, Sk, kvalid, causal, scale, s);
     FA_HD(16)
     FA_HD(32)
     FA_HD(64)

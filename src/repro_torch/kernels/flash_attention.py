@@ -13,11 +13,13 @@ The TPU kernel kept the whole K/V block resident in VMEM and needed Sq and
 Sk padded to its tiles.  The CUDA kernel streams K/V tiles through shared
 memory and masks the ragged Sq and Sk edges itself, so nothing is padded;
 ``bq``/``bk`` stay on :func:`repro_torch.kernels.ops.flash_attention` as the
-TPU's tile hints and the kernel keeps its own tiles (64 query rows).
+TPU's tile hints and the kernel keeps its own tiles (64 query rows, 128 on
+the f32 route at hd 128).
 Head dims: :data:`HEAD_DIMS` (every attention arch of the registry).
 
-Two routes, by dtype.  f32 runs SIMT f32 FMA (four threads a query row, 32-key
-tiles).  bf16 runs on the tensor cores (``mma.sync`` m16n8k16, f32
+Two routes, by dtype.  f32 runs SIMT f32 FMA, register-blocked like an SGEMM
+(a thread owns 4 query rows of S and of O, K/V tiles by ``cp.async`` into a
+two-stage ring).  bf16 runs on the tensor cores (``mma.sync`` m16n8k16, f32
 accumulate, FA2's layout: 16 query rows a warp, K/V by ``cp.async`` into a
 two-stage ring, the online softmax on the accumulator fragments).  There P
 is rounded to bf16 before P·V, as :func:`repro_torch.nn.attention.gqa_attention`

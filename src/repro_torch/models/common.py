@@ -29,7 +29,10 @@ __all__ = [
     "whole_cols",
     "block_of",
     "conv_weight",
-    "heads_split",
+    "kv_heads_split",
+    "head_groups",
+    "HeadBlock",
+    "head_block",
     "proj_heads",
     "qkv_heads",
     "local_rows",
@@ -220,33 +223,137 @@ def conv_weight(p: dict) -> torch.Tensor:
     return _params.dense_weight(p["conv_w"])
 
 
-def heads_split(cfg: ArchConfig, sctx: ShardCtx) -> bool:
-    """Whether a rank holds its own attention heads (and their KV group):
-    the KV heads divide ``model``.  Otherwise a column block of ``wq/wk/
-    wv`` can cut a head, so q, k and v are gathered whole and attention runs
-    the same function on every rank (``cache_pspecs`` then puts the KV
-    cache's sequence over ``model``)."""
+def kv_heads_split(cfg: ArchConfig, sctx: ShardCtx) -> bool:
+    """Whether a rank holds its own KV heads: they divide ``model``
+    (``cache_pspecs`` then puts the KV cache's heads over ``model``, else
+    its positions)."""
     return sctx.active and sctx.tp > 1 and bool(cfg.n_kv_heads) \
         and cfg.n_kv_heads % sctx.tp == 0
 
 
-def proj_heads(x, w, n: int, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> torch.Tensor:
+def head_groups(n_heads: int, tp: int, hd: int) -> int:
+    """The blocks the q heads split into over ``tp`` ranks of ``model``:
+    ``gcd(n_heads, tp)``, as GSPMD splits a ``(.., "model", ..)`` heads
+    constraint that ``model`` does not divide (40 heads over 16: 8 blocks
+    of 5, each held by 2 consecutive ranks).  1 (every rank runs every
+    head) where a rank's share of its block's output columns,
+    ``n_heads·hd / tp``, is not whole."""
+    import math
+
+    g = math.gcd(n_heads, tp) if n_heads and tp > 1 else 1
+    return g if g > 1 and (n_heads * hd) % tp == 0 else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadBlock:
+    """This rank's attention heads (:func:`head_block`): q heads ``[q0, q0 +
+    nq)``, block ``q0 // nq`` of ``g``, and the KV heads they read.
+
+    ``kv_sel`` picks those KV heads out of k and v as the rank holds them:
+    ``None`` (the rank's own KV block, or every head on one device), a
+    slice (the block's q heads cover whole KV groups from a group's start,
+    or sit inside one), or the KV head of each q head (they straddle a
+    group: attention then runs one KV head a q head).  ``o_cols`` is the
+    slice of the block's ``nq·hd`` output columns this rank's K rows of
+    ``wo`` take (``None``: all of them, or the whole output on every
+    rank)."""
+
+    g: int
+    q0: int
+    nq: int
+    kv_split: bool
+    kv_sel: Any = None
+    o_cols: Optional[slice] = None
+
+    def kv(self, *ts: torch.Tensor) -> tuple:
+        """The KV heads of this block from each ``(B, S, KV, hd)`` in ``ts``."""
+        if self.kv_sel is None:
+            return ts
+        if isinstance(self.kv_sel, slice):
+            return tuple(t[:, :, self.kv_sel] for t in ts)
+        idx = torch.tensor(self.kv_sel, device=ts[0].device)
+        return tuple(t.index_select(2, idx) for t in ts)
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """The block's attention output ``(..., nq, hd)`` as the input of
+        ``wo``'s row-parallel ``shard_linear``: this rank's K block of it
+        (the whole output when every rank runs every head)."""
+        o = o.reshape(*o.shape[:-2], -1)
+        return o if self.o_cols is None else o[..., self.o_cols]
+
+
+def head_block(cfg: ArchConfig, sctx: ShardCtx, *, decode: bool = False) -> HeadBlock:
+    """Where this rank's attention heads are: JAX constrains q to
+    ``(batch, None, model, None)`` and k, v to ``(batch, None, None,
+    None)``, and GSPMD cuts the q heads into ``g = gcd(n_heads, model)``
+    blocks (:func:`head_groups`), block ``i`` on ranks ``i·model/g`` to
+    ``(i+1)·model/g − 1``.  Where the KV heads divide ``model`` this is
+    each rank's own q and KV heads.  ``decode`` (one token against a cache
+    whose positions split over ``model`` where the KV heads do not) gives
+    every rank every head, whose softmax partials it combines over
+    ``model`` (``nn/attention.py``).  Inactive, or at ``tp`` 1: one
+    device's."""
+    tp = sctx.tp
+    H, hd = cfg.n_heads, cfg.hd
+    kv_split = kv_heads_split(cfg, sctx)
+    g = 1 if decode and not kv_split else head_groups(H, tp, hd)
+    if g == 1:
+        return HeadBlock(1, 0, H, kv_split)
+    rank, per = sctx.mesh.index(sctx.model), tp // g
+    nq = H // g
+    q0 = rank // per * nq
+    o_cols = None
+    if per > 1:
+        w = nq * hd // per
+        o_cols = slice(rank % per * w, (rank % per + 1) * w)
+    if kv_split:
+        return HeadBlock(g, q0, nq, True, None, o_cols)
+    G = H // cfg.n_kv_heads
+    kv = tuple(h // G for h in range(q0, q0 + nq))
+    n = kv[-1] - kv[0] + 1
+    run = nq // n if nq % n == 0 else 0
+    if run and all(kv[i] == kv[0] + i // run for i in range(nq)):
+        sel = slice(kv[0], kv[-1] + 1)
+    else:
+        sel = kv
+    return HeadBlock(g, q0, nq, False, sel, o_cols)
+
+
+def proj_heads(x, w, n: int, cfg: ArchConfig, sctx: ShardCtx, impl: str,
+               hb: Optional[HeadBlock] = None, *, query: bool = False) -> torch.Tensor:
     """``x`` through the column-parallel ``w`` as ``(..., heads, hd)`` of
-    ``n`` heads: this rank's own heads when they split over ``model``
-    (:func:`heads_split`) and every head otherwise, a column block gathered
-    over ``model`` (it may cut a head)."""
+    ``n`` heads, for the rank's head block ``hb`` (default
+    :func:`head_block`): the queries (``query``) as the block's heads, keys
+    and values as the cache holds them, the rank's own KV heads where they
+    split and else every KV head (:meth:`HeadBlock.kv` takes the block's).
+    A column block that is not what the block needs is gathered whole over
+    ``model`` (it may cut a head); where the gathered tensor then feeds the
+    rank's own heads it passes ``enter_split``, so its gradient is summed
+    over ``model`` before the rank takes its block back."""
+    hb = head_block(cfg, sctx) if hb is None else hb
+    hd = cfg.hd
     y = shard_linear(x, w, impl, sctx)
-    if not heads_split(cfg, sctx):
-        y = whole_cols(y, n * cfg.hd, sctx)
-    return y.reshape(*y.shape[:-1], -1, cfg.hd)
+    own = (hb.g == sctx.tp and y.shape[-1] == hb.nq * hd) if query else hb.kv_split
+    if not own:
+        y = whole_cols(y, n * hd, sctx)
+        if hb.g > 1:
+            from repro_torch.launch.mesh import enter_split
+
+            y = enter_split(y, sctx.mesh, sctx.model)
+            if query:
+                y = y[..., hb.q0 * hd:(hb.q0 + hb.nq) * hd]
+    return y.reshape(*y.shape[:-1], -1, hd)
 
 
-def qkv_heads(xq, xkv, p: dict, cfg: ArchConfig, sctx: ShardCtx, impl: str) -> tuple:
+def qkv_heads(xq, xkv, p: dict, cfg: ArchConfig, sctx: ShardCtx, impl: str,
+              hb: Optional[HeadBlock] = None) -> tuple:
     """The attention heads ``(q, k, v)`` (:func:`proj_heads`) of ``xq``
-    (queries) and ``xkv`` (keys and values) through ``p``'s ``wq/wk/wv``."""
-    return (proj_heads(xq, p["wq"], cfg.n_heads, cfg, sctx, impl),
-            proj_heads(xkv, p["wk"], cfg.n_kv_heads, cfg, sctx, impl),
-            proj_heads(xkv, p["wv"], cfg.n_kv_heads, cfg, sctx, impl))
+    (queries) and ``xkv`` (keys and values) through ``p``'s ``wq/wk/wv``,
+    for the head block ``hb``."""
+    hb = head_block(cfg, sctx) if hb is None else hb
+    return (proj_heads(xq, p["wq"], cfg.n_heads, cfg, sctx, impl, hb, query=True),
+            proj_heads(xkv, p["wk"], cfg.n_kv_heads, cfg, sctx, impl, hb),
+            proj_heads(xkv, p["wv"], cfg.n_kv_heads, cfg, sctx, impl, hb))
 
 
 def local_rows(t, sctx: ShardCtx):

@@ -27,9 +27,10 @@ transformer's contract: global inputs, the global logits — and from
 decoder's self- and cross-attention and the MLPs are Megatron blocks:
 ``wq/wk/wv``/``w1`` column-parallel (``bias1`` narrowed to the rank's
 block), ``wo``/``w2`` row-parallel; whisper-tiny's 6 heads split 3 + 3 at
-``model`` 2 and the self and cross K/V caches hold the rank's heads (heads
-that do not divide ``model`` are gathered whole and the caches' positions
-split instead, as in the transformer).  The mel stem's conv leaves match no
+``model`` 2 and the self and cross K/V caches hold the rank's heads (KV
+heads that do not divide ``model`` are gathered whole, attention runs on
+the rank's block of q heads and the caches' positions split instead, as
+in the transformer).  The mel stem's conv leaves match no
 placement rule, so the stem runs whole on every rank; ``embed`` is
 vocab-sharded where the vocab divides (51865 does not: it is held whole,
 with the tied head on it), and ``pos_embed``'s rows split the same way.
@@ -48,9 +49,9 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.conv import Conv2D, ConvParams, conv2d
 from repro_torch.models.common import (Initializer, ShardCtx, block_of, embed_tokens,
-                                       global_logits, heads_split, local_rows, map_leaves,
-                                       maybe_scan, proj_heads, qkv_heads, shard_linear, tied_head,
-                                       whole_rows)
+                                       global_logits, head_block, kv_heads_split, local_rows,
+                                       map_leaves, maybe_scan, proj_heads, qkv_heads,
+                                       shard_linear, tied_head, whole_rows)
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 
@@ -158,10 +159,10 @@ def _impl(cfg: ArchConfig) -> str:
 
 
 def _mha(xq, xkv, p, cfg: ArchConfig, impl: str, sctx: ShardCtx, *, causal: bool):
-    B, Sq, _ = xq.shape
-    q, k, v = qkv_heads(xq, xkv, p, cfg, sctx, impl)
-    o = A.gqa_attention(q, k, v, causal=causal, chunk=min(1024, k.shape[1]))
-    return shard_linear(o.reshape(B, Sq, -1), p["wo"], impl, sctx), (k, v)
+    hb = head_block(cfg, sctx)
+    q, k, v = qkv_heads(xq, xkv, p, cfg, sctx, impl, hb)
+    o = A.gqa_attention(q, *hb.kv(k, v), causal=causal, chunk=min(1024, k.shape[1]))
+    return shard_linear(hb.out(o), p["wo"], impl, sctx)
 
 
 def _mlp_fwd(x, p, impl: str, sctx: ShardCtx):
@@ -240,7 +241,7 @@ def _encode(params: dict, mel: torch.Tensor, cfg: ArchConfig, sctx: ShardCtx) ->
 
     def layer(h, lp):
         xn = _lnorm(h, lp["ln1"])
-        h = h + _mha(xn, xn, lp["attn"], cfg, impl, sctx, causal=False)[0]
+        h = h + _mha(xn, xn, lp["attn"], cfg, impl, sctx, causal=False)
         return h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl, sctx)
 
     x, _ = maybe_scan(lambda h, lp: (_remat(layer, cfg, h, lp), None), x,
@@ -285,7 +286,7 @@ def _mesh(sctx: ShardCtx):
 def _cross_shards(cfg: ArchConfig, sctx: ShardCtx) -> int:
     """Ranks the cross K/V's positions split over: ``cache_pspecs`` puts
     them on ``model`` when the KV heads do not divide it and they do."""
-    if not sctx.active or sctx.tp == 1 or heads_split(cfg, sctx) \
+    if not sctx.active or sctx.tp == 1 or kv_heads_split(cfg, sctx) \
             or cfg.frontend_tokens % sctx.tp:
         return 1
     return sctx.tp
@@ -313,9 +314,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
     def layer(h, lp):
         xn = _lnorm(h, lp["ln1"])
-        h = h + _mha(xn, xn, lp["attn"], cfg, impl, sctx, causal=True)[0]
+        h = h + _mha(xn, xn, lp["attn"], cfg, impl, sctx, causal=True)
         h = h + _mha(_lnorm(h, lp["ln_cross"]), enc, lp["cross"], cfg, impl, sctx,
-                     causal=False)[0]
+                     causal=False)
         return h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl, sctx)
 
     x, _ = maybe_scan(lambda h, lp: (_remat(layer, cfg, h, lp), None), x,
@@ -361,19 +362,21 @@ def prefill(params: dict, tokens: torch.Tensor, caches: list, cfg: ArchConfig,
                sctx)
     mine = local_rows(lengths, sctx)
     adv = S if lengths is None else lengths.to(torch.int32)
+    hb = head_block(cfg, sctx)
 
     def body(h, inp):
         lp, cache = inp
         xn = _lnorm(h, lp["ln1"])
-        q, k, v = qkv_heads(xn, xn, lp["attn"], cfg, sctx, impl)
-        o = A.gqa_attention(q, k, v, causal=True, chunk=min(1024, S))
-        h = h + shard_linear(o.reshape(*o.shape[:2], -1), lp["attn"]["wo"], impl, sctx)
+        q, k, v = qkv_heads(xn, xn, lp["attn"], cfg, sctx, impl, hb)
+        o = A.gqa_attention(q, *hb.kv(k, v), causal=True, chunk=min(1024, S))
+        h = h + shard_linear(hb.out(o), lp["attn"]["wo"], impl, sctx)
         new_self = A.update_cache(_self_local(cache["self"], sctx), k, v, lengths=mine,
                                   mesh=mesh)
         new_self = dataclasses.replace(new_self, pos=cache["self"].pos + adv)
-        qc, ck, cv = qkv_heads(_lnorm(h, lp["ln_cross"]), enc, lp["cross"], cfg, sctx, impl)
-        oc = A.gqa_attention(qc, ck, cv, causal=False, chunk=min(1024, ck.shape[1]))
-        h = h + shard_linear(oc.reshape(*oc.shape[:2], -1), lp["cross"]["wo"], impl, sctx)
+        qc, ck, cv = qkv_heads(_lnorm(h, lp["ln_cross"]), enc, lp["cross"], cfg, sctx, impl,
+                               hb)
+        oc = A.gqa_attention(qc, *hb.kv(ck, cv), causal=False, chunk=min(1024, ck.shape[1]))
+        h = h + shard_linear(hb.out(oc), lp["cross"]["wo"], impl, sctx)
         h = h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl, sctx)
         cross = cache["cross"]
         # the cross K/V's positions this rank holds (all, unless they split)
@@ -403,22 +406,23 @@ def decode_step(params: dict, tokens: torch.Tensor, caches: list, cfg: ArchConfi
     x = _embed(params, local_rows(tokens, sctx),
                torch.clamp(local_rows(pos, sctx), 0, cfg.max_seq - 1)[:, None], sctx)
     B = x.shape[0]
+    hb = head_block(cfg, sctx, decode=True)
 
     def body(h, inp):
         lp, cache = inp
         xn = _lnorm(h, lp["ln1"])
-        q, k, v = qkv_heads(xn, xn, lp["attn"], cfg, sctx, impl)
+        q, k, v = qkv_heads(xn, xn, lp["attn"], cfg, sctx, impl, hb)
         new_self = A.update_cache(_self_local(cache["self"], sctx), k, v, mesh=mesh)
         o = A.decode_attention(q, new_self, mesh=mesh)
-        h = h + shard_linear(o.reshape(B, 1, -1), lp["attn"]["wo"], impl, sctx)
+        h = h + shard_linear(hb.out(o), lp["attn"]["wo"], impl, sctx)
         xn = _lnorm(h, lp["ln_cross"])
-        qc = proj_heads(xn, lp["cross"]["wq"], cfg.n_heads, cfg, sctx, impl)
+        qc = proj_heads(xn, lp["cross"]["wq"], cfg.n_heads, cfg, sctx, impl, hb, query=True)
         ck, shards = cache["cross"]["k"], _cross_shards(cfg, sctx)
         crossc = A.KVCache(k=ck, v=cache["cross"]["v"],  # every encoder position valid
                            pos=torch.full((B,), ck.shape[1] * shards, dtype=torch.int32,
                                           device=ck.device), seq_shards=shards)
         oc = A.decode_attention(qc, crossc, mesh=mesh)
-        h = h + shard_linear(oc.reshape(B, 1, -1), lp["cross"]["wo"], impl, sctx)
+        h = h + shard_linear(hb.out(oc), lp["cross"]["wo"], impl, sctx)
         h = h + _mlp_fwd(_lnorm(h, lp["ln2"]), lp["mlp"], impl, sctx)
         new_self = dataclasses.replace(new_self, pos=cache["self"].pos + 1)
         return h, {"self": new_self, "cross": cache["cross"]}

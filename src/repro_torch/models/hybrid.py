@@ -25,15 +25,17 @@ whole (``relayout``) and each rank takes its block of the channels: the
 conv, its window, the RG-LRU state, ``lam/b_a/b_x`` and ``rec_out``'s K
 block all hold that block; the gates read the whole conv output
 (gathered, ``relayout``) through their column blocks (``nn/rglru.py``).
-recurrentgemma-2b's one KV head does not divide ``model``: q, k and v are
-gathered whole (a column block of ``wk`` holds half the head's dims), the
-prefill attention runs on every head, and the ring's slots split over
-``model`` (``cache_pspecs``: slot ``s`` on rank ``s // (win / tp)``), so
-decode combines each rank's softmax partial over its slots in rank order
-(:func:`repro_torch.nn.attention.combine_over`) and ``wo`` takes the rank's
-K block.  ``slot_pos``, ``pos`` and the recurrent states are whole on the
-batch (``cache_pspecs``): a rank updates its rows and gathers them over
-``data`` (``cache_rows``).  Mesh (1, 1) runs the unsharded arithmetic.
+recurrentgemma-2b's one KV head does not divide ``model``: k and v are
+gathered whole (a column block of ``wk`` holds half the head's dims) and
+the prefill attention runs on the rank's block of the q heads
+(``models/common.py::head_block``: 10 heads over ``model`` 2, 5 a rank);
+the ring's slots split over ``model`` (``cache_pspecs``: slot ``s`` on
+rank ``s // (win / tp)``), so decode runs every head and combines each
+rank's softmax partial over its slots in rank order
+(:func:`repro_torch.nn.attention.combine_over`), and ``wo`` takes the
+rank's K block.  ``slot_pos``, ``pos`` and the recurrent states are whole
+on the batch (``cache_pspecs``): a rank updates its rows and gathers them
+over ``data`` (``cache_rows``).  Mesh (1, 1) runs the unsharded arithmetic.
 """
 from __future__ import annotations
 
@@ -47,9 +49,9 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core._f32 import matmul_f32
 from repro_torch.models.common import (Initializer, ShardCtx, block_of, conv_weight,
-                                       embed_tokens, global_logits, local_rows, map_leaves,
-                                       maybe_scan, qkv_heads, shard_linear, whole_cols,
-                                       whole_rows)
+                                       embed_tokens, global_logits, head_block, local_rows,
+                                       map_leaves, maybe_scan, qkv_heads, shard_linear,
+                                       whole_cols, whole_rows)
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
 from repro_torch.nn import rglru as RG
@@ -198,11 +200,12 @@ def _attention_fwd(x, p, cfg: ArchConfig, sctx: ShardCtx, impl: str, cos, sin) -
     B, S, _ = x.shape
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     ap = p["attn"]
-    q, k, v = qkv_heads(xn, xn, ap, cfg, sctx, impl)
+    hb = head_block(cfg, sctx)
+    q, k, v = qkv_heads(xn, xn, ap, cfg, sctx, impl, hb)
     q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
-    o = A.gqa_attention(sctx.act_bthd(q), k, v, causal=True,
+    o = A.gqa_attention(sctx.act_bthd(q), *hb.kv(k, v), causal=True,
                         window=cfg.hybrid.local_window, chunk=min(1024, S))
-    x = x + shard_linear(o.reshape(B, S, -1), ap["wo"], impl, sctx)
+    x = x + shard_linear(hb.out(o), ap["wo"], impl, sctx)
     return sctx.act_btd(_ffn(x, p, cfg, impl, sctx)), (k, v)
 
 
@@ -340,7 +343,8 @@ def _attention_step(x, p, cfg: ArchConfig, impl: str, cache: dict, pos, cos, sin
     held = cache["k"].shape[1]
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     ap = p["attn"]
-    q, k, v = (t[:, None] for t in qkv_heads(xn, xn, ap, cfg, sctx, impl))
+    hb = head_block(cfg, sctx, decode=True)
+    q, k, v = (t[:, None] for t in qkv_heads(xn, xn, ap, cfg, sctx, impl, hb))
     B, _, H, _ = q.shape
     mine = local_rows(pos, sctx)
     q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)

@@ -731,10 +731,11 @@ def global_like(placed: Any, mesh, specs: Any = None) -> Any:
 
 
 # a whole leaf read on rank-distinct work outside a container, and the
-# container whose output block it reads: the per-head norm scales act on
-# this rank's heads (only where the heads split: ``_heads_split``), and
-# whisper's MLP bias (``bias1``) is narrowed to ``w1``'s column block
-_READ_ON = ((r"(^|/)q_norm$", "wq"), (r"(^|/)k_norm$", "wk"), (r"(^|/)bias1$", "w1"))
+# container whose output block it reads: whisper's MLP bias (``bias1``) is
+# narrowed to ``w1``'s column block.  The per-head norm scales act on this
+# rank's block of the heads, over ``model`` wherever the heads split into
+# blocks (``_heads_split``)
+_READ_ON = ((r"(^|/)bias1$", "w1"),)
 _PER_HEAD = ("q_norm", "k_norm")
 
 
@@ -781,9 +782,10 @@ def grad_reduce_axes(placed: Any, mesh, specs: Any = None, *, batch_split: bool 
       over its E and ``Fe`` blocks), the whole bias an N block narrows
       (``params.tp_linear``; whisper's ``bias1``), a quantized
       vocab-sharded table's codebook, the per-head ``q_norm``/``k_norm``
-      where a rank holds its own heads (where the KV heads do not divide
-      ``model`` every rank runs every head: ``models/common.py::
-      qkv_heads``), and what ``reads`` names (``{leaf path: the path of
+      where the q heads split into blocks over ``model`` (a rank runs its
+      block: ``models/common.py::head_block``; the ranks that share one
+      block take disjoint K rows of ``wo``, so each part counts once), and
+      what ``reads`` names (``{leaf path: the path of
       the container whose output blocks read it}``: the CNN's per-layer
       QAT codebooks);
     - a leaf held as a block is never summed over the axes it splits on,
@@ -817,28 +819,28 @@ def grad_reduce_axes(placed: Any, mesh, specs: Any = None, *, batch_split: bool 
             elif owner is not None and path[-1] == "bias":
                 extra = n_axes["/".join(path[:-1])]
             target = (reads or {}).get(name)
+            if path[-1] in _PER_HEAD and target is None:
+                extra = (MODEL,) if _heads_split(name, leaf, n_cols, mesh) else ()
             for pat, proj in _READ_ON:
                 if target is None and re.search(pat, name):
                     target = re.sub(pat, lambda m, proj=proj: m.group(1) + proj, name)
-                    if path[-1] in _PER_HEAD and not _heads_split(
-                            name, leaf, n_axes, n_cols, mesh):
-                        target = ""
             if target is not None:
                 extra = n_axes.get(target, ())
         out[path] = base + tuple(a for a in extra if a not in base)
     return out
 
 
-def _heads_split(name: str, norm: torch.Tensor, n_axes: dict, n_cols: dict, mesh) -> bool:
-    """Whether a rank holds its own heads beside the per-head norm ``name``:
-    the KV projection ``wk`` is an N block and its heads (its width over
-    the norm's ``head_dim``) divide the axes it splits over
-    (``models/common.py::heads_split``)."""
-    wk = re.sub(r"[qk]_norm$", "wk", name)
-    axes, width = n_axes.get(wk, ()), n_cols.get(wk)
-    if not axes or not width:
-        return bool(axes)
-    return (width // norm.shape[-1]) % _size(axes, mesh) == 0
+def _heads_split(name: str, norm: torch.Tensor, n_cols: dict, mesh) -> bool:
+    """Whether a rank runs its own block of the heads beside the per-head
+    norm ``name``: ``wq``'s heads (its width over the norm's ``head_dim``)
+    split into more than one block over ``model``
+    (``models/common.py::head_groups``, GSPMD's ``gcd(n_heads, model)``).
+    Its norm gradient is then its heads' part: the ranks of one block each
+    take their own K rows of ``wo``, so their parts are disjoint too."""
+    from repro_torch.models.common import head_groups
+
+    width, hd = n_cols.get(re.sub(r"[qk]_norm$", "wq", name)), norm.shape[-1]
+    return bool(width) and head_groups(width // hd, mesh.size(MODEL), hd) > 1
 
 
 _BUCKET_ELEMS = 1 << 20  # a gradient leaf this large is all-reduced alone

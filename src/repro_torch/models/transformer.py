@@ -38,15 +38,16 @@ MoE layers run :func:`repro_torch.nn.moe.moe_ffn` under the mesh.  The
 column-parallel linears, the attention and the embedding are bitwise one
 device's; a row-parallel sum adds its f32 partials in another order
 (within an ulp of bf16).  KV heads that do not divide ``model`` (phi3's 10
-at ``model`` 4: a column block of ``wk`` holds 2.5 heads) gather q, k and
-v whole, so attention runs on whole heads, the same function on every
-rank; ``cache_pspecs`` then puts the KV cache's sequence over ``model``,
-decode combines the ranks' softmax partials
-(:func:`repro_torch.nn.attention.decode_attention`), and ``wo`` takes the
-rank's K block of the whole output.  The dense family's forward under an
-active context is differentiable (the collectives carry gradients:
-``train/step.py`` trains on it); the MoE and vit families train on one
-device only (ROADMAP Queue 1 item 13b).
+at ``model`` 4: a column block of ``wk`` holds 2.5 heads) are gathered
+whole, and a rank runs attention on its block of the q heads as GSPMD
+splits them (``models/common.py::head_block``: ``gcd(n_heads, model)``
+blocks; phi3's 40 at 4, 10 a rank, reading KV heads 0–2, 2–4, ...) and
+feeds its K rows of ``wo``; ``cache_pspecs`` then puts the KV cache's
+sequence over ``model``, and decode runs every head and combines the
+ranks' softmax partials (:func:`repro_torch.nn.attention.decode_attention`).
+The dense family's forward under an active context is differentiable
+(the collectives carry gradients: ``train/step.py`` trains on it); the MoE
+and vit families train on one device only (ROADMAP Queue 1 item 13b).
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.common import (Initializer, ShardCtx, embed_tokens, global_logits,
-                                       local_rows, map_leaves, maybe_scan, qkv_heads,
+                                       head_block, local_rows, map_leaves, maybe_scan, qkv_heads,
                                        shard_linear, tied_head)
 from repro_torch.nn import attention as A
 from repro_torch.nn import layers as L
@@ -184,7 +185,8 @@ def _lm_head(params: dict, cfg: ArchConfig, sctx: ShardCtx = ShardCtx()):
 def _attention_block(x, p, cfg: ArchConfig, sctx: ShardCtx, cos, sin, *,
                      cache=None, impl: str, lengths=None):
     B, S, D = x.shape
-    q, k, v = qkv_heads(x, x, p, cfg, sctx, impl)
+    hb = head_block(cfg, sctx, decode=cache is not None and S == 1)
+    q, k, v = qkv_heads(x, x, p, cfg, sctx, impl, hb)
     mesh = sctx.mesh if sctx.active else None
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
@@ -203,10 +205,10 @@ def _attention_block(x, p, cfg: ArchConfig, sctx: ShardCtx, cos, sin, *,
             o = (A.decode_attention_quant(q, new_cache, mesh=mesh) if quant_cache
                  else A.decode_attention(q, new_cache, mesh=mesh))
         else:  # prefill: attend within the freshly written prefix
-            o = A.gqa_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, S))
+            o = A.gqa_attention(q, *hb.kv(k, v), causal=True, chunk=min(cfg.attn_chunk, S))
     else:
-        o = A.gqa_attention(q, k, v, causal=True, chunk=min(cfg.attn_chunk, S))
-    y = shard_linear(o.reshape(B, S, -1), p["wo"], impl, sctx)
+        o = A.gqa_attention(q, *hb.kv(k, v), causal=True, chunk=min(cfg.attn_chunk, S))
+    y = shard_linear(hb.out(o), p["wo"], impl, sctx)
     return sctx.act_btd(y), new_cache
 
 

@@ -49,12 +49,26 @@ def linear(
     return _params.matmul(x, w, impl=impl, bias=bias, relu=relu, mesh=mesh)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm in the ``1 + scale`` form (zero-initialised scales)."""
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
     return (x * (1.0 + scale.float())).to(dt)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm in the ``1 + scale`` form (zero-initialised scales).
+
+    Differentiated, it keeps only its inputs and recomputes itself in the
+    backward (``torch.utils.checkpoint``): the same ops, so the same bits,
+    without holding two f32 copies of a bf16 ``x`` (four times its bytes)
+    until then."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(_rms_norm, x, scale, eps, use_reentrant=False,
+                          preserve_rng_state=False)
+    return _rms_norm(x, scale, eps)
 
 
 def layer_norm(

@@ -4,8 +4,9 @@ Each rank builds the ``("data", "model")`` mesh and trains, under an active
 ``ShardCtx``, the smoke configs of every LM family the dense one did not
 cover (``MODELS``: deepseek-moe-16b, internvl2-26b, mamba2-130m,
 recurrentgemma-2b, whisper-tiny, phi3-medium-14b with its 5 KV heads cut by
-``model`` and qwen3-32b with one KV head beside its per-head norms), on
-``dequant`` and ``kernel``, and holds every result against the port's
+``model``, qwen3-32b with one KV head beside its per-head norms and with 6 q
+heads over 3 KV heads; at (1, 4) qwen3-32b's smoke and the 6-head variant),
+on ``dequant`` and ``kernel``, and holds every result against the port's
 one-device step in its own process; what each check returned (or its
 traceback) goes to ``rank<r>.pkl``.  No JAX here: the parent hands the JAX
 weights and the batches over as numpy (``cases.pkl``) and holds the
@@ -47,6 +48,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from _torch_heads import attended
 
 from repro_torch import interop
 from repro_torch.ckpt import checkpoint as ckpt
@@ -54,7 +56,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import api
 from repro_torch.models import sharding as tsh
-from repro_torch.models.common import ShardCtx
+from repro_torch.models.common import ShardCtx, head_block
 from repro_torch.nn import moe as TM
 from repro_torch.train import optimizer as opt
 from repro_torch.train import step as st
@@ -75,14 +77,19 @@ MODELS = {
     "hybrid": ("recurrentgemma-2b", {}),
     "encdec": ("whisper-tiny", {}),
     "kvcut": ("phi3-medium-14b", {}),  # 5 KV heads: model 2 cuts them
-    "qknorm": ("qwen3-32b", {"n_kv_heads": 1}),  # q_norm / k_norm on whole heads
+    "qknorm": ("qwen3-32b", {"n_kv_heads": 1}),  # q_norm / k_norm on 2 of 4 heads
+    # 6 q heads over 3 KV heads: at model 2 a rank's 3 straddle a KV group
+    "straddle": ("qwen3-32b", {"n_heads": 6, "n_kv_heads": 3}),
 }
+# the models the (1, 4) mesh trains: qwen3's smoke (one q head a rank) and
+# the straddling variant (a block of 3 q heads on two ranks)
+FOUR = {"gqa": ("qwen3-32b", {}), "straddle": MODELS["straddle"]}
 OCFG = opt.AdamWConfig(lr=1e-2, total_steps=64, warmup_steps=1)
 ELASTIC = "moe"  # the ZeRO state saved at (2, 2), restored at (1, 2)
 
 
 def config(key: str, impl: str):
-    arch, changes = MODELS[key]
+    arch, changes = {**MODELS, **FOUR}[key]
     return dataclasses.replace(get_config(arch, smoke=True), **changes).with_quant(
         enabled=True, impl=impl, min_weight_elems=1024)
 
@@ -220,19 +227,21 @@ def check_step(mesh, case: dict, key: str, impl: str) -> dict:
     with Routes() as r1:
         loss1, _, g1 = st.loss_and_grads(params, batch, cfg, ShardCtx(dp=sctx.dp))
     tmesh.reset_collective_bytes()
-    with Routes() as r:
+    with Routes() as r, attended() as calls:
         loss, _, g = st.loss_and_grads(placed, batch, cfg, sctx)
     out["bytes"] = dict(tmesh.collective_bytes)
+    hb = head_block(cfg, sctx)
+    out["heads"] = ((hb.q0, hb.nq), sorted(set(calls)))
     out["flips"] = flips(soft, r, r1, rank_rows(mesh, sctx), cfg.moe.top_k) if cfg.moe else 0
     soft.close(loss, loss1, LOSS_TOL, "loss")
     got = numpy_tree(tsh.gather_params(g, mesh))
     if not out["flips"]:
         out["worst"] = grads_close(soft, got, numpy_tree(g1), GRAD_TOL, f"{key} {impl}")
     out["grads"], out["loss"] = got, float(loss)
-    if key == "qknorm" and mesh.size("model") > 1:  # whole heads on every rank
+    if key == "qknorm" and mesh.size("model") > 1:  # 4 q heads: 2 a rank
         ax = tsh.grad_reduce_axes(placed, mesh)
-        soft.check(ax[("layers", "0", "attn", "q_norm")] == tsh.grad_reduce_axes(
-            placed, mesh)[("layers", "0", "attn_norm")], "q_norm summed over model")
+        soft.check(ax[("layers", "0", "attn", "q_norm")] == ax[
+            ("layers", "0", "attn_norm")] + ("model",), "q_norm not summed over model")
     soft.done()
     return out
 
@@ -364,6 +373,12 @@ def check_elastic(mesh, case: dict, out_dir: Path) -> dict:
 
 def checks(shape, data: dict, out: Path) -> dict:
     todo = {}
+    if shape == (1, 4):
+        for key in FOUR:
+            for impl in IMPLS:
+                todo[f"step/{key}/{impl}"] = (lambda m, key=key, impl=impl:
+                                              check_step(m, data[key], key, impl))
+        return todo
     for key in MODELS:
         for impl in IMPLS:
             todo[f"step/{key}/{impl}"] = (lambda m, key=key, impl=impl:

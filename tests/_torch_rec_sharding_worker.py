@@ -3,7 +3,9 @@
 Each rank builds the mesh, places the params and caches
 (``models/sharding.py::place_params``/``place_caches``) of mamba2-130m,
 recurrentgemma-2b, whisper-tiny (also a one-head variant whose heads
-``model`` cuts) and phi3-medium-14b at smoke size, runs forward, a prefill
+``model`` cuts), phi3-medium-14b and qwen3-32b with 6 q heads over 3 KV
+heads at smoke size (at (1, 4): qwen3-32b's smoke and the 6-head variant),
+runs forward, a prefill
 and decode steps on every impl under an active ``ShardCtx``, and holds
 each call against the port's single-device calls in its own process: the
 logits within ``tol`` of max |logit| (bitwise where the mesh has no
@@ -28,28 +30,42 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+from _torch_heads import attended
 
 from repro_torch import configs as tconfigs
 from repro_torch import interop
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import api
 from repro_torch.models import sharding as tsh
-from repro_torch.models.common import ShardCtx
+from repro_torch.models.common import ShardCtx, head_block
 from repro_torch.tree import flatten_with_path
 
 COLLECTIVE_TIMEOUT_S = 30  # a rank out of step fails fast instead of hanging
 LOGIT_TOL = 0.025  # of max |logit|, as tests/test_torch_transformer.py
 HYBRID_TOL = 0.08  # the RG-LRU gates amplify bf16 noise (tests/test_torch_hybrid.py)
-ARCHS = ("mamba2-130m", "recurrentgemma-2b", "whisper-tiny", "phi3-medium-14b")
+# qwen3's smoke with 6 q heads over 3 KV heads: at ``model`` 2 each rank's 3
+# q heads straddle a KV group
+STRADDLE = "qwen3-32b/6-3"
+ARCHS = ("mamba2-130m", "recurrentgemma-2b", "whisper-tiny", "phi3-medium-14b", STRADDLE)
+# the archs the (1, 4) mesh runs: qwen3's smoke (2 KV heads, one q head a
+# rank) and the straddling variant (two ranks a block of 3 q heads)
+FOUR = ("qwen3-32b", STRADDLE)
 # whisper with one head of 64 (the smoke width): ``model`` 2 cuts its heads, so
 # q, k and v are gathered and its self and cross caches split their positions
 CUT = "whisper-tiny/1-head"
-VARIANTS = {CUT: ("whisper-tiny", {"n_heads": 1, "n_kv_heads": 1, "head_dim": 64})}
+VARIANTS = {CUT: ("whisper-tiny", {"n_heads": 1, "n_kv_heads": 1, "head_dim": 64}),
+            STRADDLE: ("qwen3-32b", {"n_heads": 6, "n_kv_heads": 3})}
+SEEDED = (CUT,)  # the variants on the port's own weights (the rest: JAX's)
 # (impl, kv_bits): every impl; phi3's int8 KV cache on K1 too
-COMBOS = {a: (("dequant", 16), ("kernel", 16), ("pas_kernel", 16)) for a in ARCHS + (CUT,)}
+COMBOS = {a: (("dequant", 16), ("kernel", 16), ("pas_kernel", 16))
+          for a in ARCHS + FOUR + (CUT,)}
 COMBOS["phi3-medium-14b"] += (("kernel", 8),)
 # the families that take right-padded prompts (the recurrent scans do not)
-PADDED = ("whisper-tiny", "phi3-medium-14b")
+PADDED = ("whisper-tiny", "phi3-medium-14b", "qwen3-32b")
+
+
+def padded(arch: str) -> bool:
+    return VARIANTS.get(arch, (arch,))[0] in PADDED
 
 
 def tol(arch: str) -> float:
@@ -95,8 +111,7 @@ def run_calls(params, cfg, sctx, arch: str, c: dict, S_cache: int) -> tuple:
         like = cache
         if mesh is not None:
             cache = tsh.place_caches(cfg, cache, mesh, sctx.batch)
-        padded = VARIANTS.get(arch, (arch,))[0] in PADDED
-        lengths = _t(c["lengths"]) if padded and pre == "pre" else None
+        lengths = _t(c["lengths"]) if padded(arch) and pre == "pre" else None
         pkw = dict(kw) if lengths is None else dict(kw, lengths=lengths)
         out[pre], cache = m.prefill(params, t, cache, cfg, sctx, **pkw)
         out[dec] = []
@@ -157,22 +172,27 @@ def check_families(mesh, cases):
     """Every model at smoke size on every impl, held against one device
     (module docstring): bitwise with no ``model`` split, else within
     ``tol`` (a row-parallel sum adds its f32 partials in another order);
-    returns the sharded logits and errors."""
-    out, errors = {}, []
+    returns the sharded logits and errors, and under ``"heads"`` each
+    arch's head block (``(q0, nq)``) and the ``(q heads, KV heads)`` its
+    attention calls ran on."""
+    out, errors = {"heads": {}}, []
     shape = tmesh.data_model_sizes(mesh)
     for arch, c in cases.items():
         tc = smoke_config(arch)
-        params = variant_params(arch) if arch in VARIANTS else \
+        params = variant_params(arch) if arch in SEEDED else \
             interop.lm_params_from_numpy(c["params"], device="cpu")
         placed = tsh.place_params(params, mesh)
         B = c["toks"].shape[0]
         sctx = ShardCtx.for_mesh(mesh, B)
-        res = {}
+        hb = head_block(tc, sctx)
+        res, seen = {}, set()
         for impl, kv in COMBOS[arch]:
             cfg = tc.with_quant(impl=impl, kv_bits=kv)
             what = f"{arch}/{impl}/kv{kv}"
             want, wcache = run_calls(params, cfg, ShardCtx(), arch, c, c["max_seq"])
-            got, gcache = run_calls(placed, cfg, sctx, arch, c, c["max_seq"])
+            with attended() as calls:
+                got, gcache = run_calls(placed, cfg, sctx, arch, c, c["max_seq"])
+            seen.update(calls)
             errs = {}
             with soft(errors, what):
                 for key, w in want.items():
@@ -187,6 +207,7 @@ def check_families(mesh, cases):
                                  else v.float().numpy()) for k, v in got.items()}
             res[impl, kv]["errs"] = errs
         out[arch] = res
+        out["heads"][arch] = ((hb.q0, hb.nq), sorted(seen))
     if errors:
         raise AssertionError("\n".join(errors))
     return out

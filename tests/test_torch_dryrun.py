@@ -2,13 +2,15 @@
 
 ``python -m repro_torch.launch.dryrun`` counts rank 0's own step at 16×16
 on meta tensors under a fake process group of 256 ranks.  For
-qwen3-32b × decode_32k, mamba2-130m × train_4k and stablelm-3b × train_4k
-it finishes, writes the cell's JSON, and its per-device param bytes equal
+qwen3-32b × decode_32k, mamba2-130m × train_4k, stablelm-3b × train_4k and
+qwen3-32b × train_4k it finishes, writes the cell's JSON, and its per-device param bytes equal
 the sum over ``param_pspecs``' blocks (each leaf's bytes over the mesh
 axes its spec names); the step's terms are positive and name a
 bottleneck.  A train cell's step holds no global ``(batch, seq, vocab)``
-logits (the loss runs on a rank's block) and fits the H100's 80 GB.  The
-spec rules' meta stand-ins are not counted.
+logits (the loss runs on a rank's block), no attention tensor over every
+q head (a rank runs its block of them, ``models/common.py::head_block``),
+and fits the H100's 80 GB.  The spec rules' meta stand-ins are not
+counted.
 """
 import json
 import math
@@ -46,7 +48,8 @@ def _spec_block_bytes(tree) -> int:
 
 @pytest.mark.parametrize("arch,shape", [("qwen3-32b", "decode_32k"),
                                         ("mamba2-130m", "train_4k"),
-                                        ("stablelm-3b", "train_4k")])
+                                        ("stablelm-3b", "train_4k"),
+                                        ("qwen3-32b", "train_4k")])
 def test_dry_run_at_16x16(arch, shape, tmp_path):
     dryrun.main(["--arch", arch, "--shape", shape, "--out", str(tmp_path)])
     assert not dist.is_initialized()  # the fake world is torn down
@@ -74,6 +77,12 @@ def test_dry_run_at_16x16(arch, shape, tmp_path):
         logits = spec.global_batch * spec.seq_len * cfg.vocab
         assert all(math.prod(dims) < logits for _, _, dims in rep["extra"]["biggest_tensors"])
         assert rep["extra"]["fits"], rep["extra"]["peak_live_bytes_per_device"]
+        # no attention tensor over every head: a rank's block of the q heads
+        # (qwen3's 64 over model 16: 4) scores its rows' chunks
+        rows = spec.global_batch // SIZES["data"] * spec.seq_len * min(cfg.attn_chunk,
+                                                                       spec.seq_len)
+        assert not cfg.n_heads or all(math.prod(dims) < rows * cfg.n_heads
+                                      for _, _, dims in rep["extra"]["biggest_tensors"])
 
 
 def test_spec_stand_ins_are_not_counted():

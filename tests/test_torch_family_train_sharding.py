@@ -47,6 +47,7 @@ import torch.multiprocessing as tmp
 from _torch_lm import f32_activations, jax_flat
 
 import _torch_family_train_sharding_worker as worker
+import _torch_heads
 from repro.configs import get_config as jget_config
 from repro.models import api as japi
 from repro.models import sharding as jsh
@@ -69,11 +70,13 @@ JOIN_TIMEOUT_S = 240  # every check of one mesh, all ranks
 JAX_TOL = 2.0 ** -12 + worker.GRAD_TOL
 B, S = worker.B, worker.S
 KEYS = list(worker.MODELS)
+FOUR_MESH = (1, 4)  # trains worker.FOUR: q heads split by gcd(n_heads, 4)
+SPECS = {**worker.MODELS, **worker.FOUR}
 _LISTS = ("layers", "groups", "enc_layers", "dec_layers")  # JAX stacks these
 
 
 def _jcfg(key: str):
-    arch, changes = worker.MODELS[key]
+    arch, changes = SPECS[key]
     return dataclasses.replace(jget_config(arch, smoke=True), **changes).with_quant(
         enabled=True, impl="dequant", min_weight_elems=1024)
 
@@ -182,7 +185,7 @@ def cases():
     MoE router inputs."""
     rng = np.random.default_rng(5)
     data, refs = {}, {}
-    for key in KEYS:
+    for key in SPECS:
         jc = _jcfg(key)
         jm, tm = _modules(key)
         tc = worker.config(key, "dequant")
@@ -245,7 +248,7 @@ def runs(cases, tmp_path_factory):
     with open(root / "cases.pkl", "wb") as f:
         pickle.dump(cases[0], f)
     out = {}
-    for shape in MESHES:
+    for shape in MESHES + [FOUR_MESH]:
         d = root / f"{shape[0]}x{shape[1]}"
         d.mkdir()
         out[shape] = _spawn(shape, root / "cases.pkl", d)
@@ -297,19 +300,14 @@ def _jax_port_flips(key: str, jlog: list, rows_of) -> int:
     return n
 
 
-@pytest.mark.parametrize("impl", worker.IMPLS)
-@pytest.mark.parametrize("key", KEYS)
-@pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
-def test_family_step_matches_one_device_and_jax(runs, cases, shape, key, impl):
-    """The ranks held the loss and every gradient leaf to one device's
-    (``GRAD_TOL``); here every rank gathered the same gradients, which are
-    JAX's unsharded step's within ``JAX_TOL``, and a ``model`` split moved
-    activations and gradients through the collectives."""
+def _hold_step(runs, cases, shape, key: str, impl: str) -> None:
+    """Every rank gathered the same gradients, JAX's unsharded step's
+    within ``JAX_TOL``; the ranks held them to one device's."""
     outs = _result(runs, shape, f"step/{key}/{impl}")
     for o in outs[1:]:
         for k, v in outs[0]["grads"].items():
             np.testing.assert_array_equal(o["grads"][k], v)
-    dp = shape[0] if worker.MODELS[key][0] == "deepseek-moe-16b" else 1
+    dp = shape[0] if SPECS[key][0] == "deepseek-moe-16b" else 1
     ref = cases[1][key][dp]
     got = outs[0]
     if key == "moe":  # JAX's experts are the port's one device's
@@ -328,6 +326,44 @@ def test_family_step_matches_one_device_and_jax(runs, cases, shape, key, impl):
     assert by["grad_reduce"] > 0
     if shape[1] > 1:
         assert by["all_reduce_bwd"] > 0  # replicated activations entered rank blocks
+
+
+def _assert_heads(runs, shape, key: str, impl: str) -> None:
+    """Each rank's head block and the heads its attention ran on in the
+    step (``tests/_torch_heads.py::HEADS``)."""
+    cfg = worker.config(key, impl)
+    for r, o in enumerate(_result(runs, shape, f"step/{key}/{impl}")):
+        (q0, nq), seen = o["heads"]
+        w0, wn, wkv = _torch_heads.want(cfg.n_heads, cfg.n_kv_heads, shape[1], r % shape[1])
+        assert (q0, nq) == (w0, wn), (shape, r, key, (q0, nq))
+        assert seen == [(wn, wkv)], (shape, r, key, seen)
+
+
+@pytest.mark.parametrize("impl", worker.IMPLS)
+@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
+def test_family_step_matches_one_device_and_jax(runs, cases, shape, key, impl):
+    """The ranks held the loss and every gradient leaf to one device's
+    (``GRAD_TOL``); here every rank gathered the same gradients, which are
+    JAX's unsharded step's within ``JAX_TOL``, and a ``model`` split moved
+    activations and gradients through the collectives.  The hybrid's one
+    KV head and the 6-head variant's 3 do not divide ``model`` 2: each
+    rank ran attention on its block of the q heads."""
+    _hold_step(runs, cases, shape, key, impl)
+    if key in ("hybrid", "straddle"):
+        _assert_heads(runs, shape, key, impl)
+
+
+@pytest.mark.parametrize("impl", worker.IMPLS)
+@pytest.mark.parametrize("key", list(worker.FOUR))
+def test_family_step_with_q_heads_split_by_gcd_at_model_4(runs, cases, key, impl):
+    """At (1, 4), where 2 or 3 KV heads do not divide ``model``: qwen3's
+    smoke trains one q head a rank, the 6-head variant a block of 3 on two
+    ranks each (disjoint K rows of ``wo``; ``q_norm``/``k_norm`` summed over
+    ``model`` once).  Loss and every gradient leaf as at the other meshes,
+    and each rank's attention ran on its block."""
+    _hold_step(runs, cases, FOUR_MESH, key, impl)
+    _assert_heads(runs, FOUR_MESH, key, impl)
 
 
 @pytest.mark.parametrize("key", KEYS)
@@ -449,25 +485,34 @@ def test_fault_leaf_split_over_data_is_not_summed_over_data(cases):
 
 
 def test_fault_per_head_norms_follow_the_heads(cases):
-    """Fault (c): ``q_norm``/``k_norm`` were summed over ``model`` whenever
-    ``wq``/``wk`` were column blocks.  Where the KV heads do not divide
-    ``model`` every rank gathers q and k whole and runs the norms on every
-    head, so each rank's norm gradient is whole: summed it would count
-    ``model`` times.  The rule now follows whether the heads split (one KV
-    head at ``model`` 2: no ``model`` sum; qwen3's 2 KV heads: the sum)."""
+    """Fault (c): the per-head ``q_norm``/``k_norm`` gradient is a rank's
+    heads' part wherever a rank runs its own block of the q heads, so it is
+    summed over ``model`` exactly then.  The blocks are GSPMD's, ``gcd(q
+    heads, model)`` of them (``models/common.py::head_groups``), whether or
+    not the KV heads divide ``model``: 4 q heads over 1 or 2 KV heads at
+    ``model`` 2 (2 blocks: the sum), 6 over 3 at ``model`` 4 (2 blocks of
+    3, each on two ranks, which take disjoint K rows of ``wo``: the sum,
+    once), 5 over 1 at ``model`` 2 or 4 (one block: every rank runs every
+    head and holds the whole gradient, so no ``model`` sum)."""
+    base = worker.config("qknorm", "dequant")
     cut = _params(cases, "qknorm")
-    for shape in ((1, 2), (2, 2)):
+    table = (((1, 4), (1, 2), True), ((1, 4), (2, 2), True), ((2, 4), (1, 2), True),
+             ((3, 6), (1, 4), True), ((3, 6), (2, 4), True), ((1, 5), (1, 2), False),
+             ((1, 5), (1, 4), False))
+    for (kv, heads), shape, split in table:
         mesh = _cpu_mesh(shape)
         d = ("data",) if shape[0] > 1 else ()
-        ax = _axes(tsh.place_params(cut, mesh), mesh)
+        if (kv, heads) == (1, 4):
+            tree = cut  # the quantized smoke tree the ranks train
+        else:
+            cfg = dataclasses.replace(base, n_heads=heads, n_kv_heads=kv)
+            tree = tapi.get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0))
+        ax = _axes(tsh.place_params(tree, mesh), mesh)
         for n in ("q_norm", "k_norm"):
-            assert ax[f"layers/0/attn/{n}"] == d, (shape, n)
-        assert ax["layers/0/attn/wq/codebook"] == d + ("model",)
-        cfg = dataclasses.replace(worker.config("qknorm", "dequant"), n_kv_heads=2)
-        split = tapi.get_model(cfg).init_params(cfg, torch.Generator().manual_seed(0))
-        ax = _axes(tsh.place_params(split, mesh), mesh)
-        for n in ("q_norm", "k_norm"):
-            assert ax[f"layers/0/attn/{n}"] == d + ("model",), (shape, n)
+            assert ax[f"layers/0/attn/{n}"] == d + (("model",) if split else ()), \
+                (heads, kv, shape, n)
+        if (kv, heads) == (1, 4):
+            assert ax["layers/0/attn/wq/codebook"] == d + ("model",)
 
 
 def _jax_specs(key: str, sizes: dict) -> dict:

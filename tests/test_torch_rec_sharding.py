@@ -45,6 +45,7 @@ import pytest
 import torch
 import torch.multiprocessing as tmp
 
+import _torch_heads
 import _torch_rec_sharding_worker as worker
 from _torch_lm import _key, tree_to_numpy
 from repro import configs as jconfigs
@@ -77,7 +78,8 @@ def _cpu_mesh(shape, coords) -> Mesh:
 
 
 def _jcfg(arch: str):
-    return jconfigs.get_config(arch, smoke=True).with_quant(
+    base, changes = worker.VARIANTS.get(arch, (arch, {}))
+    return dataclasses.replace(jconfigs.get_config(base, smoke=True), **changes).with_quant(
         enabled=True, min_weight_elems=1024, impl="dequant")
 
 
@@ -98,7 +100,7 @@ def cases():
     package's unsharded forward, prefill and decode logits on ``dequant``."""
     data, refs = {}, {}
     rng = np.random.default_rng(11)
-    for arch in ARCHS:
+    for arch in ARCHS + ("qwen3-32b",):
         jc = _jcfg(arch)
         m = japi.get_model(jc)
         jp = _jparams(arch, jc)
@@ -123,7 +125,7 @@ def cases():
             runs.append(("long", "long_dec", c["long"], c["long_nxt"]))
         for key, dkey, toks, nxt in runs:
             pkw = dict(kw)
-            if arch in worker.PADDED:
+            if worker.padded(arch):
                 pkw["lengths"] = jnp.asarray(LENGTHS)
             logits, cache = pre(jp, jnp.asarray(toks),
                                 m.init_caches(jc, toks.shape[0], MAX_SEQ), pkw)
@@ -137,15 +139,14 @@ def cases():
     return data, refs
 
 
-@pytest.fixture(scope="module", params=MESHES, ids=lambda s: f"mesh{s[0]}x{s[1]}")
-def ranks(request, cases, tmp_path_factory):
-    """Run every check on one mesh shape: ``(shape, [each rank's results])``,
-    a rank's results a dict: check → (status, outputs, collective bytes)."""
-    shape = request.param
+def _spawn(shape, data: dict, tmp_path_factory):
+    """Every check on one mesh shape over the archs of ``data``: ``(shape,
+    [each rank's results])``, a rank's results a dict: check → (status,
+    outputs, collective bytes)."""
     world = shape[0] * shape[1]
     d = tmp_path_factory.mktemp(f"rec{shape[0]}x{shape[1]}")
     with open(d / "cases.pkl", "wb") as f:
-        pickle.dump(cases[0], f)
+        pickle.dump(data, f)
     ctx = tmp.start_processes(
         worker.run, args=(world, shape, str(d / "store"), str(d / "cases.pkl"), str(d)),
         nprocs=world, join=False, start_method="spawn")
@@ -164,6 +165,32 @@ def ranks(request, cases, tmp_path_factory):
         with open(d / f"rank{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     return shape, out
+
+
+@pytest.fixture(scope="module", params=MESHES, ids=lambda s: f"mesh{s[0]}x{s[1]}")
+def ranks(request, cases, tmp_path_factory):
+    """Every arch of ``ARCHS`` (and the one-head whisper) on one mesh shape."""
+    data = {a: c for a, c in cases[0].items() if a in ARCHS + (worker.CUT,)}
+    return _spawn(request.param, data, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def ranks4(cases, tmp_path_factory):
+    """The archs of ``worker.FOUR`` on four ranks of ``model``."""
+    return _spawn((1, 4), {a: cases[0][a] for a in worker.FOUR}, tmp_path_factory)
+
+
+def _assert_heads(ranks, arch: str) -> None:
+    """Each rank's head block and the heads its attention calls ran on
+    (``models/common.py::head_block``): GSPMD's ``gcd(n_heads, model)``
+    blocks, ``tests/_torch_heads.py::HEADS``."""
+    shape, res = ranks
+    tc = worker.smoke_config(arch)
+    for r, rr in enumerate(res):
+        (q0, nq), seen = rr["families"][1]["heads"][arch]
+        w0, wn, wkv = _torch_heads.want(tc.n_heads, tc.n_kv_heads, shape[1], r % shape[1])
+        assert (q0, nq) == (w0, wn), (shape, r, arch, (q0, nq))
+        assert seen == [(wn, wkv)], (shape, r, arch, seen)
 
 
 def _result(ranks, name: str):
@@ -192,16 +219,10 @@ def test_heads_cut_by_model_gather_and_split_the_caches(ranks):
         assert nbytes[0]["softmax_combine"] > 0 and nbytes[0]["relayout"] > 0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_sharded_family_matches_one_device_and_jax(ranks, cases, arch):
-    """forward, prefill and 3 decode steps (and the hybrid's wrapped ring)
-    under every mesh: the ranks held each call and the gathered caches
-    against one device (bitwise at (2, 1)); here every rank's global logits
-    are the same bits, a ``model`` split moved activations under the keys
-    the layouts name, and the ``dequant`` logits agree with the JAX
-    package's unsharded calls."""
-    shape, _ = ranks
-    outs, nbytes = _result(ranks, "families")
+def _hold_family(ranks, cases, arch: str) -> None:
+    """Every rank's global logits the same bits, and the ``dequant`` logits
+    within the arch's tolerance of the JAX package's unsharded calls."""
+    outs, _ = _result(ranks, "families")
     first = outs[0][arch]
     for o in outs[1:]:  # every rank returns the global result
         for combo, r in first.items():
@@ -209,12 +230,6 @@ def test_sharded_family_matches_one_device_and_jax(ranks, cases, arch):
                 if key != "errs":
                     np.testing.assert_array_equal(np.asarray(o[arch][combo][key]),
                                                   np.asarray(v), err_msg=f"{combo} {key}")
-    if shape[1] > 1:
-        assert nbytes[0]["relayout"] > 0 and nbytes[0]["all_reduce"] > 0
-        # phi3's KV cache and the hybrid's ring split their positions
-        assert nbytes[0]["softmax_combine"] > 0
-    if shape[0] > 1:  # the recurrent states are whole on the batch
-        assert nbytes[0]["cache_rows"] > 0
     got, ref, limit = first["dequant", 16], cases[1][arch], worker.tol(arch)
     for key, want in ref.items():
         ws = want if isinstance(want, list) else [want]
@@ -223,6 +238,45 @@ def test_sharded_family_matches_one_device_and_jax(ranks, cases, arch):
             assert g.shape == w.shape, (key, g.shape, w.shape)
             d = np.abs(g - w).max()
             assert d <= limit * np.abs(w).max(), (key, i, d, np.abs(w).max())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_family_matches_one_device_and_jax(ranks, cases, arch):
+    """forward, prefill and 3 decode steps (and the hybrid's wrapped ring)
+    under every mesh: the ranks held each call and the gathered caches
+    against one device (bitwise at (2, 1)); here every rank's global logits
+    are the same bits, a ``model`` split moved activations under the keys
+    the layouts name, and the ``dequant`` logits agree with the JAX
+    package's unsharded calls.  The hybrid's one KV head and the 6-head
+    qwen3 variant's 3 (a rank's 3 q heads straddle a KV group) do not
+    divide ``model`` 2: each rank ran attention on its own block of q
+    heads."""
+    shape, _ = ranks
+    _, nbytes = _result(ranks, "families")
+    if shape[1] > 1:
+        assert nbytes[0]["relayout"] > 0 and nbytes[0]["all_reduce"] > 0
+        # phi3's KV cache and the hybrid's ring split their positions
+        assert nbytes[0]["softmax_combine"] > 0
+    if shape[0] > 1:  # the recurrent states are whole on the batch
+        assert nbytes[0]["cache_rows"] > 0
+    _hold_family(ranks, cases, arch)
+    if arch in ("recurrentgemma-2b", worker.STRADDLE):
+        _assert_heads(ranks, arch)
+
+
+@pytest.mark.parametrize("arch", worker.FOUR)
+def test_q_heads_split_by_gcd_at_model_4(ranks4, cases, arch):
+    """At (1, 4), where 2 or 3 KV heads do not divide ``model``: qwen3's
+    smoke runs one q head a rank (half a KV group), the 6-head variant a
+    block of 3 on two ranks each, which take disjoint K rows of ``wo``.
+    The ranks held forward, prefill and 3 decode steps and the gathered
+    caches against one device; every rank's logits are the same bits,
+    within 2.5 % of the JAX package's; each rank's attention ran on its
+    block; the KV cache split its positions and decode combined them."""
+    _, nbytes = _result(ranks4, "families")
+    assert nbytes[0]["softmax_combine"] > 0 and nbytes[0]["relayout"] > 0
+    _hold_family(ranks4, cases, arch)
+    _assert_heads(ranks4, arch)
 
 
 # ---------------------------------------------------------------------------
