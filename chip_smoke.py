@@ -1852,8 +1852,10 @@ def time_step(fn, reps: int = 3, traces: int = 3) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        # the device timeline mirrors each record_function (the program's
+        # spans among them) as a user annotation: no kernel runs in it
         kern = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                if e.device_type == DeviceType.CUDA]
+                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
         if kern:
             break
     dev = sum(t for _, t in kern) / 1e3

@@ -63,6 +63,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.core import pasm as _pasm
 from repro_torch.core._f32 import matmul_f32
 from repro_torch.core.qat import bin_sums
@@ -204,11 +205,13 @@ def _pasm_bwd(x, idx, codebook, packed: bool, g, need_dx: bool, need_dcb: bool):
         dx = matmul_f32(g.to(x.dtype), w.T)
         del w
     if need_dcb:
-        xg = matmul_f32(x.T.float(), g.float())  # (K, N)
-        li = _pasm.unpack_int4(idx) if packed else idx
-        K, N = li.shape
-        G, B = codebook.shape
-        dcb = bin_sums(xg.reshape(G, K // G, N), li.reshape(G, K // G, N), B)
+        with trace.span("pasm.bwd_xg", device=x.is_cuda):
+            xg = matmul_f32(x.T.float(), g.float())  # (K, N)
+        with trace.span("pasm.bin_sums", device=x.is_cuda):
+            li = _pasm.unpack_int4(idx) if packed else idx
+            K, N = li.shape
+            G, B = codebook.shape
+            dcb = bin_sums(xg.reshape(G, K // G, N), li.reshape(G, K // G, N), B)
         dcb = dcb.to(codebook.dtype)
     return dx, dcb
 

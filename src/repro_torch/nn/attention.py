@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core._f32 import matmul_f32
 
 __all__ = [
@@ -236,19 +237,20 @@ def decode_attention(
     _, S, KV, _ = cache.k.shape
     G = H // KV
     scale = hd ** -0.5
-    qg = q.reshape(B, KV, G, 1, hd).float()
-    kt = cache.k.permute(0, 2, 3, 1).float()[:, :, None]  # (B,KV,1,hd,S)
-    s = matmul_f32(qg, kt)[:, :, :, 0] * scale  # (B,KV,G,S)
-    off, _ = _block(cache, mesh)
-    valid = _valid(cache.pos, S, window, off)
-    s = torch.where(valid[:, None, None, :], s, torch.full((), _NEG_INF, device=q.device))
-    if cache.seq_shards > 1:
-        o = combine_over(*softmax_partial(s, cache.v), mesh)
+    with trace.span("attn.decode", device=q.is_cuda):
+        qg = q.reshape(B, KV, G, 1, hd).float()
+        kt = cache.k.permute(0, 2, 3, 1).float()[:, :, None]  # (B,KV,1,hd,S)
+        s = matmul_f32(qg, kt)[:, :, :, 0] * scale  # (B,KV,G,S)
+        off, _ = _block(cache, mesh)
+        valid = _valid(cache.pos, S, window, off)
+        s = torch.where(valid[:, None, None, :], s, torch.full((), _NEG_INF, device=q.device))
+        if cache.seq_shards > 1:
+            o = combine_over(*softmax_partial(s, cache.v), mesh)
+            return o.reshape(B, 1, H, hd).to(q.dtype)
+        p = torch.softmax(s, dim=-1)
+        vt = cache.v.permute(0, 2, 1, 3).float()[:, :, None]  # (B,KV,1,S,hd)
+        o = matmul_f32(p.to(cache.v.dtype).float()[:, :, :, None], vt)[:, :, :, 0]
         return o.reshape(B, 1, H, hd).to(q.dtype)
-    p = torch.softmax(s, dim=-1)
-    vt = cache.v.permute(0, 2, 1, 3).float()[:, :, None]  # (B,KV,1,S,hd)
-    o = matmul_f32(p.to(cache.v.dtype).float()[:, :, :, None], vt)[:, :, :, 0]
-    return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def _slot_insert(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
@@ -289,12 +291,15 @@ def update_cache(
     the rows of its rank's positions on ``mesh``."""
     adv = k_new.shape[1] if lengths is None else lengths.to(cache.pos.dtype)
     at = _block(cache, mesh)
-    return dataclasses.replace(
-        cache,
-        k=_slot_insert(cache.k, k_new, cache.pos, *at),
-        v=_slot_insert(cache.v, v_new, cache.pos, *at),
-        pos=cache.pos + adv,
-    )
+    # a decode step writes one position and its write is timed on the device;
+    # a prefill's is timed on the host only, since no reader uses its device time
+    with trace.span("attn.kv_write", device=k_new.is_cuda and k_new.shape[1] == 1):
+        return dataclasses.replace(
+            cache,
+            k=_slot_insert(cache.k, k_new, cache.pos, *at),
+            v=_slot_insert(cache.v, v_new, cache.pos, *at),
+            pos=cache.pos + adv,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -335,18 +340,19 @@ def _quantize_kv(x: torch.Tensor) -> tuple:
 
 def update_quant_cache(cache: QuantKVCache, k_new, v_new, *,
                        lengths: Optional[torch.Tensor] = None, mesh=None) -> QuantKVCache:
-    kq, ks = _quantize_kv(k_new)
-    vq, vs = _quantize_kv(v_new)
     adv = k_new.shape[1] if lengths is None else lengths.to(cache.pos.dtype)
     at = _block(cache, mesh)
-    return dataclasses.replace(
-        cache,
-        k_q=_slot_insert(cache.k_q, kq, cache.pos, *at),
-        v_q=_slot_insert(cache.v_q, vq, cache.pos, *at),
-        k_scale=_slot_insert(cache.k_scale, ks, cache.pos, *at),
-        v_scale=_slot_insert(cache.v_scale, vs, cache.pos, *at),
-        pos=cache.pos + adv,
-    )
+    with trace.span("attn.kv_write", device=k_new.is_cuda and k_new.shape[1] == 1):
+        kq, ks = _quantize_kv(k_new)
+        vq, vs = _quantize_kv(v_new)
+        return dataclasses.replace(
+            cache,
+            k_q=_slot_insert(cache.k_q, kq, cache.pos, *at),
+            v_q=_slot_insert(cache.v_q, vq, cache.pos, *at),
+            k_scale=_slot_insert(cache.k_scale, ks, cache.pos, *at),
+            v_scale=_slot_insert(cache.v_scale, vs, cache.pos, *at),
+            pos=cache.pos + adv,
+        )
 
 
 def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache, *,
@@ -359,19 +365,20 @@ def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache, *,
     _, S, KV, _ = cache.k_q.shape
     G = H // KV
     scale = hd ** -0.5
-    qg = q.reshape(B, KV, G, 1, hd).float()
-    kq = cache.k_q.to(q.dtype).float().permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,S)
-    s = matmul_f32(qg, kq)[:, :, :, 0]  # (B,KV,G,S)
-    s = s * cache.k_scale.permute(0, 2, 1)[:, :, None, :] * scale
-    off, _ = _block(cache, mesh)
-    valid = _valid(cache.pos, S, window, off)
-    s = torch.where(valid[:, None, None, :], s, torch.full((), _NEG_INF, device=q.device))
-    if cache.seq_shards > 1:
-        o = combine_over(*softmax_partial(s, cache.v_q, cache.v_scale.permute(0, 2, 1)[
-            :, :, None, :]), mesh)
+    with trace.span("attn.decode", device=q.is_cuda):
+        qg = q.reshape(B, KV, G, 1, hd).float()
+        kq = cache.k_q.to(q.dtype).float().permute(0, 2, 3, 1)[:, :, None]  # (B,KV,1,hd,S)
+        s = matmul_f32(qg, kq)[:, :, :, 0]  # (B,KV,G,S)
+        s = s * cache.k_scale.permute(0, 2, 1)[:, :, None, :] * scale
+        off, _ = _block(cache, mesh)
+        valid = _valid(cache.pos, S, window, off)
+        s = torch.where(valid[:, None, None, :], s, torch.full((), _NEG_INF, device=q.device))
+        if cache.seq_shards > 1:
+            o = combine_over(*softmax_partial(s, cache.v_q, cache.v_scale.permute(0, 2, 1)[
+                :, :, None, :]), mesh)
+            return o.reshape(B, 1, H, hd).to(q.dtype)
+        p = torch.softmax(s, dim=-1)
+        pv = p * cache.v_scale.permute(0, 2, 1)[:, :, None, :]
+        vq = cache.v_q.float().permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,S,hd)
+        o = matmul_f32(pv[:, :, :, None], vq)[:, :, :, 0]
         return o.reshape(B, 1, H, hd).to(q.dtype)
-    p = torch.softmax(s, dim=-1)
-    pv = p * cache.v_scale.permute(0, 2, 1)[:, :, None, :]
-    vq = cache.v_q.float().permute(0, 2, 1, 3)[:, :, None]  # (B,KV,1,S,hd)
-    o = matmul_f32(pv[:, :, :, None], vq)[:, :, :, 0]
-    return o.reshape(B, 1, H, hd).to(q.dtype)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch._device import resolve_device
 from repro_torch.serve.metrics import Metrics
 
@@ -141,12 +142,15 @@ class CnnBatcher:
             bh, bw = bucket
             for i in range(0, len(reqs), self.max_batch):
                 chunk = reqs[i : i + self.max_batch]
-                imgs = np.zeros((len(chunk), C, bh, bw), np.float32)
-                for j, r in enumerate(chunk):
-                    h, w = r.image.shape[1:]
-                    imgs[j, :, :h, :w] = r.image
-                    self.metrics.mark_admit(r.uid)
-                x = torch.from_numpy(imgs).to(self.device)
+                with trace.span("batcher.stage", n=len(chunk)):
+                    imgs = np.zeros((len(chunk), C, bh, bw), np.float32)
+                    for j, r in enumerate(chunk):
+                        h, w = r.image.shape[1:]
+                        imgs[j, :, :h, :w] = r.image
+                        self.metrics.mark_admit(r.uid)
+                with trace.span("batcher.h2d", device=self.device.type == "cuda",
+                                n=len(chunk)):
+                    x = torch.from_numpy(imgs).to(self.device)
                 logits = self._classify_fn(bucket)(self.params, x)
                 self.n_batches += 1
                 cls = torch.argmax(logits, dim=-1).cpu().numpy()

@@ -45,6 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api
 from repro_torch.serve.faults import FaultInjected, FaultPlan
@@ -164,6 +165,7 @@ class Engine:
         self.model = api.get_model(cfg)
         self.params = params
         self.device = _params_device(params)
+        self._cuda = self.device is not None and self.device.type == "cuda"
         self.batch = batch_slots
         self.max_seq = max_seq
         self.greedy = greedy
@@ -222,9 +224,10 @@ class Engine:
     def _guard(logits: torch.Tensor) -> tuple:
         """Numeric guard + argmax: one ``isfinite`` reduction per slot over
         its logits, and the next token, both brought to the host once."""
-        fin = torch.isfinite(logits).flatten(1).all(dim=1)
-        nxt = torch.argmax(logits[:, 0], dim=-1)
-        return nxt.cpu().numpy(), fin.cpu().numpy()
+        with trace.span("engine.readback"):
+            fin = torch.isfinite(logits).flatten(1).all(dim=1)
+            nxt = torch.argmax(logits[:, 0], dim=-1)
+            return nxt.cpu().numpy(), fin.cpu().numpy()
 
     # -- closures (per cfg-impl, so degradation can rebuild) -----------------
 
@@ -408,12 +411,13 @@ class Engine:
                 toks[0, : len(r.prompt)] = r.prompt  # right-pad (left-aligned)
                 lengths = torch.tensor([len(r.prompt)], dtype=torch.int32,
                                        device=self.device)
-                logits, one_caches = self._call(
-                    f"prefill:{S}",
-                    lambda cfg, S=S: self._prefill_fn(S, cfg),
-                    self.params, torch.from_numpy(toks).to(self.device), lengths,
-                    self._one_template,
-                )
+                with trace.span("engine.prefill", device=self._cuda, uid=r.uid):
+                    logits, one_caches = self._call(
+                        f"prefill:{S}",
+                        lambda cfg, S=S: self._prefill_fn(S, cfg),
+                        self.params, torch.from_numpy(toks).to(self.device), lengths,
+                        self._one_template,
+                    )
             except FaultInjected:
                 self.sched.release(plan.slot)
                 self._fail_or_retry(r, "error")
@@ -440,55 +444,57 @@ class Engine:
         retries, admit, then decode one token for every live slot (dead
         slots decode a dummy token, ignored)."""
         self.tick += 1
-        now = self.metrics.clock()
-        if self.faults is not None:
-            delay = self.faults.on_tick(self.tick)
-            if delay:
-                self._sleep(delay)
-                now = self.metrics.clock()
-        self._shed_expired_queued(now)
-        self._requeue_retries()
-        if self.deadline_eviction:
-            self._evict_deadline(now)
-        self._admit()
-        if not self.live:
-            return
-        toks = np.zeros((self.batch, 1), np.int32)
-        for r in self.live.values():
-            toks[r.slot, 0] = r.out[-1]
-        try:
+        with trace.span("engine.step"):
+            now = self.metrics.clock()
             if self.faults is not None:
-                self.faults.on_decode(self.tick)
-            logits, caches = self._call(
-                "decode", self._decode_fn, self.params,
-                torch.from_numpy(toks).to(self.device), self.caches,
-            )
-        except FaultInjected:
-            # transient decode fault: the tick is a side-effect-free no-op
-            # (caches untouched) and replays next tick — bit-exactness holds
-            self.metrics.incr("n_faults_decode")
-            return
-        self.caches = caches
-        if self.faults is not None:
-            for s in self.faults.poison_slots(self.tick):
-                logits[s] = float("nan")
-        nxt, ok = self._guard(logits)
-        finished, poisoned = [], []
-        for r in self.live.values():
-            if not ok[r.slot]:
-                poisoned.append(r)
-                continue
-            r.out.append(int(nxt[r.slot]))
-            if len(r.out) >= r.max_new:
-                r.done = True
-                finished.append(r)
-        for r in poisoned:
-            self._quarantine(r)
-        for r in finished:
-            del self.live[r.uid]
-            self.sched.release(r.slot)
-            self.metrics.mark_done(r.uid, len(r.out))
-        self.metrics.tick_occupancy(len(self.live) + len(finished) + len(poisoned), self.batch)
+                delay = self.faults.on_tick(self.tick)
+                if delay:
+                    self._sleep(delay)
+                    now = self.metrics.clock()
+            self._shed_expired_queued(now)
+            self._requeue_retries()
+            if self.deadline_eviction:
+                self._evict_deadline(now)
+            self._admit()
+            if not self.live:
+                return
+            toks = np.zeros((self.batch, 1), np.int32)
+            for r in self.live.values():
+                toks[r.slot, 0] = r.out[-1]
+            try:
+                if self.faults is not None:
+                    self.faults.on_decode(self.tick)
+                with trace.span("engine.decode", device=self._cuda):
+                    logits, caches = self._call(
+                        "decode", self._decode_fn, self.params,
+                        torch.from_numpy(toks).to(self.device), self.caches,
+                    )
+            except FaultInjected:
+                # transient decode fault: the tick is a side-effect-free no-op
+                # (caches untouched) and replays next tick — bit-exactness holds
+                self.metrics.incr("n_faults_decode")
+                return
+            self.caches = caches
+            if self.faults is not None:
+                for s in self.faults.poison_slots(self.tick):
+                    logits[s] = float("nan")
+            nxt, ok = self._guard(logits)
+            finished, poisoned = [], []
+            for r in self.live.values():
+                if not ok[r.slot]:
+                    poisoned.append(r)
+                    continue
+                r.out.append(int(nxt[r.slot]))
+                if len(r.out) >= r.max_new:
+                    r.done = True
+                    finished.append(r)
+            for r in poisoned:
+                self._quarantine(r)
+            for r in finished:
+                del self.live[r.uid]
+                self.sched.release(r.slot)
+                self.metrics.mark_done(r.uid, len(r.out))
+            self.metrics.tick_occupancy(len(self.live) + len(finished) + len(poisoned), self.batch)
 
     def run_until_drained(self, max_ticks: int = 1000, *, strict: bool = True) -> int:
         """Tick until every request reaches a terminal status.  If

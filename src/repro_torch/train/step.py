@@ -41,6 +41,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import api
 from repro_torch.models.common import ShardCtx
@@ -200,22 +201,23 @@ def make_train_step(
     mesh = sctx.mesh if sctx.active else None
 
     def train_step(params, opt_state, batch):
-        loss, aux, grads = loss_and_grads(params, batch, cfg, sctx,
-                                          microbatches=microbatches)
-        blocks = zdims = None
-        if mesh is not None:
-            from repro_torch.models import sharding as sh
+        with trace.span("train.step"):
+            loss, aux, grads = loss_and_grads(params, batch, cfg, sctx,
+                                              microbatches=microbatches)
+            blocks = zdims = None
+            if mesh is not None:
+                from repro_torch.models import sharding as sh
 
-            specs = sh.placed_specs(params, mesh)
-            blocks = sh.block_axes(params, mesh, specs)
-            if isinstance(opt_state, opt.ZeroOptState):
-                zdims = sh.zero_dims(params, mesh, specs)
-        if compress_grads_bins:
-            grads = opt.compress_grads(grads, compress_grads_bins, mesh=mesh,
-                                       block_axes=blocks)
-        params, opt_state, metrics = _guarded_update(
-            params, opt_state, loss, grads, ocfg, guard=guard_nonfinite,
-            mesh=mesh, block_axes=blocks, zero_dims=zdims)
+                specs = sh.placed_specs(params, mesh)
+                blocks = sh.block_axes(params, mesh, specs)
+                if isinstance(opt_state, opt.ZeroOptState):
+                    zdims = sh.zero_dims(params, mesh, specs)
+            if compress_grads_bins:
+                grads = opt.compress_grads(grads, compress_grads_bins, mesh=mesh,
+                                           block_axes=blocks)
+            params, opt_state, metrics = _guarded_update(
+                params, opt_state, loss, grads, ocfg, guard=guard_nonfinite,
+                mesh=mesh, block_axes=blocks, zero_dims=zdims)
         return params, opt_state, dict(metrics, loss=loss, **aux)
 
     return train_step
