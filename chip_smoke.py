@@ -69,7 +69,19 @@ Phases (every one unguarded: any failure exits non-zero):
    the bf16 ``torch.matmul``, with the route taken at each M.  Every timing
    window (phases 5 and 8) opens behind a spin kernel that lasts longer than
    the host takes to enqueue the timed calls, so the events read device
-   time; K1's LM rows also print the host's µs a call;
+   time; K1's LM rows also print the host's µs a call; (b) K6 (split-KV
+   decode attention, ``kernels/decode_attention.py``) at phi3-medium-14b's
+   serving shape (16 slots x 4096 bf16 positions, 10 KV heads, G 4, hd
+   128) against its plain version, bitwise on a repeat, then timed warm
+   and cold at the closed chat mix's live lengths and with every slot full,
+   beside its plain version, ``F.scaled_dot_product_attention`` on the
+   masked cache (timed only) and the bound, the live K/V rows read once
+   (phase 7 also counts K6's launches: one a layer a decode call).  Every
+   phase that decodes (7, 10, 12, and the ranks of 14 and 16) records the
+   operands its runs hand K6, both ``impl`` runs alike, and holds K6 to its
+   plain version on them (``held_k6``: qwen3's G 8, deepseek's and
+   whisper's self and cross G 1, internvl2's G 6, the sharded runs' blocks
+   and sequence-sharded partials);
 9. training, under ``torch.use_deterministic_algorithms(True)`` (cuBLAS's
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set before the first cuBLAS
    call of the run): (a) the K1/K2 autograd Functions' dx, dcodebook and
@@ -321,6 +333,10 @@ LM_MAX_SEQ = 512
 LM_NEW = 16
 LM_PROMPTS = (8, 384, 37, 200, 100, 17, 300, 64)
 K5_TIME_S = 4096
+# K6's timed shape: phi3-medium-14b served (slots, positions, KV heads, G, hd),
+# at the live rows of phi3-serve-closed's mix
+K6_SHAPE = (16, 4096, 10, 4, 128)
+K6_MIX = Path(__file__).resolve().parent / "portbench" / "traffic" / "chat-closed-16.json"
 # K5's f32 route at that shape before its register-blocked redesign (four
 # threads a query row, one LDS.128 per four FMAs): phase 8 of this script on
 # an H100 80GB HBM3 at 700 W, printed beside the new time
@@ -462,6 +478,14 @@ def kernel_instance(mangled: str) -> str:
             args.append(m.group(1) or ("bf16" if m.group().startswith("13") else "f32"))
             pos += len(m.group())
     return "::".join(names) + (f"<{','.join(args)}>" if args else "")
+
+
+def counted() -> dict:
+    """The launch counts of K1–K5 (``ALL_KERNELS``); K6's are checked on
+    their own (``lm_phase``, ``k6_phase``)."""
+    from repro_torch.kernels import pasm_matmul as pm
+
+    return {k: pm.launches[k] for k in ALL_KERNELS}
 
 
 def max_err(got, want) -> float:
@@ -942,7 +966,7 @@ def serve_lm(cfg, params, prompts, impl: str, max_seq: int = LM_MAX_SEQ):
     eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return eng, reqs, dict(pm.launches), wall, live_submits, dict(pm.k1_routes)
+    return eng, reqs, counted(), wall, live_submits, dict(pm.k1_routes)
 
 
 def padded(prompts) -> tuple:
@@ -987,15 +1011,23 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
     """Phase 7; returns the launch counts of the kernel run and the K5 run."""
     import torch
 
+    from repro_torch.kernels import pasm_matmul as pm
+
     cfg = lm_config()
     params = build_lm(cfg, gen, "7", 64)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in LM_PROMPTS]
     per_call = 7 * cfg.n_layers + 1
-    runs = {}
+    runs, decoded = {}, {}
     for impl in ("kernel", "dequant"):
-        eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params,
-                                                                 prompts, impl)
+        with DecodeSpy() as dec:
+            eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params,
+                                                                     prompts, impl)
+        decoded[impl] = dec.captured
+        k6 = pm.launches["decode_attention"]  # K6: every layer of every decode call
+        if k6 != cfg.n_layers * eng.calls["decode"]:
+            raise AssertionError(f"LM {impl}: K6 launched {k6} times, want "
+                                 f"{cfg.n_layers} a decode call ({eng.calls})")
         roll = eng.metrics.rollup()
         calls = eng.calls["prefill"] + eng.calls["decode"]
         want = {k: per_call * calls if (impl == "kernel" and k == "pasm_matmul") else 0
@@ -1013,11 +1045,15 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
             raise AssertionError(f"LM {impl}: degraded or no continuous admission: {roll}")
         if not all(r.done and len(r.out) == LM_NEW for r in reqs):
             raise AssertionError(f"LM {impl}: a request was not served {LM_NEW} tokens")
-        runs[impl] = (counts, [r.out for r in reqs], routes)
+        runs[impl] = (counts, [r.out for r in reqs], routes, k6)
     ko, do = runs["kernel"][1], runs["dequant"][1]
     agree = float(np.mean([a == b for x, y in zip(ko, do) for a, b in zip(x, y)]))
     log(f"  greedy tokens agreeing, kernel vs dequant: {agree:.4f} of "
         f"{len(ko) * LM_NEW} (streams: {sum(x == y for x, y in zip(ko, do))}/{len(ko)} equal)")
+    # both runs decode on K6: each held to the plain version on its own operands
+    for impl, captured in decoded.items():
+        held_k6(captured, f"{cfg.name} {impl}")
+    del decoded
     # the kernel run also records what the transformer hands gqa_attention
     # at prefill: the served model's own attention operands, every layer
     with AttnSpy() as attn:
@@ -1044,7 +1080,7 @@ def lm_phase(gen, errs: dict, card: str) -> dict:
         raise AssertionError(f"{len(attn.captured)} prefill attention calls recorded")
     k5 = held_k5(attn.captured, cfg.name, errs)
     return {"lm": runs["kernel"][0], "k5": k5, "cfg": cfg, "params": params,
-            "routes": runs["kernel"][2]}
+            "routes": runs["kernel"][2], "k6": runs["kernel"][3] + runs["dequant"][3]}
 
 
 def k5_bound(B, S, H, KV, hd, dtype, causal: bool = True):
@@ -1184,6 +1220,110 @@ def lm_timings(lm: dict, gen, card: str, errs: dict) -> dict:
         del w
     rows["k1"] = k1
     return rows
+
+
+def k6_live_rows(n: int) -> np.ndarray:
+    """The rows each of ``n`` slots reads at a tick of ``phi3-serve-closed``:
+    the first ``n`` requests of its mix (``K6_MIX``), drawn by the
+    benchmark's own generator, each a seeded uniform share of the way
+    through its output."""
+    from portbench import traffic
+
+    mix = json.loads(K6_MIX.read_text())
+    g = traffic.rng(0, "lm_sizes")
+    prompt = np.array(traffic.stratified(mix["prompt_len"], n, g))
+    out = np.array(traffic.stratified(mix["output_len"], n, g))
+    done = np.random.default_rng(SEED).uniform(0, 1, n) * out
+    return (prompt + done).astype(np.int64) + 1
+
+
+def k6_close(y, q, k, v, pos, what: str, *, window=None, offset: int = 0,
+             partial: bool = False) -> float:
+    """K6's output ``y`` held to ``decode_attention_plain`` on the same
+    operands: within ``1e-5 + 1e-5·|plain|`` where the cache and the output
+    are f32, else ``|Δ| <= BF16_TOL·(|plain| + Σ p·|v|)`` (K5's form; the sum
+    is the plain version on ``|v|``).  A partial ``(m, l, o)`` is folded
+    alone (``combine_partials``) on both sides first.  Raises past the
+    tolerance; returns the max |Δ|."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as K6
+    from repro_torch.nn.attention import combine_partials
+
+    def plain(vals):
+        r = K6.decode_attention_plain(q, k, vals, pos, window=window, offset=offset,
+                                      partial=partial)
+        return combine_partials([r]) if partial else r.float()
+
+    got = combine_partials([y]) if partial else y.float()
+    want = plain(v)
+    d = (got - want).abs()
+    if k.dtype == torch.float32 and (partial or y.dtype == torch.float32):
+        lim = 1e-5 + 1e-5 * want.abs()
+    else:
+        lim = K6.BF16_TOL * (want.abs() + plain(v.abs()))
+    if not bool(torch.isfinite(got).all()) or not bool((d <= lim).all()):
+        raise AssertionError(f"K6 {what}: max |Δ| {float(d.max()):.3e}, "
+                             f"{int((d > lim).sum())} over tolerance or not finite")
+    return float(d.max())
+
+
+def k6_phase(gen, card: str) -> dict:
+    """Phase 8(b): K6 (split-KV decode attention) at phi3-medium-14b's
+    serving shape, 16 slots x 4096 bf16 positions, 10 KV heads, G 4, hd 128:
+    held to its plain version (``decode_attention.BF16_TOL``), bitwise on a
+    repeat, launches counted; then timed warm and cold (L2 flushed) at the
+    closed mix's live lengths and with every slot full (the open mix's dead
+    slots read all 4096 rows) beside the bound (the live K/V rows read
+    once), the plain version and ``F.scaled_dot_product_attention`` on the
+    same masked cache (timed only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import roofline as RL
+    from repro_torch.kernels import decode_attention as K6
+    from repro_torch.kernels import pasm_matmul as pm
+
+    B, S, KV, G, hd = K6_SHAPE
+    bf = torch.bfloat16
+    q = torch.randn((B, 1, KV * G, hd), generator=gen, device="cuda").to(bf)
+    k = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(bf)
+    v = torch.randn((B, S, KV, hd), generator=gen, device="cuda").to(bf)
+    live = k6_live_rows(B)
+    out = {}
+    for name, rows in (("closed mix", live), ("every slot full", np.full(B, S))):
+        pos = torch.tensor(rows, dtype=torch.int32, device="cuda")
+        before = pm.launches["decode_attention"]
+        y = K6.decode_attention_kernel_call(q, k, v, pos)
+        again = K6.decode_attention_kernel_call(q, k, v, pos)
+        torch.cuda.synchronize()
+        if pm.launches["decode_attention"] != before + 2:
+            raise AssertionError(f"K6 {name}: launches {pm.launches}")
+        if not torch.equal(y, again):
+            raise AssertionError(f"K6 {name}: a second call differs bitwise")
+        err = k6_close(y, q, k, v, pos, name)
+        mask = K6.valid_rows(pos, S, None)[:, None, None, :]
+        k_fn = lambda: K6.decode_attention_kernel_call(q, k, v, pos)  # noqa: E731
+        p_fn = lambda: K6.decode_attention_plain(q, k, v, pos)  # noqa: E731
+        l_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+        ms, host_us = time_ms_host(k_fn)
+        ms_cold, plain_ms, lib_ms = time_cold_ms(k_fn), time_ms(p_fn), time_ms(l_fn)
+        n_rows = int(np.minimum(rows, S).sum()) * KV  # (slot, KV head) rows read
+        flops = 4 * n_rows * G * hd
+        moved = (2 * n_rows * hd + 2 * B * KV * G * hd) * 2  # K, V rows; q, out
+        bd = RL.bound_ms(flops, moved, bf)
+        out[name] = dict(ms=ms, ms_cold=ms_cold, host_us=host_us, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bd.ms, bound_by=bd.by,
+                         max_abs_err=err)
+        log(f"  K6 {name} ({B} slots x {S}, {KV} KV heads, G {G}, hd {hd}, bf16; "
+            f"{n_rows // KV} live rows, mean {rows.mean():.0f} a slot): {ms:.4f} ms warm, "
+            f"{ms_cold:.4f} cold ({bd.ms / ms_cold:.1%} of the bound), host "
+            f"{host_us:.1f} us a call; plain {plain_ms:.4f}, library "
+            f"(scaled_dot_product_attention) {lib_ms:.4f}, bound {bd.ms:.4f} by "
+            f"{bd.by}; max |Δ| vs plain {err:.3e} [{card}]")
+    return out
 
 # ---------------------------------------------------------------------------
 # phase 9: training
@@ -1397,7 +1537,7 @@ def lm_train(lm: dict, gen, card: str, errs: dict) -> dict:
         pm.reset_launches()
         loss, _, grads = st.loss_and_grads(params, batch, c)
         torch.cuda.synchronize()
-        res[impl] = (float(loss), leaf_grads(grads), dict(pm.launches),
+        res[impl] = (float(loss), leaf_grads(grads), counted(),
                      dict(pm.k1_routes))
         del grads
     want_k = {k: TRAIN_K1 if k == "pasm_matmul" else 0 for k in ALL_KERNELS}
@@ -1622,7 +1762,7 @@ def qat_check(cfg, params, gen, card: str) -> dict:
         with torch.no_grad():
             got = cnn.forward(frozen, imgs, dataclasses.replace(cfg, impl=impl))
         torch.cuda.synchronize()
-        counts[impl] = dict(pm.launches)
+        counts[impl] = counted()
         key = SERVED_KERNEL[impl]
         if counts[impl] != {k: len(cfg.layers) if k == key else 0 for k in ALL_KERNELS}:
             raise AssertionError(f"QAT frozen {impl}: launches {counts[impl]}")
@@ -1975,7 +2115,7 @@ def held_k5(captured, name: str, errs: dict) -> int:
     for q, k, v, causal in captured:
         ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    counts = dict(pm.launches)
+    counts = counted()
     if counts != {k: len(captured) if k == "flash_attention" else 0 for k in ALL_KERNELS}:
         raise AssertionError(f"K5 on {name}'s attention: launches {counts}")
     q, k = captured[0][:2]
@@ -2008,6 +2148,87 @@ class AttnSpy:
 
     def __exit__(self, *exc):
         self.mod.gqa_attention = self.inner
+
+
+class DecodeSpy:
+    """Records what ``nn/attention.py`` hands K6's wrapper (``attend``) while
+    active: ``(q, k, v, pos, window, offset, partial)`` a call, copied with
+    their strides (the engine grafts into its caches in place), the first and
+    the last ``keep`` calls of each distinct shape and setting."""
+
+    def __init__(self, keep: int = 8):
+        self.keep, self.first, self.last = keep, {}, {}
+
+    def __enter__(self):
+        from collections import deque
+
+        import torch
+
+        from repro_torch.kernels import decode_attention as K6
+
+        self.mod, self.inner = K6, K6.attend
+
+        def copy(t):
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device=t.device).copy_(t)
+
+        def spy(q, k, v, pos, *, window=None, offset=0, partial=False):
+            key = (tuple(q.shape), tuple(k.shape), k.stride(0), q.dtype, k.dtype, window,
+                   offset, partial)
+            ops = (*(copy(t) for t in (q, k, v, pos)), window, offset, partial)
+            first = self.first.setdefault(key, [])
+            if len(first) < self.keep:
+                first.append(ops)
+            else:
+                self.last.setdefault(key, deque(maxlen=self.keep)).append(ops)
+            return self.inner(q, k, v, pos, window=window, offset=offset, partial=partial)
+
+        K6.attend = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.attend = self.inner
+
+    @property
+    def captured(self) -> list:
+        return [c for key, first in self.first.items()
+                for c in first + list(self.last.get(key, ()))]
+
+
+def held_k6(captured, name: str, say=log) -> int:
+    """K6 on recorded decode-attention operands (``DecodeSpy``): each call
+    launched twice, the two bitwise equal, the launches counted, and held to
+    its plain version (``k6_close``); returns the calls held."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as K6
+    from repro_torch.kernels import pasm_matmul as pm
+
+    if not captured:
+        raise AssertionError(f"K6 on {name}: no decode attention call recorded")
+    torch.cuda.synchronize()
+    before, worst, seen = pm.launches["decode_attention"], 0.0, set()
+    for i, (q, k, v, pos, window, offset, partial) in enumerate(captured):
+        kw = dict(window=window, offset=offset, partial=partial)
+        y = K6.decode_attention_kernel_call(q, k, v, pos, **kw)
+        again = K6.decode_attention_kernel_call(q, k, v, pos, **kw)
+        pair = zip(y, again) if partial else [(y, again)]
+        if not all(torch.equal(a, b) for a, b in pair):
+            raise AssertionError(f"K6 on {name} call {i}: a second launch differs bitwise")
+        worst = max(worst, k6_close(y, q, k, v, pos, f"{name} call {i}", **kw))
+        B, S, KV, hd = k.shape
+        seen.add(f"B{B} S{S} G{q.shape[2] // KV} hd{hd} {str(k.dtype)[6:]}"
+                 + (f" window {window}" if window is not None else "")
+                 + (f" offset {offset} partial" if partial else ""))
+    torch.cuda.synchronize()
+    n = pm.launches["decode_attention"] - before
+    if n != 2 * len(captured):
+        raise AssertionError(f"K6 on {name}: {n} launches for {len(captured)} calls twice")
+    say(f"  K6 on {name}'s decode attention operands ({len(captured)} calls of "
+        f"{sorted(seen)}; pos {captured[0][3].tolist()} .. {captured[-1][3].tolist()}): "
+        f"each launched twice, bitwise equal, {n} launches; vs plain max |Δ| {worst:.3e} "
+        f"(f32: 1e-5 + 1e-5·|plain|; bf16: BF16_TOL·(|plain| + Σp|v|))")
+    return len(captured)
 
 
 class HeadSpy:
@@ -2066,9 +2287,11 @@ def moe_phase(gen, errs: dict, card: str) -> dict:
     prompts = [rng.integers(0, cfg.vocab, size=n) for n in LM_PROMPTS]
     runs = {}
     for impl in ("kernel", "dequant"):
-        with MoeSpy() as spy:
+        with MoeSpy() as spy, DecodeSpy() as dec:
             eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params, prompts,
                                                                      impl)
+        held_k6(dec.captured, f"{cfg.name} {impl}")
+        del dec
         roll = eng.metrics.rollup()
         calls = eng.calls["prefill"] + eng.calls["decode"]
         want = {k: per_call * calls if (impl == "kernel" and k == "pasm_matmul") else 0
@@ -2232,13 +2455,14 @@ def vlm_phase(gen, errs: dict, card: str) -> dict:
             raise AssertionError(f"VLM {impl}: cache positions {pos}, not {want_pos}")
         if tokens is None:  # the kernel run's greedy tokens feed both runs
             tokens = [out.argmax(-1)]
-        for j in range(VLM_DECODE):
-            if impl == "kernel" and j:
-                tokens.append(steps[-1].argmax(-1))
-            out, caches = TT.decode_step(params, tokens[j].to(torch.int32), caches, c)
-            steps.append(out.float())
+        with DecodeSpy() as dec:
+            for j in range(VLM_DECODE):
+                if impl == "kernel" and j:
+                    tokens.append(steps[-1].argmax(-1))
+                out, caches = TT.decode_step(params, tokens[j].to(torch.int32), caches, c)
+                steps.append(out.float())
         torch.cuda.synchronize()
-        counts = dict(pm.launches)
+        counts = counted()
         want = {k: per_call * (1 + VLM_DECODE) if (impl == "kernel" and k == "pasm_matmul")
                 else 0 for k in ALL_KERNELS}
         log(f"  {impl:<8} prefill of {len(VLM_PROMPTS)} sequences ({P} patch tokens + "
@@ -2250,6 +2474,8 @@ def vlm_phase(gen, errs: dict, card: str) -> dict:
         if not all(bool(torch.isfinite(s).all()) for s in steps):
             raise AssertionError(f"VLM {impl}: non-finite logits")
         logits[impl], routes[impl] = steps, dict(pm.k1_routes)
+        held_k6(dec.captured, f"{cfg.name} {impl}")
+        del dec
         if impl == "kernel":
             captured, launches = attn.captured, counts["pasm_matmul"]
     worst, top = 0.0, 0.0
@@ -2601,7 +2827,9 @@ def whisper_phase(gen, errs: dict, card: str) -> dict:
 
     # (a) the qwen3 traffic served: every request encodes silence
     for impl in ("kernel", "dequant"):
-        eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params, prompts, impl)
+        with DecodeSpy() as dec:
+            eng, reqs, counts, wall, live_submits, routes = serve_lm(cfg, params, prompts,
+                                                                     impl)
         roll = eng.metrics.rollup()
         n_pre, n_dec = eng.calls["prefill"], eng.calls["decode"]
         on = impl == "kernel"
@@ -2620,6 +2848,8 @@ def whisper_phase(gen, errs: dict, card: str) -> dict:
             raise AssertionError(f"whisper-tiny {impl}: a request was not served "
                                  f"{LM_NEW} tokens")
         runs[impl] = (counts, [r.out for r in reqs], routes)
+        held_k6(dec.captured, f"{cfg.name} {impl} (self and cross)")
+        del dec
     ko, do = runs["kernel"][1], runs["dequant"][1]
     agree = float(np.mean([a == b for x, y in zip(ko, do) for a, b in zip(x, y)]))
     log(f"  greedy tokens agreeing, kernel vs dequant: {agree:.4f} of {len(ko) * LM_NEW}")
@@ -2683,7 +2913,7 @@ def whisper_phase(gen, errs: dict, card: str) -> dict:
             out, caches = TE.decode_step(params, tokens[j].to(torch.int32), caches, c)
             steps.append(out.float())
         torch.cuda.synchronize()
-        counts = dict(pm.launches)
+        counts = counted()
         want = {k: per_pre + per_dec * WHISPER_DECODE if (impl == "kernel" and
                                                            k == "pasm_matmul") else 0
                 for k in ALL_KERNELS}
@@ -3422,8 +3652,10 @@ def lm_shard_rank_model(rank: int, key: str, data: Path, report: dict) -> None:
         rank_d = rank // shape[1]
         with RouteSpy(replay=ref["routes"][sctx.dp] if cfg.moe else None,
                       part=rank_d if sctx.batch_split else None) as spy, \
-                BlockSpy() as blocks:
+                BlockSpy() as blocks, DecodeSpy() as dec:
             logits, calls = lm_shard_traffic(cfg, placed, sctx, ref["inputs"])
+        held_k6(dec.captured, f"rank {rank} {cfg.name} {shape}", say)
+        del dec
         # K1 on every block shape this rank's run gave it, against the plain
         # version (its launches are checks: the main path's were counted)
         bc = check_blocks(blocks, f"rank {rank} {cfg.name} {shape}")
@@ -4296,8 +4528,12 @@ def rec_shard_rank_model(rank: int, key: str, data: Path, report: dict) -> None:
             raise AssertionError(f"{shape}: a split leaf holds {sorted(frac)} of its bytes, "
                                  f"not 1/{shape[1]}")
         torch.cuda.synchronize()
-        with BlockSpy() as blocks, HeadSpy() as heads:
+        with BlockSpy() as blocks, HeadSpy() as heads, DecodeSpy() as dec:
             logits, calls = rec_shard_traffic(cfg, placed, sctx, ref["inputs"], ring)
+        kv_int8 = cfg.quant.enabled and cfg.quant.kv_bits == 8
+        if cfg.family in ("dense", "moe", "vlm", "audio") and not kv_int8:  # K6's callers
+            held_k6(dec.captured, f"rank {rank} {cfg.name} {tag} {shape}", say)
+        del dec
         if cfg.n_heads:
             say(f"  rank {rank} {cfg.name} {tag} mesh {shape}: "
                 + head_line(cfg, sctx, heads, f"rank {rank} {cfg.name} {shape}"))
@@ -5103,7 +5339,7 @@ def run_example(name: str, argv: list) -> tuple:
     lines = buf.getvalue().strip().splitlines()
     if rc != 0 or not lines:
         raise AssertionError(f"examples/torch/{name}.py exited {rc}:\n{buf.getvalue()}")
-    return lines[-1], dict(pm.launches), dict(pm.k1_routes)
+    return lines[-1], counted(), dict(pm.k1_routes)
 
 
 def tooling_phase(gen, card: str) -> dict:
@@ -5204,7 +5440,7 @@ def tooling_phase(gen, card: str) -> dict:
         # (c) the roofline terms beside the step measured on kernel
         pm.reset_launches()
         t = time_step(lambda: run[kind](params, toks, caches, cfg, ShardCtx()))
-        add(dict(pm.launches), dict(pm.k1_routes))
+        add(counted(), dict(pm.k1_routes))
         ideal = report.model_flops / report.n_devices / report.hw.peak_flops
         dev_ms = t["device_ms"]
         log(f"  (c) {kind}: terms compute {report.compute_s * 1e3:.4f} ms | memory "
@@ -5351,7 +5587,7 @@ def main() -> int:
         pm.reset_launches()
         b.flush()
         torch.cuda.synchronize()
-        counts[impl] = dict(pm.launches)
+        counts[impl] = counted()
         n_stages = len(cfg.layers)
         roll = b.metrics.rollup()
         log(f"  {impl:<16} {b.n_batches} batches, launches {counts[impl]}, "
@@ -5392,7 +5628,7 @@ def main() -> int:
             h = cv.conv2d(h, p, conv, engine=engine, pool=pool)
         outs[engine] = cnn._head(h, qparams["head"])
         torch.cuda.synchronize()
-        counts[engine + " stages"] = dict(pm.launches)
+        counts[engine + " stages"] = counted()
     k4_counts = counts["pas_kernel_implicit stages"]
     if k4_counts != {k: n_stages if k == "pas_conv" else 0 for k in ALL_KERNELS}:
         raise AssertionError(f"pas_kernel_implicit stages: launches {k4_counts}")
@@ -5471,6 +5707,8 @@ def main() -> int:
     k5_phase(gen, errs)
     lm = lm_phase(gen, errs, card)
     k5_rows = lm_timings(lm, gen, card, errs)
+    log(f"phase 8(b): K6 at phi3-medium-14b's serving shape ({card})")
+    k6 = k6_phase(gen, card)
     lap("phases 6-8")
 
     # 9. training --------------------------------------------------------------
@@ -5594,6 +5832,13 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "routes": routes[key],
         })
+    r = k6["closed mix"]
+    kernels.append({  # K6 replaces no TPU kernel: JAX decodes with an XLA einsum
+        "name": "decode_attention", "route": "cuda", "source": csrc + "decode_attention.cu",
+        "replaces": None, "launches": lm["k6"],
+        "max_abs_err": max(x["max_abs_err"] for x in k6.values()),
+        **{key: r[key] for key in ("ms", "ms_cold", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}})
     log(f"K1-K4 times are sums over the five AlexNet stages at batch {TIME_BATCH} "
         f"(K1's simt route), K5's the qwen3-32b prefill shape (S {K5_TIME_S}, "
         f"causal, bf16); K1's stream / mma routes are the LM's four matrices "
@@ -5616,7 +5861,9 @@ def main() -> int:
         f"families' grads {train['families']['launches']} + the sharded qwen3 steps of "
         f"phase 15 {trs['launches']} + the sharded family steps of phase 17 "
         f"{fsh['launches']}; K2: {train['qat']['k2']}) and the tooling of phase 18 "
-        f"(the examples and the timed qwen3 steps: {tl}); "
+        f"(the examples and the timed qwen3 steps: {tl}); K6's time is phi3-medium-14b's "
+        f"decode attention at the closed chat mix's live lengths (warm; cold beside it), "
+        f"its launches the served qwen3's decode calls (kernel and dequant); "
         f"max_abs_err is the largest over every forward check [{card}]")
     log(f"train step at full width: kernel {train['kernel']['ms']:.1f} ms, dequant "
         f"{train['dequant']['ms']:.1f} ms; peak memory {train['kernel']['peak_gb']:.2f} / "

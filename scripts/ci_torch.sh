@@ -9,7 +9,8 @@
 #
 # On the card, `python3 chip_smoke.py` builds and holds the kernels and runs
 # the examples there (phase 18); `python -m pytest -q -m gpu
-# tests/test_torch_gpu.py` runs the kernel-vs-plain tests.
+# tests/test_torch_gpu.py tests/test_torch_decode_attention.py` runs the
+# kernel-vs-plain tests.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 export PYTHONPATH=src${PYTHONPATH:+:$PYTHONPATH}

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 # one shared library per source; the names are the .cu stems
 SOURCES = ("pasm_matmul", "pasm_matmul_bf16", "pasm_conv", "pas_matmul",
-           "pas_conv", "flash_attention")
+           "pas_conv", "flash_attention", "decode_attention")
 
 _loaded: dict = {}  # name → ctypes.CDLL, loaded once per process
 _fns: dict = {}  # (name, symbol) → the bound C function, set up once

@@ -152,11 +152,11 @@ def _pool_bm(pool: int) -> int:
     return next(bm for bm in BM_TILES if pw <= bm)
 
 # launches of each kernel in this process, K1 and K2 here, K3 and K4 of
-# repro_torch.kernels.pas_histogram and K5 of
-# repro_torch.kernels.flash_attention too: each wrapper adds one per launch,
-# and nowhere else (chip_smoke.py resets them around the main path)
+# repro_torch.kernels.pas_histogram, K5 of repro_torch.kernels.flash_attention
+# and K6 of repro_torch.kernels.decode_attention too: each wrapper adds one
+# per launch, and nowhere else (chip_smoke.py resets them around the main path)
 launches = {"pasm_matmul": 0, "pasm_conv": 0, "pas_matmul": 0, "pas_conv": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "decode_attention": 0}
 
 _NO_GRAD = (
     "the K1/K2 launch wrappers are forward-only: differentiate through "

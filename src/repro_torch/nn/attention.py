@@ -31,6 +31,8 @@ import torch
 
 from repro_torch import trace
 from repro_torch.core._f32 import matmul_f32
+from repro_torch.kernels import decode_attention as K6
+from repro_torch.kernels.decode_attention import softmax_partial, valid_rows
 
 __all__ = [
     "softmax_partial",
@@ -148,35 +150,6 @@ def gqa_attention(
     return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def _valid(pos: torch.Tensor, S: int, window: Optional[int], offset: int = 0) -> torch.Tensor:
-    """(B, S): cache rows each slot may read (below its own position), the
-    rows from ``offset`` on of a sequence-sharded cache."""
-    k_pos = offset + torch.arange(S, device=pos.device)
-    valid = k_pos[None, :] < pos[:, None]
-    if window is not None:
-        valid = valid & (k_pos[None, :] >= pos[:, None] - window)
-    return valid
-
-
-def softmax_partial(s: torch.Tensor, v: torch.Tensor,
-                    v_scale: Optional[torch.Tensor] = None) -> tuple:
-    """One block's share of a decode softmax: ``s (B, KV, G, S_b)`` f32
-    scores (masked entries at ``-1e30``) and the block's values ``v (B,
-    S_b, KV, hd)`` → ``(m, l, o)``, the block's max, its sum of ``exp(s −
-    m)`` and its unnormalised output, all f32.  The weights are rounded to
-    ``v``'s dtype before the value product, as the unsharded softmax's
-    are; an int8 block folds ``v_scale (B, KV, 1, S_b)`` into them
-    instead.  A block with no valid entry gives ``m = -1e30``, which
-    :func:`combine_partials` weighs by zero."""
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    vt = v.permute(0, 2, 1, 3).float()[:, :, None]  # (B,KV,1,S_b,hd)
-    w = p.to(v.dtype).float() if v_scale is None else p * v_scale
-    o = matmul_f32(w[:, :, :, None], vt)[:, :, :, 0]  # (B,KV,G,hd)
-    return m, l, o
-
-
 def combine_partials(parts) -> torch.Tensor:
     """The softmax output from every block's ``(m, l, o)``
     (:func:`softmax_partial`), folded in the given (rank) order: the global
@@ -231,25 +204,17 @@ def decode_attention(
     q: (B, 1, H, hd).  Masks positions ≥ ``cache.pos`` PER SLOT (and outside
     ``window``): slots sit at different depths under continuous batching.
     A sequence-sharded cache (``seq_shards`` > 1) takes every head of ``q``
-    and combines the ranks' partials over ``mesh``'s ``model`` axis.
+    and combines the ranks' partials over ``mesh``'s ``model`` axis.  On
+    the card the cache is read in place by K6
+    (:mod:`repro_torch.kernels.decode_attention`), over each slot's rows only.
     """
-    B, _, H, hd = q.shape
-    _, S, KV, _ = cache.k.shape
-    G = H // KV
-    scale = hd ** -0.5
     with trace.span("attn.decode", device=q.is_cuda):
-        qg = q.reshape(B, KV, G, 1, hd).float()
-        kt = cache.k.permute(0, 2, 3, 1).float()[:, :, None]  # (B,KV,1,hd,S)
-        s = matmul_f32(qg, kt)[:, :, :, 0] * scale  # (B,KV,G,S)
+        if cache.seq_shards == 1:
+            return K6.attend(q, cache.k, cache.v, cache.pos, window=window)
+        B, _, H, hd = q.shape
         off, _ = _block(cache, mesh)
-        valid = _valid(cache.pos, S, window, off)
-        s = torch.where(valid[:, None, None, :], s, torch.full((), _NEG_INF, device=q.device))
-        if cache.seq_shards > 1:
-            o = combine_over(*softmax_partial(s, cache.v), mesh)
-            return o.reshape(B, 1, H, hd).to(q.dtype)
-        p = torch.softmax(s, dim=-1)
-        vt = cache.v.permute(0, 2, 1, 3).float()[:, :, None]  # (B,KV,1,S,hd)
-        o = matmul_f32(p.to(cache.v.dtype).float()[:, :, :, None], vt)[:, :, :, 0]
+        o = combine_over(*K6.attend(q, cache.k, cache.v, cache.pos, window=window,
+                                    offset=off, partial=True), mesh)
         return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
@@ -371,7 +336,7 @@ def decode_attention_quant(q: torch.Tensor, cache: QuantKVCache, *,
         s = matmul_f32(qg, kq)[:, :, :, 0]  # (B,KV,G,S)
         s = s * cache.k_scale.permute(0, 2, 1)[:, :, None, :] * scale
         off, _ = _block(cache, mesh)
-        valid = _valid(cache.pos, S, window, off)
+        valid = valid_rows(cache.pos, S, window, off)
         s = torch.where(valid[:, None, None, :], s, torch.full((), _NEG_INF, device=q.device))
         if cache.seq_shards > 1:
             o = combine_over(*softmax_partial(s, cache.v_q, cache.v_scale.permute(0, 2, 1)[

@@ -252,9 +252,9 @@ def test_wrappers_validate_and_run_plain_on_cpu():
     y = tpm.pasm_matmul_kernel_call(x, idx, cb, packed=True)
     want = tref.pasm_matmul_ref(x, idx, cb, packed=True)
     assert torch.equal(y, want)
-    # plain path: no launch; one counter dict for all five kernels
+    # plain path: no launch; one counter dict for all six kernels
     assert tpm.launches == {"pasm_matmul": 0, "pasm_conv": 0, "pas_matmul": 0,
-                            "pas_conv": 0, "flash_attention": 0}
+                            "pas_conv": 0, "flash_attention": 0, "decode_attention": 0}
     with pytest.raises(RuntimeError, match="kernels.ops"):
         tpm.pasm_matmul_kernel_call(_small_operands(True)[0], idx, cb, packed=True)
     with torch.no_grad():  # inference on parameters is fine
